@@ -1,0 +1,64 @@
+"""Convert the JAX package's parameter trees (as numpy) into the port's.
+
+The JAX model keeps ``params["groups"][g][p]``: one tree per position ``p``
+of each repeated layer pattern ``g`` of ``layer_plan``, with a leading
+``repeats`` axis **only when repeats > 1**. The port keeps one tree per
+layer, ``params["layers"][i]``, in ``flat_block_types`` order (for each
+repeat, the pattern in order). Top level: ``embed`` (V, d),
+``final_norm`` (d,), ``head`` (d, V) when untied.
+
+No transposition is made anywhere: every weight keeps its JAX layout
+(``wq`` (d, H, D), ``wk``/``wv`` (d, K, D), ``wo`` (H, D, d), ``w_gate``/
+``w_up`` (d, f), ``w_down`` (f, d)). Dtypes are kept; bfloat16 arrays are
+moved bit for bit. The bridge takes numpy only and imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import layer_plan
+
+
+def to_tensor(arr: Any, device=None) -> torch.Tensor:
+    """numpy (including ml_dtypes bfloat16) -> tensor with the same dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def flatten_groups(groups: List[List[Any]], cfg: ModelConfig) -> List[Any]:
+    """``groups[g][p]`` trees (leaves with a leading repeats axis when the
+    group repeats) -> one tree per layer, in ``flat_block_types`` order."""
+    def take(tree, r, stacked):
+        if isinstance(tree, dict):
+            return {k: take(v, r, stacked) for k, v in tree.items()}
+        return tree[r] if stacked else tree
+
+    layers = []
+    for g_idx, (pattern, repeats) in enumerate(layer_plan(cfg)):
+        for r in range(repeats):
+            for p_idx in range(len(pattern)):
+                layers.append(take(groups[g_idx][p_idx], r, repeats > 1))
+    return layers
+
+
+def _tree_to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    return to_tensor(tree, device)
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
+                    device=None) -> Dict[str, Any]:
+    """``repro.models.model.init_params(...)[0]`` passed as numpy arrays ->
+    the port's parameter dict on ``device`` (default: the CPU)."""
+    out = {k: to_tensor(v, device) for k, v in np_tree.items() if k != "groups"}
+    out["layers"] = [_tree_to_torch(t, device)
+                     for t in flatten_groups(np_tree["groups"], cfg)]
+    return out

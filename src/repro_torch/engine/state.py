@@ -1,0 +1,132 @@
+"""Sequence-state backends for ``repro_torch.engine.Engine``.
+
+This slice ports the paged backend: ``PagedKVState`` over the shared
+per-layer block pool, with the host-side ``BlockPool`` free list. The slots
+and recurrent backends are ROADMAP items A7 and A9; the migration half of
+the protocol (``gather``/``serialize``/``restore``) is A12.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Set
+
+from repro_torch.models.kvcache import SequenceCapacity, SequenceState
+
+__all__ = ["BlockPool", "PagedKVState", "SequenceCapacity", "SequenceState"]
+
+
+class BlockPool:
+    """Host-side free list over the device block pool's block ids.
+
+    Guarded against lifecycle bugs: releasing a block that is already free
+    (double-free) or outside the pool raises with the offending id, and
+    ``alloc`` detects a corrupted free list (the same id handed out twice)
+    rather than silently aliasing two requests onto one block.
+    """
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self._free: List[int] = list(range(num_blocks))
+        self._free_set: Set[int] = set(self._free)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        if not self._free:
+            return None
+        blk = self._free.pop()
+        if blk not in self._free_set:
+            raise RuntimeError(
+                f"double-alloc of block {blk}: free list is corrupted (the "
+                f"id appears more than once)")
+        self._free_set.remove(blk)
+        return blk
+
+    def release(self, blocks: List[int]) -> None:
+        # validate the whole batch before mutating so a bad id cannot leave
+        # the pool half-released
+        seen: Set[int] = set()
+        for blk in blocks:
+            if not 0 <= blk < self.num_blocks:
+                raise ValueError(
+                    f"release of unknown block id {blk} (pool holds ids "
+                    f"0..{self.num_blocks - 1})")
+            if blk in self._free_set or blk in seen:
+                raise ValueError(f"double-free of block {blk}")
+            seen.add(blk)
+        self._free.extend(blocks)
+        self._free_set.update(blocks)
+
+
+class PagedKVState:
+    """``SequenceState`` over the shared per-layer block pool.
+
+    Capacity is consumable (``free_units`` = free pool blocks); ``grow``
+    allocates one block at a time and reports False when the pool runs
+    dry — the engine then preempts a policy-chosen victim. Eviction is
+    recompute-style: blocks go back to the pool and ``pos`` resets, so
+    re-admission re-prefills the prompt+generated prefix. Partial
+    allocations are kept across a failed grow, as in the JAX package, so
+    the FIFO schedule matches it exactly.
+    """
+
+    kind = "paged"
+    supports_preemption = True
+
+    def __init__(self, num_blocks: int, block_size: int):
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.pool = BlockPool(num_blocks)
+
+    def blocks_for(self, tokens: int) -> int:
+        return -(-tokens // self.block_size)
+
+    def init(self, entry: Any, cache: Any, slot: int) -> Any:
+        return cache                      # blocks attach lazily in grow()
+
+    def append(self, entry: Any, n: int) -> None:
+        return None                       # pos is the engine's ledger
+
+    def units_needed(self, entry: Any) -> int:
+        return self.blocks_for(len(entry.seq()) + 1)
+
+    def grow(self, entry: Any, upto_tokens: int) -> bool:
+        need = self.blocks_for(upto_tokens)
+        while len(entry.blocks) < need:
+            blk = self.pool.alloc()
+            if blk is None:
+                return False              # caller preempts and retries
+            entry.blocks.append(blk)
+        return True
+
+    def evict(self, entry: Any, cache: Any, slot: int) -> Any:
+        self.pool.release(entry.blocks)
+        entry.blocks = []
+        entry.pos = 0
+        return cache
+
+    def release(self, entry: Any) -> None:
+        if entry.blocks:
+            self.pool.release(entry.blocks)
+            entry.blocks = []
+
+    def capacity(self) -> SequenceCapacity:
+        return SequenceCapacity(kind="paged", unit="blocks",
+                                total_units=self.num_blocks,
+                                free_units=self.pool.free_blocks)
+
+    def metrics(self) -> Dict[str, Any]:
+        return {"free_blocks": self.pool.free_blocks,
+                "used_blocks": self.pool.used_blocks}
+
+    def validate(self, prompt_len: int, max_new: int,
+                 max_len: int) -> Optional[str]:
+        if prompt_len + max_new > max_len:
+            return (f"prompt ({prompt_len}) + max_new_tokens ({max_new}) "
+                    f"exceeds max_len={max_len}")
+        return None

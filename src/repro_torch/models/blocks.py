@@ -1,0 +1,64 @@
+"""Decoder block assembly for the paged serving path.
+
+This slice ports the plain-GQA block types ``attn_full`` and ``attn_local``
+(sliding window). MoE, MLA, hybrid and recurrent blocks come with ROADMAP
+items A7-A10.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import ParamBuilder, rms_norm
+from repro_torch.models.kvcache import PagedKVCache, PagedLayout
+
+# Block types whose cache is plain GQA k/v and whose paged path is ported.
+PAGED_BLOCK_TYPES = ("attn_full", "attn_local")
+
+
+def _check(bt: str) -> None:
+    if bt not in PAGED_BLOCK_TYPES:
+        raise ValueError(f"block type {bt!r} is not ported: the port serves "
+                         f"{PAGED_BLOCK_TYPES} (ROADMAP items A7-A10 bring the rest)")
+
+
+def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
+    _check(bt)
+    d = cfg.d_model
+    b.param("ln1", (d,), init="zeros")
+    b.param("ln2", (d,), init="zeros")
+    attn.init_gqa(b.scope("attn"), d, cfg.attention)
+    mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
+
+
+def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
+                           block_size: int, dtype=torch.bfloat16,
+                           device=None) -> Dict[str, Any]:
+    _check(bt)
+    a = cfg.attention
+    shape = (num_blocks, block_size, a.num_kv_heads, a.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
+                      cache: Dict[str, Any], paged: PagedLayout,
+                      paged_kernel="auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Pre-norm residual block: GQA attention through the block pool, then
+    the MLP. ``attn_local`` attends within ``sliding_window``."""
+    _check(bt)
+    a = cfg.attention
+    window = a.sliding_window if bt.endswith("_local") else None
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    pkv = PagedKVCache(cache["k"], cache["v"], paged.block_size)
+    y_attn, pkv = attn.gqa_paged_attention(params["attn"], h, a, cache=pkv,
+                                           layout=paged, window=window,
+                                           kernel=paged_kernel)
+    x = x + y_attn
+    h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
+    x = x + mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
+    return x, {"k": pkv.k_pool, "v": pkv.v_pool}
