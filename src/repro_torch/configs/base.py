@@ -118,67 +118,6 @@ class ModelConfig:
     final_logit_softcap: float = 0.0
     remat: str = "full"
 
-    def param_count(self) -> int:
-        """Analytic parameter count (total, incl. all experts)."""
-        return _param_count(self, active_only=False)
-
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str)
 
-
-def _ffn_params(d_model: int, d_ff: int, gated: bool = True) -> int:
-    return (3 if gated else 2) * d_model * d_ff
-
-
-def _attn_params(cfg: ModelConfig) -> int:
-    a = cfg.attention
-    if a is None:
-        return 0
-    d = cfg.d_model
-    if a.kind == "mla":
-        qk_head = a.qk_nope_head_dim + a.qk_rope_head_dim
-        p = d * a.num_heads * qk_head
-        p += d * (a.kv_lora_rank + a.qk_rope_head_dim)
-        p += a.kv_lora_rank * a.num_heads * (a.qk_nope_head_dim + a.v_head_dim)
-        p += a.num_heads * a.v_head_dim * d
-        return p
-    hd = a.head_dim
-    return (d * a.num_heads * hd + 2 * d * a.num_kv_heads * hd
-            + a.num_heads * hd * d)
-
-
-def _layer_params(cfg: ModelConfig, layer_idx: int, active_only: bool) -> int:
-    d = cfg.d_model
-    if cfg.xlstm is not None:
-        inner = int(d * cfg.xlstm.proj_factor_mlstm)
-        p = 2 * d * inner
-        p += 3 * inner * inner // max(1, cfg.xlstm.num_heads)
-        p += inner * d
-        return p + 2 * d
-    p = _attn_params(cfg)
-    if cfg.ssm is not None:
-        inner = cfg.ssm.expand * d
-        p += d * 2 * inner
-        p += inner * cfg.ssm.conv_width
-        dt_rank = cfg.ssm.dt_rank or -(-d // 16)
-        p += inner * (dt_rank + 2 * cfg.ssm.state_dim) + dt_rank * inner
-        p += inner * d
-    moe = cfg.moe
-    if moe is not None and layer_idx >= moe.first_dense_layers:
-        shared = moe.num_shared * _ffn_params(d, moe.shared_ff or moe.expert_ff)
-        n_routed = moe.top_k if active_only else moe.num_experts
-        p += shared + n_routed * _ffn_params(d, moe.expert_ff) + d * moe.num_experts
-    elif cfg.d_ff > 0:
-        p += _ffn_params(d, cfg.d_ff, cfg.mlp_gated)
-    return p + 2 * d
-
-
-def _param_count(cfg: ModelConfig, active_only: bool) -> int:
-    p = cfg.vocab_size * cfg.d_model
-    if not cfg.tie_embeddings:
-        p += cfg.vocab_size * cfg.d_model
-    if cfg.frontend.kind != "none":
-        p += cfg.frontend.feature_dim * cfg.d_model
-    for i in range(cfg.num_layers):
-        p += _layer_params(cfg, i, active_only)
-    return p + cfg.d_model

@@ -361,15 +361,6 @@ class Engine:
         self.steps += 1
         return next_np
 
-    def preempt(self, rid: int) -> None:
-        """Evict a running request by id and requeue it (admission-ordered;
-        re-admission recomputes its prefix)."""
-        for entry in self.slot_entry:
-            if entry is not None and entry.req.rid == rid:
-                self._preempt(entry)
-                return
-        raise KeyError(f"request {rid} is not running in any slot")
-
     # ------------------------------------------------------------------
     # metrics
     # ------------------------------------------------------------------

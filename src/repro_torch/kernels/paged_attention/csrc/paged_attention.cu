@@ -8,40 +8,43 @@
 // sliding window, and k_pos < seq_end (stale rows of reused blocks). Only
 // the live block range [lo, last] of each request is read.
 //
-// Design (a simple, correct first kernel):
+// Design (simple: CUDA cores, no tensor cores):
 //   * grid (B * K, ceil(G * C / 32)): one CTA per (request, kv head, tile of
 //     32 query rows). Row r = g * C + c is query head k * G + g at column c,
 //     read straight from q's (B, C, H, D) layout. The rows of a CTA are the
 //     valid ones first (c < n_valid); columns >= n_valid are garbage by
 //     contract and are written as zeros without being computed, so decode
 //     rows (n_valid == 1) cost G rows, not G * C.
-//   * 8 warps, 4 rows per warp. Keys go through shared memory in tiles of
-//     32 logical positions; each position finds its own pool row through
-//     the table, so any block size works. A -1 table entry (or an id past
+//   * 8 warps, up to 4 rows per warp; q is staged once in shared memory as
+//     f32. Keys go through a 3-stage ring of shared-memory tiles of 32
+//     logical positions, filled with cp.async, so two tiles are in flight
+//     while one is computed. Each position finds its own pool row through
+//     the table, so any block size works; a -1 table entry (or an id past
 //     the pool) is masked and never dereferenced.
-//   * Q.K: one key per lane, the dot product over D from shared memory (the
-//     K tile is padded one word per row so the lanes hit distinct banks).
-//     P.V: lanes over D. No tensor cores.
+//   * Q.K: one key per lane, all of a warp's rows at once against the lane's
+//     K row (the K tile is padded one word per row so the lanes hit
+//     distinct banks). P.V: lanes over D, each V word read once for all of
+//     the warp's rows.
 //   * Online softmax in f32 with the TPU kernel's constants: masked scores
 //     are the finite NEG_INF = -2^30, m starts at -1e30, the output is
 //     acc / max(l, 1e-30). A wholly masked early tile is wiped by alpha = 0
 //     once a real score arrives; rows that see no key write zeros. p is
 //     rounded to bf16 before P.V, as the TPU kernel casts it to v.dtype.
 //
-// What bounds it on an H100: per kv-byte it does 2 * G * C * 2 flops per
-// element pair of K and V (Q.K and P.V for every query row): at the
-// engine's prefill shape (G = 4, C = 32, D = 64) about 128 flops per KV
-// byte, so a tensor-core design would be bound by memory bytes (the card
-// does ~295 bf16 flops per byte). This form runs those flops as f32 FMAs
-// on the CUDA cores (67 TFLOP/s peak) with shuffles and shared-memory
-// traffic per flop, so prefill rows are bound by CUDA-core issue rate;
-// decode rows (G query rows per kv head) stay bound by bytes and by the
+// What bounds it on an H100: per KV element pair it does 4 flops for every
+// query row that sees it (Q.K and P.V): at the engine's prefill shape
+// (G = 4, C = 32, D = 64) about 128 flops per KV byte, under the ~295 bf16
+// flops per byte where tensor cores would stop being memory-bound, so the
+// operation itself is bound by bytes. This form runs those flops as f32
+// FMAs on the CUDA cores (67 TFLOP/s peak) with shuffles and shared-memory
+// loads beside each pair, so long prefill rows are bound by CUDA-core issue
+// rate, and decode rows (G query rows per kv head) by memory latency on the
 // few CTAs (B * K) that carry them.
 //
 // What a later design changes: wgmma over (64-row Q tile) x (key tile)
-// with TMA-staged K/V in a multi-stage ring, split-K over blocks for long
-// sequences with a second reduction pass, and a decode path that packs
-// several requests' rows per CTA.
+// with TMA-staged K/V, split-K over blocks for long sequences with a second
+// reduction pass, and a decode path that spreads one request's blocks over
+// several CTAs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,6 +58,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerCta = kWarps * kRowsPerWarp;   // 32
 constexpr int kKeysPerTile = 32;                     // one key per lane in Q.K
+constexpr int kStages = 3;                           // K/V tiles in the ring
 constexpr float kNegInf = -1073741824.0f;            // -2^30, as the reference
 constexpr float kMInit = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -94,6 +98,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
 // Linear row index li of a (request, kv head) maps valid rows first:
 // li < G * ncols -> (g = li / ncols, c = li % ncols), then the garbage
 // columns c >= ncols of every group head.
@@ -110,6 +128,43 @@ __device__ __forceinline__ void row_of(int li, int G, int C, int ncols,
   }
 }
 
+// Shared-memory layout, in 4-byte words: q tile (f32), then kStages times
+// {K tile [32][DW + 1], V tile [32][DW], key state [32]}.
+__host__ __device__ __forceinline__ int stage_words(int DW) {
+  return kKeysPerTile * (DW + 1) + kKeysPerTile * DW + kKeysPerTile;
+}
+
+// Start the copies of the tile of logical positions [t0, t0 + 32) into one
+// ring stage. Key state: 0 past the live range, 1 table hole (masked),
+// 2 present. Absent rows are zero-filled so P.V never reads garbage.
+__device__ __forceinline__ void issue_tile(const Params& p, const int* table,
+                                           int kh, int t0, int kv_hi, int DW,
+                                           uint32_t* stage) {
+  uint32_t* k_s = stage;
+  uint32_t* v_s = k_s + kKeysPerTile * (DW + 1);
+  int* st_s = reinterpret_cast<int*>(v_s + kKeysPerTile * DW);
+  for (int idx = threadIdx.x; idx < kKeysPerTile * DW; idx += kThreads) {
+    const int key = idx / DW, w = idx - key * DW;
+    const int pos = t0 + key;
+    int st = 0;
+    if (pos < kv_hi) {
+      const int blk = table[pos / p.bs];
+      st = (blk >= 0 && blk < p.N) ? 2 : 1;
+      if (st == 2) {
+        const size_t row = static_cast<size_t>(blk) * p.bs + pos % p.bs;
+        const size_t o = (row * p.K + kh) * DW + w;
+        cp_async4(k_s + key * (DW + 1) + w, p.k_pool + o);
+        cp_async4(v_s + key * DW + w, p.v_pool + o);
+      }
+    }
+    if (st != 2) {
+      k_s[key * (DW + 1) + w] = 0u;
+      v_s[key * DW + w] = 0u;
+    }
+    if (w == 0) st_s[key] = st;
+  }
+}
+
 // NW: 32-bit words (bf16 pairs) of one head row each lane holds in P.V,
 // ceil(D / 64).
 template <int NW>
@@ -117,10 +172,8 @@ __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const Params p) {
   extern __shared__ uint32_t smem[];
   const int DW = p.D / 2;
-  uint32_t* q_s = smem;                                 // [32][DW]
-  uint32_t* k_s = q_s + kRowsPerCta * DW;               // [32][DW + 1]
-  uint32_t* v_s = k_s + kKeysPerTile * (DW + 1);        // [32][DW]
-  int* key_state = reinterpret_cast<int*>(v_s + kKeysPerTile * DW);
+  float* q_s = reinterpret_cast<float*>(smem);                 // [32][D]
+  uint32_t* ring = smem + kRowsPerCta * p.D;
 
   const int b = blockIdx.x / p.K;
   const int kh = blockIdx.x % p.K;
@@ -136,9 +189,11 @@ paged_attention_kernel(const Params p) {
   const int ncols = min(max(nv, 0), p.C);
   const int n_rows = G * ncols;
   const int row0 = blockIdx.y * kRowsPerCta;
+  // this warp's rows: slot i -> CTA row i * kWarps + warp; the valid ones
+  // are a prefix i < nrow
+  const int rem = n_rows - row0 - warp;
+  const int nrow = rem <= 0 ? 0 : min(kRowsPerWarp, (rem + kWarps - 1) / kWarps);
 
-  // this warp's rows: slot i -> CTA row i * kWarps + warp
-  bool has[kRowsPerWarp];
   int q_pos[kRowsPerWarp];
   size_t off[kRowsPerWarp];     // word offset of the row in q / out
 #pragma unroll
@@ -146,7 +201,6 @@ paged_attention_kernel(const Params p) {
     const int li = row0 + i * kWarps + warp;
     int g = 0, c = 0;
     if (li < R) row_of(li, G, p.C, ncols, &g, &c);
-    has[i] = li < n_rows;
     q_pos[i] = start + c;
     off[i] = ((static_cast<size_t>(b) * p.C + c) * p.H + kh * G + g) * DW;
     if (li >= n_rows && li < R) {
@@ -166,18 +220,27 @@ paged_attention_kernel(const Params p) {
     kv_lo = lo * p.bs;
     kv_hi = min(seq_end, p.M * p.bs);
   }
+  const int n_tiles = kv_lo < kv_hi ? (kv_hi - kv_lo + kKeysPerTile - 1) / kKeysPerTile : 0;
+  const int* table = p.tables + static_cast<size_t>(b) * p.M;
+  const int sw = stage_words(DW);
 
-  if (kv_lo < kv_hi) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) issue_tile(p, table, kh, kv_lo + s * kKeysPerTile, kv_hi, DW, ring + s * sw);
+    cp_async_commit();
+  }
+  if (n_tiles > 0) {
     for (int idx = tid; idx < kRowsPerCta * DW; idx += kThreads) {
-      const int s = idx / DW, w = idx % DW;
+      const int s = idx / DW, w = idx - s * DW;
       const int li = row0 + s;
-      uint32_t val = 0u;
+      float2 val = make_float2(0.f, 0.f);
       if (li < n_rows) {
         int g, c;
         row_of(li, G, p.C, ncols, &g, &c);
-        val = p.q[((static_cast<size_t>(b) * p.C + c) * p.H + kh * G + g) * DW + w];
+        val = bf2_to_f2(p.q[((static_cast<size_t>(b) * p.C + c) * p.H + kh * G + g) * DW + w]);
       }
-      q_s[idx] = val;
+      q_s[s * p.D + 2 * w] = val.x;
+      q_s[s * p.D + 2 * w + 1] = val.y;
     }
   }
 
@@ -190,84 +253,89 @@ paged_attention_kernel(const Params p) {
     for (int j = 0; j < 2 * NW; ++j) acc[i][j] = 0.f;
   }
 
-  const int* table = p.tables + static_cast<size_t>(b) * p.M;
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += kKeysPerTile) {
-    __syncthreads();   // the previous tile is consumed (and q_s is written)
-    for (int idx = tid; idx < kKeysPerTile * DW; idx += kThreads) {
-      const int key = idx / DW, w = idx % DW;
-      const int pos = t0 + key;
-      uint32_t kw = 0u, vw = 0u;
-      if (pos < kv_hi) {
-        const int blk = table[pos / p.bs];
-        if (blk >= 0 && blk < p.N) {
-          const size_t row = static_cast<size_t>(blk) * p.bs + pos % p.bs;
-          const size_t o = (row * p.K + kh) * DW + w;
-          kw = p.k_pool[o];
-          vw = p.v_pool[o];
-        }
-      }
-      k_s[key * (DW + 1) + w] = kw;
-      v_s[key * DW + w] = vw;
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();    // this thread's copies of tile it landed
+    __syncthreads();                 // everyone's; and tile it - 1 is consumed
+    {
+      const int nt = it + kStages - 1;   // refills the stage of tile it - 1
+      if (nt < n_tiles)
+        issue_tile(p, table, kh, kv_lo + nt * kKeysPerTile, kv_hi, DW, ring + (nt % kStages) * sw);
+      cp_async_commit();
     }
-    if (tid < kKeysPerTile) {
-      const int pos = t0 + tid;
-      int st = 0;                                  // 0: past the live range
-      if (pos < kv_hi) {
-        const int blk = table[pos / p.bs];
-        st = (blk >= 0 && blk < p.N) ? 2 : 1;      // 1: table hole, masked
-      }
-      key_state[tid] = st;
-    }
-    __syncthreads();
+    if (nrow == 0) continue;         // warp-uniform
 
+    const uint32_t* k_s = ring + (it % kStages) * sw;
+    const uint32_t* v_s = k_s + kKeysPerTile * (DW + 1);
+    const int* st_s = reinterpret_cast<const int*>(v_s + kKeysPerTile * DW);
+    const int t0 = kv_lo + it * kKeysPerTile;
     const int n_keys = min(kKeysPerTile, kv_hi - t0);
     const int kpos = t0 + lane;
-    const int st = key_state[lane];
+    const int st = st_s[lane];
+
+    // Q.K for every row of the warp against this lane's key
+    float sa[kRowsPerWarp], sb[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) sa[i] = sb[i] = 0.f;
     const uint32_t* krow = k_s + lane * (DW + 1);
+    for (int w = 0; w < DW; ++w) {
+      const float2 kf = bf2_to_f2(krow[w]);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        if (i < nrow) {
+          const float2 qf = *reinterpret_cast<const float2*>(
+              q_s + (i * kWarps + warp) * p.D + 2 * w);
+          sa[i] = fmaf(qf.x, kf.x, sa[i]);
+          sb[i] = fmaf(qf.y, kf.y, sb[i]);
+        }
+      }
+    }
+
+    float pb[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      if (!has[i]) continue;                       // warp-uniform
-      const uint32_t* qrow = q_s + (i * kWarps + warp) * DW;
-      float s = 0.f;
-      for (int w = 0; w < DW; ++w) {
-        const float2 qf = bf2_to_f2(qrow[w]);
-        const float2 kf = bf2_to_f2(krow[w]);
-        s = fmaf(qf.x, kf.x, s);
-        s = fmaf(qf.y, kf.y, s);
+      pb[i] = 0.f;
+      if (i < nrow) {
+        float s = (sa[i] + sb[i]) * p.scale;
+        const int rel = q_pos[i] - kpos;
+        const bool ok = st == 2 && rel >= 0 && (p.window <= 0 || rel < p.window);
+        s = (st == 0) ? -INFINITY : (ok ? s : kNegInf);
+        const float m_new = fmaxf(m[i], warp_max(s));
+        const float pr = expf(s - m_new);
+        const float alpha = expf(m[i] - m_new);
+        l[i] = l[i] * alpha + warp_sum(pr);
+        m[i] = m_new;
+        pb[i] = __bfloat162float(__float2bfloat16(pr));
+#pragma unroll
+        for (int j = 0; j < 2 * NW; ++j) acc[i][j] *= alpha;
       }
-      s *= p.scale;
-      const int rel = q_pos[i] - kpos;
-      const bool ok = st == 2 && rel >= 0 && (p.window <= 0 || rel < p.window)
-                      && kpos < seq_end;
-      s = (st == 0) ? -INFINITY : (ok ? s : kNegInf);
+    }
 
-      const float m_new = fmaxf(m[i], warp_max(s));
-      const float pr = expf(s - m_new);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(pr);
-      m[i] = m_new;
-      const float pb = __bfloat162float(__float2bfloat16(pr));
+    // P.V: lanes over D, each V word read once for all rows
+    for (int key = 0; key < n_keys; ++key) {
+      float2 vf[NW];
 #pragma unroll
-      for (int j = 0; j < 2 * NW; ++j) acc[i][j] *= alpha;
-      for (int key = 0; key < n_keys; ++key) {
-        const float pk = __shfl_sync(kFull, pb, key);
-        const uint32_t* vrow = v_s + key * DW;
+      for (int n = 0; n < NW; ++n) {
+        const int w = lane + 32 * n;
+        vf[n] = w < DW ? bf2_to_f2(v_s[key * DW + w]) : make_float2(0.f, 0.f);
+      }
 #pragma unroll
-        for (int n = 0; n < NW; ++n) {
-          const int w = lane + 32 * n;
-          if (w < DW) {
-            const float2 vf = bf2_to_f2(vrow[w]);
-            acc[i][2 * n] = fmaf(pk, vf.x, acc[i][2 * n]);
-            acc[i][2 * n + 1] = fmaf(pk, vf.y, acc[i][2 * n + 1]);
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        if (i < nrow) {
+          const float pk = __shfl_sync(kFull, pb[i], key);
+#pragma unroll
+          for (int n = 0; n < NW; ++n) {
+            acc[i][2 * n] = fmaf(pk, vf[n].x, acc[i][2 * n]);
+            acc[i][2 * n + 1] = fmaf(pk, vf[n].y, acc[i][2 * n + 1]);
           }
         }
       }
     }
   }
+  cp_async_wait<0>();                // no copy outlives the CTA
 
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
-    if (!has[i]) continue;
+    if (i >= nrow) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int n = 0; n < NW; ++n) {
@@ -279,10 +347,8 @@ paged_attention_kernel(const Params p) {
 
 template <int NW>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int DW = p.D / 2;
-  const size_t smem = sizeof(uint32_t) * (kRowsPerCta * DW + kKeysPerTile * (DW + 1)
-                                          + kKeysPerTile * DW)
-                      + sizeof(int) * kKeysPerTile;
+  const size_t smem = sizeof(uint32_t) * (static_cast<size_t>(kRowsPerCta) * p.D
+                                          + static_cast<size_t>(kStages) * stage_words(p.D / 2));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         paged_attention_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,

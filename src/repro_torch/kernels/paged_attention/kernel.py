@@ -43,7 +43,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    fallback = Path("/usr/local/cuda/bin/nvcc")
+    fallback = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if fallback.exists():
         return str(fallback)
     raise RuntimeError("nvcc not found: the CUDA paged-attention kernel is "

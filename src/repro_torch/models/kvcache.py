@@ -81,14 +81,6 @@ class PagedKVCache:
     def num_blocks(self) -> int:
         return self.k_pool.shape[0]
 
-    @staticmethod
-    def init(num_blocks: int, block_size: int, kv_heads: int, head_dim: int,
-             dtype=torch.bfloat16, device=None) -> "PagedKVCache":
-        shape = (num_blocks, block_size, kv_heads, head_dim)
-        return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
-                            torch.zeros(shape, dtype=dtype, device=device),
-                            block_size)
-
     def write(self, k_new: torch.Tensor, v_new: torch.Tensor,
               layout: PagedLayout) -> "PagedKVCache":
         """Scatter (B, C, K, D) new tokens into the pool at their logical

@@ -24,38 +24,16 @@ from repro_torch.models.kvcache import PagedLayout
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """[(pattern, repeats), ...] covering cfg.num_layers in order (the JAX
-    package's plan; the bridge reads its group structure)."""
-    L = cfg.num_layers
-    if cfg.xlstm is not None:
-        k = cfg.xlstm.slstm_every
-        if k and L >= k:
-            groups = [(("mlstm",) * (k - 1) + ("slstm",), L // k)]
-            if L % k:
-                groups.append((("mlstm",) * (L % k), 1))
-            return groups
-        return [(("mlstm",), L)]
-    if cfg.ssm is not None and cfg.attention is None:
-        return [(("ssm",), L)]
+    """[(pattern, repeats), ...] covering cfg.num_layers in order: the JAX
+    package's plan for plain attention stacks (the bridge reads its group
+    structure). Recurrent, MoE and hybrid stacks are ROADMAP items A8-A10."""
     a = cfg.attention
-    if cfg.family == "moe":
-        first = cfg.moe.first_dense_layers
-        dense_bt, moe_bt = (("mla_dense", "mla_moe") if a.kind == "mla"
-                            else ("attn_full", "attn_moe"))
-        groups = [((dense_bt,), first)] if first else []
-        groups.append(((moe_bt,), L - first))
-        return groups
-    if cfg.parallel_ssm_attn:
-        ratio = a.local_global_ratio
-        if ratio:
-            cyc = ("hybrid_local",) * ratio + ("hybrid_full",)
-            n = L // len(cyc)
-            groups = [(cyc, n)]
-            if L - n * len(cyc):
-                groups.append((("hybrid_local",) * (L - n * len(cyc)), 1))
-            return groups
-        return [(("hybrid_full",), L)]
-    if a is not None and a.local_global_ratio:
+    if (a is None or cfg.xlstm is not None or cfg.ssm is not None
+            or cfg.family == "moe" or cfg.parallel_ssm_attn):
+        raise NotImplementedError(f"{cfg.name}: only plain attention stacks are "
+                                  "ported (ROADMAP items A8-A10 bring the rest)")
+    L = cfg.num_layers
+    if a.local_global_ratio:
         cyc = ("attn_local",) * a.local_global_ratio + ("attn_full",)
         n = L // len(cyc)
         groups = [(cyc, n)]

@@ -126,3 +126,25 @@ def test_paged_forward_matches_jax_over_schedule(smoke):
             for kv in ("k", "v"):
                 np.testing.assert_allclose(tl_[kv].numpy(), jl_[kv], atol=ATOL, rtol=0,
                                            err_msg=f"step {step} layer {i} {kv}")
+
+
+def test_serve_step_emits_argmax_at_last_valid_column(smoke):
+    """``emit="last"`` is the argmax at column ``max(n_valid - 1, 0)`` and
+    ``emit="all"`` the argmax at every column, from the same pools."""
+    from repro_torch.runtime.steps import make_paged_serve_step
+
+    cfg, _, np_params = smoke
+    params = params_from_jax(np_params, cfg)
+    tok, tab, st, nv = (torch.tensor(a, dtype=torch.int32) for a in _SCHEDULE[0])
+    outs = {}
+    for emit in ("last", "all"):
+        step = make_paged_serve_step(cfg, slots=3, chunk=4, num_blocks=8, block_size=4,
+                                     max_blocks_per_seq=4, kernel="ref", emit=emit,
+                                     device="cpu", compute_dtype=torch.float32)
+        assert step.meta["paged_kernel"] == "ref"
+        cache = tmodel.init_paged_cache(cfg, 8, 4, dtype=torch.float32, device="cpu")
+        outs[emit], _ = step.fn(params, cache, tok, tab, st, nv)
+        assert int(step.meta["nonfinite_logits"]) == 0
+    assert outs["all"].shape == (3, 4) and outs["last"].shape == (3,)
+    last = (nv.long() - 1).clamp(min=0)
+    assert torch.equal(outs["last"], outs["all"][torch.arange(3), last])
