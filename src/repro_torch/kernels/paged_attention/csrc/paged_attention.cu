@@ -15,8 +15,9 @@
 //     valid ones first (c < n_valid); columns >= n_valid are garbage by
 //     contract and are written as zeros without being computed, so decode
 //     rows (n_valid == 1) cost G rows, not G * C.
-//   * 8 warps, up to 4 rows per warp; q is staged once in shared memory as
-//     f32. Keys go through a 3-stage ring of shared-memory tiles of 32
+//   * 8 warps, 4 row slots per warp (slots past the CTA's valid rows hold
+//     q = 0 and are computed but never written); q is staged once in shared
+//     memory as f32. Keys go through a 3-stage ring of shared-memory tiles of 32
 //     logical positions, filled with cp.async, so two tiles are in flight
 //     while one is computed. Each position finds its own pool row through
 //     the table, so any block size works; a -1 table entry (or an id past
@@ -272,45 +273,45 @@ paged_attention_kernel(const Params p) {
     const int kpos = t0 + lane;
     const int st = st_s[lane];
 
-    // Q.K for every row of the warp against this lane's key
+    // Q.K for every row slot of the warp against this lane's key. All four
+    // slots are computed without a guard (slots past nrow hold q = 0 and
+    // are never written out): guarded, each row's shared-memory and shuffle
+    // latency would be paid one row after another.
     float sa[kRowsPerWarp], sb[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) sa[i] = sb[i] = 0.f;
     const uint32_t* krow = k_s + lane * (DW + 1);
+#pragma unroll 4
     for (int w = 0; w < DW; ++w) {
       const float2 kf = bf2_to_f2(krow[w]);
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
-        if (i < nrow) {
-          const float2 qf = *reinterpret_cast<const float2*>(
-              q_s + (i * kWarps + warp) * p.D + 2 * w);
-          sa[i] = fmaf(qf.x, kf.x, sa[i]);
-          sb[i] = fmaf(qf.y, kf.y, sb[i]);
-        }
+        const float2 qf = *reinterpret_cast<const float2*>(
+            q_s + (i * kWarps + warp) * p.D + 2 * w);
+        sa[i] = fmaf(qf.x, kf.x, sa[i]);
+        sb[i] = fmaf(qf.y, kf.y, sb[i]);
       }
     }
 
     float pb[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      pb[i] = 0.f;
-      if (i < nrow) {
-        float s = (sa[i] + sb[i]) * p.scale;
-        const int rel = q_pos[i] - kpos;
-        const bool ok = st == 2 && rel >= 0 && (p.window <= 0 || rel < p.window);
-        s = (st == 0) ? -INFINITY : (ok ? s : kNegInf);
-        const float m_new = fmaxf(m[i], warp_max(s));
-        const float pr = expf(s - m_new);
-        const float alpha = expf(m[i] - m_new);
-        l[i] = l[i] * alpha + warp_sum(pr);
-        m[i] = m_new;
-        pb[i] = __bfloat162float(__float2bfloat16(pr));
+      float s = (sa[i] + sb[i]) * p.scale;
+      const int rel = q_pos[i] - kpos;
+      const bool ok = st == 2 && rel >= 0 && (p.window <= 0 || rel < p.window);
+      s = (st == 0) ? -INFINITY : (ok ? s : kNegInf);
+      const float m_new = fmaxf(m[i], warp_max(s));
+      const float pr = expf(s - m_new);
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + warp_sum(pr);
+      m[i] = m_new;
+      pb[i] = __bfloat162float(__float2bfloat16(pr));
 #pragma unroll
-        for (int j = 0; j < 2 * NW; ++j) acc[i][j] *= alpha;
-      }
+      for (int j = 0; j < 2 * NW; ++j) acc[i][j] *= alpha;
     }
 
-    // P.V: lanes over D, each V word read once for all rows
+    // P.V: lanes over D, each V word read once for all row slots
+#pragma unroll 4
     for (int key = 0; key < n_keys; ++key) {
       float2 vf[NW];
 #pragma unroll
@@ -320,13 +321,11 @@ paged_attention_kernel(const Params p) {
       }
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
-        if (i < nrow) {
-          const float pk = __shfl_sync(kFull, pb[i], key);
+        const float pk = __shfl_sync(kFull, pb[i], key);
 #pragma unroll
-          for (int n = 0; n < NW; ++n) {
-            acc[i][2 * n] = fmaf(pk, vf[n].x, acc[i][2 * n]);
-            acc[i][2 * n + 1] = fmaf(pk, vf[n].y, acc[i][2 * n + 1]);
-          }
+        for (int n = 0; n < NW; ++n) {
+          acc[i][2 * n] = fmaf(pk, vf[n].x, acc[i][2 * n]);
+          acc[i][2 * n + 1] = fmaf(pk, vf[n].y, acc[i][2 * n + 1]);
         }
       }
     }
