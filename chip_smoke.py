@@ -132,6 +132,15 @@ def check_kernel(torch, ops, dev, flush):
     ms = timed_ms(torch, lambda: ops.paged_attention(*args, block_size=BLOCK), 200, flush)
     plain_ms = timed_ms(torch, lambda: ops.paged_attention_ref(*args, block_size=BLOCK),
                         20, flush)
+    # where the kernel's time goes: each row alone (the others idle)
+    alone = []
+    for b in range(B):
+        nv1 = torch.zeros_like(n_valid)
+        nv1[b] = n_valid[b]
+        one = (q, kp, vp, tables, starts, nv1)
+        alone.append(f"{int(starts[b])}+{int(n_valid[b])}: " + format(timed_ms(
+            torch, lambda one=one: ops.paged_attention(*one, block_size=BLOCK), 50, flush), ".4f"))
+    log(f"[kernel] paged_attention ms with one row alone (start+n_valid): {'; '.join(alone)}")
     # yardstick: SDPA on the pre-gathered dense view with the same mask
     # (the gather is excluded from its time)
     from repro_torch.models.kvcache import PagedKVCache

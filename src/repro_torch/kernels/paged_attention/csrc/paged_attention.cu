@@ -15,9 +15,8 @@
 //     valid ones first (c < n_valid); columns >= n_valid are garbage by
 //     contract and are written as zeros without being computed, so decode
 //     rows (n_valid == 1) cost G rows, not G * C.
-//   * 8 warps, 4 row slots per warp (slots past the CTA's valid rows hold
-//     q = 0 and are computed but never written); q is staged once in shared
-//     memory as f32. Keys go through a 3-stage ring of shared-memory tiles of 32
+//   * 8 warps, up to 4 rows per warp, the tile computation instantiated
+//     per row count; q is staged once in shared memory as f32. Keys go through a 3-stage ring of shared-memory tiles of 32
 //     logical positions, filled with cp.async, so two tiles are in flight
 //     while one is computed. Each position finds its own pool row through
 //     the table, so any block size works; a -1 table entry (or an id past
@@ -166,6 +165,75 @@ __device__ __forceinline__ void issue_tile(const Params& p, const int* table,
   }
 }
 
+// One key tile for the first NR row slots of a warp (slot i is CTA row
+// i * kWarps + warp). NR is a template argument so the loops over rows carry
+// no guard: guarded, each row's shared-memory load and shuffle is waited on
+// before the next row's is issued, and a decode warp (one row) must not pay
+// for four.
+template <int NW, int NR>
+__device__ __forceinline__ void attend_tile(
+    const Params& p, const float* q_w, const uint32_t* k_s, const uint32_t* v_s,
+    int st, int kpos, int n_keys, const int (&q_pos)[kRowsPerWarp],
+    float (&m)[kRowsPerWarp], float (&l)[kRowsPerWarp],
+    float (&acc)[kRowsPerWarp][2 * NW]) {
+  const int DW = p.D / 2;
+  const int lane = threadIdx.x & 31;
+
+  // Q.K: this lane's key against every row
+  float sa[NR], sb[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) sa[i] = sb[i] = 0.f;
+  const uint32_t* krow = k_s + lane * (DW + 1);
+#pragma unroll 4
+  for (int w = 0; w < DW; ++w) {
+    const float2 kf = bf2_to_f2(krow[w]);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const float2 qf = *reinterpret_cast<const float2*>(q_w + i * kWarps * p.D + 2 * w);
+      sa[i] = fmaf(qf.x, kf.x, sa[i]);
+      sb[i] = fmaf(qf.y, kf.y, sb[i]);
+    }
+  }
+
+  // online softmax over the tile
+  float pb[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    float s = (sa[i] + sb[i]) * p.scale;
+    const int rel = q_pos[i] - kpos;
+    const bool ok = st == 2 && rel >= 0 && (p.window <= 0 || rel < p.window);
+    s = (st == 0) ? -INFINITY : (ok ? s : kNegInf);
+    const float m_new = fmaxf(m[i], warp_max(s));
+    const float pr = expf(s - m_new);
+    const float alpha = expf(m[i] - m_new);
+    l[i] = l[i] * alpha + warp_sum(pr);
+    m[i] = m_new;
+    pb[i] = __bfloat162float(__float2bfloat16(pr));
+#pragma unroll
+    for (int j = 0; j < 2 * NW; ++j) acc[i][j] *= alpha;
+  }
+
+  // P.V: lanes over D, each V word read once for all rows
+#pragma unroll 4
+  for (int key = 0; key < n_keys; ++key) {
+    float2 vf[NW];
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+      const int w = lane + 32 * n;
+      vf[n] = w < DW ? bf2_to_f2(v_s[key * DW + w]) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const float pk = __shfl_sync(kFull, pb[i], key);
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+        acc[i][2 * n] = fmaf(pk, vf[n].x, acc[i][2 * n]);
+        acc[i][2 * n + 1] = fmaf(pk, vf[n].y, acc[i][2 * n + 1]);
+      }
+    }
+  }
+}
+
 // NW: 32-bit words (bf16 pairs) of one head row each lane holds in P.V,
 // ceil(D / 64).
 template <int NW>
@@ -272,62 +340,13 @@ paged_attention_kernel(const Params p) {
     const int n_keys = min(kKeysPerTile, kv_hi - t0);
     const int kpos = t0 + lane;
     const int st = st_s[lane];
+    const float* q_w = q_s + warp * p.D;   // slot i: q_w + i * kWarps * D
 
-    // Q.K for every row slot of the warp against this lane's key. All four
-    // slots are computed without a guard (slots past nrow hold q = 0 and
-    // are never written out): guarded, each row's shared-memory and shuffle
-    // latency would be paid one row after another.
-    float sa[kRowsPerWarp], sb[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) sa[i] = sb[i] = 0.f;
-    const uint32_t* krow = k_s + lane * (DW + 1);
-#pragma unroll 4
-    for (int w = 0; w < DW; ++w) {
-      const float2 kf = bf2_to_f2(krow[w]);
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float2 qf = *reinterpret_cast<const float2*>(
-            q_s + (i * kWarps + warp) * p.D + 2 * w);
-        sa[i] = fmaf(qf.x, kf.x, sa[i]);
-        sb[i] = fmaf(qf.y, kf.y, sb[i]);
-      }
-    }
-
-    float pb[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      float s = (sa[i] + sb[i]) * p.scale;
-      const int rel = q_pos[i] - kpos;
-      const bool ok = st == 2 && rel >= 0 && (p.window <= 0 || rel < p.window);
-      s = (st == 0) ? -INFINITY : (ok ? s : kNegInf);
-      const float m_new = fmaxf(m[i], warp_max(s));
-      const float pr = expf(s - m_new);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(pr);
-      m[i] = m_new;
-      pb[i] = __bfloat162float(__float2bfloat16(pr));
-#pragma unroll
-      for (int j = 0; j < 2 * NW; ++j) acc[i][j] *= alpha;
-    }
-
-    // P.V: lanes over D, each V word read once for all row slots
-#pragma unroll 4
-    for (int key = 0; key < n_keys; ++key) {
-      float2 vf[NW];
-#pragma unroll
-      for (int n = 0; n < NW; ++n) {
-        const int w = lane + 32 * n;
-        vf[n] = w < DW ? bf2_to_f2(v_s[key * DW + w]) : make_float2(0.f, 0.f);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float pk = __shfl_sync(kFull, pb[i], key);
-#pragma unroll
-        for (int n = 0; n < NW; ++n) {
-          acc[i][2 * n] = fmaf(pk, vf[n].x, acc[i][2 * n]);
-          acc[i][2 * n + 1] = fmaf(pk, vf[n].y, acc[i][2 * n + 1]);
-        }
-      }
+    switch (nrow) {                  // warp-uniform
+      case 1: attend_tile<NW, 1>(p, q_w, k_s, v_s, st, kpos, n_keys, q_pos, m, l, acc); break;
+      case 2: attend_tile<NW, 2>(p, q_w, k_s, v_s, st, kpos, n_keys, q_pos, m, l, acc); break;
+      case 3: attend_tile<NW, 3>(p, q_w, k_s, v_s, st, kpos, n_keys, q_pos, m, l, acc); break;
+      default: attend_tile<NW, 4>(p, q_w, k_s, v_s, st, kpos, n_keys, q_pos, m, l, acc); break;
     }
   }
   cp_async_wait<0>();                // no copy outlives the CTA
