@@ -53,13 +53,17 @@ def fail(msg: str) -> int:
 
 def timed_ms(torch, fn, iters: int, flush) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after the L2 cache was overwritten."""
+    CUDA events after the L2 cache was overwritten. A device-side spin
+    before each start event keeps the card busy while the host enqueues
+    the call, so a launch shorter than its Python call overhead is timed
+    as the kernel, not as the host's gap."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         s.record()
         fn()
         e.record()
