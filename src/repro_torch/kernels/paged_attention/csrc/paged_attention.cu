@@ -31,15 +31,15 @@
 //     once a real score arrives; rows that see no key write zeros. p is
 //     rounded to bf16 before P.V, as the TPU kernel casts it to v.dtype.
 //
-// What bounds it on an H100: per KV element pair it does 4 flops for every
-// query row that sees it (Q.K and P.V): at the engine's prefill shape
-// (G = 4, C = 32, D = 64) about 128 flops per KV byte, under the ~295 bf16
-// flops per byte where tensor cores would stop being memory-bound, so the
-// operation itself is bound by bytes. This form runs those flops as f32
-// FMAs on the CUDA cores (67 TFLOP/s peak) with shuffles and shared-memory
-// loads beside each pair, so long prefill rows are bound by CUDA-core issue
-// rate, and decode rows (G query rows per kv head) by memory latency on the
-// few CTAs (B * K) that carry them.
+// What bounds it on an H100: the operation is bound by bytes. Per KV
+// element pair it does 4 flops for every query row that sees it (Q.K and
+// P.V): at the engine's prefill shape (G = 4, C = 32, D = 64) about 128
+// flops per KV byte, under the ~295 bf16 flops per byte where tensor cores
+// would stop being memory-bound. This form is bound by latency instead:
+// one CTA walks a row's whole live range, 32 keys at a time, through a
+// chain of shared-memory loads, shuffles and f32 FMAs on the CUDA cores
+// with few warps to hide it, so a launch takes as long as its longest row
+// (a decode row has one CTA per kv head and 4 busy warps).
 //
 // What a later design changes: wgmma over (64-row Q tile) x (key tile)
 // with TMA-staged K/V, split-K over blocks for long sequences with a second
