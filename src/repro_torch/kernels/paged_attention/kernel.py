@@ -69,7 +69,7 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)          # atomic: a concurrent builder sees all or nothing
+    os.replace(tmp, lib)          # atomic: a concurrent build sees all or nothing
     return lib
 
 
