@@ -6,11 +6,12 @@ eagerly, so ``T`` is always bounded by the longest live sequence rounded
 up to ``block_size``. The CPU path uses it, and ``chip_smoke.py`` holds the
 CUDA kernel against it on the card.
 
-One addition to the JAX oracle: a ``-1`` table entry inside a row's live
-range is masked here, as the CUDA kernel masks it (the JAX oracle reads
-block 0 there). The engine never produces such a hole — it grows a
-request's blocks before the step that needs them — so the two agree on
-every table the engine builds.
+One addition to the JAX oracle: a table entry inside a row's live range
+that names no pool block (``-1``, or an id ``>= N_blocks``) is masked
+here, as the CUDA kernel masks it (the JAX oracle reads the clamped block
+there). The engine never produces such an entry — it grows a request's
+blocks before the step that needs them — so the two agree on every table
+the engine builds.
 """
 from __future__ import annotations
 
@@ -60,8 +61,8 @@ def paged_attention_ref(
     # never read past the tokens resident after this step's writes (keeps
     # stale pool rows from reused blocks out of even discarded columns)
     mask &= kv_pos[None, None, :] < seq_end[:, None, None]
-    held = block_tables[:, torch.div(kv_pos, block_size, rounding_mode="floor").long()] >= 0
-    mask &= held[:, None, :]
+    blk = block_tables[:, torch.div(kv_pos, block_size, rounding_mode="floor").long()]
+    mask &= ((blk >= 0) & (blk < k_pool.shape[0]))[:, None, :]
     mask = mask[:, None, None, :, :]                               # (B,1,1,C,T)
 
     qg = q.reshape(B, C, K, G, D)

@@ -11,7 +11,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import AttentionConfig
-from repro_torch.kernels.paged_attention import (paged_attention,
+from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_ref,
                                                  resolve_kernel)
 from repro_torch.models.common import ParamBuilder
@@ -70,7 +70,7 @@ def gqa_paged_attention(
         fn = kernel
     else:
         kind = resolve_kernel(kernel, x.device)
-        fn = paged_attention if kind == "cuda" else paged_attention_ref
+        fn = paged_attention_cuda if kind == "cuda" else paged_attention_ref
     out = fn(q.to(x.dtype).contiguous(), cache.k_pool, cache.v_pool,
              layout.block_tables, layout.starts, layout.n_valid,
              block_size=layout.block_size, window=window,

@@ -101,13 +101,15 @@ class PagedKVCache:
                seq_lens: Optional[torch.Tensor] = None):
         """Materialize each request's logical (T, K, D) view, T = M * bs.
 
-        Unallocated table slots (-1) read block 0 — callers mask them. With
-        ``seq_lens`` (resident tokens per request) also returns
-        ``max_resident``: the longest live sequence rounded up to
-        ``block_size`` and clamped to T, as a Python int."""
+        Table entries outside the pool are clamped into it, as a JAX gather
+        clamps them: unallocated slots (-1) read block 0 and ids past the
+        pool its last block — callers mask both. With ``seq_lens``
+        (resident tokens per request) also returns ``max_resident``: the
+        longest live sequence rounded up to ``block_size`` and clamped to
+        T, as a Python int."""
         bs = self.block_size
         B, M = block_tables.shape
-        rows = (block_tables.clamp(min=0).long()[:, :, None] * bs
+        rows = (block_tables.clamp(0, self.num_blocks - 1).long()[:, :, None] * bs
                 + torch.arange(bs, device=block_tables.device)[None, None, :])
         rows = rows.reshape(B, M * bs)
         tail = self.k_pool.shape[2:]

@@ -5,9 +5,13 @@
   reuse, n_valid in {0, 1, C}, window on/off, block sizes 4/8/16 and group
   sizes 1/2/4, compared on valid columns only (columns >= n_valid are
   garbage by contract);
+* the plain version's masking of table entries that name no pool block
+  (-1 and ids past the pool) inside a live range, against a direct numpy
+  softmax over the keys each column sees;
 * ``PagedKVCache.write`` against the JAX write, exactly, dropped columns
   included;
-* ``resolve_kernel`` and the launch counter on the CPU.
+* ``resolve_kernel``, the launch counter on the CPU, the bytes model and
+  ``compare_valid`` (the kernel check's comparison).
 
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
@@ -26,7 +30,8 @@ from repro.kernels.paged_attention.ref import paged_attention_ref as j_ref
 from repro.models.kvcache import PagedKVCache as JPagedKVCache
 from repro.models.kvcache import PagedLayout as JPagedLayout
 from repro_torch.bridge import to_tensor
-from repro_torch.kernels.paged_attention import (LAUNCHES, modeled_hbm_bytes,
+from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
+                                                 modeled_hbm_bytes,
                                                  paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_ref,
@@ -103,6 +108,48 @@ def test_plain_version_deep_decode_with_window():
         got, want = _both((q, kp, vp, tb, st, nv), "float32", block_size=8,
                           window=window)
         np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def _dense_oracle(q, kp, vp, tables, starts, n_valid, bs, window):
+    """Softmax over exactly the keys each valid column sees: causal,
+    windowed, and held by a table entry that names a pool block."""
+    B, C, H, D = q.shape
+    N, _, K, _ = kp.shape
+    out = np.zeros_like(q)
+    for b in range(B):
+        for c in range(n_valid[b]):
+            qp = starts[b] + c
+            lo = 0 if window is None else max(0, qp - window + 1)
+            pos = np.asarray([p for p in range(lo, qp + 1)
+                              if 0 <= tables[b, p // bs] < N])
+            blk = tables[b, pos // bs]
+            for h in range(H):
+                k = kp[blk, pos % bs, h // (H // K)]
+                v = vp[blk, pos % bs, h // (H // K)]
+                s = k @ q[b, c, h] / np.sqrt(D)
+                p = np.exp(s - s.max())
+                out[b, c, h] = (p / p.sum()) @ v
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("G", [1, 2])
+def test_plain_version_masks_entries_that_name_no_block(G, window):
+    """Inside a row's live range, a -1 entry and an id past the pool are
+    both masked (the CUDA kernel masks them the same way) and read
+    nothing out of range; every valid column still sees its own key."""
+    rng = np.random.default_rng(31 + G)
+    q, kp, vp, tb, st, nv = _case(rng, bs=4, B=3, C=4, K=2, G=G, D=16, M=6,
+                                  n_valid_choices=(1, None), holes=False)
+    N = kp.shape[0]
+    st[:] = [12, 9, 16]
+    for b in range(3):
+        tb[b, -(-int(st[b] + nv[b]) // 4):] = -1
+    tb[0, 1], tb[1, 0], tb[2, 2], tb[2, 3] = -1, N, N + 7, -1
+    got = paged_attention_ref(*(torch.from_numpy(a) for a in (q, kp, vp, tb, st, nv)),
+                              block_size=4, window=window)
+    want = _dense_oracle(q, kp, vp, tb, st, nv, 4, window)
+    np.testing.assert_allclose(_valid(got.numpy(), nv), _valid(want, nv), **F32_TOL)
 
 
 def _write_case(rng):
@@ -184,7 +231,29 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
 
 
 def test_modeled_bytes_match_jax():
+    """The plain path's model is the JAX one; the CUDA kernel reads each
+    live position's row, up to seq_end, where the TPU kernel reads whole
+    blocks: equal on block-aligned lengths, never more."""
     kw = dict(block_size=8, max_blocks=8, kv_heads=2, head_dim=64)
+    row = 2 * 64 * 2 * 2
     for lens in ([1, 9, 64], [16] * 4, [0, 3]):
         assert modeled_hbm_bytes(lens, kernel="ref", **kw) == j_modeled(lens, kernel="ref", **kw)
-        assert modeled_hbm_bytes(lens, kernel="cuda", **kw) == j_modeled(lens, kernel="pallas", **kw)
+        cuda = modeled_hbm_bytes(lens, kernel="cuda", **kw)
+        assert cuda == sum(lens) * row <= j_modeled(lens, kernel="pallas", **kw)
+    assert (modeled_hbm_bytes([16, 64], kernel="cuda", **kw)
+            == j_modeled([16, 64], kernel="pallas", **kw))
+
+
+def test_compare_valid_scales_with_each_row():
+    """The kernel check's comparison: garbage columns are ignored, a long
+    row's small output is held to its own scale, and NaN always fails."""
+    ref = torch.full((1, 2, 1, 4), 0.05)
+    ref[0, 1] = 3.0                              # garbage column
+    out = ref.clone()
+    out[0, 1] = -7.0
+    assert compare_valid(out, ref, torch.tensor([1]))[2] == 0
+    out[0, 0, 0, 0] += 5e-3                      # ~ a skipped key tile; passes atol 2e-2
+    err, worst, bad = compare_valid(out, ref, torch.tensor([1]))
+    assert bad == 1 and worst > 2 and abs(err - 5e-3) < 1e-6
+    out[0, 0, 0, 0] = float("nan")
+    assert compare_valid(out, ref, torch.tensor([1]))[2] == 1
