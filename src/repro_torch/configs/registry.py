@@ -8,10 +8,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import llama32_1b
+from repro_torch.configs import llama32_1b, olmoe_1b_7b
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (llama32_1b,)
+_MODULES = (llama32_1b, olmoe_1b_7b)
 
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.config for m in _MODULES}
 SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MODULES}
@@ -20,7 +20,7 @@ SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MOD
 # queue-A item that ports them
 _LATER = {
     "gemma3-4b": "A7", "granite-20b": "A7", "stablelm-3b": "A7",
-    "deepseek-v2-lite-16b": "A7/A8", "olmoe-1b-7b": "A8",
+    "deepseek-v2-lite-16b": "A7",
     "mamba-130m": "A9", "xlstm-1.3b": "A9", "hymba-1.5b": "A10",
     "qwen2-vl-72b": "A10", "hubert-xlarge": "A10",
 }
@@ -38,8 +38,8 @@ def _check(arch: str) -> None:
 def default_cache_backend(cfg: ModelConfig) -> str:
     """The serving Engine's sequence-state backend per model family.
 
-    Only plain-GQA archs are ported, and they take the paged pool. The
-    recurrent (A9) and slots (A7) backends are not ported yet.
+    Plain-GQA archs, MoE ones included, take the paged pool. The recurrent
+    (A9) and slots (A7) backends are not ported yet; MLA archs take slots.
     """
     if cfg.xlstm is not None or (cfg.ssm is not None and cfg.attention is None):
         raise NotImplementedError("the recurrent backend is ROADMAP item A9")

@@ -30,9 +30,8 @@ from repro_torch.engine.scheduler import (SchedulerPolicy, SchedulerState,
                                           resolve_policy)
 from repro_torch.engine.state import PagedKVState
 from repro_torch.engine.stream import RequestHandle
-from repro_torch.kernels.paged_attention import LAUNCHES
 from repro_torch.models import model as model_lib
-from repro_torch.runtime.steps import make_paged_serve_step
+from repro_torch.runtime.steps import LAUNCH_COUNTERS, make_paged_serve_step
 
 __all__ = ["Request", "Engine"]
 
@@ -83,10 +82,11 @@ class Engine:
     ``block_size`` tokens), chunked prefill (``chunk`` tokens per tick)
     through the same step as decode, block-budget-gated admission,
     preempt-and-requeue (recompute) on pool exhaustion. ``kernel`` selects
-    the paged-attention path: ``"cuda"`` (the hand-written kernel),
-    ``"ref"`` (the plain version) or ``"auto"`` (``cuda`` on the card,
-    ``ref`` on the CPU). ``device`` defaults to ``cuda`` and raises when
-    there is no card; tests pass ``device="cpu"``.
+    every kernel of the step (paged attention, and the MoE expert FFN of
+    MoE archs): ``"cuda"`` (the hand-written kernels), ``"ref"`` (their
+    plain versions) or ``"auto"`` (``cuda`` on the card, ``ref`` on the
+    CPU). ``device`` defaults to ``cuda`` and raises when there is no
+    card; tests pass ``device="cpu"``.
     """
 
     _ids = itertools.count()
@@ -116,7 +116,8 @@ class Engine:
         self.cache: Optional[Dict[str, Any]] = None
         self.ticks = 0
         self.steps = 0                         # ticks that ran the step
-        self.kernel_launches = 0               # CUDA kernel launches in steps
+        # CUDA kernel launches in steps, per kernel
+        self.kernel_launches = {name: 0 for name in LAUNCH_COUNTERS}
         self.completed: List[Request] = []
         self.queue: List[_Entry] = []
         self.slot_entry: List[Optional[_Entry]] = [None] * slots
@@ -139,7 +140,7 @@ class Engine:
             cfg, slots=slots, chunk=chunk, num_blocks=num_blocks,
             block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
             kernel=kernel, device=self.device)
-        # resolved attention path ("cuda" | "ref") + per-step live-token
+        # resolved kernel kind ("cuda" | "ref") + per-step live-token
         # fraction: resident tokens / pool token capacity
         self.paged_kernel: str = self.bundle.meta["paged_kernel"]
         self._live_frac_last = 0.0
@@ -354,10 +355,11 @@ class Engine:
     def _step_call(self, *arrays: np.ndarray) -> np.ndarray:
         """Run the serve step on host-built inputs; returns next tokens."""
         args = [torch.from_numpy(a).to(self.device) for a in arrays]
-        before = LAUNCHES.count
+        before = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
         next_tok, self.cache = self.bundle.fn(self.params, self.cache, *args)
         next_np = next_tok.cpu().numpy()
-        self.kernel_launches += LAUNCHES.count - before
+        for name, c in LAUNCH_COUNTERS.items():
+            self.kernel_launches[name] += c.count - before[name]
         self.steps += 1
         return next_np
 
@@ -385,7 +387,8 @@ class Engine:
 
     def metrics(self) -> Dict[str, Any]:
         """Engine telemetry snapshot (JSON-friendly), with the JAX engine's
-        keys for what this slice has, plus the kernel's launch count, the
+        keys for what the port has, plus the launch count of each kernel
+        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}``), the
         step count and the non-finite-logits counter."""
         done = [e for e in self._entries_everywhere() if e.req.done]
         ttfts = sorted(e.first_token_time - e.submit_time
@@ -409,7 +412,7 @@ class Engine:
             "ttft_s": ttfts,
             "requests": self._request_records(),
             "paged_kernel": self.paged_kernel,
-            "kernel_launches": self.kernel_launches,
+            "kernel_launches": dict(self.kernel_launches),
             "nonfinite_logits": int(self.bundle.meta["nonfinite_logits"]),
             "live_token_fraction": self._live_frac_last,
             "live_token_fraction_mean": (

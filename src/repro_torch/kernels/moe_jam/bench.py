@@ -1,0 +1,110 @@
+"""Engine-shaped buckets, the yardstick and the work count of the moe_jam FFN.
+
+``chip_smoke.py`` takes its moe_jam check from here. Run as a module on a
+machine with a CUDA card, it times the kernel, its plain version and the
+yardstick at the engine's bucket shape with three fills: every row kept
+(a full prefill step), the check input (empty, partial and full experts),
+and a decode step's (8 tokens, top-8):
+
+    PYTHONPATH=src python -m repro_torch.kernels.moe_jam.bench
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
+
+# olmoe-1b-7b's buckets in the serving engine of chip_smoke.py: 64 experts,
+# capacity 40 (8 slots x chunk 32 = 256 columns, top-8, factor 1.25),
+# d_model 2048, expert_ff 1024
+EXPERTS, CAPACITY, D_MODEL, D_FF = 64, 40, 2048, 1024
+
+
+def check_counts() -> np.ndarray:
+    """Kept rows per expert: a quarter empty, a quarter full, the rest
+    partial (1 .. CAPACITY - 1), in a shuffled order (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    q = EXPERTS // 4
+    counts = np.concatenate([np.zeros(q), np.full(q, CAPACITY),
+                             rng.integers(1, CAPACITY, size=EXPERTS - 2 * q)])
+    return rng.permutation(counts).astype(np.int32)
+
+
+def check_inputs(device, counts: np.ndarray):
+    """(x, w_gate, w_up, w_down, counts) at the engine's bucket shape on
+    ``device``, bf16 and int32, from numpy seed 1. Rows of x at or past each
+    expert's count are zero, as the dispatch leaves them; weights have the
+    init's std 1/sqrt(fan_in), x the post-norm scale."""
+    rng = np.random.default_rng(1)
+
+    def normal(shape, std):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * std) \
+            .to(device=device, dtype=torch.bfloat16)
+
+    x = normal((EXPERTS, CAPACITY, D_MODEL), 1.0)
+    x *= (torch.arange(CAPACITY)[None, :, None]
+          < torch.from_numpy(counts).long()[:, None, None]).to(device, torch.bfloat16)
+    w_gate = normal((EXPERTS, D_MODEL, D_FF), D_MODEL ** -0.5)
+    w_up = normal((EXPERTS, D_MODEL, D_FF), D_MODEL ** -0.5)
+    w_down = normal((EXPERTS, D_FF, D_MODEL), D_FF ** -0.5)
+    return x, w_gate, w_up, w_down, torch.from_numpy(counts).to(device)
+
+
+def needed_work(counts: np.ndarray, *, d_model: int, d_ff: int) -> dict:
+    """The bytes and operations the expert FFN needs on this input, for its
+    bound: the weights of every expert that holds a kept row, the kept rows
+    of x and of the output (bf16), and the counts (int32), each once;
+    flops: gate, up and down, 2 * d_model * d_ff each, per kept row."""
+    counts = np.asarray(counts, np.int64)
+    busy = int((counts > 0).sum())
+    rows = int(counts.sum())
+    weight_bytes = busy * 3 * d_model * d_ff * 2
+    nbytes = weight_bytes + 2 * rows * d_model * 2 + 4 * len(counts)
+    return dict(bytes=nbytes, weight_bytes=weight_bytes, rows=rows, experts=busy,
+                flops=rows * 3 * 2 * d_model * d_ff)
+
+
+def yardstick(x, w_gate, w_up, w_down):
+    """The same function (silu) by three bf16 ``torch.bmm`` calls: a library
+    time to stand beside the kernel's (the port never calls it)."""
+    g = torch.nn.functional.silu(torch.bmm(x, w_gate))
+    return torch.bmm(g * torch.bmm(x, w_up), w_down)
+
+
+def main() -> int:
+    from repro_torch.kernels.moe_jam.ops import moe_jam_ffn_cuda, moe_jam_ffn_ref
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card: this times the CUDA kernel")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    decode = np.bincount(np.concatenate([rng.permutation(EXPERTS)[:8] for _ in range(8)]),
+                         minlength=EXPERTS).astype(np.int32)
+    fills = {"full": np.full(EXPERTS, CAPACITY, np.int32), "check": check_counts(),
+             "decode": decode}
+    flush = l2_flush_buffer(dev)
+    rows = []
+    for name, counts in fills.items():
+        x, wg, wu, wd, cnt = check_inputs(dev, counts)
+        work = needed_work(counts, d_model=D_MODEL, d_ff=D_FF)
+        bound, by = bound_ms(work)
+        rows.append(dict(
+            fill=name, kept_rows=work["rows"], experts=work["experts"], bound_ms=bound,
+            bound_by=by,
+            ms=timed_ms(lambda: moe_jam_ffn_cuda(x, wg, wu, wd, counts=cnt), 50, flush),
+            plain_ms=timed_ms(lambda: moe_jam_ffn_ref(x, wg, wu, wd, counts=cnt), 5, flush),
+            library_ms=timed_ms(lambda: yardstick(x, wg, wu, wd), 50, flush)))
+        del x, wg, wu, wd, cnt
+        r = rows[-1]
+        print(f"[bench] moe_jam {name}: {r['kept_rows']} kept rows in {r['experts']} "
+              f"experts: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"3 x bmm {r['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    print(json.dumps({"card": card_name(), "moe_jam": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,4 +1,4 @@
-"""Engine-shaped inputs, device timing and the work count of paged attention.
+"""Engine-shaped inputs and the work count of paged attention.
 
 ``chip_smoke.py`` takes its kernel check from here. Run as a module on a
 machine with a CUDA card, it profiles the kernel on the same input: the
@@ -10,30 +10,31 @@ row a launch waits for:
 from __future__ import annotations
 
 import json
-import subprocess
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.timing import card_name, l2_flush_buffer, timed_ms
+
 # the serving engine's geometry in chip_smoke.py: 8 slots, chunk 32, 32/8
 # heads of 64, block 16, max_len 1024 (64 table entries), 128 pool blocks
 SLOTS, CHUNK, HEADS, KV_HEADS, HEAD_DIM = 8, 32, 32, 8, 64
 BLOCK, MAX_BLOCKS, NUM_BLOCKS = 16, 64, 128
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 
 
-def check_inputs(device):
+def check_inputs(device, *, heads: int = HEADS, kv_heads: int = KV_HEADS,
+                 head_dim: int = HEAD_DIM):
     """(q, k_pool, v_pool, block_tables, starts, n_valid), bf16 / int32 on
-    ``device``, from a numpy seed. Rows: prefill from 0, first decode,
-    idle, long-resident decode, a deep prefill chunk, two rows sharing a
-    reused block (stale rows past seq_end), and a chunk ending at the
-    table's end. Table entries past each row's live blocks are -1; inside
+    ``device``, from a numpy seed; llama3.2-1b's heads by default (olmoe's
+    are ``heads=kv_heads=16, head_dim=128``). Rows: prefill from 0, first
+    decode, idle, long-resident decode, a deep prefill chunk, two rows
+    sharing a reused block (stale rows past seq_end), and a chunk ending at
+    the table's end. Table entries past each row's live blocks are -1; inside
     live ranges, entries that name no pool block (-1, and ids >= the pool's
     size) sit before each chunk, so every valid column still sees its own
     key, and one of them lies inside a window of 128."""
-    B, C, H, K, D, M, N = SLOTS, CHUNK, HEADS, KV_HEADS, HEAD_DIM, MAX_BLOCKS, NUM_BLOCKS
+    B, C, H, K, D, M, N = SLOTS, CHUNK, heads, kv_heads, head_dim, MAX_BLOCKS, NUM_BLOCKS
     rng = np.random.default_rng(7)
     starts = np.asarray([0, 0, 0, 900, 480, 200, 37, 1000], np.int32)
     n_valid = np.asarray([C, 1, 0, 1, C, 1, 17, 24], np.int32)
@@ -91,47 +92,13 @@ def needed_work(tables, starts, n_valid, *, num_blocks: int, block_size: int,
                 flops=4 * D * heads * keys, keys=keys)
 
 
-def bound_ms(work: dict):
-    """(bound in ms, "bytes" or "operations"): the larger of the bytes over
-    HBM3's rate and the flops over the bf16 tensor-core peak."""
-    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = work["flops"] / BF16_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def timed_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after the L2 cache was overwritten. A device-side spin
-    before each start event keeps the card busy while the host enqueues
-    the call, so a launch shorter than its Python call overhead is timed
-    as the kernel, not as the host's gap."""
-    for _ in range(3):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        torch.cuda._sleep(1_000_000)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
-
-
-def l2_flush_buffer(device) -> torch.Tensor:
-    return torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)   # > 50 MB L2
-
-
 def main() -> int:
     from repro_torch.kernels.paged_attention.ops import paged_attention_cuda
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card: this profiles the CUDA kernel")
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip() or torch.cuda.get_device_name(0)
+    card = card_name()
     args = check_inputs(dev)
     q, kp, vp, tables, starts, n_valid = args
     flush = l2_flush_buffer(dev)

@@ -1,90 +1,35 @@
-"""Build, load and launch the CUDA paged-attention kernel.
+"""Load and launch the CUDA paged-attention kernel.
 
-``csrc/paged_attention.cu`` has a plain C interface. At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, and loaded with
-``ctypes``; later uses find the library already built. Nothing is built or
-loaded when this module is imported.
+``csrc/paged_attention.cu`` has a plain C interface; ``kernels.loader``
+builds it with ``nvcc`` at first use and loads it with ``ctypes``.
+Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import loader
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LAUNCHES = loader.LaunchCounter()
+_fn = None
 
 
-class LaunchCounter:
-    """Counts kernel launches; ``chip_smoke.py`` reads it to show that the
-    main path went through the kernel."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
-LAUNCHES = LaunchCounter()
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if fallback.exists():
-        return str(fallback)
-    raise RuntimeError("nvcc not found: the CUDA paged-attention kernel is "
-                       "built from source at first use")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"paged_attention-{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernel unless this source is already built; returns the
-    shared library. ``nvcc``'s ``-Xptxas -v`` report (registers, shared
-    memory, spills) is kept beside it as ``<name>.log``."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)          # atomic: a concurrent build sees all or nothing
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.paged_attention_bf16
+def _load():
+    global _fn
+    if _fn is None:
+        fn = loader.load(SOURCE).paged_attention_bf16
         # q, k_pool, v_pool, tables, starts, n_valid, out; B, C, H, K, D,
         # bs, M, N, window; scale; stream
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _fn = fn
+    return _fn
 
 
 def _check(q, k_pool, v_pool, block_tables, starts, n_valid, block_size, window):
@@ -141,7 +86,7 @@ def paged_attention_cuda(
     N, _, K, _ = k_pool.shape
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5
-    fn = _load().paged_attention_bf16
+    fn = _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

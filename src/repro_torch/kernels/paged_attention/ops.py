@@ -8,27 +8,13 @@ other.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.loader import KERNEL_KINDS, resolve_kernel
 from repro_torch.kernels.paged_attention.kernel import LAUNCHES, paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-
-KERNEL_KINDS = ("auto", "cuda", "ref")
-
-
-def resolve_kernel(kind: str, device: Union[str, torch.device]) -> str:
-    """``auto`` is ``cuda`` for CUDA tensors and ``ref`` for CPU tensors;
-    an explicit ``cuda`` on the CPU raises. ``ref`` runs anywhere."""
-    if kind not in KERNEL_KINDS:
-        raise ValueError(f"kernel must be one of {KERNEL_KINDS}, got {kind!r}")
-    on_cuda = torch.device(device).type == "cuda"
-    if kind == "auto":
-        return "cuda" if on_cuda else "ref"
-    if kind == "cuda" and not on_cuda:
-        raise ValueError(f"kernel='cuda' needs CUDA tensors, got device {device}")
-    return kind
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -1,0 +1,57 @@
+"""Device timing and roofline bounds of the port's kernels, on one card.
+
+``chip_smoke.py`` and each kernel's ``bench.py`` time a kernel, its plain
+version and a library yardstick with these helpers, and bound it by the
+bytes and operations its input needs. Only meaningful on a CUDA card.
+"""
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+
+
+def card_name() -> str:
+    """``nvidia-smi``'s name and power limit of the first card, else the
+    name PyTorch reports."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    lines = smi.stdout.strip().splitlines() if smi.returncode == 0 else []
+    if lines:
+        return lines[0]
+    return f"{torch.cuda.get_device_name(0)}, power limit unknown (nvidia-smi rc={smi.returncode})"
+
+
+def bound_ms(work: dict):
+    """(bound in ms, "bytes" or "operations"): the larger of the bytes over
+    HBM3's rate and the flops over the bf16 tensor-core peak."""
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = work["flops"] / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def timed_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, each timed with
+    CUDA events after the L2 cache was overwritten. A device-side spin
+    before each start event keeps the card busy while the host enqueues
+    the call, so a launch shorter than its Python call overhead is timed
+    as the kernel, not as the host's gap."""
+    for _ in range(3):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def l2_flush_buffer(device) -> torch.Tensor:
+    return torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)   # > 50 MB L2

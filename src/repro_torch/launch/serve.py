@@ -5,9 +5,16 @@
       --slots 8 --max-len 1024 --blocks 160 --chunk 32 --requests 12 \
       --prompt-len 256 --max-new 32
 
-  # on the CPU, the smoke config through the plain attention path:
+  # on the card, full-width olmoe-1b-7b (64 experts, top-8) likewise:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --slots 8 --max-len 1024 --blocks 128 --chunk 32 --requests 12 \
+      --prompt-len 256 --max-new 32
+
+  # on the CPU, a smoke config through the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --requests 4 --stream
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -48,8 +55,9 @@ def main() -> None:
                         "instead of run_until_drained")
     p.add_argument("--paged-kernel", choices=("auto", "cuda", "ref"),
                    default="auto",
-                   help="paged attention: the CUDA kernel, the plain PyTorch "
-                        "version, or auto (cuda on the card, ref on the CPU)")
+                   help="every kernel of the step (paged attention, the MoE "
+                        "expert FFN): the CUDA kernels, their plain PyTorch "
+                        "versions, or auto (cuda on the card, ref on the CPU)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights and of the prompts")
     p.add_argument("--metrics-json", action="store_true",
@@ -90,7 +98,7 @@ def main() -> None:
           f"{total_tokens} tokens in {dt:.2f}s ({total_tokens / dt:.1f} tok/s, "
           f"{engine.ticks} ticks, {m['preemptions']} preemptions) on {engine.device}")
     print(f"[serve:paged] admission order: {engine.admission_log}")
-    print(f"[serve:paged] attention kernel={m['paged_kernel']} "
+    print(f"[serve:paged] kernels={m['paged_kernel']} "
           f"launches={m['kernel_launches']} live-token fraction "
           f"last={m['live_token_fraction']:.3f} mean={m['live_token_fraction_mean']:.3f}")
     for r in done[:3]:

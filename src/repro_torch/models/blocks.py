@@ -1,29 +1,30 @@
 """Decoder block assembly for the paged serving path.
 
-This slice ports the plain-GQA block types ``attn_full`` and ``attn_local``
-(sliding window). MoE, MLA, hybrid and recurrent blocks come with ROADMAP
-items A7-A10.
+The port has the plain-GQA block types ``attn_full`` and ``attn_local``
+(sliding window) and the GQA MoE block ``attn_moe``. MLA, hybrid and
+recurrent blocks come with ROADMAP items A7, A9 and A10.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ParamBuilder, rms_norm
 from repro_torch.models.kvcache import PagedKVCache, PagedLayout
 
 # Block types whose cache is plain GQA k/v and whose paged path is ported.
-PAGED_BLOCK_TYPES = ("attn_full", "attn_local")
+PAGED_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe")
 
 
 def _check(bt: str) -> None:
     if bt not in PAGED_BLOCK_TYPES:
         raise ValueError(f"block type {bt!r} is not ported: the port serves "
-                         f"{PAGED_BLOCK_TYPES} (ROADMAP items A7-A10 bring the rest)")
+                         f"{PAGED_BLOCK_TYPES} (ROADMAP items A7, A9, A10 bring the rest)")
 
 
 def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
@@ -32,7 +33,10 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
     b.param("ln1", (d,), init="zeros")
     b.param("ln2", (d,), init="zeros")
     attn.init_gqa(b.scope("attn"), d, cfg.attention)
-    mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
+    if bt.endswith("_moe"):
+        moe_mod.init_moe(b.scope("moe"), d, cfg.moe)
+    else:
+        mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
 
 
 def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
@@ -47,9 +51,14 @@ def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
 
 def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
                       cache: Dict[str, Any], paged: PagedLayout,
-                      paged_kernel="auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
+                      paged_kernel: str = "auto"
+                      ) -> Tuple[torch.Tensor, Dict[str, Any], Union[torch.Tensor, float]]:
     """Pre-norm residual block: GQA attention through the block pool, then
-    the MLP. ``attn_local`` attends within ``sliding_window``."""
+    the MLP, or the MoE FFN for ``attn_moe``. ``attn_local`` attends within
+    ``sliding_window``. ``paged_kernel`` selects every kernel of the block
+    (``"auto"``, ``"cuda"`` or ``"ref"``). Returns ``(x, cache, aux)``,
+    ``aux`` being the MoE router losses: a float32 scalar tensor, or the
+    float 0.0 for a dense block (nothing is launched for it)."""
     _check(bt)
     a = cfg.attention
     window = a.sliding_window if bt.endswith("_local") else None
@@ -60,5 +69,13 @@ def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
                                            kernel=paged_kernel)
     x = x + y_attn
     h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
-    x = x + mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
-    return x, {"k": pkv.k_pool, "v": pkv.v_pool}
+    if bt.endswith("_moe"):
+        # padding columns are masked out of routing, so they cannot take
+        # expert capacity from real tokens
+        y_ffn, aux = moe_mod.moe_ffn(params["moe"], h2, cfg.moe, cfg.act,
+                                     token_mask=paged.token_valid(x.shape[1]),
+                                     kernel=paged_kernel)
+    else:
+        y_ffn = mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
+        aux = 0.0
+    return x + y_ffn, {"k": pkv.k_pool, "v": pkv.v_pool}, aux

@@ -8,11 +8,11 @@ the loop unrolled.
 Entry points:
   init_params(cfg, generator, device)              -> params
   init_paged_cache(cfg, num_blocks, block_size)    -> cache
-  forward(cfg, params, tokens, cache=, paged=)     -> (logits, cache)
+  forward(cfg, params, tokens, cache=, paged=)     -> (logits, cache, aux)
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -25,14 +25,22 @@ from repro_torch.models.kvcache import PagedLayout
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(pattern, repeats), ...] covering cfg.num_layers in order: the JAX
-    package's plan for plain attention stacks (the bridge reads its group
-    structure). Recurrent, MoE and hybrid stacks are ROADMAP items A8-A10."""
+    package's plan for plain attention and GQA MoE stacks (the bridge reads
+    its group structure). MLA stacks are ROADMAP item A7, recurrent and
+    hybrid ones A9 and A10."""
     a = cfg.attention
-    if (a is None or cfg.xlstm is not None or cfg.ssm is not None
-            or cfg.family == "moe" or cfg.parallel_ssm_attn):
-        raise NotImplementedError(f"{cfg.name}: only plain attention stacks are "
-                                  "ported (ROADMAP items A8-A10 bring the rest)")
+    if a is None or cfg.xlstm is not None or cfg.ssm is not None or cfg.parallel_ssm_attn:
+        raise NotImplementedError(f"{cfg.name}: recurrent and hybrid stacks are not "
+                                  "ported (ROADMAP items A9-A10)")
     L = cfg.num_layers
+    if cfg.family == "moe":
+        if a.kind == "mla":
+            raise NotImplementedError(f"{cfg.name}: the MLA blocks mla_dense/mla_moe "
+                                      "are ROADMAP item A7")
+        first = cfg.moe.first_dense_layers
+        groups = [(("attn_full",), first)] if first else []
+        groups.append((("attn_moe",), L - first))
+        return groups
     if a.local_global_ratio:
         cyc = ("attn_local",) * a.local_global_ratio + ("attn_full",)
         n = L // len(cyc)
@@ -99,12 +107,14 @@ def forward(
     *,
     cache: Dict[str, Any],
     paged: PagedLayout,
-    paged_kernel="auto",                        # "auto" | "cuda" | "ref" | callable
+    paged_kernel: str = "auto",                 # "auto" | "cuda" | "ref"
     compute_dtype: torch.dtype = torch.bfloat16,
-) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Paged serving forward: float32 logits (B, S, V) and the cache, whose
-    pools are updated in place. The dense/contiguous forward comes with
-    ROADMAP item A7."""
+) -> Tuple[torch.Tensor, Dict[str, Any], Union[torch.Tensor, float]]:
+    """Paged serving forward: float32 logits (B, S, V), the cache, whose
+    pools are updated in place, and the MoE router losses summed over the
+    layers (a float32 scalar tensor; the float 0.0 for a dense stack). ``paged_kernel`` selects every
+    kernel of the path: paged attention and the MoE expert FFN. The
+    dense/contiguous forward comes with ROADMAP item A7."""
     if paged is None or cache is None:
         raise NotImplementedError("the port's forward runs the paged path only; "
                                   "the contiguous path is ROADMAP item A7")
@@ -113,12 +123,14 @@ def forward(
     # the JAX package rounds sqrt(d_model) to the compute dtype first
     x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype))
     new_layers = []
+    aux = 0.0
     for bt, lp, lc in zip(flat_block_types(cfg), params["layers"], cache["layers"]):
-        x, lc = blocks_mod.apply_block_paged(bt, _cast(lp, compute_dtype), x, cfg,
-                                             lc, paged, paged_kernel)
+        x, lc, a = blocks_mod.apply_block_paged(bt, _cast(lp, compute_dtype), x, cfg,
+                                                lc, paged, paged_kernel)
         new_layers.append(lc)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
     head = (params["embed"].to(compute_dtype).t() if cfg.tie_embeddings
             else params["head"].to(compute_dtype))
     logits = softcap((x @ head).float(), cfg.final_logit_softcap)
-    return logits, {"layers": new_layers}
+    return logits, {"layers": new_layers}, aux

@@ -1,6 +1,6 @@
 """The paged serve step: block-pool cache, decode and chunked prefill in one
-fixed shape, on one device. Mesh and fabric lowering are later slices
-(ROADMAP A11/A14)."""
+fixed shape, on one device, for dense and MoE GQA stacks. Mesh and fabric
+lowering are later slices (ROADMAP A11/A14)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,9 +10,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.paged_attention import resolve_kernel
+from repro_torch.kernels import moe_jam, paged_attention
+from repro_torch.kernels.loader import resolve_kernel
 from repro_torch.models import model as model_lib
 from repro_torch.models.kvcache import PagedLayout
+
+
+# the launch counter of every kernel a step can run
+LAUNCH_COUNTERS = {"paged_attention": paged_attention.LAUNCHES,
+                   "moe_jam": moe_jam.LAUNCHES}
 
 
 @dataclasses.dataclass
@@ -35,7 +41,9 @@ def make_paged_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
     get a token the scheduler ignores. ``emit="all"`` returns the argmax at
     every column, (slots, chunk). The pools are updated in place.
 
-    ``meta["paged_kernel"]`` holds the resolved kernel kind.
+    ``kernel`` selects every kernel of the step (paged attention and the
+    MoE expert FFN); ``meta["paged_kernel"]`` holds the resolved kind. The
+    MoE router losses are dropped.
     ``meta["nonfinite_logits"]`` is a device counter of rows (with
     ``n_valid > 0``) whose emitted logits held a NaN or an infinity; it is
     read without a per-step sync.
@@ -51,9 +59,9 @@ def make_paged_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
     @torch.no_grad()
     def paged_step(params, cache, tokens, block_tables, starts, n_valid):
         layout = PagedLayout(block_tables, starts, n_valid, block_size)
-        logits, cache = model_lib.forward(cfg, params, tokens, cache=cache,
-                                          paged=layout, paged_kernel=paged_kernel,
-                                          compute_dtype=compute_dtype)
+        logits, cache, _ = model_lib.forward(cfg, params, tokens, cache=cache,
+                                             paged=layout, paged_kernel=paged_kernel,
+                                             compute_dtype=compute_dtype)
         if emit == "all":
             bad = ~torch.isfinite(logits).all(-1) & layout.token_valid(logits.shape[1])
             nonfinite.add_(bad.sum())

@@ -15,6 +15,23 @@ chunk 4) and on a smaller pool that forces preemption.
   may flip: the exceptions are counted and reported (at most one in ten
   tokens is allowed).
 * ``RequestHandle.tokens()`` streams exactly the drained run's tokens.
+* ``get_smoke("olmoe-1b-7b")`` (MoE, 8 experts, top-2) on a pool that
+  forces preemption under FIFO: the schedule matches the JAX engine's
+  exactly. A MoE layer's capacity and drops depend on the whole step
+  batch, so a single-sequence forward is no oracle for its tokens: every
+  step the port ran is replayed instead through the JAX paged forward in
+  float32 on the same inputs. The port's engine with its step built in
+  float32 must emit that forward's argmax in every row, except where its
+  top-2 margin is under ``F32_MARGIN_TOL`` (float32 noise; at most one in
+  ten rows). In bfloat16 the router turns rounding noise into discrete
+  changes (a token at a near-tie of its top-k takes another expert, and
+  its request's later tokens see that through attention; the JAX package
+  notes the same envelope for its own MoE references), so the bf16
+  engine's rows must be the float32 argmax or within the llama margin
+  ``MARGIN_TOL`` in at least ``MOE_BF16_SHARE`` of the rows. (On the CPU
+  the port's expert FFN is the moe_jam kernel's plain version: float32
+  sums, ``h`` rounded to bf16 once; the JAX model's ``expert_ffn`` rounds
+  ``g``, ``u`` and ``h``. Neither rounds in float32.)
 """
 import jax
 import jax.numpy as jnp
@@ -28,14 +45,23 @@ from repro.configs.registry import get_smoke as j_get_smoke
 from repro.engine import Engine as JEngine
 from repro.engine import Request as JRequest
 from repro.models import model as jmodel
+from repro.models.kvcache import PagedLayout as JPagedLayout
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.registry import get_smoke
 from repro_torch.engine import Engine, Request
+from repro_torch.models import model as tmodel
+from repro_torch.runtime.steps import make_paged_serve_step
 
 # bf16 logits of the smoke model deviate from float32 by up to ~2.5e-2
 # (random 16-token prompts, logits up to ~3 in magnitude); two such errors
 # of opposite sign can flip a top-2 margin below twice that
 MARGIN_TOL = 5e-2
+# float32 logits of the two packages agree to ~1e-4 (test_torch_model)
+F32_MARGIN_TOL = 1e-3
+# olmoe smoke, bf16 against float32: a router flip moves a row's logits by
+# up to ~1.2 (logits ~1 in magnitude); 1-3 of ~53 step rows flipped in the
+# workloads measured
+MOE_BF16_SHARE = 0.85
 GEOM = dict(slots=3, max_len=32, num_blocks=16, block_size=4, chunk=4)
 
 
@@ -127,7 +153,8 @@ def test_engine_schedule_and_tokens_match_jax(setup, scheduler, kw, n, max_new, 
     if scheduler == "priority":
         assert te.admission_log == [3, 1, 2, 0]
     m = te.metrics()
-    assert m["paged_kernel"] == "ref" and m["kernel_launches"] == 0
+    assert m["paged_kernel"] == "ref"
+    assert m["kernel_launches"] == {"paged_attention": 0, "moe_jam": 0}
     assert m["nonfinite_logits"] == 0 and m["steps"] <= m["ticks"]
     assert all(len(r.out_tokens) == max_new for r in te.completed)
     faults, exceptions, total = _oracle_exceptions(setup, prompts, te)
@@ -155,3 +182,95 @@ def test_engine_defaults_to_cuda_and_raises_without_it(setup):
         Engine(setup["cfg"], device="cpu", kernel="cuda", **GEOM)
     with pytest.raises(NotImplementedError, match="A7"):
         Engine(setup["cfg"], device="cpu", cache="slots", **GEOM)
+
+
+@pytest.fixture(scope="module")
+def olmoe(setup):
+    jcfg = j_get_smoke("olmoe-1b-7b")
+    with setup["mesh"]:
+        jparams = jax.jit(lambda k: jmodel.init_params(jcfg, k)[0])(jax.random.PRNGKey(2))
+    cfg = get_smoke("olmoe-1b-7b")
+    bs = GEOM["block_size"]
+
+    @jax.jit
+    def jstep(params, cache, tok, tab, st, nv):
+        logits, cache, _ = jmodel.forward(jcfg, params, tok, cache=cache,
+                                          paged=JPagedLayout(tab, st, nv, bs),
+                                          paged_kernel="ref", compute_dtype=jnp.float32)
+        return logits, cache
+
+    run = RunConfig(model=jcfg, shape=SHAPES["decode_32k"],
+                    sharding=ShardingConfig(fsdp_params=False, seq_axis=None))
+    return dict(setup, jcfg=jcfg, cfg=cfg, run=run, jparams=jparams, jstep=jstep,
+                tparams=params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
+
+
+def _serve_recorded(s, prompts, max_new, dtype, **kw):
+    """The port's FIFO engine on ``prompts``, its step built in ``dtype``;
+    returns it and each step's inputs and emitted tokens (numpy)."""
+    e = Engine(s["cfg"], device="cpu", cache="auto", kernel="ref", **{**GEOM, **kw})
+    e.load_params(s["tparams"])
+    if dtype != torch.bfloat16:
+        e.bundle = make_paged_serve_step(
+            s["cfg"], slots=e.slots, chunk=e.chunk, num_blocks=e.num_blocks,
+            block_size=e.block_size, max_blocks_per_seq=e.max_blocks_per_seq,
+            kernel="ref", device="cpu", compute_dtype=dtype)
+        e.cache = tmodel.init_paged_cache(s["cfg"], e.num_blocks, e.block_size,
+                                          dtype=dtype, device="cpu")
+    steps, inner = [], e.bundle.fn
+
+    def recording(params, cache, tokens, tables, starts, n_valid):
+        out = inner(params, cache, tokens, tables, starts, n_valid)
+        steps.append([a.numpy().copy() for a in (tokens, tables, starts, n_valid, out[0])])
+        return out
+
+    e.bundle.fn = recording
+    for rid, p in enumerate(prompts):
+        e.submit(Request(rid, p, max_new_tokens=max_new))
+    e.run_until_drained()
+    return e, steps
+
+
+def _against_f32(s, steps, num_blocks, margin):
+    """Replay the steps through the JAX paged forward in float32; returns
+    (rows, rows equal to its argmax, faults: rows that differ by a top-2
+    margin >= ``margin``)."""
+    jcache = jmodel.init_paged_cache(s["jcfg"], num_blocks, GEOM["block_size"],
+                                     dtype=jnp.float32)
+    rows, equal, faults = 0, 0, []
+    for i, (tok, tab, st, nv, got) in enumerate(steps):
+        logits, jcache = s["jstep"](s["jparams"], jcache,
+                                    *map(jnp.asarray, (tok, tab, st, nv)))
+        logits = np.asarray(logits)
+        for r in np.nonzero(nv > 0)[0]:
+            row = logits[r, nv[r] - 1]
+            top2 = np.sort(row)[-2:]
+            rows += 1
+            if got[r] == int(np.argmax(row)):
+                equal += 1
+            elif top2[1] - top2[0] >= margin:
+                faults.append((i, int(r), int(got[r]), int(np.argmax(row)),
+                               float(top2[1] - top2[0])))
+    return rows, equal, faults
+
+
+def test_olmoe_engine_schedule_and_tokens_match_jax(olmoe):
+    kw = dict(slots=2, num_blocks=10)
+    prompts = _workload(olmoe["cfg"], 3, 3, lo=10, hi=11)
+    je = _serve_jax(olmoe, prompts, 14, [0, 0, 0], scheduler="fifo", **kw)
+    for dtype, margin in ((torch.float32, F32_MARGIN_TOL), (torch.bfloat16, MARGIN_TOL)):
+        e, steps = _serve_recorded(olmoe, prompts, 14, dtype, **kw)
+        assert e.cache_kind == "paged"
+        assert _schedule(e) == _schedule(je) and e.preempt_count >= 1
+        assert all(len(r.out_tokens) == 14 for r in e.completed)
+        m = e.metrics()
+        assert m["kernel_launches"] == {"paged_attention": 0, "moe_jam": 0}
+        assert m["nonfinite_logits"] == 0
+        rows, equal, faults = _against_f32(olmoe, steps, kw["num_blocks"], margin)
+        print(f"[olmoe {dtype}] {equal}/{rows} step rows equal the float32 argmax; "
+              f"{len(faults)} differ by a top-2 margin >= {margin}")
+        if dtype == torch.float32:
+            assert not faults, faults
+            assert rows - equal <= rows // 10
+        else:
+            assert rows - len(faults) >= MOE_BF16_SHARE * rows, faults

@@ -8,12 +8,21 @@ port's dependencies:
 * the paged-attention kernel against its plain version over table holes
   (past the live blocks, and inside the live range: -1 and ids past the
   pool), reused blocks, n_valid in {0, 1, C}, window on/off, block sizes,
-  group sizes and head dims (16, 64, 66, 256), valid columns only; each
-  element within 2e-2 * (min(1, its row's rms) + |plain|) (bf16 output;
-  p rounded to bf16 before P.V), never looser than atol = rtol = 2e-2;
-* the wrapper's input checks;
-* the smoke engine through the kernel against the same engine through the
-  plain version: identical schedule, one launch per layer per step.
+  group sizes and head dims (16, 64, 66, 128 at G = 1 as olmoe-1b-7b has
+  it, 256), valid columns only; each element within 2e-2 * (min(1, its
+  row's rms) + |plain|) (bf16 output; p rounded to bf16 before P.V), never
+  looser than atol = rtol = 2e-2;
+* the moe_jam expert-FFN kernel against its plain version at the smoke's
+  and the serving engine's bucket shapes and at uneven ones (C not a
+  multiple of 16, C over one 64-row tile), silu and gelu, with empty,
+  partial and full experts and without counts; each element within
+  1e-2 * (rms of its (expert, row) output row + |plain|) (bf16 output of
+  the same float32 sums in another order: the neighbouring bf16 value at
+  most), empty rows exactly zero;
+* the wrappers' input checks;
+* the smoke engines through the kernels against the same engines through
+  the plain versions: identical schedule, one launch of each kernel per
+  layer per step.
 """
 import numpy as np
 import pytest
@@ -21,12 +30,14 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.engine import Engine, Request
+from repro_torch.kernels import moe_jam
 from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
                                                  paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_ref)
 
 BF16_TOL = 2e-2
+MOE_TOL = 1e-2
 
 
 @pytest.fixture
@@ -61,7 +72,7 @@ def _on(dev, arrays):
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [None, 7])
 @pytest.mark.parametrize("bs,G,D,C", [(4, 1, 16, 4), (16, 4, 64, 32), (8, 2, 256, 8),
-                                      (16, 4, 66, 3), (5, 8, 64, 9)])
+                                      (16, 4, 66, 3), (5, 8, 64, 9), (16, 1, 128, 32)])
 def test_kernel_matches_plain_version(cuda, bs, G, D, C, window):
     args = _on(cuda, _case(np.random.default_rng(bs * G + D), bs=bs, B=5, C=C, K=2,
                            G=G, D=D, M=6))
@@ -108,6 +119,89 @@ def test_smoke_engine_through_kernel(cuda):
         runs[kernel] = (e.admission_log, e.ticks, e.preempt_count, m)
     (log_c, ticks_c, pre_c, m_c), (log_r, ticks_r, pre_r, m_r) = runs["cuda"], runs["ref"]
     assert (log_c, ticks_c, pre_c) == (log_r, ticks_r, pre_r) and pre_c >= 1
-    assert m_c["kernel_launches"] == cfg.num_layers * m_c["steps"]
-    assert m_r["kernel_launches"] == 0
+    assert m_c["kernel_launches"] == {"paged_attention": cfg.num_layers * m_c["steps"],
+                                      "moe_jam": 0}
+    assert m_r["kernel_launches"] == {"paged_attention": 0, "moe_jam": 0}
+    assert m_c["nonfinite_logits"] == 0
+
+
+def _moe_case(rng, e, c, d, f, fill):
+    if fill == "none":
+        counts = None
+    else:
+        counts = rng.integers(1, c, size=e)
+        counts[0], counts[-1] = 0, c                 # an empty and a full expert
+        if e > 3:
+            counts[1] = min(17, c)                    # ends inside a 16-row group
+    x = rng.normal(size=(e, c, d)).astype(np.float32)
+    if counts is not None:
+        x *= (np.arange(c)[None, :] < counts[:, None])[:, :, None]
+    ws = [rng.normal(size=shape).astype(np.float32) / np.sqrt(shape[1])
+          for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    return x, ws, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("fill", ["mixed", "none"])
+@pytest.mark.parametrize("e,c,d,f", [(8, 8, 64, 32), (3, 24, 64, 96), (4, 70, 96, 64),
+                                     (64, 40, 2048, 1024)])
+def test_moe_jam_kernel_matches_plain_version(cuda, e, c, d, f, fill, act):
+    x, ws, counts = _moe_case(np.random.default_rng(e * c + f), e, c, d, f, fill)
+    bf = lambda a: torch.from_numpy(a).to(cuda, torch.bfloat16)
+    xt, wg, wu, wd = bf(x), *map(bf, ws)
+    cnt = None if counts is None else torch.from_numpy(counts.astype(np.int32)).to(cuda)
+    before = moe_jam.LAUNCHES.count
+    got = moe_jam.moe_jam_ffn(xt, wg, wu, wd, act, counts=cnt)
+    want = moe_jam.moe_jam_ffn_ref(xt, wg, wu, wd, act, counts=cnt)
+    torch.cuda.synchronize()
+    assert moe_jam.LAUNCHES.count == before + 1
+    assert got.shape == (e, c, d) and got.dtype == torch.bfloat16
+    err, worst, bad = moe_jam.compare(got, want, tol=MOE_TOL)
+    assert bad == 0, (err, worst)
+    if cnt is not None:
+        empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
+        assert (got[empty] == 0).all()
+
+
+@pytest.mark.gpu
+def test_moe_jam_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, ws, counts = _moe_case(np.random.default_rng(0), 2, 8, 64, 32, "mixed")
+    bf = lambda a: torch.from_numpy(a).to(cuda, torch.bfloat16)
+    xt, wg, wu, wd = bf(x), *map(bf, ws)
+    cnt = torch.from_numpy(counts.astype(np.int32)).to(cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        moe_jam.moe_jam_ffn_cuda(xt.float(), wg, wu, wd)
+    with pytest.raises(ValueError, match="int32"):
+        moe_jam.moe_jam_ffn_cuda(xt, wg, wu, wd, counts=cnt.long())
+    with pytest.raises(ValueError, match="do not fit"):
+        moe_jam.moe_jam_ffn_cuda(xt, wg, wu, wd.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="multiples of 32"):
+        moe_jam.moe_jam_ffn_cuda(xt[:, :, :48].contiguous(), wg[:, :48].contiguous(),
+                                 wu[:, :48].contiguous(), wd[:, :, :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_jam.moe_jam_ffn_cuda(xt.transpose(0, 1), wg, wu, wd)
+    with pytest.raises(ValueError, match="act must be"):
+        moe_jam.moe_jam_ffn_cuda(xt, wg, wu, wd, "relu")
+
+
+@pytest.mark.gpu
+def test_olmoe_smoke_engine_through_kernels(cuda):
+    cfg = get_smoke("olmoe-1b-7b")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(10,)).astype(np.int32) for _ in range(3)]
+    runs = {}
+    for kernel in ("cuda", "ref"):
+        e = Engine(cfg, device=cuda, kernel=kernel, slots=2, max_len=32, num_blocks=10,
+                   block_size=4, chunk=4)
+        e.load_params(seed=0)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=14))
+        e.run_until_drained()
+        runs[kernel] = (e.admission_log, e.ticks, e.preempt_count, e.metrics())
+    (log_c, ticks_c, pre_c, m_c), (log_r, ticks_r, pre_r, m_r) = runs["cuda"], runs["ref"]
+    assert (log_c, ticks_c, pre_c) == (log_r, ticks_r, pre_r) and pre_c >= 1
+    n = cfg.num_layers * m_c["steps"]
+    assert m_c["kernel_launches"] == {"paged_attention": n, "moe_jam": n}
+    assert m_r["kernel_launches"] == {"paged_attention": 0, "moe_jam": 0}
     assert m_c["nonfinite_logits"] == 0

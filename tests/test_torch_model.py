@@ -3,11 +3,14 @@
 ``repro_torch.models.model.forward`` against ``repro.models.model.forward(
 ..., paged=, paged_kernel="ref", compute_dtype=float32)`` with float32 pools
 on ``get_smoke("llama3.2-1b")`` (2 layers, d_model 64, 4 heads / 2 kv heads)
-with the same weights (JAX ``init_params`` -> numpy -> ``params_from_jax``),
-over a scripted schedule of three steps: prefill chunks, a decode row, an
-idle row, table holes and a reused block with stale rows. Logits and both
-pools of every layer are compared, valid columns only, atol 1e-4 (float32
-through two layers; summation order differs).
+and on ``get_smoke("olmoe-1b-7b")`` (2 MoE layers, 4/4 heads, 8 experts,
+top-2) with the same weights (JAX ``init_params`` -> numpy ->
+``params_from_jax``), over a scripted schedule of three steps: prefill
+chunks, a decode row, an idle row, table holes and a reused block with
+stale rows. Logits and both pools of every layer are compared, valid
+columns only, atol 1e-4 (float32 through two layers; summation order
+differs); the MoE router losses to rtol 1e-5. The MoE layers route the
+padding columns to the drop slot in both packages (``token_mask``).
 """
 import jax
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import torch
 
 from repro.configs.registry import get_smoke as j_get_smoke
 from repro.models import model as jmodel
+from repro_torch.configs.registry import default_cache_backend
 from repro.models.kvcache import PagedLayout as JPagedLayout
 from repro_torch.bridge import flatten_groups, params_from_jax
 from repro_torch.configs.registry import get_config, get_smoke
@@ -114,9 +118,9 @@ def test_paged_forward_matches_jax_over_schedule(smoke):
                                             cache=jcache, paged=jl, paged_kernel="ref",
                                             compute_dtype=jnp.float32)
         tl = PagedLayout(*(torch.from_numpy(a) for a in (tab, st, nv)), bs)
-        tlogits, tcache = tmodel.forward(cfg, tparams, torch.from_numpy(tok),
-                                         cache=tcache, paged=tl, paged_kernel="ref",
-                                         compute_dtype=torch.float32)
+        tlogits, tcache, _ = tmodel.forward(cfg, tparams, torch.from_numpy(tok),
+                                            cache=tcache, paged=tl, paged_kernel="ref",
+                                            compute_dtype=torch.float32)
         assert tlogits.dtype == torch.float32
         valid = np.arange(4)[None, :] < nv[:, None]
         np.testing.assert_allclose(tlogits.numpy()[valid], np.asarray(jlogits)[valid],
@@ -148,3 +152,84 @@ def test_serve_step_emits_argmax_at_last_valid_column(smoke):
     assert outs["all"].shape == (3, 4) and outs["last"].shape == (3,)
     last = (nv.long() - 1).clamp(min=0)
     assert torch.equal(outs["last"], outs["all"][torch.arange(3), last])
+
+
+# ---------------------------------------------------------------------------
+# olmoe-1b-7b: the GQA MoE stack
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def olmoe():
+    jcfg = j_get_smoke("olmoe-1b-7b")
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(1))[0]
+    return get_smoke("olmoe-1b-7b"), jcfg, jparams, jax.tree.map(np.asarray, jparams)
+
+
+def test_olmoe_config_and_layer_plan_match_jax(olmoe):
+    import dataclasses
+
+    from repro.configs.registry import get_config as j_get_config
+    cfg, jcfg, _, _ = olmoe
+    assert get_config("olmoe-1b-7b").to_json() == j_get_config("olmoe-1b-7b").to_json()
+    assert cfg.to_json() == jcfg.to_json()
+    assert default_cache_backend(get_config("olmoe-1b-7b")) == "paged"
+    assert tmodel.layer_plan(cfg) == jmodel.layer_plan(jcfg) == [(("attn_moe",), 2)]
+    for first in (1, 2):
+        t = dataclasses.replace(cfg, num_layers=3,
+                                moe=dataclasses.replace(cfg.moe, first_dense_layers=first))
+        j = dataclasses.replace(jcfg, num_layers=3,
+                                moe=dataclasses.replace(jcfg.moe, first_dense_layers=first))
+        assert tmodel.layer_plan(t) == jmodel.layer_plan(j)
+    mla = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, kind="mla"))
+    with pytest.raises(NotImplementedError, match="A7"):
+        tmodel.layer_plan(mla)
+
+
+def test_olmoe_bridge_moves_moe_leaves_bit_for_bit(olmoe):
+    cfg, _, jparams, _ = olmoe
+    bf = jax.tree.map(lambda t: np.asarray(t.astype(jnp.bfloat16)), jparams)
+    p = params_from_jax(bf, cfg)
+    moe = bf["groups"][0][0]["moe"]
+    assert moe["router"].shape == (2, 64, 8) and moe["w_gate"].shape == (2, 8, 64, 32)
+    assert moe["w_down"].shape == (2, 8, 32, 64)
+    assert set(p) == {"embed", "head", "final_norm", "layers"}
+    for i, layer in enumerate(p["layers"]):
+        assert set(layer) == {"ln1", "ln2", "attn", "moe"}
+        assert set(layer["moe"]) == set(moe)
+        for key, leaf in moe.items():
+            got = layer["moe"][key]
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          leaf[i].view(np.int16), err_msg=key)
+    fresh = tmodel.init_params(cfg, device="cpu")
+    for layer in fresh["layers"]:
+        assert ({k: tuple(v.shape) for k, v in _leaves(layer)}
+                == {k: v.shape[1:] for k, v in _leaves(bf["groups"][0][0])})
+
+
+def test_olmoe_paged_forward_matches_jax_over_schedule(olmoe):
+    cfg, jcfg, jparams, np_params = olmoe
+    N, bs = 8, 4
+    tparams = params_from_jax(np_params, cfg)
+    jcache = jmodel.init_paged_cache(jcfg, N, bs, dtype=jnp.float32)
+    tcache = tmodel.init_paged_cache(cfg, N, bs, dtype=torch.float32, device="cpu")
+    for step, (tok, tab, st, nv) in enumerate(_SCHEDULE):
+        tok, tab = np.asarray(tok, np.int32), np.asarray(tab, np.int32)
+        st, nv = np.asarray(st, np.int32), np.asarray(nv, np.int32)
+        jl = JPagedLayout(jnp.asarray(tab), jnp.asarray(st), jnp.asarray(nv), bs)
+        jlogits, jcache, jaux = jmodel.forward(jcfg, jparams, jnp.asarray(tok),
+                                               cache=jcache, paged=jl, paged_kernel="ref",
+                                               compute_dtype=jnp.float32)
+        tl = PagedLayout(*(torch.from_numpy(a) for a in (tab, st, nv)), bs)
+        tlogits, tcache, taux = tmodel.forward(cfg, tparams, torch.from_numpy(tok),
+                                               cache=tcache, paged=tl, paged_kernel="ref",
+                                               compute_dtype=torch.float32)
+        valid = np.arange(4)[None, :] < nv[:, None]
+        np.testing.assert_allclose(tlogits.numpy()[valid], np.asarray(jlogits)[valid],
+                                   atol=ATOL, rtol=0, err_msg=f"step {step}")
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+        jlayers = flatten_groups(jax.tree.map(np.asarray, jcache["groups"]), cfg)
+        for i, (jl_, tl_) in enumerate(zip(jlayers, tcache["layers"])):
+            for kv in ("k", "v"):
+                np.testing.assert_allclose(tl_[kv].numpy(), jl_[kv], atol=ATOL, rtol=0,
+                                           err_msg=f"step {step} layer {i} {kv}")
