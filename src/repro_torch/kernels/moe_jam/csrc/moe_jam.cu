@@ -37,10 +37,10 @@
 //     zero-filled by cp.async and never read from memory.
 //
 // What bounds it on an H100: bytes. Each expert's weights (3 x D x F bf16,
-// 12.6 MB at olmoe's widths) are used for at most C rows: at C = 40 that
-// is 4 x 40 = 160 flops per weight pair of bytes, 80 flops per byte,
-// under the ~295 flops per byte where the tensor cores, not HBM, would be
-// the limit. The design reads each weight once per 64-row tile (once in
+// 12.6 MB at olmoe's widths) are used for at most C rows, 2 flops per
+// 2-byte weight per row: at C = 40 that is 40 flops per byte, under the
+// ~295 flops per byte where the tensor cores, not HBM, would be the
+// limit. The design reads each weight once per 64-row tile (once in
 // all at the engine's C = 40) and skips the weights of empty experts; x
 // and h tiles are re-read by the CTAs of one expert from L2.
 //
