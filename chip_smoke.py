@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; with no card it fails at once; each
 phase prints the seconds it took):
 
 1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build: compile every kernel of both paths from ``src/`` (one ``nvcc``
-   per source, all started together) and print ptxas's register /
+2. build: compile every kernel of the three paths from ``src/`` (one
+   ``nvcc`` per source, all started together) and print ptxas's register /
    shared-memory / spill report;
 3. kernel vs plain: call each kernel's wrapper at its path's shapes on the
    card and hold it against its plain PyTorch version (stated tolerance):
@@ -16,10 +16,13 @@ phase prints the seconds it took):
    olmoe-1b-7b's (16/16 of 128), valid columns only, the tables holding
    entries that name no pool block inside live ranges; the moe_jam expert
    FFN at olmoe's buckets (64 experts x 40 rows x 2048, F 1024) with empty,
-   partial and full experts. Each is timed (kernel, plain version, and one
-   PyTorch library yardstick the port never calls) with the L2 cache
-   flushed before every launch, as the serving loop finds it, and bounded
-   by the bytes and operations this input needs;
+   partial and full experts; the ssm_scan selective scan at mamba-130m's
+   engine shape (32 rows x 32 columns x 1536 channels, N 16) with 0, 1,
+   partial and full valid columns per row. Each is timed (kernel, plain
+   version, and one PyTorch library yardstick the port never calls, where
+   there is one) with the L2 cache flushed before every launch, as the
+   serving loop finds it, and bounded by the bytes and operations this
+   input needs;
 4. end to end, ``llama3.2-1b``: a full-width paged ``Engine`` (16 layers,
    random bf16 weights from a seed) serves 12 requests with preemption;
    launch counts are read around exactly that run; the same step inputs
@@ -29,7 +32,14 @@ phase prints the seconds it took):
    layers, 64 experts, top-8, 6.9 B random bf16 parameters) on the same
    12 requests; every layer runs both kernels, so each kernel's launches
    must be 16 x steps;
-6. the last line: ``{"ok": true, "device": {...}}``.
+6. end to end, ``mamba-130m``: a full-width recurrent ``Engine`` (24 SSM
+   layers, 168 M random bf16 parameters) serves 48 requests on 32 slots,
+   with two forced preemptions (a request mid-prefill after tick 3, one
+   in decode after tick 12) that must snapshot and resume; ssm_scan's
+   launches must be 24 x steps; every request's tokens must be identical
+   to a second run without the forced preemptions (the backend's
+   exactness contract); then the replay and the logits check as above;
+7. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -46,7 +56,12 @@ import numpy as np
 # twice (the schedule depends on lengths only, not on the weights)
 SLOTS, CHUNK, BLOCK, MAX_LEN, NUM_BLOCKS = 8, 32, 16, 1024, 128
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW, SEED = 12, 64, 384, 32, 0
-ARCHS = ("llama3.2-1b", "olmoe-1b-7b")
+# the recurrent engine (mamba-130m): 32 slots, the same chunk and request
+# generator, 48 requests; after these ticks, preempt the first running
+# request that is mid-prefill, then one that is in decode
+REC_SLOTS, REC_REQUESTS = 32, 48
+REC_PREEMPT_AFTER = {3: "prefill", 12: "decode"}
+ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba-130m")
 # paged attention vs plain, per element: |kernel - plain| <= 2e-2 * (min(1,
 # rms of the element's (request, column, head) row) + |plain|). bf16
 # output, and p rounded to bf16 before P.V at different points
@@ -56,6 +71,12 @@ KERNEL_TOL = 2e-2
 # output may land on the neighbouring bf16 value, at most 2^-7 of |plain|;
 # empty rows must be exact zeros
 MOE_TOL = 1e-2
+# ssm_scan vs plain (``ssm_scan.compare``): y on valid columns, per element
+# within 1e-2 * (rms of its (row, column) + |plain|) (the same float32 sum,
+# with and without fused multiply-adds, rounded to bf16: the neighbouring
+# bf16 value at most); h_last (float32) within 1e-4 * (1 + |plain|); a row
+# with no valid column returns h0 bit for bit, y past n_valid is zero
+SCAN_Y_TOL, SCAN_H_TOL = 1e-2, 1e-4
 # the replayed mixed step, on identical inputs. llama: every valid row's
 # max over the vocab of |logit cuda - logit ref| within 2e-2 (logits ~0.13
 # std at this init, tied head; bf16 x 16 layers). olmoe: its router turns
@@ -64,8 +85,12 @@ MOE_TOL = 1e-2
 # tokens see it through attention), so both bf16 paths are held against
 # the plain path in float32 instead: the kernel path's median and mean row
 # error (max |logit - logit_f32| over the vocab) within 1.5x the plain
-# bf16 path's
-LOGITS = {"llama3.2-1b": dict(atol=2e-2), "olmoe-1b-7b": dict(vs_f32=1.5)}
+# bf16 path's. mamba: the same float32 control (logits ~1 std at this
+# init, untied head, 24 layers of bf16 activations: a flipped bf16 rounding
+# in the scan's output carries through the recurrence and the later layers,
+# so no absolute bound is known in advance)
+LOGITS = {"llama3.2-1b": dict(atol=2e-2), "olmoe-1b-7b": dict(vs_f32=1.5),
+          "mamba-130m": dict(vs_f32=1.5)}
 
 
 def log(msg: str) -> None:
@@ -209,54 +234,138 @@ def check_moe_jam(torch, dev, cfg):
     }
 
 
-def serve(torch, dev, arch):
-    """Phase 4/5: the full-width engine; returns (engine, step records,
-    summary)."""
-    from repro_torch.configs.registry import get_config
+def check_ssm_scan(torch, dev, cfg):
+    """Phase 3 for the ssm_scan selective scan at mamba's engine shape;
+    returns its JSON entry (without ``launches``)."""
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.ssm_scan import bench as sbench
+
+    shape = (REC_SLOTS, CHUNK, cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim)
+    if shape != (sbench.SLOTS, sbench.CHUNK, sbench.INNER, sbench.STATE):
+        raise AssertionError(f"the ssm_scan check's shape is not the engine's {shape}")
+    nv_np = sbench.check_n_valid()
+    args = sbench.check_inputs(dev, nv_np)
+    n_valid = args[-1]
+    log(f"[kernel] ssm_scan input: dt/x {tuple(args[0].shape)}, b/c "
+        f"{tuple(args[1].shape)}, valid columns per row {nv_np.tolist()}")
+    y, h = ss.ssm_scan(*args)
+    y_ref, h_ref = ss.ssm_scan_ref(*args)
+    torch.cuda.synchronize()
+    max_y, max_h, worst, bad = ss.compare(y, h, y_ref, h_ref, n_valid, y_tol=SCAN_Y_TOL,
+                                          h_tol=SCAN_H_TOL)
+    valid = torch.arange(CHUNK, device=dev)[None, :] < n_valid[:, None]
+    nonzero_garbage = int((y[~valid] != 0).sum())
+    idle = n_valid == 0
+    idle_exact = bool(torch.equal(h[idle], args[5][idle]))
+    log(f"[kernel] ssm_scan: max |kernel - plain| of y on valid columns = {max_y:.3e}, "
+        f"of h_last = {max_h:.3e}; largest share of the allowed error {worst:.3f} ({bad} "
+        f"elements over {SCAN_Y_TOL} x (row rms + |plain|) for y, {SCAN_H_TOL} x (1 + "
+        f"|plain|) for h_last); {nonzero_garbage} non-zero y past n_valid; rows with no "
+        f"valid column return h0 bit for bit: {idle_exact}")
+    if bad or nonzero_garbage or not idle_exact:
+        raise AssertionError("ssm_scan disagrees with the plain version")
+
+    flush = timing.l2_flush_buffer(dev)
+    ms = timing.timed_ms(lambda: ss.ssm_scan_cuda(*args), 200, flush)
+    plain_ms = timing.timed_ms(lambda: ss.ssm_scan_ref(*args), 20, flush)
+    del flush
+    work = sbench.needed_work(nv_np)
+    bound, bound_by = timing.bound_ms(work)
+    log(f"[kernel] ssm_scan timing (L2 flushed per launch): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, no single PyTorch call computes a selective scan; needed "
+        f"bytes {work['bytes']} ({work['state_bytes']} state in and out, {work['cols']} "
+        f"valid columns) -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at "
+        f"3.35 TB/s; {work['f32_flops']} float32 operations -> "
+        f"{work['f32_flops'] / timing.F32_FLOPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; "
+        f"{work['exps']} exponentials -> {work['exps'] / sbench.SFU_EXP_PER_S * 1e3:.5f} "
+        f"ms on the SFUs")
+    return {
+        "name": "ssm_scan", "route": "cuda", "path": cfg.name,
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:60",
+        "launches": None, "max_abs_err": max(max_y, max_h), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def serve(torch, dev, arch, *, forced_preemption=True):
+    """Phase 4-6: the full-width engine; returns (engine, step records,
+    backend events, summary). The recurrent engine preempts requests by
+    ``REC_PREEMPT_AFTER`` unless ``forced_preemption`` is False."""
+    from repro_torch.configs.registry import default_cache_backend, get_config
     from repro_torch.engine import Engine, Request
     from repro_torch.models.model import flat_block_types
+    from repro_torch.models.ssm import dt_rank
     from repro_torch.runtime.steps import LAUNCH_COUNTERS
 
     cfg = get_config(arch)
-    torch.cuda.reset_peak_memory_stats()
-    engine = Engine(cfg, device=dev, cache="auto", kernel="auto", slots=SLOTS,
-                    max_len=MAX_LEN, num_blocks=NUM_BLOCKS, block_size=BLOCK,
+    recurrent = default_cache_backend(cfg) == "recurrent"
+    if recurrent:
+        geom = dict(slots=REC_SLOTS, max_len=MAX_LEN, chunk=CHUNK)
+        n_requests = REC_REQUESTS
+    else:
+        geom = dict(slots=SLOTS, max_len=MAX_LEN, num_blocks=NUM_BLOCKS, block_size=BLOCK,
                     chunk=CHUNK)
+        n_requests = N_REQUESTS
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, device=dev, cache="auto", kernel="auto", **geom)
     t0 = time.perf_counter()
     engine.load_params(seed=SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(engine.params))
-    a = cfg.attention
-    moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of {cfg.moe.expert_ff}"
-           if cfg.moe else "")
-    log(f"[e2e] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim}{moe}, vocab "
-        f"{cfg.vocab_size}, {n_params} bf16 params drawn in "
+    if recurrent:
+        s = cfg.ssm
+        shape = (f"inner {s.expand * cfg.d_model}, state {s.state_dim}, conv "
+                 f"{s.conv_width}, dt_rank {dt_rank(cfg.d_model, s)}")
+    else:
+        a = cfg.attention
+        shape = f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim}"
+        if cfg.moe:
+            shape += (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+                      f"{cfg.moe.expert_ff}")
+    log(f"[e2e] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {shape}, "
+        f"vocab {cfg.vocab_size}, {n_params} bf16 params drawn in "
         f"{time.perf_counter() - t0:.1f}s; cache={engine.cache_kind}, "
-        f"kernels={engine.paged_kernel}")
-    if engine.paged_kernel != "cuda" or engine.cache_kind != "paged":
-        raise AssertionError(f"auto resolved to {engine.paged_kernel!r} / "
+        f"kernels={engine.kernel}, slots {engine.slots}")
+    if engine.kernel != "cuda" or engine.cache_kind != ("recurrent" if recurrent else "paged"):
+        raise AssertionError(f"auto resolved to {engine.kernel!r} / "
                              f"{engine.cache_kind!r} on the card")
     # launches each kernel makes per step on this path
-    per_step = {"paged_attention": cfg.num_layers,
-                "moe_jam": sum(bt.endswith("_moe") for bt in flat_block_types(cfg))}
+    bts = flat_block_types(cfg)
+    per_step = ({"ssm_scan": sum(bt == "ssm" for bt in bts)} if recurrent else
+                {"paged_attention": cfg.num_layers,
+                 "moe_jam": sum(bt.endswith("_moe") for bt in bts)})
 
     rng = np.random.default_rng(SEED)
-    for rid in range(N_REQUESTS):
+    for rid in range(n_requests):
         n = int(rng.integers(PROMPT_LO, PROMPT_HI + 1))
         engine.submit(Request(rid, rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
                               max_new_tokens=MAX_NEW))
 
-    records = []
+    records, events = [], []
     inner = engine.bundle.fn
 
-    def recording(params, cache, tokens, tables, starts, n_valid):
-        out = inner(params, cache, tokens, tables, starts, n_valid)
-        records.append((tokens.clone(), tables.clone(), starts.clone(),
-                        n_valid.clone(), out[0].clone()))
+    def recording(params, cache, *args):
+        out = inner(params, cache, *args)
+        records.append(tuple(a.clone() for a in args) + (out[0].clone(),))
         return out
 
+    # the backend's slot events between steps, for the replay: a fresh
+    # request's slot re-templated, a snapshot taken or restored
+    state_init, state_evict = engine.state.init, engine.state.evict
+
+    def init(entry, cache, slot):
+        events.append((len(records), "init", slot, entry.req.rid, entry.snapshot is not None))
+        return state_init(entry, cache, slot)
+
+    def evict(entry, cache, slot):
+        events.append((len(records), "evict", slot, entry.req.rid, None))
+        return state_evict(entry, cache, slot)
+
     engine.bundle.fn = recording
+    engine.state.init, engine.state.evict = init, evict
+    forced = REC_PREEMPT_AFTER if recurrent and forced_preemption else {}
     step_s = []
     for counter in LAUNCH_COUNTERS.values():
         counter.reset()
@@ -267,11 +376,14 @@ def serve(torch, dev, arch):
         engine.tick()
         if engine.steps > steps_before:
             step_s.append(time.perf_counter() - t)
+        if engine.ticks in forced:
+            _force_preemption(engine, forced[engine.ticks])
         if engine.ticks > 2000:
             raise AssertionError("engine did not drain in 2000 ticks")
     wall = time.perf_counter() - t0
     launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
     engine.bundle.fn = inner
+    engine.state.init, engine.state.evict = state_init, state_evict
     m = engine.metrics()
     tokens = sum(len(r.out_tokens) for r in engine.completed)
     summary = dict(arch=arch, requests=len(engine.completed), tokens=tokens, wall_s=wall,
@@ -281,11 +393,15 @@ def serve(torch, dev, arch):
                    preemptions=m["preemptions"], launches=launches,
                    engine_launches=m["kernel_launches"],
                    nonfinite_logits=m["nonfinite_logits"],
-                   peak_used_blocks=m["peak_used_blocks"],
-                   live_token_fraction_mean=m["live_token_fraction_mean"],
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if recurrent:
+        summary.update({k: m[k] for k in ("snapshots_taken", "snapshots_restored",
+                                          "state_bytes_per_slot")})
+    else:
+        summary.update(peak_used_blocks=m["peak_used_blocks"],
+                       live_token_fraction_mean=m["live_token_fraction_mean"])
     log(f"[e2e] {json.dumps(summary)}")
-    if len(engine.completed) != N_REQUESTS or any(
+    if len(engine.completed) != n_requests or any(
             len(r.out_tokens) != MAX_NEW for r in engine.completed):
         raise AssertionError("not every request completed with all its tokens")
     for name, n in per_step.items():
@@ -294,35 +410,76 @@ def serve(torch, dev, arch):
                                  f"steps of {n} layers that run it")
     if m["nonfinite_logits"]:
         raise AssertionError(f"{m['nonfinite_logits']} emitted rows had non-finite logits")
-    if m["preemptions"] < 1:
+    if not recurrent and m["preemptions"] < 1:
         raise AssertionError("the pool did not force a preemption")
-    return engine, records, summary
+    if recurrent and m["preemptions"] != len(forced):
+        raise AssertionError(f"{m['preemptions']} preemptions, {len(forced)} forced")
+    if forced and min(m["snapshots_taken"], m["snapshots_restored"]) < len(forced):
+        raise AssertionError("the forced preemptions did not snapshot and resume")
+    return engine, records, events, summary
 
 
-def replay(torch, dev, engine, records):
+def _force_preemption(engine, phase):
+    """Preempt the first running request (by slot), not preempted before,
+    that is mid-prefill or in decode."""
+    for entry in engine.slot_entry:
+        if entry is None or entry.preemptions:
+            continue
+        prefill = entry.pos < len(entry.prompt_tokens)
+        if prefill == (phase == "prefill"):
+            log(f"[e2e] tick {engine.ticks}: preempting request {entry.req.rid} in "
+                f"{phase} at position {entry.pos} of its {len(entry.prompt_tokens)}-token "
+                f"prompt")
+            engine.preempt(entry.req.rid)
+            return
+    raise AssertionError(f"no running request in {phase} after tick {engine.ticks}")
+
+
+def replay(torch, dev, engine, records, events):
     """Replay the recorded step inputs through kernel="ref" on the card:
     greedy agreement per emitted-or-prefill row, and one mixed step's logits
-    on identical inputs (``_mixed_step``)."""
+    on identical inputs (``_mixed_step``). On the recurrent backend the
+    replay also applies the engine's slot events between steps to its own
+    cache: re-templating a fresh request's slot, and taking and restoring
+    its own snapshots."""
     from repro_torch.models import model as model_lib
-    from repro_torch.runtime.steps import make_paged_serve_step
+    from repro_torch.models.kvcache import gather_slot_rows, scatter_slot_rows
+    from repro_torch.runtime.steps import make_paged_serve_step, make_recurrent_serve_step
 
     cfg = engine.cfg
     rule = LOGITS[cfg.name]
-    ref_step = make_paged_serve_step(
-        cfg, slots=SLOTS, chunk=CHUNK, num_blocks=NUM_BLOCKS, block_size=BLOCK,
-        max_blocks_per_seq=engine.max_blocks_per_seq, kernel="ref", device=dev).fn
-    cache = model_lib.init_paged_cache(cfg, NUM_BLOCKS, BLOCK, device=dev)
+    recurrent = engine.cache_kind == "recurrent"
+    if recurrent:
+        ref_step = make_recurrent_serve_step(cfg, slots=engine.slots, chunk=CHUNK,
+                                             kernel="ref", device=dev).fn
+        cache = model_lib.init_recurrent_cache(cfg, engine.slots, device=dev)
+        template = engine.state.template
+    else:
+        ref_step = make_paged_serve_step(
+            cfg, slots=SLOTS, chunk=CHUNK, num_blocks=NUM_BLOCKS, block_size=BLOCK,
+            max_blocks_per_seq=engine.max_blocks_per_seq, kernel="ref", device=dev).fn
+        cache = model_lib.init_paged_cache(cfg, NUM_BLOCKS, BLOCK, device=dev)
     # the logits check takes the step with the most prefill and decode rows
     mixed = max(range(len(records)), key=lambda i: (
-        int(((records[i][3] > 1).sum() > 0) and ((records[i][3] == 1).sum() > 0)),
-        int(records[i][3].sum())))
+        int(((records[i][-2] > 1).sum() > 0) and ((records[i][-2] == 1).sum() > 0)),
+        int(records[i][-2].sum())))
     agree = total = 0
     first = None
     logit = None
-    for i, (tok, tab, st, nv, want) in enumerate(records):
+    snapshots = {}
+    pending = list(events) if recurrent else []
+    for i, (*args, want) in enumerate(records):
+        while pending and pending[0][0] == i:
+            _, kind, slot, rid, restored = pending.pop(0)
+            if kind == "evict":
+                snapshots[rid] = gather_slot_rows(cache, template, slot, engine.slots)
+            else:
+                row = snapshots.pop(rid) if restored else template
+                cache = scatter_slot_rows(cache, row, slot, engine.slots)
+        nv = args[-1]
         if i == mixed:
-            logit = _mixed_step(torch, dev, engine, cache, i, tok, tab, st, nv, rule)
-        got, cache = ref_step(engine.params, cache, tok, tab, st, nv)
+            logit = _mixed_step(torch, dev, engine, cache, i, args, rule)
+        got, cache = ref_step(engine.params, cache, *args)
         rows = (nv > 0).nonzero().squeeze(1).tolist()
         g, w = got.tolist(), want.tolist()
         for r in rows:
@@ -339,24 +496,32 @@ def replay(torch, dev, engine, records):
     return dict(agree=agree, rows=total, first_divergence=first, logits=logit)
 
 
-def _mixed_step(torch, dev, engine, cache, i, tok, tab, st, nv, rule):
+def _mixed_step(torch, dev, engine, cache, i, args, rule):
     """One step's logits on identical inputs (cloned cache) through the
     kernels and the plain versions in bf16, and for a ``vs_f32`` rule the
-    plain versions in float32; returns the numbers and ``ok``."""
+    plain versions in float32 (the recurrent cache's conv history cast to
+    it); returns the numbers and ``ok``."""
     from repro_torch.models import model as model_lib
-    from repro_torch.models.kvcache import PagedLayout
+    from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 
+    if engine.cache_kind == "recurrent":
+        tok, st, nv = args
+        layout = dict(recurrent=RecurrentLayout(st, nv))
+    else:
+        tok, tab, st, nv = args
+        layout = dict(paged=PagedLayout(tab, st, nv, BLOCK))
     runs = [("cuda", torch.bfloat16), ("ref", torch.bfloat16)]
     if "vs_f32" in rule:
         runs.append(("ref", torch.float32))
     valid = torch.arange(CHUNK, device=dev)[None, :] < nv[:, None]
     outs = []
     for kind, dtype in runs:
-        c = {"layers": [{k: v.clone() for k, v in lc.items()} for lc in cache["layers"]]}
+        cast = dtype if engine.cache_kind == "recurrent" else None
+        c = {"layers": [{k: v.to(cast or v.dtype, copy=True) if k == "conv"
+                         else v.clone() for k, v in lc.items()} for lc in cache["layers"]]}
         with torch.no_grad():
             lg, _, _ = model_lib.forward(engine.cfg, engine.params, tok, cache=c,
-                                         paged=PagedLayout(tab, st, nv, BLOCK),
-                                         paged_kernel=kind, compute_dtype=dtype)
+                                         paged_kernel=kind, compute_dtype=dtype, **layout)
         outs.append(lg[valid])
         del c
     if not torch.isfinite(outs[0]).all():
@@ -394,6 +559,25 @@ def _mixed_step(torch, dev, engine, cache, i, tok, tab, st, nv, rule):
     return out
 
 
+def _check_exact_without_preemption(torch, dev, arch, engine):
+    """The recurrent backend's exactness contract: the same requests served
+    again without the forced preemptions (other slots, other steps) emit
+    identical tokens."""
+    again, _, _, summary = serve(torch, dev, arch, forced_preemption=False)
+    want = {r.rid: r.out_tokens for r in engine.completed}
+    got = {r.rid: r.out_tokens for r in again.completed}
+    differ = sorted(rid for rid in want if got.get(rid) != want[rid])
+    log(f"[e2e] {arch}: a second run without the forced preemptions "
+        f"({summary['preemptions']} preemptions, {summary['steps']} steps) emits "
+        f"identical tokens for {len(want) - len(differ)}/{len(want)} requests"
+        + (f"; first differing request {differ[0]}: {want[differ[0]][:8]} vs "
+           f"{got[differ[0]][:8]}" if differ else ""))
+    if differ:
+        raise AssertionError(f"requests {differ} differ without the forced preemptions")
+    del again
+    gc.collect()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -420,6 +604,7 @@ def main() -> int:
     from repro_torch.kernels.moe_jam import kernel as mj_kernel
     from repro_torch.kernels.paged_attention import bench
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 
     t_start = time.perf_counter()
     strict_fp32()
@@ -430,7 +615,7 @@ def main() -> int:
     log(f"[device] {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
     with Phase("build"):
-        libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE])
+        libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -445,17 +630,22 @@ def main() -> int:
     with Phase("kernel vs plain"):
         for arch in ARCHS:
             a = get_config(arch).attention
-            entries[("paged_attention", arch)] = check_paged(
-                torch, dev, arch=arch, heads=a.num_heads, kv_heads=a.num_kv_heads,
-                head_dim=a.head_dim)
+            if a is not None:
+                entries[("paged_attention", arch)] = check_paged(
+                    torch, dev, arch=arch, heads=a.num_heads, kv_heads=a.num_kv_heads,
+                    head_dim=a.head_dim)
         entries[("moe_jam", "olmoe-1b-7b")] = check_moe_jam(torch, dev,
                                                             get_config("olmoe-1b-7b"))
+        entries[("ssm_scan", "mamba-130m")] = check_ssm_scan(torch, dev,
+                                                             get_config("mamba-130m"))
         torch.cuda.empty_cache()
 
     for arch in ARCHS:
         with Phase(f"end to end {arch}"):
-            engine, records, summary = serve(torch, dev, arch)
-            rep = replay(torch, dev, engine, records)
+            engine, records, events, summary = serve(torch, dev, arch)
+            if engine.cache_kind == "recurrent":
+                _check_exact_without_preemption(torch, dev, arch, engine)
+            rep = replay(torch, dev, engine, records, events)
             for (kname, path), entry in entries.items():
                 if path == arch:
                     entry["launches"] = summary["launches"][kname]
@@ -465,7 +655,7 @@ def main() -> int:
                 f"{summary['preemptions']} preemptions, peak "
                 f"{summary['peak_mem_gb']:.2f} GB, greedy agreement "
                 f"{rep['agree']}/{rep['rows']} on {name} ({card})")
-            del engine, records
+            del engine, records, events
             gc.collect()              # request handles and the engine form cycles
             torch.cuda.empty_cache()
     log(f"[phase] total: {time.perf_counter() - t_start:.1f}s")

@@ -9,8 +9,12 @@ repeat, the pattern in order). Top level: ``embed`` (V, d),
 
 No transposition is made anywhere: every weight keeps its JAX layout
 (``wq`` (d, H, D), ``wk``/``wv`` (d, K, D), ``wo`` (H, D, d), ``w_gate``/
-``w_up`` (d, f), ``w_down`` (f, d)). Dtypes are kept; bfloat16 arrays are
+``w_up`` (d, f), ``w_down`` (f, d), ``in_proj`` (d, 2 inner), ``conv_w``
+(W, inner), ``a_log`` (inner, N)). Dtypes are kept; bfloat16 arrays are
 moved bit for bit. The bridge takes numpy only and imports no JAX.
+
+``recurrent_cache_from_jax`` does the same for a recurrent cache, so that
+both packages can start from one mid-sequence state.
 """
 from __future__ import annotations
 
@@ -62,3 +66,15 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     out["layers"] = [_tree_to_torch(t, device)
                      for t in flatten_groups(np_tree["groups"], cfg)]
     return out
+
+
+def recurrent_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
+                             device=None) -> Dict[str, Any]:
+    """``repro.models.model.init_cache`` or a recurrent step's new cache
+    (``{"length", "groups": [[{"conv", "state"}]]}``, leaves with a leading
+    repeats axis when the group repeats), passed as numpy arrays -> the
+    port's ``{"layers": [{"conv", "state"}]}``. The shared ``length``
+    scalar is dropped: the port's per-request positions live in the
+    engine."""
+    return {"layers": [_tree_to_torch(t, device)
+                       for t in flatten_groups(np_cache["groups"], cfg)]}

@@ -8,10 +8,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import llama32_1b, olmoe_1b_7b
+from repro_torch.configs import llama32_1b, mamba_130m, olmoe_1b_7b
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (llama32_1b, olmoe_1b_7b)
+_MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m)
 
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.config for m in _MODULES}
 SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MODULES}
@@ -21,7 +21,7 @@ SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MOD
 _LATER = {
     "gemma3-4b": "A7", "granite-20b": "A7", "stablelm-3b": "A7",
     "deepseek-v2-lite-16b": "A7",
-    "mamba-130m": "A9", "xlstm-1.3b": "A9", "hymba-1.5b": "A10",
+    "xlstm-1.3b": "A9", "hymba-1.5b": "A10",
     "qwen2-vl-72b": "A10", "hubert-xlarge": "A10",
 }
 
@@ -38,13 +38,19 @@ def _check(arch: str) -> None:
 def default_cache_backend(cfg: ModelConfig) -> str:
     """The serving Engine's sequence-state backend per model family.
 
-    Plain-GQA archs, MoE ones included, take the paged pool. The recurrent
-    (A9) and slots (A7) backends are not ported yet; MLA archs take slots.
+    Plain-GQA archs, MoE ones included, take the paged pool; pure-SSM
+    stacks the recurrent backend (constant-size state per slot). xLSTM
+    stacks (the rest of ROADMAP item A9), hybrid attention+SSM stacks
+    (A10) and MLA or mrope archs (the slots backend, A7) are not ported.
     """
-    if cfg.xlstm is not None or (cfg.ssm is not None and cfg.attention is None):
-        raise NotImplementedError("the recurrent backend is ROADMAP item A9")
+    if cfg.xlstm is not None:
+        raise NotImplementedError("xLSTM blocks (mLSTM/sLSTM) are ROADMAP item A9")
+    if cfg.ssm is not None and cfg.attention is None:
+        return "recurrent"
+    if cfg.parallel_ssm_attn:
+        raise NotImplementedError("hybrid attention+SSM stacks are ROADMAP item A10")
     a = cfg.attention
-    if cfg.parallel_ssm_attn or (a is not None and (a.kind == "mla" or a.mrope)):
+    if a is not None and (a.kind == "mla" or a.mrope):
         raise NotImplementedError("the slots backend is ROADMAP item A7")
     return "paged"
 

@@ -15,5 +15,5 @@ from repro_torch.engine.scheduler import (  # noqa: F401
     POLICIES, FIFOPolicy, PriorityPolicy, SchedulerPolicy, SchedulerState,
     SJFPolicy, resolve_policy)
 from repro_torch.engine.state import (  # noqa: F401
-    BlockPool, PagedKVState, SequenceCapacity, SequenceState)
+    BlockPool, PagedKVState, RecurrentState, SequenceCapacity, SequenceState)
 from repro_torch.engine.stream import RequestHandle  # noqa: F401

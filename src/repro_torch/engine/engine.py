@@ -1,15 +1,17 @@
-"""``repro_torch.engine.Engine`` — the serving engine, paged backend.
+"""``repro_torch.engine.Engine`` — the serving engine, paged and recurrent
+backends.
 
-The port of the ``cache="paged"`` half of the JAX package's
-``engine/engine.py``: one submit/admit/step/complete loop (``tick``) over
-the paged sequence-state backend, a pluggable ``SchedulerPolicy``
+The port of the ``cache="paged"`` and ``cache="recurrent"`` halves of the
+JAX package's ``engine/engine.py``: one submit/admit/step/complete loop
+(``tick``) over a sequence-state backend, a pluggable ``SchedulerPolicy``
 (admission order, victim choice, block budgets), streaming outputs through
-``RequestHandle``, chunked prefill through the same fixed-shape step as
-decode, block-budget-gated admission and preempt-and-recompute on pool
-exhaustion.
+``RequestHandle``, and chunked prefill through the same fixed-shape step as
+decode. The paged backend gates admission on its block budget and preempts
+by recompute when the pool runs dry; the recurrent backend gates on free
+slots alone and preempts (``preempt(rid)``) by snapshot and resume.
 
-Not in this slice: the slots and recurrent backends (ROADMAP A7/A9), fabric
-placement and leases (A11), graphs (A12), and request migration
+Not in this slice: the slots backend (ROADMAP A7), fabric placement and
+leases (A11), graphs (A12), and request migration
 (``export_request``/``import_request``/``snapshot_request``) and the
 ``fail``/``restart`` lifecycle (A12).
 """
@@ -28,10 +30,11 @@ from repro_torch.configs.registry import default_cache_backend
 from repro_torch.device import resolve_device
 from repro_torch.engine.scheduler import (SchedulerPolicy, SchedulerState,
                                           resolve_policy)
-from repro_torch.engine.state import PagedKVState
+from repro_torch.engine.state import PagedKVState, RecurrentState
 from repro_torch.engine.stream import RequestHandle
 from repro_torch.models import model as model_lib
-from repro_torch.runtime.steps import LAUNCH_COUNTERS, make_paged_serve_step
+from repro_torch.runtime.steps import (LAUNCH_COUNTERS, make_paged_serve_step,
+                                       make_recurrent_serve_step)
 
 __all__ = ["Request", "Engine"]
 
@@ -69,6 +72,7 @@ class _Entry:
     first_token_tick: Optional[int] = None
     preemptions: int = 0
     prompt_tokens: List[int] = dataclasses.field(default_factory=list)
+    snapshot: Optional[Any] = None      # recurrent backend: evicted state rows
 
     def seq(self) -> List[int]:
         """prompt ++ generated — what must be resident before decoding."""
@@ -76,17 +80,23 @@ class _Entry:
 
 
 class Engine:
-    """Paged serving engine on one device.
+    """Serving engine on one device.
 
     ``cache="paged"``: shared per-layer block pool (``num_blocks`` x
     ``block_size`` tokens), chunked prefill (``chunk`` tokens per tick)
     through the same step as decode, block-budget-gated admission,
-    preempt-and-requeue (recompute) on pool exhaustion. ``kernel`` selects
-    every kernel of the step (paged attention, and the MoE expert FFN of
-    MoE archs): ``"cuda"`` (the hand-written kernels), ``"ref"`` (their
-    plain versions) or ``"auto"`` (``cuda`` on the card, ``ref`` on the
-    CPU). ``device`` defaults to ``cuda`` and raises when there is no
-    card; tests pass ``device="cpu"``.
+    preempt-and-requeue (recompute) on pool exhaustion.
+    ``cache="recurrent"`` (pure-SSM stacks): constant-size conv history
+    and state per slot, chunked prefill likewise, admission on free slots
+    alone, preemption by snapshot and resume. ``cache="auto"`` takes
+    ``registry.default_cache_backend``.
+
+    ``kernel`` selects every kernel of the step (paged attention and the
+    MoE expert FFN, or the selective scan): ``"cuda"`` (the hand-written
+    kernels), ``"ref"`` (their plain versions) or ``"auto"`` (``cuda`` on
+    the card, ``ref`` on the CPU); unlike the JAX engine, it applies to the
+    recurrent backend too. ``device`` defaults to ``cuda`` and raises when
+    there is no card; tests pass ``device="cpu"``.
     """
 
     _ids = itertools.count()
@@ -100,11 +110,10 @@ class Engine:
             raise ValueError("encoder-only arch has no decode path")
         if cache == "auto":
             cache = default_cache_backend(cfg)
-        if cache != "paged":
+        if cache not in ("paged", "recurrent"):
             raise NotImplementedError(
-                f"cache={cache!r} is not ported: the slots backend is ROADMAP "
-                "item A7, the recurrent backend A9")
-        if num_blocks is None:
+                f"cache={cache!r} is not ported: the slots backend is ROADMAP item A7")
+        if cache == "paged" and num_blocks is None:
             raise ValueError("cache='paged' requires num_blocks=")
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -116,8 +125,6 @@ class Engine:
         self.cache: Optional[Dict[str, Any]] = None
         self.ticks = 0
         self.steps = 0                         # ticks that ran the step
-        # CUDA kernel launches in steps, per kernel
-        self.kernel_launches = {name: 0 for name in LAUNCH_COUNTERS}
         self.completed: List[Request] = []
         self.queue: List[_Entry] = []
         self.slot_entry: List[Optional[_Entry]] = [None] * slots
@@ -129,26 +136,35 @@ class Engine:
         self.preempt_count = 0
         self._pending_pump: List[_Entry] = []
 
-        self.block_size, self.chunk = block_size, chunk
-        self.num_blocks = num_blocks
-        self.max_blocks_per_seq = -(-max_len // block_size)
-        if num_blocks < self.max_blocks_per_seq:
-            raise ValueError(
-                f"num_blocks={num_blocks} cannot hold one max_len={max_len} "
-                f"request ({self.max_blocks_per_seq} blocks of {block_size})")
-        self.bundle = make_paged_serve_step(
-            cfg, slots=slots, chunk=chunk, num_blocks=num_blocks,
-            block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
-            kernel=kernel, device=self.device)
-        # resolved kernel kind ("cuda" | "ref") + per-step live-token
-        # fraction: resident tokens / pool token capacity
-        self.paged_kernel: str = self.bundle.meta["paged_kernel"]
-        self._live_frac_last = 0.0
-        self._live_frac_sum = 0.0
-        self._live_frac_ticks = 0
-        self.peak_blocks_used = 0
-        self.state = PagedKVState(num_blocks, block_size)
-        self.pool = self.state.pool
+        self.chunk = chunk
+        if cache == "paged":
+            self.block_size = block_size
+            self.num_blocks = num_blocks
+            self.max_blocks_per_seq = -(-max_len // block_size)
+            if num_blocks < self.max_blocks_per_seq:
+                raise ValueError(
+                    f"num_blocks={num_blocks} cannot hold one max_len={max_len} "
+                    f"request ({self.max_blocks_per_seq} blocks of {block_size})")
+            self.bundle = make_paged_serve_step(
+                cfg, slots=slots, chunk=chunk, num_blocks=num_blocks,
+                block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
+                kernel=kernel, device=self.device)
+            # per-step live-token fraction: resident tokens / pool token capacity
+            self._live_frac_last = 0.0
+            self._live_frac_sum = 0.0
+            self._live_frac_ticks = 0
+            self.peak_blocks_used = 0
+            self.state = PagedKVState(num_blocks, block_size)
+            self.pool = self.state.pool
+        else:
+            self.bundle = make_recurrent_serve_step(
+                cfg, slots=slots, chunk=chunk, kernel=kernel, device=self.device)
+            self.state = RecurrentState(slots, lambda: model_lib.init_recurrent_cache(
+                cfg, 1, device=self.device))
+        # resolved kernel kind ("cuda" | "ref"), and CUDA kernel launches in
+        # steps, per kernel the step can run
+        self.kernel: str = self.bundle.meta["kernel"]
+        self.kernel_launches = {name: 0 for name in self.bundle.meta["kernels"]}
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -163,8 +179,12 @@ class Engine:
             params = model_lib.init_params(self.cfg, gen, self.device,
                                            dtype=torch.bfloat16)
         self.params = _to_device(params, self.device)
-        self.cache = model_lib.init_paged_cache(
-            self.cfg, self.num_blocks, self.block_size, device=self.device)
+        if self.cache_kind == "paged":
+            self.cache = model_lib.init_paged_cache(
+                self.cfg, self.num_blocks, self.block_size, device=self.device)
+        else:
+            self.cache = model_lib.init_recurrent_cache(self.cfg, self.slots,
+                                                        device=self.device)
 
     def pending(self) -> bool:
         """True while any request is queued or occupying a slot."""
@@ -243,11 +263,12 @@ class Engine:
 
     def _admit_chunked(self) -> None:
         """Policy-gated admission: the policy picks the next queued entry;
-        it admits only when a slot is free AND the pool can hold its whole
-        resident prefix plus one decode token. ``budget`` tracks the blocks
-        already promised to entries admitted in this same call — they are
-        allocated later in the tick, so reading free blocks alone would
-        over-commit the pool."""
+        it admits only when a slot is free AND the backend can hold its
+        whole resident prefix plus one decode token. ``budget`` tracks the
+        blocks already promised to entries admitted in this same call — they
+        are allocated later in the tick, so reading free blocks alone would
+        over-commit the pool. The recurrent backend's capacity is not
+        consumable (``free_units`` None): it gates on free slots alone."""
         budget = self.state.capacity().free_units
         while self.queue:
             free_slots = [i for i, e in enumerate(self.slot_entry) if e is None]
@@ -267,10 +288,12 @@ class Engine:
             self.cache = self.state.init(entry, self.cache, slot)
 
     def _preempt(self, victim: _Entry) -> None:
-        """Evict the victim (its blocks return to the pool and ``pos``
-        resets: re-admission recomputes) and requeue it in admission order:
-        before every never-admitted entry and every previously preempted
-        entry with a younger admit stamp. Generated tokens are kept."""
+        """Evict the victim through the backend (paged: its blocks return
+        to the pool and ``pos`` resets, so re-admission recomputes;
+        recurrent: its state is snapshot and ``pos`` kept, so re-admission
+        resumes) and requeue it in admission order: before every
+        never-admitted entry and every previously preempted entry with a
+        younger admit stamp. Generated tokens are kept."""
         slot = self.slot_entry.index(victim)
         self.cache = self.state.evict(victim, self.cache, slot)
         victim.preemptions += 1
@@ -280,6 +303,16 @@ class Engine:
                    if e.admit_seq < 0 or e.admit_seq > victim.admit_seq),
                   len(self.queue))
         self.queue.insert(at, victim)
+
+    def preempt(self, rid: int) -> None:
+        """Evict a running request by id through the backend's preemption
+        path and requeue it (admission-ordered): paged requeues recompute
+        the prefix, recurrent ones resume from their state snapshot."""
+        for entry in self.slot_entry:
+            if entry is not None and entry.req.rid == rid:
+                self._preempt(entry)
+                return
+        raise KeyError(f"request {rid} is not running in any slot")
 
     def _ensure_capacity(self, entry: _Entry, upto_tokens: int) -> None:
         """Grow the entry's blocks to cover ``upto_tokens``, preempting the
@@ -299,6 +332,7 @@ class Engine:
         """Admit + advance every active request one step. Returns the number
         of rows advanced."""
         self._admit_chunked()
+        paged = self.cache_kind == "paged"
 
         # phase A: chunk sizing + capacity growth (may preempt victims,
         # including entries already scheduled earlier in this loop)
@@ -319,23 +353,27 @@ class Engine:
             self._flush_streams()
             return 0
         self.peak_active = max(self.peak_active, len(sched))
-        self.peak_blocks_used = max(self.peak_blocks_used, self.pool.used_blocks)
-        live = sum(entry.pos + n for _, entry, n, _ in sched)
-        self._live_frac_last = live / (self.num_blocks * self.block_size)
-        self._live_frac_sum += self._live_frac_last
-        self._live_frac_ticks += 1
+        if paged:
+            self.peak_blocks_used = max(self.peak_blocks_used, self.pool.used_blocks)
+            live = sum(entry.pos + n for _, entry, n, _ in sched)
+            self._live_frac_last = live / (self.num_blocks * self.block_size)
+            self._live_frac_sum += self._live_frac_last
+            self._live_frac_ticks += 1
 
-        # phase B: the fixed-shape step inputs
+        # phase B: the fixed-shape step inputs (block tables: paged only)
         tokens = np.zeros((self.slots, self.chunk), np.int32)
         starts = np.zeros((self.slots,), np.int32)
         n_valid = np.zeros((self.slots,), np.int32)
-        tables = np.full((self.slots, self.max_blocks_per_seq), -1, np.int32)
+        if paged:
+            tables = np.full((self.slots, self.max_blocks_per_seq), -1, np.int32)
         for slot, entry, n, seq in sched:
             tokens[slot, :n] = seq[entry.pos:entry.pos + n]
-            tables[slot, :len(entry.blocks)] = entry.blocks
+            if paged:
+                tables[slot, :len(entry.blocks)] = entry.blocks
             starts[slot] = entry.pos
             n_valid[slot] = n
-        next_np = self._step_call(tokens, tables, starts, n_valid)
+        args = (tokens, tables, starts, n_valid) if paged else (tokens, starts, n_valid)
+        next_np = self._step_call(*args)
 
         for slot, entry, n, seq in sched:
             known = len(seq)
@@ -355,11 +393,11 @@ class Engine:
     def _step_call(self, *arrays: np.ndarray) -> np.ndarray:
         """Run the serve step on host-built inputs; returns next tokens."""
         args = [torch.from_numpy(a).to(self.device) for a in arrays]
-        before = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+        before = {name: LAUNCH_COUNTERS[name].count for name in self.kernel_launches}
         next_tok, self.cache = self.bundle.fn(self.params, self.cache, *args)
         next_np = next_tok.cpu().numpy()
-        for name, c in LAUNCH_COUNTERS.items():
-            self.kernel_launches[name] += c.count - before[name]
+        for name in self.kernel_launches:
+            self.kernel_launches[name] += LAUNCH_COUNTERS[name].count - before[name]
         self.steps += 1
         return next_np
 
@@ -387,13 +425,16 @@ class Engine:
 
     def metrics(self) -> Dict[str, Any]:
         """Engine telemetry snapshot (JSON-friendly), with the JAX engine's
-        keys for what the port has, plus the launch count of each kernel
-        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}``), the
-        step count and the non-finite-logits counter."""
+        keys for what the port has, plus the resolved kernel kind
+        (``kernel``), the launch count of each kernel the step can run
+        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}`` or
+        ``{"ssm_scan": n}``), the step count and the non-finite-logits
+        counter. Paged engines add the pool's keys, recurrent ones the
+        snapshot counters and the state bytes per slot."""
         done = [e for e in self._entries_everywhere() if e.req.done]
         ttfts = sorted(e.first_token_time - e.submit_time
                        for e in done if e.first_token_time is not None)
-        return {
+        out = {
             "engine": {
                 "engine_id": self.engine_id,
                 "cache": self.cache_kind,
@@ -411,21 +452,28 @@ class Engine:
             "preemptions": self.preempt_count,
             "ttft_s": ttfts,
             "requests": self._request_records(),
-            "paged_kernel": self.paged_kernel,
+            "kernel": self.kernel,
             "kernel_launches": dict(self.kernel_launches),
             "nonfinite_logits": int(self.bundle.meta["nonfinite_logits"]),
-            "live_token_fraction": self._live_frac_last,
-            "live_token_fraction_mean": (
-                self._live_frac_sum / self._live_frac_ticks
-                if self._live_frac_ticks else 0.0),
-            "num_blocks": self.num_blocks,
-            "block_size": self.block_size,
             "chunk": self.chunk,
-            "free_blocks": self.pool.free_blocks,
-            "used_blocks": self.pool.used_blocks,
-            "peak_used_blocks": self.peak_blocks_used,
-            "occupancy": self.pool.used_blocks / max(1, self.num_blocks),
         }
+        if self.cache_kind == "paged":
+            out.update({
+                "paged_kernel": self.kernel,
+                "live_token_fraction": self._live_frac_last,
+                "live_token_fraction_mean": (
+                    self._live_frac_sum / self._live_frac_ticks
+                    if self._live_frac_ticks else 0.0),
+                "num_blocks": self.num_blocks,
+                "block_size": self.block_size,
+                "free_blocks": self.pool.free_blocks,
+                "used_blocks": self.pool.used_blocks,
+                "peak_used_blocks": self.peak_blocks_used,
+                "occupancy": self.pool.used_blocks / max(1, self.num_blocks),
+            })
+        else:
+            out.update(self.state.metrics())
+        return out
 
 
 def _to_device(tree, device: torch.device):

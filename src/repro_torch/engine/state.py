@@ -1,17 +1,22 @@
 """Sequence-state backends for ``repro_torch.engine.Engine``.
 
-This slice ports the paged backend: ``PagedKVState`` over the shared
-per-layer block pool, with the host-side ``BlockPool`` free list. The slots
-and recurrent backends are ROADMAP items A7 and A9; the migration half of
-the protocol (``gather``/``serialize``/``restore``) is A12.
+``PagedKVState`` runs over the shared per-layer block pool, with the
+host-side ``BlockPool`` free list; ``RecurrentState`` over constant-size
+per-slot recurrent state. The slots backend is ROADMAP item A7; the
+migration half of the protocol (``gather``/``serialize``/``restore``,
+and the recurrent backend's ``state_to_bytes`` format) is A12.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set
 
-from repro_torch.models.kvcache import SequenceCapacity, SequenceState
+import torch
 
-__all__ = ["BlockPool", "PagedKVState", "SequenceCapacity", "SequenceState"]
+from repro_torch.models.kvcache import (SequenceCapacity, SequenceState,
+                                        gather_slot_rows, scatter_slot_rows)
+
+__all__ = ["BlockPool", "PagedKVState", "RecurrentState", "SequenceCapacity",
+           "SequenceState"]
 
 
 class BlockPool:
@@ -130,3 +135,93 @@ class PagedKVState:
             return (f"prompt ({prompt_len}) + max_new_tokens ({max_new}) "
                     f"exceeds max_len={max_len}")
         return None
+
+
+class RecurrentState:
+    """``SequenceState`` over constant-size recurrent state (SSM).
+
+    A request's whole sequence state is its slot's rows of the cache
+    (conv history and state), so there is no consumable pool: ``grow``
+    always succeeds and admission is gated on free slots alone. Eviction
+    snapshots the slot's rows into ``entry.snapshot`` and keeps
+    ``entry.pos``; re-admission scatters the snapshot back and decoding
+    resumes where it stopped, never a recompute. The snapshot stays on the
+    cache's device as a cloned tensor per leaf.
+
+    ``template_fn`` returns a one-row init cache; it also clears a freed
+    slot's stale state before a fresh request runs, since the recurrence
+    would otherwise integrate the previous occupant's state.
+    """
+
+    kind = "recurrent"
+    supports_preemption = True
+
+    def __init__(self, slots: int, template_fn: Callable[[], Any]):
+        self.slots = slots
+        self._template_fn = template_fn
+        self._template: Any = None
+        self.snapshots_taken = 0
+        self.snapshots_restored = 0
+
+    @property
+    def template(self) -> Any:
+        if self._template is None:
+            self._template = self._template_fn()
+        return self._template
+
+    def state_bytes_per_slot(self) -> int:
+        return sum(t.numel() * t.element_size() for t in _leaves(self.template)
+                   if t.dim() > 0)
+
+    def init(self, entry: Any, cache: Any, slot: int) -> Any:
+        row = getattr(entry, "snapshot", None)
+        restored = row is not None
+        cache = scatter_slot_rows(cache, row if restored else self.template, slot,
+                                  self.slots)
+        if restored:
+            entry.snapshot = None
+            self.snapshots_restored += 1
+        return cache
+
+    def append(self, entry: Any, n: int) -> None:
+        return None
+
+    def units_needed(self, entry: Any) -> int:
+        return 0
+
+    def grow(self, entry: Any, upto_tokens: int) -> bool:
+        return True
+
+    def evict(self, entry: Any, cache: Any, slot: int) -> Any:
+        # the snapshot covers seq[:entry.pos]; pos is kept so re-admission
+        # feeds the next unseen token instead of re-prefilling
+        entry.snapshot = gather_slot_rows(cache, self.template, slot, self.slots)
+        self.snapshots_taken += 1
+        return cache
+
+    def release(self, entry: Any) -> None:
+        entry.snapshot = None
+
+    def capacity(self) -> SequenceCapacity:
+        return SequenceCapacity(kind="recurrent", unit="slots",
+                                total_units=self.slots, free_units=None)
+
+    def metrics(self) -> Dict[str, Any]:
+        return {"state_bytes_per_slot": self.state_bytes_per_slot(),
+                "snapshots_taken": self.snapshots_taken,
+                "snapshots_restored": self.snapshots_restored}
+
+    def validate(self, prompt_len: int, max_new: int,
+                 max_len: int) -> Optional[str]:
+        return None                      # constant-size state: no length limit
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree

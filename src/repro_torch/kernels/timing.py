@@ -12,6 +12,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # H100 SXM float32 peak outside the tensor cores
 
 
 def card_name() -> str:
@@ -27,9 +28,11 @@ def card_name() -> str:
 
 def bound_ms(work: dict):
     """(bound in ms, "bytes" or "operations"): the larger of the bytes over
-    HBM3's rate and the flops over the bf16 tensor-core peak."""
+    HBM3's rate and the operations over their peak: ``flops`` (bf16, on
+    the tensor cores) and ``f32_flops`` (float32, on the CUDA cores)."""
     t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = work["flops"] / BF16_FLOPS_PER_S * 1e3
+    t_ops = (work.get("flops", 0) / BF16_FLOPS_PER_S
+             + work.get("f32_flops", 0) / F32_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

@@ -1,4 +1,4 @@
-"""Serving launcher: the paged engine with pluggable schedulers.
+"""Serving launcher: the paged or recurrent engine with pluggable schedulers.
 
   # on the card, full-width llama3.2-1b with random bf16 weights:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -10,10 +10,17 @@
       --slots 8 --max-len 1024 --blocks 128 --chunk 32 --requests 12 \
       --prompt-len 256 --max-new 32
 
+  # on the card, full-width mamba-130m on the recurrent backend (--cache
+  # auto picks it for a pure-SSM stack):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
+      --slots 32 --chunk 32 --requests 48 --prompt-len 256 --max-new 32
+
   # on the CPU, a smoke config through the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --requests 4 --stream
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
       --smoke --device cpu
 """
 from __future__ import annotations
@@ -35,11 +42,14 @@ def main() -> None:
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--cache", choices=("auto", "paged", "recurrent"), default="auto",
+                   help="sequence-state backend; auto: paged for attention "
+                        "stacks, recurrent for pure-SSM ones")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-len", type=int, default=256)
     p.add_argument("--blocks", type=int, default=0,
-                   help="pool size in blocks (0 => slots*max_len/2 worth of "
-                        "tokens, at least one max_len sequence)")
+                   help="paged pool size in blocks (0 => slots*max_len/2 worth "
+                        "of tokens, at least one max_len sequence)")
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--chunk", type=int, default=8,
                    help="prefill tokens per request per tick")
@@ -56,8 +66,9 @@ def main() -> None:
     p.add_argument("--paged-kernel", choices=("auto", "cuda", "ref"),
                    default="auto",
                    help="every kernel of the step (paged attention, the MoE "
-                        "expert FFN): the CUDA kernels, their plain PyTorch "
-                        "versions, or auto (cuda on the card, ref on the CPU)")
+                        "expert FFN, the selective scan): the CUDA kernels, their "
+                        "plain PyTorch versions, or auto (cuda on the card, ref "
+                        "on the CPU)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights and of the prompts")
     p.add_argument("--metrics-json", action="store_true",
@@ -68,7 +79,7 @@ def main() -> None:
     max_blocks_per_seq = -(-args.max_len // args.block_size)
     num_blocks = args.blocks or max(
         max_blocks_per_seq, (args.slots * args.max_len // 2) // args.block_size)
-    engine = Engine(cfg, device=args.device, cache="paged", slots=args.slots,
+    engine = Engine(cfg, device=args.device, cache=args.cache, slots=args.slots,
                     max_len=args.max_len, num_blocks=num_blocks,
                     block_size=args.block_size, chunk=args.chunk,
                     scheduler=args.scheduler, kernel=args.paged_kernel)
@@ -94,13 +105,17 @@ def main() -> None:
 
     m = engine.metrics()
     total_tokens = sum(len(r.out_tokens) for r in done)
-    print(f"[serve:paged/{args.scheduler}] {len(done)}/{args.requests} requests, "
+    tag = f"[serve:{engine.cache_kind}"
+    print(f"{tag}/{args.scheduler}] {len(done)}/{args.requests} requests, "
           f"{total_tokens} tokens in {dt:.2f}s ({total_tokens / dt:.1f} tok/s, "
           f"{engine.ticks} ticks, {m['preemptions']} preemptions) on {engine.device}")
-    print(f"[serve:paged] admission order: {engine.admission_log}")
-    print(f"[serve:paged] kernels={m['paged_kernel']} "
-          f"launches={m['kernel_launches']} live-token fraction "
-          f"last={m['live_token_fraction']:.3f} mean={m['live_token_fraction_mean']:.3f}")
+    print(f"{tag}] admission order: {engine.admission_log}")
+    if engine.cache_kind == "paged":
+        state = (f"live-token fraction last={m['live_token_fraction']:.3f} "
+                 f"mean={m['live_token_fraction_mean']:.3f}")
+    else:
+        state = f"state bytes per slot={m['state_bytes_per_slot']}"
+    print(f"{tag}] kernels={m['kernel']} launches={m['kernel_launches']} {state}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out_tokens[:8]}...")
     if args.metrics_json:

@@ -1,8 +1,9 @@
-"""Decoder block assembly for the paged serving path.
+"""Decoder block assembly for the serving paths.
 
-The port has the plain-GQA block types ``attn_full`` and ``attn_local``
-(sliding window) and the GQA MoE block ``attn_moe``. MLA, hybrid and
-recurrent blocks come with ROADMAP items A7, A9 and A10.
+The paged path has the plain-GQA block types ``attn_full`` and
+``attn_local`` (sliding window) and the GQA MoE block ``attn_moe``; the
+recurrent path has the pure selective-SSM block ``ssm`` (mamba). MLA,
+xLSTM and hybrid blocks come with ROADMAP items A7, A9 and A10.
 """
 from __future__ import annotations
 
@@ -14,23 +15,48 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamBuilder, rms_norm
-from repro_torch.models.kvcache import PagedKVCache, PagedLayout
+from repro_torch.models.kvcache import PagedKVCache, PagedLayout, RecurrentLayout
 
 # Block types whose cache is plain GQA k/v and whose paged path is ported.
 PAGED_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe")
+# Block types whose per-request state is constant-size (conv history +
+# recurrent state) and whose recurrent path is ported.
+RECURRENT_BLOCK_TYPES = ("ssm",)
 
 
 def _check(bt: str) -> None:
-    if bt not in PAGED_BLOCK_TYPES:
+    if bt not in PAGED_BLOCK_TYPES + RECURRENT_BLOCK_TYPES:
         raise ValueError(f"block type {bt!r} is not ported: the port serves "
-                         f"{PAGED_BLOCK_TYPES} (ROADMAP items A7, A9, A10 bring the rest)")
+                         f"{PAGED_BLOCK_TYPES + RECURRENT_BLOCK_TYPES} (ROADMAP items "
+                         "A7, A9, A10 bring the rest)")
+
+
+def _check_paged(bt: str) -> None:
+    if bt not in PAGED_BLOCK_TYPES:
+        raise ValueError(f"paged serving supports block types {PAGED_BLOCK_TYPES}, "
+                         f"got {bt!r}: use cache='recurrent' for this arch")
+
+
+def _check_recurrent(bt: str) -> None:
+    if bt not in RECURRENT_BLOCK_TYPES:
+        raise ValueError(f"block type {bt!r} has no recurrent serving path: only "
+                         f"{RECURRENT_BLOCK_TYPES} carry constant-size state here; use "
+                         "cache='paged' for this arch")
 
 
 def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
     _check(bt)
     d = cfg.d_model
     b.param("ln1", (d,), init="zeros")
+    if bt == "ssm":
+        # norm -> SSM residual, plus an MLP residual when the arch has one
+        ssm_mod.init_ssm(b.scope("ssm"), d, cfg.ssm)
+        if cfg.d_ff:
+            b.param("ln2", (d,), init="zeros")
+            mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
+        return
     b.param("ln2", (d,), init="zeros")
     attn.init_gqa(b.scope("attn"), d, cfg.attention)
     if bt.endswith("_moe"):
@@ -42,11 +68,38 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
 def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
                            block_size: int, dtype=torch.bfloat16,
                            device=None) -> Dict[str, Any]:
-    _check(bt)
+    _check_paged(bt)
     a = cfg.attention
     shape = (num_blocks, block_size, a.num_kv_heads, a.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_recurrent_block_cache(bt: str, cfg: ModelConfig, batch: int,
+                               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """``{"conv", "state"}`` rows for ``batch`` slots: the conv history in
+    ``dtype``, the state in float32."""
+    _check_recurrent(bt)
+    return ssm_mod.ssm_init_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
+
+
+def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
+                          cache: Dict[str, Any], recurrent: RecurrentLayout,
+                          kernel: str = "auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Pre-norm residual SSM block over per-slot state: the SSM advances
+    each row over its valid prefix (``recurrent.n_valid``), then the MLP
+    residual when ``cfg.d_ff`` (mamba has none). ``kernel`` selects the
+    scan. Returns ``(x, cache)``, the cache a new ``{"conv", "state"}``."""
+    _check_recurrent(bt)
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    y, cache = ssm_mod.ssm_forward(params["ssm"], h, cfg.ssm, cache=cache,
+                                   valid=recurrent.token_valid(x.shape[1]),
+                                   kernel=kernel)
+    x = x + y
+    if cfg.d_ff:
+        h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
+        x = x + mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
+    return x, cache
 
 
 def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
@@ -59,7 +112,7 @@ def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
     (``"auto"``, ``"cuda"`` or ``"ref"``). Returns ``(x, cache, aux)``,
     ``aux`` being the MoE router losses: a float32 scalar tensor, or the
     float 0.0 for a dense block (nothing is launched for it)."""
-    _check(bt)
+    _check_paged(bt)
     a = cfg.attention
     window = a.sliding_window if bt.endswith("_local") else None
     h = rms_norm(x, params["ln1"], cfg.norm_eps)

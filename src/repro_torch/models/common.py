@@ -43,7 +43,7 @@ class ParamBuilder:
 
     ``param`` uses the shapes and standard deviations of the JAX package's
     ``ParamBuilder.param``: normal(0, 1/sqrt(fan_in)) with ``fan_in`` the
-    first dim (the last for vectors), or zeros. Values come from one
+    first dim (the last for vectors), or zeros, or ones. Values come from one
     ``torch.Generator``; they are not the JAX package's random bits.
     """
 
@@ -63,6 +63,8 @@ class ParamBuilder:
               fan_in: Optional[int] = None) -> torch.Tensor:
         if init == "zeros":
             val = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        elif init == "ones":
+            val = torch.ones(shape, dtype=self.dtype, device=self.device)
         else:
             fi = fan_in if fan_in is not None else (shape[0] if len(shape) > 1 else shape[-1])
             std = 1.0 / math.sqrt(max(1, fi))

@@ -1,10 +1,15 @@
-"""Paged KV cache for serving, and the sequence-state protocol pieces.
+"""Paged KV cache and recurrent layout for serving, and the sequence-state
+protocol pieces.
 
 ``PagedKVCache`` is one shared block pool ``(N_blocks, block_size, K, D)``
 per layer; requests own blocks through a per-request block table, so
 memory is allocated at sequence-length granularity instead of
 ``slots * max_len``. Logical position ``p`` of request ``b`` lives at
 ``(block_tables[b, p // block_size], p % block_size)``.
+
+``RecurrentLayout`` is the per-step view of the recurrent backend, whose
+state is constant-size per slot; ``slot_axis``/``gather_slot_rows``/
+``scatter_slot_rows`` move one slot's rows of such a cache.
 """
 from __future__ import annotations
 
@@ -122,6 +127,74 @@ class PagedKVCache:
         return k, v, max_resident
 
 
+@dataclasses.dataclass
+class RecurrentLayout:
+    """Per-step serving view for recurrent (SSM) stacks: ``PagedLayout``
+    minus the block tables, since state is constant-size per request.
+
+    starts: (B,) int32 — tokens already absorbed into the state per row.
+    n_valid: (B,) int32 — real token columns this step (decode rows 1,
+        prefill rows up to ``chunk``, idle rows 0). The real columns are
+        always the prefix ``[0, n_valid)``.
+    """
+
+    starts: torch.Tensor
+    n_valid: torch.Tensor
+
+    def token_positions(self, chunk: int) -> torch.Tensor:
+        cols = torch.arange(chunk, dtype=torch.int32, device=self.starts.device)
+        return self.starts[:, None] + cols[None, :]
+
+    def token_valid(self, chunk: int) -> torch.Tensor:
+        cols = torch.arange(chunk, dtype=torch.int32, device=self.n_valid.device)
+        return cols[None, :] < self.n_valid[:, None]
+
+
+def _map(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two dict/list trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def slot_axis(live_shape: Tuple[int, ...], one_shape: Tuple[int, ...],
+              slots: int) -> Optional[int]:
+    """The batch (slot) axis of a cache leaf, found structurally: the first
+    axis where the live leaf has ``slots`` extent, the one-row template has
+    extent 1, and every leading dim matches. None for leaves with no
+    per-slot axis."""
+    if len(live_shape) != len(one_shape):
+        return None
+    for ax in range(len(live_shape)):
+        if (live_shape[ax] == slots and one_shape[ax] == 1
+                and live_shape[:ax] == one_shape[:ax]):
+            return ax
+    return None
+
+
+def gather_slot_rows(cache: Any, template: Any, slot: int, slots: int) -> Any:
+    """A copy of one slot's rows of a batched cache (the port's per-layer
+    dict tree), on the cache's device. Leaves without a slot axis are
+    copied whole."""
+    def take(live, one):
+        ax = slot_axis(tuple(live.shape), tuple(one.shape), slots)
+        return live.clone() if ax is None else live.narrow(ax, slot, 1).clone()
+    return _map(take, cache, template)
+
+
+def scatter_slot_rows(cache: Any, row: Any, slot: int, slots: int) -> Any:
+    """Write one-row state into ``slot`` of a batched cache, **in place**,
+    and return the cache. Leaves without a slot axis are left untouched."""
+    def put(live, one):
+        ax = slot_axis(tuple(live.shape), tuple(one.shape), slots)
+        if ax is not None:
+            live.narrow(ax, slot, 1).copy_(one)
+        return live
+    return _map(put, cache, row)
+
+
 # ---------------------------------------------------------------------------
 # SequenceState — the per-request sequence-state backend protocol
 # ---------------------------------------------------------------------------
@@ -133,7 +206,7 @@ class SequenceCapacity:
     ``free_units is None`` means the resource is not consumable and
     admission is gated on free slots alone."""
 
-    kind: str                        # backend name ("paged")
+    kind: str                        # backend name ("paged" | "recurrent")
     unit: str                        # "blocks" | "slots"
     total_units: Optional[int]
     free_units: Optional[int]

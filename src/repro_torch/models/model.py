@@ -1,14 +1,17 @@
-"""The LM model: layer plan -> per-layer blocks -> logits (paged serving path).
+"""The LM model: layer plan -> per-layer blocks -> logits (serving paths).
 
 The JAX package stacks the layers of each repeated-pattern group and scans
-over them; it unrolls the loop on the paged path. The port keeps one
-parameter dict per layer, in ``flat_block_types`` order, and always runs
-the loop unrolled.
+over them; it unrolls the loop on the paged path, and always scans pure-
+recurrent stacks. The port keeps one parameter dict per layer, in
+``flat_block_types`` order, and always runs the loop unrolled (scan and
+unrolled loop round differently in bf16; the tests measure the margin).
 
 Entry points:
-  init_params(cfg, generator, device)              -> params
-  init_paged_cache(cfg, num_blocks, block_size)    -> cache
-  forward(cfg, params, tokens, cache=, paged=)     -> (logits, cache, aux)
+  init_params(cfg, generator, device)               -> params
+  init_paged_cache(cfg, num_blocks, block_size)     -> cache
+  init_recurrent_cache(cfg, slots)                  -> cache
+  forward(cfg, params, tokens, cache=, paged=)      -> (logits, cache, aux)
+  forward(cfg, params, tokens, cache=, recurrent=)  -> (logits, cache, aux)
 """
 from __future__ import annotations
 
@@ -20,19 +23,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models.common import ParamBuilder, rms_norm, softcap
-from repro_torch.models.kvcache import PagedLayout
+from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(pattern, repeats), ...] covering cfg.num_layers in order: the JAX
-    package's plan for plain attention and GQA MoE stacks (the bridge reads
-    its group structure). MLA stacks are ROADMAP item A7, recurrent and
-    hybrid ones A9 and A10."""
-    a = cfg.attention
-    if a is None or cfg.xlstm is not None or cfg.ssm is not None or cfg.parallel_ssm_attn:
-        raise NotImplementedError(f"{cfg.name}: recurrent and hybrid stacks are not "
-                                  "ported (ROADMAP items A9-A10)")
+    package's plan for plain attention, GQA MoE and pure-SSM stacks (the
+    bridge reads its group structure). MLA stacks are ROADMAP item A7,
+    xLSTM ones A9 and hybrid ones A10."""
     L = cfg.num_layers
+    if cfg.xlstm is not None:
+        raise NotImplementedError(f"{cfg.name}: xLSTM blocks (mLSTM/sLSTM) are ROADMAP "
+                                  "item A9")
+    if cfg.ssm is not None and cfg.attention is None:
+        return [(("ssm",), L)]
+    a = cfg.attention
+    if a is None or cfg.ssm is not None or cfg.parallel_ssm_attn:
+        raise NotImplementedError(f"{cfg.name}: hybrid attention+SSM stacks are "
+                                  "ROADMAP item A10")
     if cfg.family == "moe":
         if a.kind == "mla":
             raise NotImplementedError(f"{cfg.name}: the MLA blocks mla_dense/mla_moe "
@@ -92,6 +100,15 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
         for bt in flat_block_types(cfg)]}
 
 
+def init_recurrent_cache(cfg: ModelConfig, slots: int, dtype=torch.bfloat16,
+                         device=None) -> Dict[str, Any]:
+    """One ``{"conv", "state"}`` per layer, ``slots`` rows each: the conv
+    history in ``dtype``, the state in float32. Constant-size in the
+    sequence length; per-request positions live in the engine."""
+    return {"layers": [blocks_mod.init_recurrent_block_cache(bt, cfg, slots, dtype, device)
+                       for bt in flat_block_types(cfg)]}
+
+
 def _cast(tree, dtype: torch.dtype):
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
@@ -106,18 +123,23 @@ def forward(
     tokens: torch.Tensor,                       # (B, S) int
     *,
     cache: Dict[str, Any],
-    paged: PagedLayout,
+    paged: Optional[PagedLayout] = None,
+    recurrent: Optional[RecurrentLayout] = None,
     paged_kernel: str = "auto",                 # "auto" | "cuda" | "ref"
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> Tuple[torch.Tensor, Dict[str, Any], Union[torch.Tensor, float]]:
-    """Paged serving forward: float32 logits (B, S, V), the cache, whose
-    pools are updated in place, and the MoE router losses summed over the
-    layers (a float32 scalar tensor; the float 0.0 for a dense stack). ``paged_kernel`` selects every
-    kernel of the path: paged attention and the MoE expert FFN. The
-    dense/contiguous forward comes with ROADMAP item A7."""
-    if paged is None or cache is None:
-        raise NotImplementedError("the port's forward runs the paged path only; "
-                                  "the contiguous path is ROADMAP item A7")
+    """Serving forward over a paged pool (``paged=``) or over per-slot
+    recurrent state (``recurrent=``): float32 logits (B, S, V), the cache,
+    and the MoE router losses summed over the layers (a float32 scalar
+    tensor; the float 0.0 for a stack without MoE). Paged pools are
+    updated in place; the recurrent cache is returned new.
+    ``paged_kernel`` selects every kernel of the path: paged attention and
+    the MoE expert FFN, or the selective scan. The dense/contiguous
+    forward comes with ROADMAP item A7."""
+    if cache is None or (paged is None) == (recurrent is None):
+        raise NotImplementedError("the port's forward runs the paged or the recurrent "
+                                  "serving path (one layout and a cache); the "
+                                  "contiguous path is ROADMAP item A7")
     strict_fp32()
     x = params["embed"].to(compute_dtype)[tokens.long()]
     # the JAX package rounds sqrt(d_model) to the compute dtype first
@@ -125,10 +147,15 @@ def forward(
     new_layers = []
     aux = 0.0
     for bt, lp, lc in zip(flat_block_types(cfg), params["layers"], cache["layers"]):
-        x, lc, a = blocks_mod.apply_block_paged(bt, _cast(lp, compute_dtype), x, cfg,
-                                                lc, paged, paged_kernel)
+        lp = _cast(lp, compute_dtype)
+        if recurrent is not None:
+            x, lc = blocks_mod.apply_block_recurrent(bt, lp, x, cfg, lc, recurrent,
+                                                     paged_kernel)
+        else:
+            x, lc, a = blocks_mod.apply_block_paged(bt, lp, x, cfg, lc, paged,
+                                                    paged_kernel)
+            aux = aux + a
         new_layers.append(lc)
-        aux = aux + a
     x = rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
     head = (params["embed"].to(compute_dtype).t() if cfg.tie_embeddings
             else params["head"].to(compute_dtype))

@@ -1,6 +1,7 @@
-"""The paged serve step: block-pool cache, decode and chunked prefill in one
-fixed shape, on one device, for dense and MoE GQA stacks. Mesh and fabric
-lowering are later slices (ROADMAP A11/A14)."""
+"""The serve steps, on one device: the paged step (block-pool cache, dense
+and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
+pure-SSM stacks), each serving decode and chunked prefill in one fixed
+shape. Mesh and fabric lowering are later slices (ROADMAP A11/A14)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,15 +11,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import moe_jam, paged_attention
+from repro_torch.kernels import moe_jam, paged_attention, ssm_scan
 from repro_torch.kernels.loader import resolve_kernel
+from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import model as model_lib
-from repro_torch.models.kvcache import PagedLayout
+from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 
 
 # the launch counter of every kernel a step can run
 LAUNCH_COUNTERS = {"paged_attention": paged_attention.LAUNCHES,
-                   "moe_jam": moe_jam.LAUNCHES}
+                   "moe_jam": moe_jam.LAUNCHES,
+                   "ssm_scan": ssm_scan.LAUNCHES}
 
 
 @dataclasses.dataclass
@@ -42,11 +45,13 @@ def make_paged_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
     every column, (slots, chunk). The pools are updated in place.
 
     ``kernel`` selects every kernel of the step (paged attention and the
-    MoE expert FFN); ``meta["paged_kernel"]`` holds the resolved kind. The
+    MoE expert FFN); ``meta["paged_kernel"]`` (and ``meta["kernel"]``)
+    holds the resolved kind. The
     MoE router losses are dropped.
     ``meta["nonfinite_logits"]`` is a device counter of rows (with
     ``n_valid > 0``) whose emitted logits held a NaN or an infinity; it is
-    read without a per-step sync.
+    read without a per-step sync. ``meta["kernels"]`` names the kernels
+    the step can launch (keys of ``LAUNCH_COUNTERS``).
     """
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
@@ -66,14 +71,63 @@ def make_paged_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
             bad = ~torch.isfinite(logits).all(-1) & layout.token_valid(logits.shape[1])
             nonfinite.add_(bad.sum())
             return torch.argmax(logits, dim=-1).to(torch.int32), cache
-        last = (n_valid.long() - 1).clamp(min=0)
-        last_logits = logits[torch.arange(logits.shape[0], device=logits.device), last]
-        bad = ~torch.isfinite(last_logits).all(-1) & (n_valid > 0)
-        nonfinite.add_(bad.sum())
-        return torch.argmax(last_logits, dim=-1).to(torch.int32), cache
+        return _last_valid(logits, n_valid, nonfinite), cache
 
     return StepBundle(fn=paged_step, meta=dict(
         kind="paged_decode" if emit == "last" else "paged_verify",
         block_size=block_size, num_blocks=num_blocks, chunk=chunk, slots=slots,
         max_blocks_per_seq=max_blocks_per_seq, paged_kernel=paged_kernel,
-        emit=emit, device=dev, nonfinite_logits=nonfinite))
+        kernel=paged_kernel, emit=emit, device=dev, nonfinite_logits=nonfinite,
+        kernels=("paged_attention", "moe_jam")))
+
+
+def _last_valid(logits: torch.Tensor, n_valid: torch.Tensor,
+                nonfinite: torch.Tensor) -> torch.Tensor:
+    """Greedy token at each row's last valid column ``max(n_valid - 1, 0)``;
+    counts rows with ``n_valid > 0`` whose logits there are not finite."""
+    last = (n_valid.long() - 1).clamp(min=0)
+    last_logits = logits[torch.arange(logits.shape[0], device=logits.device), last]
+    bad = ~torch.isfinite(last_logits).all(-1) & (n_valid > 0)
+    nonfinite.add_(bad.sum())
+    return torch.argmax(last_logits, dim=-1).to(torch.int32)
+
+
+def make_recurrent_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
+                              kernel: str = "auto", device=None,
+                              compute_dtype: torch.dtype = torch.bfloat16) -> StepBundle:
+    """One step through per-slot recurrent state for ``slots`` request rows.
+
+    fn(params, cache, tokens (slots, chunk), starts (slots,), n_valid
+    (slots,)) -> (next_token (slots,), new cache). The paged step's
+    contract minus block tables: rows carry a valid-prefix token layout
+    and every state update at an invalid column is gated off inside the
+    scan, so each row's result is what it would be with its tokens alone,
+    whatever slot it sits in and whatever the other rows hold. The cache is
+    O(slots) whatever the sequence lengths.
+
+    ``kernel`` selects the selective scan; ``meta["kernel"]`` holds the
+    resolved kind, ``meta["nonfinite_logits"]`` counts rows with
+    non-finite emitted logits, as in the paged step.
+    """
+    if cfg.is_encoder:
+        raise ValueError("encoder-only arch has no decode step")
+    bad = sorted(set(model_lib.flat_block_types(cfg)) - set(blocks_mod.RECURRENT_BLOCK_TYPES))
+    if bad:
+        raise ValueError(f"recurrent serving supports block types "
+                         f"{blocks_mod.RECURRENT_BLOCK_TYPES}, got {bad}: these carry "
+                         "seq-sized KV state; use cache='paged' for this arch")
+    dev = resolve_device(device)
+    kind = resolve_kernel(kernel, dev)
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @torch.no_grad()
+    def recurrent_step(params, cache, tokens, starts, n_valid):
+        layout = RecurrentLayout(starts, n_valid)
+        logits, cache, _ = model_lib.forward(cfg, params, tokens, cache=cache,
+                                             recurrent=layout, paged_kernel=kind,
+                                             compute_dtype=compute_dtype)
+        return _last_valid(logits, n_valid, nonfinite), cache
+
+    return StepBundle(fn=recurrent_step, meta=dict(
+        kind="recurrent_decode", chunk=chunk, slots=slots, kernel=kind, device=dev,
+        nonfinite_logits=nonfinite, kernels=("ssm_scan",)))

@@ -32,6 +32,18 @@ chunk 4) and on a smaller pool that forces preemption.
   the port's expert FFN is the moe_jam kernel's plain version: float32
   sums, ``h`` rounded to bf16 once; the JAX model's ``expert_ffn`` rounds
   ``g``, ``u`` and ``h``. Neither rounds in float32.)
+* ``get_smoke("mamba-130m")`` on the recurrent backend: 3 requests on 2
+  slots, prompts of 4, 5 and 7 tokens with chunk 4 (on and off the chunk
+  boundary), one forced mid-decode ``preempt(rid)``. The schedule
+  (admission order, ticks, preemptions) and the snapshot counts match the
+  JAX ``Engine(cache="recurrent")`` exactly (the JAX engine takes no
+  ``kernel`` for this backend: its step always runs the ``lax.scan`` of
+  ``models/ssm.py``). Each token equals the argmax of the JAX float32
+  forward over the request's unbatched sequence from a zero state (the
+  oracle of ``tests/test_engine.py``'s recurrent test, rebuilt here):
+  exactly for the port's engine in float32, except where that forward's
+  top-2 margin is under ``F32_MARGIN_TOL``; within ``MARGIN_TOL`` for the
+  bf16 engine (at most one in ten tokens under the margin each).
 """
 import jax
 import jax.numpy as jnp
@@ -47,10 +59,10 @@ from repro.engine import Request as JRequest
 from repro.models import model as jmodel
 from repro.models.kvcache import PagedLayout as JPagedLayout
 from repro_torch.bridge import params_from_jax
-from repro_torch.configs.registry import get_smoke
-from repro_torch.engine import Engine, Request
+from repro_torch.configs.registry import default_cache_backend, get_smoke
+from repro_torch.engine import Engine, RecurrentState, Request
 from repro_torch.models import model as tmodel
-from repro_torch.runtime.steps import make_paged_serve_step
+from repro_torch.runtime.steps import make_paged_serve_step, make_recurrent_serve_step
 
 # bf16 logits of the smoke model deviate from float32 by up to ~2.5e-2
 # (random 16-token prompts, logits up to ~3 in magnitude); two such errors
@@ -115,9 +127,10 @@ def _schedule(e):
                 preemptions=e.preempt_count, completed=len(e.completed))
 
 
-def _oracle_exceptions(s, prompts, engine):
+def _oracle_exceptions(s, prompts, engine, margin=MARGIN_TOL):
     """Count emitted tokens that differ from the float32 argmax where the
-    margin is >= MARGIN_TOL (faults) and where it is below (exceptions)."""
+    top-2 margin is >= ``margin`` (faults) and where it is below
+    (exceptions)."""
     faults, exceptions, total = [], 0, 0
     for r in engine.completed:
         seq = np.concatenate([prompts[r.rid], np.asarray(r.out_tokens, np.int32)])
@@ -127,7 +140,7 @@ def _oracle_exceptions(s, prompts, engine):
             top2 = np.sort(row)[-2:]
             total += 1
             if tok != int(np.argmax(row)):
-                if top2[1] - top2[0] >= MARGIN_TOL:
+                if top2[1] - top2[0] >= margin:
                     faults.append((r.rid, i, tok, int(np.argmax(row)),
                                    float(top2[1] - top2[0])))
                 else:
@@ -274,3 +287,145 @@ def test_olmoe_engine_schedule_and_tokens_match_jax(olmoe):
             assert rows - equal <= rows // 10
         else:
             assert rows - len(faults) >= MOE_BF16_SHARE * rows, faults
+
+
+# ---------------------------------------------------------------------------
+# mamba-130m: the recurrent backend
+# ---------------------------------------------------------------------------
+
+REC_GEOM = dict(slots=2, max_len=48, chunk=4)
+REC_LENS, REC_NEW = (4, 5, 7), 6
+
+
+@pytest.fixture(scope="module")
+def mamba(setup):
+    jcfg = j_get_smoke("mamba-130m")
+    with setup["mesh"]:
+        jparams = jax.jit(lambda k: jmodel.init_params(jcfg, k)[0])(jax.random.PRNGKey(3))
+    cfg = get_smoke("mamba-130m")
+    run = RunConfig(model=jcfg, shape=SHAPES["decode_32k"],
+                    sharding=ShardingConfig(fsdp_params=False, seq_axis=None))
+    oracle = jax.jit(lambda p, t: jmodel.forward(jcfg, p, t, compute_dtype=jnp.float32)[0])
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32) for n in REC_LENS]
+    return dict(setup, jcfg=jcfg, cfg=cfg, run=run, jparams=jparams, oracle=oracle,
+                prompts=prompts,
+                tparams=params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
+
+
+def _recurrent_engine(s, dtype, **geom):
+    """The port's recurrent engine on the CPU, its step, cache and state
+    template built in ``dtype``."""
+    e = Engine(s["cfg"], device="cpu", cache="auto", **geom)
+    e.load_params(s["tparams"])
+    if dtype != torch.bfloat16:
+        e.bundle = make_recurrent_serve_step(s["cfg"], slots=e.slots, chunk=e.chunk,
+                                             kernel="ref", device="cpu", compute_dtype=dtype)
+        make = lambda n: tmodel.init_recurrent_cache(s["cfg"], n, dtype=dtype, device="cpu")
+        e.state = RecurrentState(e.slots, lambda: make(1))
+        e.cache = make(e.slots)
+    return e
+
+
+def _drive_recurrent(e, request_cls, prompts):
+    """Submit, tick twice, preempt the request in the first occupied slot
+    (in decode by then), drain; returns the preempted rid."""
+    for rid, p in enumerate(prompts):
+        e.submit(request_cls(rid, p, max_new_tokens=REC_NEW))
+    e.tick()
+    e.tick()
+    victim = next(x for x in e.slot_entry if x is not None)
+    assert victim.pos > len(victim.prompt_tokens), "the victim is not in decode"
+    e.preempt(victim.req.rid)
+    e.run_until_drained()
+    return victim.req.rid
+
+
+def test_recurrent_engine_schedule_and_tokens_match_jax(mamba):
+    with mamba["mesh"]:
+        je = JEngine(mamba["jcfg"], mamba["run"], mamba["mesh"], cache="recurrent",
+                     **REC_GEOM)
+        je.load_params(mamba["jparams"])
+        j_victim = _drive_recurrent(je, JRequest, mamba["prompts"])
+    jm = je.state.metrics()
+    snaps = ("snapshots_taken", "snapshots_restored")
+    want_sched = dict(_schedule(je), **{k: jm[k] for k in snaps})
+    for dtype, margin in ((torch.float32, F32_MARGIN_TOL), (torch.bfloat16, MARGIN_TOL)):
+        e = _recurrent_engine(mamba, dtype, **REC_GEOM)
+        assert e.cache_kind == "recurrent" and e.kernel == "ref"
+        assert _drive_recurrent(e, Request, mamba["prompts"]) == j_victim
+        m = e.metrics()
+        assert dict(_schedule(e), **{k: m[k] for k in snaps}) == want_sched
+        if dtype == torch.bfloat16:      # the JAX engine's conv history is bf16 too
+            assert m["state_bytes_per_slot"] == jm["state_bytes_per_slot"]
+        assert m["preemptions"] >= 1 and m["snapshots_restored"] >= 1
+        assert m["kernel_launches"] == {"ssm_scan": 0} and m["nonfinite_logits"] == 0
+        assert all(len(r.out_tokens) == REC_NEW for r in e.completed)
+        faults, exceptions, total = _oracle_exceptions(mamba, mamba["prompts"], e, margin)
+        print(f"[mamba {dtype}] {exceptions}/{total} tokens differ from the float32 "
+              f"argmax inside the margin {margin}")
+        assert not faults, faults
+        assert exceptions <= total // 10
+
+
+def test_recurrent_engine_retemplates_a_freed_slot(mamba):
+    """One slot serves two requests in turn: the second emits what it emits
+    on a fresh engine, so the first one's state did not leak into it."""
+    def serve(prompts):
+        e = _recurrent_engine(mamba, torch.float32, slots=1, max_len=48, chunk=4)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=4))
+        e.run_until_drained()
+        return {r.rid: r.out_tokens for r in e.completed}
+
+    a, b = mamba["prompts"][2], mamba["prompts"][0]
+    assert serve([a, b])[1] == serve([b])[0]
+    # and at the backend: a fresh entry gets the template, a snapshot its rows
+    st = RecurrentState(2, lambda: {"layers": [{"state": torch.full((1, 3), 2.0)}]})
+    cache = {"layers": [{"state": torch.full((2, 3), 9.0)}]}
+
+    class Entry:
+        snapshot = None
+    st.init(Entry(), cache, 1)
+    assert cache["layers"][0]["state"].tolist() == [[9.0] * 3, [2.0] * 3]
+    victim = Entry()
+    st.evict(victim, cache, 0)
+    cache["layers"][0]["state"].zero_()
+    st.init(victim, cache, 1)
+    assert cache["layers"][0]["state"].tolist() == [[0.0] * 3, [9.0] * 3]
+    assert victim.snapshot is None
+    assert st.metrics() == {"state_bytes_per_slot": 12, "snapshots_taken": 1,
+                            "snapshots_restored": 1}
+
+
+def test_default_cache_backend_per_family(mamba):
+    assert default_cache_backend(mamba["cfg"]) == "recurrent"
+    assert default_cache_backend(get_smoke("llama3.2-1b")) == "paged"
+    for arch, item in (("xlstm-1.3b", "A9"), ("deepseek-v2-lite-16b", "A7"),
+                       ("qwen2-vl-72b", "A7"), ("hymba-1.5b", "A10")):
+        with pytest.raises(NotImplementedError, match=item):
+            default_cache_backend(j_get_smoke(arch))
+    with pytest.raises(ValueError, match="recurrent serving supports"):
+        Engine(get_smoke("llama3.2-1b"), device="cpu", cache="recurrent", **REC_GEOM)
+    with pytest.raises(ValueError, match="paged serving supports"):
+        e = Engine(mamba["cfg"], device="cpu", cache="paged", num_blocks=16, block_size=4,
+                   **REC_GEOM)
+        e.load_params(mamba["tparams"])
+    e = Engine(mamba["cfg"], device="cpu", cache="recurrent", **REC_GEOM)
+    with pytest.raises(KeyError, match="not running"):
+        e.preempt(0)
+
+
+def test_recurrent_entry_points_default_to_cuda_and_raise_without_it(mamba):
+    from repro_torch.runtime.steps import make_recurrent_serve_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(mamba["cfg"], cache="recurrent", **REC_GEOM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(mamba["cfg"], cache="auto", **REC_GEOM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_recurrent_serve_step(mamba["cfg"], slots=2, chunk=4)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        Engine(mamba["cfg"], device="cpu", cache="recurrent", kernel="cuda", **REC_GEOM)

@@ -19,6 +19,13 @@ port's dependencies:
   1e-2 * (rms of its (expert, row) output row + |plain|) (bf16 output of
   the same float32 sums in another order: the neighbouring bf16 value at
   most), empty rows exactly zero;
+* the selective-scan kernel against its plain version with channels not a
+  multiple of 128, N 4, 8 and 16, n_valid 0 / 1 / partial / full and one
+  step: ``y`` on valid columns within 1e-2 * (rms of its (row, column) +
+  |plain|) (the same float32 sum, with and without fused multiply-adds,
+  rounded to bf16), zeros past n_valid, ``h_last`` within 1e-4 * (1 +
+  |plain|), ``h0`` bit for bit on empty rows; a second launch from the
+  first one's ``h_last`` equals one launch over both chunks, bit for bit;
 * the wrappers' input checks;
 * the smoke engines through the kernels against the same engines through
   the plain versions: identical schedule, one launch of each kernel per
@@ -30,7 +37,7 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.engine import Engine, Request
-from repro_torch.kernels import moe_jam
+from repro_torch.kernels import moe_jam, ssm_scan
 from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
                                                  paged_attention,
                                                  paged_attention_cuda,
@@ -204,4 +211,96 @@ def test_olmoe_smoke_engine_through_kernels(cuda):
     n = cfg.num_layers * m_c["steps"]
     assert m_c["kernel_launches"] == {"paged_attention": n, "moe_jam": n}
     assert m_r["kernel_launches"] == {"paged_attention": 0, "moe_jam": 0}
+    assert m_c["nonfinite_logits"] == 0
+
+
+def _scan_case(rng, dev, b, s, i, n):
+    """Engine-like scan inputs on ``dev``: dt softplus of normals, x/b/c
+    bf16, a = -exp(bf16 of normal * 0.3) f32, h0 random f32."""
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    dt = bf(np.log1p(np.exp(rng.standard_normal((b, s, i)))))
+    x, bb, cc = bf(rng.standard_normal((b, s, i))), bf(rng.standard_normal((b, s, n))), \
+        bf(rng.standard_normal((b, s, n)))
+    a = -torch.exp(bf(rng.standard_normal((i, n)) * 0.3).float())
+    h0 = torch.from_numpy(rng.standard_normal((b, i, n)).astype(np.float32)).to(dev)
+    return dt, bb, cc, x, a, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,i,n", [(5, 32, 1536, 16), (5, 9, 200, 4), (5, 40, 130, 8),
+                                     (3, 1, 96, 16)])
+def test_ssm_scan_kernel_matches_plain_version(cuda, b, s, i, n):
+    args = _scan_case(np.random.default_rng(b * s + i), cuda, b, s, i, n)
+    n_valid = torch.tensor([0, 1, s, max(s // 2, 1), s][:b], dtype=torch.int32, device=cuda)
+    before = ssm_scan.LAUNCHES.count
+    y, h = ssm_scan.ssm_scan(*args, n_valid=n_valid)
+    yr, hr = ssm_scan.ssm_scan_ref(*args, n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert ssm_scan.LAUNCHES.count == before + 1
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    max_y, max_h, worst, bad = ssm_scan.compare(y, h, yr, hr, n_valid)
+    assert bad == 0, (max_y, max_h, worst)
+    valid = torch.arange(s, device=cuda)[None, :] < n_valid[:, None]
+    assert (torch.where(valid[:, :, None], 0.0, y.float()) == 0).all()
+    empty = n_valid == 0
+    assert torch.equal(h[empty], args[5][empty])
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_continues_from_its_own_state(cuda):
+    dt, bb, cc, x, a, h0 = _scan_case(np.random.default_rng(1), cuda, 4, 24, 300, 16)
+    y, h = ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a, h0)
+    halves = [t[:, :10].contiguous() for t in (dt, bb, cc, x)], \
+        [t[:, 10:].contiguous() for t in (dt, bb, cc, x)]
+    y1, h1 = ssm_scan.ssm_scan_cuda(*halves[0], a, h0)
+    y2, h2 = ssm_scan.ssm_scan_cuda(*halves[1], a, h1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    dt, bb, cc, x, a, h0 = _scan_case(np.random.default_rng(0), cuda, 2, 4, 64, 4)
+    nv = torch.tensor([4, 1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssm_scan.ssm_scan_cuda(dt.float(), bb, cc, x, a, h0, nv)
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a.bfloat16(), h0, nv)
+    with pytest.raises(ValueError, match="int32"):
+        ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a, h0, nv.long())
+    with pytest.raises(ValueError, match="do not fit"):
+        ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a[:32].contiguous(), h0, nv)
+    with pytest.raises(ValueError, match="N in"):
+        ssm_scan.ssm_scan_cuda(dt, bb[..., :3].contiguous(), cc[..., :3].contiguous(), x,
+                               a[:, :3].contiguous(), h0[..., :3].contiguous(), nv)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan.ssm_scan_cuda(dt, bb, cc, x.transpose(0, 1), a, h0, nv)
+    with pytest.raises(ValueError, match="aligned"):
+        ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a, torch.empty(2 * 64 * 4 + 1, device=cuda)[1:]
+                               .view(2, 64, 4), nv)
+
+
+@pytest.mark.gpu
+def test_mamba_smoke_engine_through_kernel(cuda):
+    cfg = get_smoke("mamba-130m")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32) for n in (4, 5, 7)]
+    runs = {}
+    for kernel in ("cuda", "ref"):
+        e = Engine(cfg, device=cuda, cache="auto", kernel=kernel, slots=2, max_len=48,
+                   chunk=4)
+        e.load_params(seed=0)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=6))
+        e.tick()
+        e.tick()
+        e.preempt(next(x.req.rid for x in e.slot_entry if x is not None))
+        e.run_until_drained()
+        runs[kernel] = (e.admission_log, e.ticks, e.preempt_count, e.metrics())
+    (log_c, ticks_c, pre_c, m_c), (log_r, ticks_r, pre_r, m_r) = runs["cuda"], runs["ref"]
+    assert (log_c, ticks_c, pre_c) == (log_r, ticks_r, pre_r) and pre_c >= 1
+    assert m_c["engine"]["cache"] == "recurrent"
+    assert m_c["kernel_launches"] == {"ssm_scan": cfg.num_layers * m_c["steps"]}
+    assert m_r["kernel_launches"] == {"ssm_scan": 0}
+    assert m_c["snapshots_restored"] == m_c["snapshots_taken"] == 1
     assert m_c["nonfinite_logits"] == 0

@@ -1,4 +1,4 @@
-"""Port parity: parameters, and the paged forward of the whole model.
+"""Port parity: parameters, and the serving forward of the whole model.
 
 ``repro_torch.models.model.forward`` against ``repro.models.model.forward(
 ..., paged=, paged_kernel="ref", compute_dtype=float32)`` with float32 pools
@@ -11,6 +11,19 @@ stale rows. Logits and both pools of every layer are compared, valid
 columns only, atol 1e-4 (float32 through two layers; summation order
 differs); the MoE router losses to rtol 1e-5. The MoE layers route the
 padding columns to the drop slot in both packages (``token_mask``).
+
+``get_smoke("mamba-130m")`` (2 SSM layers, d_model 64, inner 128, N 4)
+runs the recurrent forward (``recurrent=RecurrentLayout``) over three
+steps of prefill, decode and idle rows. Each step starts both packages
+from the same state, the JAX package's carried over by
+``recurrent_cache_from_jax``: logits on valid columns and every layer's
+new conv history and state agree to 1e-5 in float32 (1.9e-6 seen). In
+bfloat16 the JAX package scans the layers of a pure-recurrent stack and
+XLA fuses the elementwise chains, while the port unrolls the layers and
+rounds after every op, so the two differ by a few bf16 ulps: logits within
+``MAMBA_BF16_LOGITS`` of the largest |logit| (0.84% seen), the state and
+conv history within ``MAMBA_BF16_STATE`` (3.4e-2 seen, at values up to
+~5).
 """
 import jax
 import jax.numpy as jnp
@@ -22,12 +35,16 @@ from repro.configs.registry import get_smoke as j_get_smoke
 from repro.models import model as jmodel
 from repro_torch.configs.registry import default_cache_backend
 from repro.models.kvcache import PagedLayout as JPagedLayout
-from repro_torch.bridge import flatten_groups, params_from_jax
+from repro.models.kvcache import RecurrentLayout as JRecurrentLayout
+from repro_torch.bridge import flatten_groups, params_from_jax, recurrent_cache_from_jax
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.models import model as tmodel
-from repro_torch.models.kvcache import PagedLayout
+from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 
 ATOL = 1e-4
+MAMBA_ATOL = 1e-5
+MAMBA_BF16_LOGITS = 0.03       # of max |logit|: ~4 bf16 ulps at the top of the range
+MAMBA_BF16_STATE = 0.1
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +60,7 @@ def test_configs_match_jax():
     assert get_config("llama3.2-1b").to_json() == j_get_config("llama3.2-1b").to_json()
     assert get_smoke("llama3.2-1b").to_json() == j_get_smoke("llama3.2-1b").to_json()
     with pytest.raises(KeyError, match="ROADMAP item A9"):
-        get_config("mamba-130m")
+        get_config("xlstm-1.3b")
 
 
 def test_params_from_jax_round_trip(smoke):
@@ -233,3 +250,119 @@ def test_olmoe_paged_forward_matches_jax_over_schedule(olmoe):
             for kv in ("k", "v"):
                 np.testing.assert_allclose(tl_[kv].numpy(), jl_[kv], atol=ATOL, rtol=0,
                                            err_msg=f"step {step} layer {i} {kv}")
+
+
+# ---------------------------------------------------------------------------
+# mamba-130m: the pure-SSM stack on the recurrent path
+# ---------------------------------------------------------------------------
+
+# (n_valid, starts) per step; slots 3, chunk 4: two prefill rows and an
+# idle one, then a partial prefill, a decode row and a fresh prefill, then
+# decode, a last prefill chunk and decode
+_RECURRENT = [([4, 4, 0], [0, 0, 0]), ([2, 1, 4], [4, 4, 0]), ([1, 4, 1], [6, 5, 4])]
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    jcfg = j_get_smoke("mamba-130m")
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(3))[0]
+    return get_smoke("mamba-130m"), jcfg, jparams
+
+
+def test_mamba_config_plan_backend_and_bridge(mamba):
+    from repro.configs.registry import get_config as j_get_config
+    cfg, jcfg, jparams = mamba
+    assert get_config("mamba-130m").to_json() == j_get_config("mamba-130m").to_json()
+    assert cfg.to_json() == jcfg.to_json()
+    assert tmodel.layer_plan(cfg) == jmodel.layer_plan(jcfg) == [(("ssm",), 2)]
+    assert default_cache_backend(cfg) == "recurrent"
+    bf = jax.tree.map(lambda t: np.asarray(t.astype(jnp.bfloat16)), jparams)
+    p = params_from_jax(bf, cfg)
+    assert set(p) == {"embed", "head", "final_norm", "layers"}
+    ssm = bf["groups"][0][0]["ssm"]
+    assert ssm["in_proj"].shape == (2, 64, 256) and ssm["a_log"].shape == (2, 128, 4)
+    for i, layer in enumerate(p["layers"]):
+        assert set(layer) == {"ln1", "ssm"} and set(layer["ssm"]) == set(ssm)
+        for key, leaf in ssm.items():
+            np.testing.assert_array_equal(layer["ssm"][key].view(torch.int16).numpy(),
+                                          leaf[i].view(np.int16), err_msg=key)
+    fresh = tmodel.init_params(cfg, device="cpu")
+    for layer in fresh["layers"]:
+        assert ({k: tuple(v.shape) for k, v in _leaves(layer)}
+                == {k: v.shape[1:] for k, v in _leaves(bf["groups"][0][0])})
+        assert (layer["ssm"]["a_log"] == 1).all() and (layer["ssm"]["d_skip"] == 1).all()
+    # the cache bridge: the JAX init cache -> the port's, dtypes kept
+    tc = recurrent_cache_from_jax(jax.tree.map(np.asarray, jmodel.init_cache(jcfg, 3, 16)), cfg)
+    want = tmodel.init_recurrent_cache(cfg, 3, device="cpu")
+    for got, ref in zip(tc["layers"], want["layers"]):
+        for key in ("conv", "state"):
+            assert got[key].dtype == ref[key].dtype and got[key].shape == ref[key].shape
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_recurrent_forward_matches_jax_from_the_same_state(mamba, dtype):
+    cfg, jcfg, jparams = mamba
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    jparams = jax.tree.map(lambda t: t.astype(jd), jparams)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    rng = np.random.default_rng(5)
+    jcache = jmodel.init_cache(jcfg, 3, 16, dtype=jd)
+    worst_logit = worst_state = 0.0
+    for step, (nv, st) in enumerate(_RECURRENT):
+        tok = rng.integers(0, cfg.vocab_size, size=(3, 4)).astype(np.int32)
+        nv, st = np.asarray(nv, np.int32), np.asarray(st, np.int32)
+        tcache = recurrent_cache_from_jax(jax.tree.map(np.asarray, jcache), cfg)
+        jlogits, jcache, _ = jmodel.forward(
+            jcfg, jparams, jnp.asarray(tok), cache=jcache, compute_dtype=jd,
+            recurrent=JRecurrentLayout(jnp.asarray(st), jnp.asarray(nv)))
+        tl = RecurrentLayout(torch.from_numpy(st), torch.from_numpy(nv))
+        tlogits, tcache, taux = tmodel.forward(cfg, tparams, torch.from_numpy(tok),
+                                               cache=tcache, recurrent=tl,
+                                               paged_kernel="ref", compute_dtype=td)
+        assert tlogits.dtype == torch.float32 and taux == 0.0
+        valid = np.arange(4)[None, :] < nv[:, None]
+        got, want = tlogits.numpy()[valid], np.asarray(jlogits)[valid]
+        jlayers = recurrent_cache_from_jax(jax.tree.map(np.asarray, jcache), cfg)["layers"]
+        for i, (jl_, tl_) in enumerate(zip(jlayers, tcache["layers"])):
+            for key in ("conv", "state"):
+                assert tl_[key].dtype == jl_[key].dtype
+                diff = (tl_[key].float() - jl_[key].float()).abs().max().item()
+                worst_state = max(worst_state, diff)
+                if dtype == "float32":
+                    np.testing.assert_allclose(tl_[key].numpy(), jl_[key].numpy(),
+                                               atol=MAMBA_ATOL, rtol=0,
+                                               err_msg=f"step {step} layer {i} {key}")
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=MAMBA_ATOL, rtol=0,
+                                       err_msg=f"step {step}")
+        worst_logit = max(worst_logit, float(np.abs(got - want).max() / np.abs(want).max()))
+    print(f"[mamba {dtype}] largest logit difference {worst_logit:.4f} of max |logit|; "
+          f"largest state/conv difference {worst_state:.3e}")
+    if dtype == "bfloat16":
+        assert worst_logit <= MAMBA_BF16_LOGITS
+        assert worst_state <= MAMBA_BF16_STATE
+
+
+def test_recurrent_serve_step_emits_argmax_at_last_valid_column(mamba):
+    from repro_torch.runtime.steps import make_recurrent_serve_step
+
+    cfg, _, jparams = mamba
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    nv, st = (torch.tensor(a, dtype=torch.int32) for a in _RECURRENT[1])
+    tok = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    step = make_recurrent_serve_step(cfg, slots=3, chunk=4, kernel="ref", device="cpu",
+                                     compute_dtype=torch.float32)
+    assert step.meta["kernel"] == "ref" and step.meta["kernels"] == ("ssm_scan",)
+    cache = tmodel.init_recurrent_cache(cfg, 3, dtype=torch.float32, device="cpu")
+    got, new = step.fn(params, cache, tok, st, nv)
+    logits, _, _ = tmodel.forward(cfg, params, tok, cache=cache,
+                                  recurrent=RecurrentLayout(st, nv), paged_kernel="ref",
+                                  compute_dtype=torch.float32)
+    assert torch.equal(got, logits[torch.arange(3), (nv.long() - 1).clamp(min=0)]
+                       .argmax(-1).to(torch.int32))
+    assert int(step.meta["nonfinite_logits"]) == 0
+    # the step leaves its input cache as it was
+    assert not any(lc["state"].any() for lc in cache["layers"])
+    with pytest.raises(ValueError, match="recurrent serving supports"):
+        make_recurrent_serve_step(get_smoke("llama3.2-1b"), slots=3, chunk=4, device="cpu")
