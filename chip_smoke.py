@@ -37,9 +37,33 @@ phase prints the seconds it took):
    with two forced preemptions (a request mid-prefill after tick 3, one
    in decode after tick 12) that must snapshot and resume; ssm_scan's
    launches must be 24 x steps; every request's tokens must be identical
-   to a second run without the forced preemptions (the backend's
-   exactness contract); then the replay and the logits check as above;
-7. the last line: ``{"ok": true, "device": {...}}``.
+   to a second run without the forced preemptions, served at
+   ``placement="injected"`` (the backend's exactness contract, and
+   placement changes no token; its params lease must show one miss and a
+   hit every later step); then the replay and the logits check as above.
+   Every engine's step goes through its fabric (``metrics()["fabric"]``);
+7. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
+   key-value shard of 2^26 rows (table 512 MiB, heap 3.75 GiB, heap base
+   12,345 in its GOT) and two jams, Server-Side Sum and Indirect Put; 8
+   deliveries of 2^20 frames of 128 B (a full 64-bank x 16,384-slot
+   mailbox block each, packed on the card from numpy seed 0) are drained
+   through the fabric's dispatcher and handed to the handler kernels:
+   4 Indirect Put deliveries (keys 90% uniform over int32, 10% from 1,024
+   hot keys: ~10^5 rows written twice or more per delivery) and 4
+   Server-Side Sum deliveries (words uniform over int32, so sums wrap;
+   0.1% of frames corrupted after packing). Exact checks: the sum kernel
+   against its plain version, the frames' SIG checksums (unequal on
+   exactly the corrupted frames) and the dispatcher's rows; the put
+   kernel's whole table and heap against its plain version on a clone of
+   the shard, the rows it wrote against a numpy replay of sequential
+   puts, the dispatcher's [key, row] against them. Then a one-bank
+   mailbox drops the frames posted past its credits, and one olmoe-1b-7b
+   expert (12.6 MB of STATE words) called through the fabric ``local``
+   (weights in the GOT) and ``injected`` (weights in the frame, leased)
+   gives identical words. Both kernels are timed (kernel, plain version,
+   library yardstick; the L2 cache flushed before every launch) and
+   bounded by the bytes this input needs;
+8. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -61,6 +85,11 @@ N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW, SEED = 12, 64, 384, 32, 0
 # request that is mid-prefill, then one that is in decode
 REC_SLOTS, REC_REQUESTS = 32, 48
 REC_PREEMPT_AFTER = {3: "prefill", 12: "decode"}
+# the frame path: 8 deliveries, Indirect Put and Server-Side Sum in turn;
+# one olmoe-1b-7b expert (d_model 2048, expert_ff 1024) and 8 tokens for
+# local against injected
+FRAME_DELIVERIES = ("indirect_put", "server_side_sum") * 4
+EXPERT_D, EXPERT_FF, EXPERT_TOKENS = 2048, 1024, 8
 ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba-130m")
 # paged attention vs plain, per element: |kernel - plain| <= 2e-2 * (min(1,
 # rms of the element's (request, column, head) row) + |plain|). bf16
@@ -289,10 +318,11 @@ def check_ssm_scan(torch, dev, cfg):
     }
 
 
-def serve(torch, dev, arch, *, forced_preemption=True):
-    """Phase 4-6: the full-width engine; returns (engine, step records,
-    backend events, summary). The recurrent engine preempts requests by
-    ``REC_PREEMPT_AFTER`` unless ``forced_preemption`` is False."""
+def serve(torch, dev, arch, *, forced_preemption=True, placement="local"):
+    """Phase 4-6: the full-width engine at ``placement``; returns (engine,
+    step records, backend events, summary). The recurrent engine preempts
+    requests by ``REC_PREEMPT_AFTER`` unless ``forced_preemption`` is
+    False."""
     from repro_torch.configs.registry import default_cache_backend, get_config
     from repro_torch.engine import Engine, Request
     from repro_torch.models.model import flat_block_types
@@ -309,7 +339,7 @@ def serve(torch, dev, arch, *, forced_preemption=True):
                     chunk=CHUNK)
         n_requests = N_REQUESTS
     torch.cuda.reset_peak_memory_stats()
-    engine = Engine(cfg, device=dev, cache="auto", kernel="auto", **geom)
+    engine = Engine(cfg, device=dev, cache="auto", kernel="auto", placement=placement, **geom)
     t0 = time.perf_counter()
     engine.load_params(seed=SEED)
     torch.cuda.synchronize()
@@ -393,6 +423,8 @@ def serve(torch, dev, arch, *, forced_preemption=True):
                    preemptions=m["preemptions"], launches=launches,
                    engine_launches=m["kernel_launches"],
                    nonfinite_logits=m["nonfinite_logits"],
+                   placements=m["fabric"]["placements"], fabric_calls=m["fabric"]["calls"],
+                   leases=m["fabric"]["leases"],
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if recurrent:
         summary.update({k: m[k] for k in ("snapshots_taken", "snapshots_restored",
@@ -410,6 +442,11 @@ def serve(torch, dev, arch, *, forced_preemption=True):
                                  f"steps of {n} layers that run it")
     if m["nonfinite_logits"]:
         raise AssertionError(f"{m['nonfinite_logits']} emitted rows had non-finite logits")
+    step = f"engine.{engine.cache_kind}_step"
+    if m["fabric"]["placements"] != {step: placement} or m["fabric"]["calls"] != {
+            step: engine.steps}:
+        raise AssertionError(f"the steps did not go through the fabric at {placement}: "
+                             f"{m['fabric']}")
     if not recurrent and m["preemptions"] < 1:
         raise AssertionError("the pool did not force a preemption")
     if recurrent and m["preemptions"] != len(forced):
@@ -561,14 +598,22 @@ def _mixed_step(torch, dev, engine, cache, i, args, rule):
 
 def _check_exact_without_preemption(torch, dev, arch, engine):
     """The recurrent backend's exactness contract: the same requests served
-    again without the forced preemptions (other slots, other steps) emit
-    identical tokens."""
-    again, _, _, summary = serve(torch, dev, arch, forced_preemption=False)
+    again without the forced preemptions (other slots, other steps), and at
+    ``placement="injected"``, emit identical tokens; the step's params
+    lease is acquired every step, one miss (the injection) and then hits."""
+    again, _, _, summary = serve(torch, dev, arch, forced_preemption=False,
+                                 placement="injected")
+    lease = summary["leases"][f"engine.{again.cache_kind}_step.params"]
+    log(f"[e2e] {arch} at placement=injected: params lease {lease['misses']} miss(es), "
+        f"{lease['hits']} hits over {again.steps} steps ({again.ticks} ticks)")
+    if (lease["misses"], lease["hits"]) != (1, again.steps - 1):
+        raise AssertionError(f"the params lease did not count 1 miss and "
+                             f"{again.steps - 1} hits: {lease}")
     want = {r.rid: r.out_tokens for r in engine.completed}
     got = {r.rid: r.out_tokens for r in again.completed}
     differ = sorted(rid for rid in want if got.get(rid) != want[rid])
-    log(f"[e2e] {arch}: a second run without the forced preemptions "
-        f"({summary['preemptions']} preemptions, {summary['steps']} steps) emits "
+    log(f"[e2e] {arch}: a second run without the forced preemptions, at placement="
+        f"injected ({summary['preemptions']} preemptions, {summary['steps']} steps) emits "
         f"identical tokens for {len(want) - len(differ)}/{len(want)} requests"
         + (f"; first differing request {differ[0]}: {want[differ[0]][:8]} vs "
            f"{got[differ[0]][:8]}" if differ else ""))
@@ -576,6 +621,280 @@ def _check_exact_without_preemption(torch, dev, arch, engine):
         raise AssertionError(f"requests {differ} differ without the forced preemptions")
     del again
     gc.collect()
+
+
+def frame_path(torch, dev, card):
+    """Phase 7: the Two-Chains frame path at a key-value shard's size;
+    returns the JSON entries of its two kernels (launches filled in)."""
+    from repro_torch.core import mailbox as mbx
+    from repro_torch.kernels import mailbox as mk
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.mailbox import bench as fb
+
+    spec, n = fb.SPEC, fb.BANKS * fb.FRAMES_PER_BANK
+    o = spec.offsets()
+    usr_off, pw, sig = o["usr"], spec.payload_words, o["sig"] + 1
+    torch.cuda.reset_peak_memory_stats()
+    fabric = fb.kv_fabric(dev)
+    table, heap, base = fabric.got.resolve(("kv.table", "kv.heap", "kv.heap_base"))
+    got = torch.cat([base.view(1), torch.zeros(spec.got_slots - 1, dtype=torch.int32,
+                                               device=dev)])
+    plain_table, plain_heap = table.clone(), heap.clone()
+    dispatch = fabric.dispatcher(spec, 2)
+    cfg = mbx.MailboxConfig(banks=fb.BANKS, frames_per_bank=fb.FRAMES_PER_BANK, spec=spec)
+    log(f"[frames] fabric {fabric.name!r}: GOT {fabric.got.symbols} (layout hash "
+        f"{fabric.got.layout_hash():#010x}), table {tuple(table.shape)} + heap "
+        f"{tuple(heap.shape)} int32 = {(table.nbytes + heap.nbytes) / 2 ** 30:.2f} GiB, heap "
+        f"base {int(base)}; functions {fabric.functions}; {len(FRAME_DELIVERIES)} "
+        f"deliveries of {n} frames of {spec.total_bytes} B")
+    rng = np.random.default_rng(SEED)
+    payloads = [fb.put_payloads(rng, n) if kind == "indirect_put" else fb.sum_payloads(rng, n)
+                for kind in FRAME_DELIVERIES]
+    times = {kind: [] for kind in FRAME_DELIVERIES}      # (pack, drain, kernel) seconds
+    last, err = {}, {kind: 0 for kind in FRAME_DELIVERIES}
+    mk.SUM_LAUNCHES.reset()
+    mk.PUT_LAUNCHES.reset()
+    for d, (kind, usr_np) in enumerate(zip(FRAME_DELIVERIES, payloads)):
+        usr = torch.from_numpy(usr_np).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = fabric.pack(kind, usr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bad = fb.corrupt(frames, rng) if kind == "server_side_sum" else None
+        # the block as a ring put lands it: every bank full, no credit left
+        box = {"frames": frames.view(fb.BANKS, fb.FRAMES_PER_BANK, spec.total_words),
+               "credits": torch.zeros(fb.BANKS, dtype=torch.int32, device=dev),
+               "head": torch.full((fb.BANKS,), fb.FRAMES_PER_BANK, dtype=torch.int32,
+                                  device=dev)}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        results, _ = mbx.drain_mailbox(box, dispatch, cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        block = box["frames"].view(n, spec.total_words)
+        if kind == "indirect_put":
+            mk.am_indirect_put(block, table, heap, got, spec)
+        else:
+            sums = mk.am_server_sum(block, spec)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        times[kind].append((t1 - t0, t3 - t2, t4 - t3))
+        results = results.view(n, 2)
+        if kind == "indirect_put":
+            e = _check_put(torch, dev, fb, d, usr_np, block, results, table, heap, plain_table,
+                           plain_heap, base)
+        else:
+            e = _check_sum(torch, fb, d, block, results, sums, bad, usr_off, pw, sig)
+        err[kind] = max(err[kind], e)
+        last[kind] = block
+        del usr, frames, box, results
+    launches = {"server_sum": mk.SUM_LAUNCHES.count, "indirect_put": mk.PUT_LAUNCHES.count}
+    want = {"server_sum": FRAME_DELIVERIES.count("server_side_sum"),
+            "indirect_put": FRAME_DELIVERIES.count("indirect_put")}
+    if launches != want:
+        raise AssertionError(f"kernel launches on the frame path {launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the first delivery of each kind also pays one-time costs (loading the
+    # kernel library and its modules, growing the allocator's pool): the
+    # later ones are the steady state
+    for kind, ts in times.items():
+        per = ", ".join(f"{p * 1e3:.2f} + {dr * 1e3:.2f} + {k * 1e3:.2f}" for p, dr, k in ts)
+        steady = np.sum(ts[1:], axis=0)
+        total = steady.sum()
+        log(f"[frames] {kind}: pack + drain + kernel per delivery (ms, host clock, "
+            f"synchronized): {per}; after the first: {len(ts) - 1} x {n} frames in "
+            f"{total * 1e3:.2f} ms ({steady[0] * 1e3:.2f} + {steady[1] * 1e3:.2f} + "
+            f"{steady[2] * 1e3:.2f}) = {(len(ts) - 1) * n / total:.4g} frames/s, "
+            f"{(len(ts) - 1) * n * spec.total_bytes / total / 1e9:.2f} GB/s of frames on "
+            f"{card}")
+    log(f"[frames] launches on the frame path {launches}; peak allocated {peak:.2f} GB")
+    _check_drop(torch, dev, fabric, spec)
+    _check_expert_placements(torch, dev)
+
+    flush = timing.l2_flush_buffer(dev)
+    blk = last["server_side_sum"]
+    usr_view = blk[:, usr_off:usr_off + pw]
+    sum_entry = _entry(
+        "server_sum", "src/repro/kernels/mailbox/kernel.py:167", launches["server_sum"], n,
+        err["server_side_sum"],
+        ms=timing.timed_ms(lambda: mk.server_sum_cuda(blk, usr_off, pw), 200, flush),
+        plain_ms=timing.timed_ms(lambda: mk.server_sum_ref(blk, usr_off, pw), 50, flush),
+        library_ms=timing.timed_ms(lambda: usr_view.sum(1, dtype=torch.int32), 200, flush),
+        work=fb.sum_work(n))
+    blk = last["indirect_put"]
+    keys = blk[:, usr_off].cpu().numpy()
+    rows_np, last_np = fb.last_writers(fb.put_rows(keys))
+    rows = torch.from_numpy(rows_np).to(dev)
+    win = torch.from_numpy(last_np).to(dev)
+    t_vals = torch.stack([blk[win, usr_off], rows.to(torch.int32)], 1)
+    h_vals = blk[win, usr_off + 1:usr_off + pw].contiguous()
+    # the same frames again leave the same state: every timed call is a
+    # whole put
+    put_entry = _entry(
+        "indirect_put", "src/repro/kernels/mailbox/kernel.py:215", launches["indirect_put"], n,
+        err["indirect_put"],
+        ms=timing.timed_ms(lambda: mk.indirect_put_cuda(blk, table, heap, got, usr_off, pw),
+                           100, flush),
+        plain_ms=timing.timed_ms(lambda: mk.indirect_put_ref(blk, plain_table, plain_heap,
+                                                             usr_off, pw, base), 20, flush),
+        library_ms=timing.timed_ms(lambda: (table.index_put_((rows,), t_vals),
+                                            heap.index_put_((rows,), h_vals)), 100, flush),
+        work=fb.put_work(n, len(rows_np)))
+    if not (torch.equal(table, plain_table) and torch.equal(heap, plain_heap)):
+        raise AssertionError("the timed puts left the kernel's and the plain version's "
+                             "shards unequal")
+    del flush, fabric, table, heap, plain_table, plain_heap, last, blk
+    return [sum_entry, put_entry]
+
+
+def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, work):
+    """A frame-path kernel's JSON entry."""
+    from repro_torch.kernels import timing
+
+    bound, bound_by = timing.bound_ms(work)
+    log(f"[kernel] {name} timing (L2 flushed per launch, {n} frames): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms; needed bytes {work['bytes']} "
+        f"-> {bound:.5f} ms at 3.35 TB/s ({bound_by})")
+    return {"name": name, "route": "cuda", "path": "frame path",
+            "source": "src/repro_torch/kernels/mailbox/csrc/mailbox.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _check_put(torch, dev, fb, d, usr_np, block, results, table, heap, plain_table,
+               plain_heap, base):
+    """An Indirect Put delivery: the kernel's whole shard against the plain
+    version's on its clone, the rows written against a numpy replay of
+    sequential puts, and the dispatcher's [key, row] rows. Returns the
+    largest |kernel - plain| over the shard."""
+    from repro_torch.kernels import mailbox as mk
+
+    spec = fb.SPEC
+    mk.indirect_put_ref(block, plain_table, plain_heap, spec.offsets()["usr"],
+                        spec.payload_words, base)
+    same_table, same_heap = torch.equal(table, plain_table), torch.equal(heap, plain_heap)
+    keys = usr_np[:, 0]
+    rows_np = fb.put_rows(keys)
+    uniq, last = fb.last_writers(rows_np)
+    rows = torch.from_numpy(uniq).to(dev)
+    want_table = torch.from_numpy(np.stack([keys[last], uniq.astype(np.int32)], 1)).to(dev)
+    replay = (torch.equal(table[rows], want_table)
+              and torch.equal(heap[rows], torch.from_numpy(usr_np[last, 1:]).to(dev)))
+    want_rows = torch.from_numpy(np.stack([keys, rows_np.astype(np.int32)], 1)).to(dev)
+    dispatched = (torch.equal(results, want_rows)
+                  and torch.equal(results[torch.from_numpy(last).to(dev)], table[rows]))
+    neg = int((keys < 0).sum())
+    log(f"[frames] delivery {d} indirect_put: {len(uniq)} rows written, {len(keys) - len(uniq)} "
+        f"frames overwritten by a later one ({neg} negative keys, extremes "
+        f"{int(keys.min())}/{int(keys.max())}); kernel shard == plain shard: table "
+        f"{same_table}, heap {same_heap}; written rows == numpy replay: {replay}; "
+        f"dispatcher rows == [key, row]: {dispatched}")
+    if not (same_table and same_heap and replay and dispatched):
+        raise AssertionError(f"Indirect Put delivery {d} disagrees")
+    return max(_max_diff(torch, table, plain_table), _max_diff(torch, heap, plain_heap))
+
+
+def _max_diff(torch, a, b):
+    differ = a != b
+    return int((a[differ].long() - b[differ].long()).abs().max()) if differ.any() else 0
+
+
+def _check_sum(torch, fb, d, block, results, sums, bad, usr_off, pw, sig):
+    """A Server-Side Sum delivery: the kernel against its plain version,
+    against each valid frame's SIG checksum (unequal on exactly the
+    corrupted frames), and against the dispatcher's rows. Returns the
+    largest |kernel - plain|."""
+    from repro_torch.kernels import mailbox as mk
+
+    plain = mk.server_sum_ref(block, usr_off, pw)
+    same = torch.equal(sums, plain)
+    valid = sums == block[:, sig]
+    invalid = (~valid).nonzero().squeeze(1).cpu().numpy()
+    want = torch.stack([torch.where(valid, sums, 0), torch.zeros_like(sums)], 1)
+    dispatched = torch.equal(results, want)
+    wide = block[:, usr_off:usr_off + pw].to(torch.int64).sum(1)
+    wrapped = int((wide != sums.to(torch.int64)).sum())
+    log(f"[frames] delivery {d} server_side_sum: kernel == plain: {same}; sums == SIG "
+        f"checksum on {int(valid.sum())} frames, unequal on {len(invalid)} (corrupted "
+        f"{len(bad)}, the same frames: {np.array_equal(invalid, bad)}); {wrapped} sums "
+        f"wrapped; dispatcher rows == [sum, 0] on valid frames, zero rows on the rest: "
+        f"{dispatched}")
+    if not (same and np.array_equal(invalid, bad) and dispatched):
+        raise AssertionError(f"Server-Side Sum delivery {d} disagrees")
+    return _max_diff(torch, sums, plain)
+
+
+def _check_drop(torch, dev, fabric, spec):
+    """post_local into a one-bank mailbox past its credits: the frames
+    without a credit are dropped, the bank's slots keep the first ones."""
+    from repro_torch.core import mailbox as mbx
+
+    cfg = mbx.MailboxConfig(banks=1, frames_per_bank=4, spec=spec)
+    box = mbx.init_mailbox(cfg, device=dev)
+    usr = torch.arange(6 * spec.payload_words, dtype=torch.int32,
+                       device=dev).view(6, spec.payload_words)
+    frames = fabric.pack("server_side_sum", usr)
+    for f in frames:
+        mbx.post_local(box, 0, f)
+    kept = torch.equal(box["frames"][0], frames[:4])
+    log(f"[frames] post_local of 6 frames into a 1 x 4 mailbox: credits "
+        f"{box['credits'].tolist()}, head {box['head'].tolist()}, slots hold the first 4: "
+        f"{kept}")
+    if box["credits"].tolist() != [0] or box["head"].tolist() != [4] or not kept:
+        raise AssertionError("post_local did not drop the frames past its credits")
+    results, cleared = mbx.drain_mailbox(box, fabric.dispatcher(spec, 2), cfg)
+    if cleared["credits"].tolist() != [4] or results.shape != (1, 4, 2):
+        raise AssertionError("drain_mailbox did not clear the bank")
+
+
+def _check_expert_placements(torch, dev):
+    """One olmoe-1b-7b expert through ``fabric.call``: ``local`` with its
+    weights bound in the GOT, ``injected`` with them in the frame's STATE
+    (12.6 MB of words, leased): identical result words; the lease counts
+    one miss, then hits."""
+    from repro_torch.core import injection as inj
+    from repro_torch.core.message import FrameSpec
+    from repro_torch.fabric import Fabric
+
+    d, f, tokens = EXPERT_D, EXPERT_FF, EXPERT_TOKENS
+    rng = np.random.default_rng(SEED)
+    ws = [torch.from_numpy((rng.standard_normal(shape) * 0.02).astype(np.float32))
+          .to(device=dev, dtype=torch.bfloat16) for shape in ((d, f), (d, f), (f, d))]
+    x = torch.from_numpy(rng.standard_normal((tokens, d)).astype(np.float32)).to(
+        device=dev, dtype=torch.bfloat16)
+    spec_local = FrameSpec(got_slots=4, state_words=0, payload_words=tokens * d // 2)
+    spec_inj = inj.injected_frame_spec(d, f, tokens)
+    fabric = Fabric(name="expert")
+    fabric.install({"expert.w_gate": ws[0], "expert.w_up": ws[1], "expert.w_down": ws[2]})
+
+    def ffn(usr, wg, wu, wd):
+        h = inj.words_to_tokens(usr[0], tokens, d)
+        return inj.tokens_to_words((torch.nn.functional.silu(h @ wg) * (h @ wu)) @ wd)[None]
+
+    @fabric.function("expert.local", spec=spec_local, result_words=tokens * d // 2,
+                     got_symbols=("expert.w_gate", "expert.w_up", "expert.w_down"))
+    def local(got, state, usr):
+        return ffn(usr, *got)
+
+    @fabric.function("expert.injected", spec=spec_inj, result_words=tokens * d // 2)
+    def injected(got, state, usr):
+        return ffn(usr, *inj.unpack_expert_state(state[0], d, f))
+
+    payload = inj.tokens_to_words(x)
+    want = fabric.call("expert.local", payload, placement="local")
+    same = []
+    for _ in range(3):
+        state = fabric.lease("expert.state", ws, materialize=lambda: inj.expert_state_words(*ws))
+        same.append(torch.equal(fabric.call("expert.injected", payload, state=state,
+                                            placement="injected"), want))
+    lease = fabric.metrics()["leases"]["expert.state"]
+    log(f"[frames] one olmoe-1b-7b expert (d {d}, ff {f}, {tokens} tokens): injected frame "
+        f"{spec_inj.total_bytes} B ({spec_inj.state_words} STATE words), local frame "
+        f"{spec_local.total_bytes} B; injected == local, word for word: {same}; lease "
+        f"{lease['misses']} miss, {lease['hits']} hits")
+    if not all(same) or (lease["misses"], lease["hits"]) != (1, 2):
+        raise AssertionError("local and injected expert calls differ")
 
 
 def _leaves(tree):
@@ -601,6 +920,7 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import loader, timing
+    from repro_torch.kernels.mailbox import kernel as mb_kernel
     from repro_torch.kernels.moe_jam import kernel as mj_kernel
     from repro_torch.kernels.paged_attention import bench
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
@@ -615,7 +935,8 @@ def main() -> int:
     log(f"[device] {name} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
     with Phase("build"):
-        libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE])
+        libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE,
+                                 mb_kernel.SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -658,10 +979,14 @@ def main() -> int:
             del engine, records, events
             gc.collect()              # request handles and the engine form cycles
             torch.cuda.empty_cache()
+    with Phase("frame path"):
+        frame_entries = frame_path(torch, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"[phase] total: {time.perf_counter() - t_start:.1f}s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": list(entries.values())}), flush=True)
+    print(json.dumps({"kernels": list(entries.values()) + frame_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
     return 0

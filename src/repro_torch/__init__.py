@@ -1,15 +1,29 @@
-"""repro_torch — the PyTorch/CUDA port of the ``repro`` serving stack.
+"""repro_torch — the PyTorch/CUDA port of the ``repro`` package.
 
 The package mirrors ``src/repro/``'s module names so each counterpart is
 easy to find, but imports only ``torch``, ``numpy`` and the standard
-library. It ports greedy paged serving of GQA decoders, dense and MoE:
+library. It ports:
 
-    configs -> models (common, rope, mlp, moe, kvcache, attention, blocks,
-    model) -> kernels.paged_attention, kernels.moe_jam (hand-written CUDA
-    kernels, each beside its plain version; kernels.loader builds them)
-    -> runtime.steps.make_paged_serve_step -> engine.Engine -> launch.serve
+* greedy serving on one device: paged serving of GQA decoders, dense and
+  MoE, and recurrent serving of pure-SSM stacks (constant-size state per
+  slot, preemption by snapshot and resume)::
 
-Entry points (``Engine``, ``models.model.init_params``, the serve CLI) run
-on ``cuda`` unless the caller passes ``device="cpu"``; with no card they
-raise instead of quietly falling back.
+      configs -> models (common, rope, mlp, moe, ssm, kvcache, attention,
+      blocks, model) -> kernels.paged_attention, kernels.moe_jam,
+      kernels.ssm_scan -> runtime.steps -> engine.Engine -> launch.serve
+
+* the Two-Chains frame path at local placement: active-message frames
+  (``core.message``, bit for bit the JAX package's words), the GOT and
+  jam/ried packages (``core.got``, ``core.registry``), function state in
+  frames (``core.injection``), mailboxes (``core.mailbox``), leases and the
+  ``Fabric`` invocation surface (``fabric``), and the paper's two handlers,
+  Server-Side Sum and Indirect Put (``kernels.mailbox``). The Engine's
+  serve step runs through its bundle's ``Fabric`` at ``placement="local"``,
+  ``"injected"`` or ``"auto"``.
+
+Every kernel is hand-written CUDA beside its plain version;
+``kernels.loader`` builds them at first use. Entry points (``Engine``,
+``models.model.init_params``, the serve CLI) run on ``cuda`` unless the
+caller passes ``device="cpu"``; with no card they raise instead of quietly
+falling back.
 """

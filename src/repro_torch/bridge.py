@@ -14,16 +14,19 @@ No transposition is made anywhere: every weight keeps its JAX layout
 moved bit for bit. The bridge takes numpy only and imports no JAX.
 
 ``recurrent_cache_from_jax`` does the same for a recurrent cache, so that
-both packages can start from one mid-sequence state.
+both packages can start from one mid-sequence state. ``got_from_jax`` and
+``mailbox_from_jax`` carry a GOT and a mailbox across; frames themselves
+cross as plain int32 arrays.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.got import GotTable
 from repro_torch.models.model import layer_plan
 
 
@@ -78,3 +81,20 @@ def recurrent_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
     engine."""
     return {"layers": [_tree_to_torch(t, device)
                        for t in flatten_groups(np_cache["groups"], cfg)]}
+
+
+def got_from_jax(symbols: Sequence[str], np_values: Sequence[Any], device=None) -> GotTable:
+    """A ``repro.core.got.GotTable``'s ``symbols`` (in index order) and its
+    values (numpy arrays, or any other Python object, kept as it is) -> the
+    port's ``GotTable`` with the same indices, hence the same
+    ``layout_hash``."""
+    got = GotTable()
+    for name, value in zip(symbols, np_values, strict=True):
+        got.bind(name, to_tensor(value, device) if isinstance(value, np.ndarray) else value)
+    return got
+
+
+def mailbox_from_jax(np_mb: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """``repro.core.mailbox.init_mailbox``-shaped ``{"frames", "credits",
+    "head"}`` as numpy -> the port's mailbox on ``device``."""
+    return {k: to_tensor(v, device) for k, v in np_mb.items()}

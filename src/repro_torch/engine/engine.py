@@ -10,8 +10,18 @@ decode. The paged backend gates admission on its block budget and preempts
 by recompute when the pool runs dry; the recurrent backend gates on free
 slots alone and preempts (``preempt(rid)``) by snapshot and resume.
 
-Not in this slice: the slots backend (ROADMAP A7), fabric placement and
-leases (A11), graphs (A12), and request migration
+Fabric-routed invocation: the serve step is registered on the step
+bundle's ``Fabric`` (``engine.paged_step`` / ``engine.recurrent_step``)
+and every tick invokes it through ``fabric.call`` at the engine's
+``placement``: ``"local"`` (weights resident), ``"injected"`` (the
+step's params lease is acquired every tick: the first acquire is the
+injection, a miss; later ticks hit warm) or ``"auto"`` (injected while
+that lease is warm, local while it is cold; each resolution is recorded
+as a ``TransportEstimate``). Placement never changes the math: every
+branch runs the same step on the same device.
+
+Not in this slice: the slots backend (ROADMAP A7), graphs, the
+``fault_hook`` chaos seam, request migration
 (``export_request``/``import_request``/``snapshot_request``) and the
 ``fail``/``restart`` lifecycle (A12).
 """
@@ -27,6 +37,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import default_cache_backend
+from repro_torch.core.transport import TransportEstimate
+from repro_torch.core.transport import get_telemetry as transport_telemetry
 from repro_torch.device import resolve_device
 from repro_torch.engine.scheduler import (SchedulerPolicy, SchedulerState,
                                           resolve_policy)
@@ -37,6 +49,8 @@ from repro_torch.runtime.steps import (LAUNCH_COUNTERS, make_paged_serve_step,
                                        make_recurrent_serve_step)
 
 __all__ = ["Request", "Engine"]
+
+PLACEMENTS = ("local", "injected", "auto")
 
 
 @dataclasses.dataclass
@@ -96,7 +110,9 @@ class Engine:
     kernels), ``"ref"`` (their plain versions) or ``"auto"`` (``cuda`` on
     the card, ``ref`` on the CPU); unlike the JAX engine, it applies to the
     recurrent backend too. ``device`` defaults to ``cuda`` and raises when
-    there is no card; tests pass ``device="cpu"``.
+    there is no card; tests pass ``device="cpu"``. ``placement`` routes
+    each tick's step through the bundle's fabric (see the module
+    docstring).
     """
 
     _ids = itertools.count()
@@ -105,9 +121,13 @@ class Engine:
                  slots: int, max_len: int, scheduler="fifo",
                  kernel: str = "auto", num_blocks: Optional[int] = None,
                  block_size: int = 16, chunk: int = 8,
-                 eos_id: Optional[int] = None, engine_id: Optional[str] = None):
+                 eos_id: Optional[int] = None, engine_id: Optional[str] = None,
+                 placement: str = "local"):
         if cfg.is_encoder:
             raise ValueError("encoder-only arch has no decode path")
+        if placement not in PLACEMENTS:
+            raise ValueError(f"placement must be 'local', 'injected', or "
+                             f"'auto', got {placement!r}")
         if cache == "auto":
             cache = default_cache_backend(cfg)
         if cache not in ("paged", "recurrent"):
@@ -119,6 +139,7 @@ class Engine:
         self.cfg = cfg
         self.cache_kind = cache
         self.engine_id = engine_id or f"engine-{next(Engine._ids)}"
+        self.placement = placement
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
         self.policy: SchedulerPolicy = resolve_policy(scheduler)
         self.params: Optional[Dict[str, Any]] = None
@@ -135,6 +156,12 @@ class Engine:
         self.peak_active = 0
         self.preempt_count = 0
         self._pending_pump: List[_Entry] = []
+        self._placements: Dict[str, str] = {}
+        self._params_nbytes_memo: Optional[int] = None
+        # auto resolutions of injected demoted to local because the params
+        # lease went cold before the step ran; that window opens with the
+        # fault_hook seam (ROADMAP A12), so it stays 0 in this slice
+        self.lease_fallbacks = 0
 
         self.chunk = chunk
         if cache == "paged":
@@ -161,6 +188,12 @@ class Engine:
                 cfg, slots=slots, chunk=chunk, kernel=kernel, device=self.device)
             self.state = RecurrentState(slots, lambda: model_lib.init_recurrent_cache(
                 cfg, 1, device=self.device))
+        # the fabric of the bundle built here; a bundle swapped in later
+        # (tests build their step in float32) runs through the same seam
+        self.fabric = self.bundle.meta["fabric"]
+        self._step_name = f"engine.{cache}_step"
+        self._params_lease = f"{self._step_name}.params"
+        self._register_fabric_steps()
         # resolved kernel kind ("cuda" | "ref"), and CUDA kernel launches in
         # steps, per kernel the step can run
         self.kernel: str = self.bundle.meta["kernel"]
@@ -179,12 +212,22 @@ class Engine:
             params = model_lib.init_params(self.cfg, gen, self.device,
                                            dtype=torch.bfloat16)
         self.params = _to_device(params, self.device)
+        self._params_nbytes_memo = None
         if self.cache_kind == "paged":
             self.cache = model_lib.init_paged_cache(
                 self.cfg, self.num_blocks, self.block_size, device=self.device)
         else:
             self.cache = model_lib.init_recurrent_cache(self.cfg, self.slots,
                                                         device=self.device)
+
+    def inject_params(self, params: Optional[Dict[str, Any]] = None,
+                      seed: int = 0) -> None:
+        """Install weights *and* warm the step's params lease: the executor
+        side of ``placement="injected"``/``"auto"``. Afterwards ``auto``
+        resolves injected (warm reuse ships nothing) from the first tick,
+        and the injection itself is the lease's one miss."""
+        self.load_params(params, seed)
+        self.fabric.lease(self._params_lease, list(_leaves(self.params)))
 
     def pending(self) -> bool:
         """True while any request is queued or occupying a slot."""
@@ -390,11 +433,61 @@ class Engine:
         self._flush_streams()
         return len(sched)
 
+    # ------------------------------------------------------------------
+    # fabric registration / invocation
+    # ------------------------------------------------------------------
+
+    def _register_fabric_steps(self) -> None:
+        """Register the serve step on the bundle's fabric, so every tick
+        invokes it through ``fabric.call``. The payload is ``(cache,
+        *step arrays)``; the state is the params tree. The resolved
+        placement lands in ``metrics()["fabric"]["placements"]``."""
+        def invoke_step(payload, state, placement):
+            if placement == "auto":
+                placement = self._resolve_auto(
+                    self._step_name, sum(a.nbytes for a in payload[1:]), state)
+            if placement == "injected":
+                self.fabric.lease(self._params_lease, list(_leaves(state)))
+            self._placements[self._step_name] = placement
+            return self.bundle.fn(state, *payload)
+
+        self.fabric.register_collective(self._step_name, invoke_step, placements=PLACEMENTS)
+        self._placements[self._step_name] = self.placement
+
+    def _params_nbytes(self) -> int:
+        if self._params_nbytes_memo is None and self.params is not None:
+            self._params_nbytes_memo = sum(t.nbytes for t in _leaves(self.params))
+        return self._params_nbytes_memo or 0
+
+    def _lease_warm(self, state) -> bool:
+        """True when a live params lease holds exactly these tensors (the
+        ``is`` hit rule of ``fabric.leases``)."""
+        lease = self.fabric.leases.get(self._params_lease)
+        leaves = list(_leaves(state))
+        return bool(lease is not None and lease.live and len(lease.key) == len(leaves)
+                    and all(a is b for a, b in zip(lease.key, leaves)))
+
+    def _resolve_auto(self, name: str, payload_bytes: int, state) -> str:
+        """``placement="auto"`` for one tick: injected while the params
+        lease is warm (the weights already live with the executor: reuse
+        ships nothing), local while it is cold (a first injection would
+        ship the whole weight tree for one tick's payload). The estimate is
+        recorded on the fabric's decision log either way."""
+        injected_bytes = 0 if self._lease_warm(state) else self._params_nbytes()
+        est = TransportEstimate(
+            local_bytes=payload_bytes, injected_bytes=injected_bytes, common_bytes=0,
+            chosen="injected" if injected_bytes <= payload_bytes else "local",
+            n_tokens_per_tp_rank=0, capacity=0)
+        self.fabric.record_decision(name, est)
+        return est.chosen
+
     def _step_call(self, *arrays: np.ndarray) -> np.ndarray:
-        """Run the serve step on host-built inputs; returns next tokens."""
+        """Run the serve step on host-built inputs, through the fabric at
+        this engine's placement; returns next tokens."""
         args = [torch.from_numpy(a).to(self.device) for a in arrays]
         before = {name: LAUNCH_COUNTERS[name].count for name in self.kernel_launches}
-        next_tok, self.cache = self.bundle.fn(self.params, self.cache, *args)
+        next_tok, self.cache = self.fabric.call(self._step_name, (self.cache, *args),
+                                                state=self.params, placement=self.placement)
         next_np = next_tok.cpu().numpy()
         for name in self.kernel_launches:
             self.kernel_launches[name] += LAUNCH_COUNTERS[name].count - before[name]
@@ -429,8 +522,11 @@ class Engine:
         (``kernel``), the launch count of each kernel the step can run
         (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}`` or
         ``{"ssm_scan": n}``), the step count and the non-finite-logits
-        counter. Paged engines add the pool's keys, recurrent ones the
-        snapshot counters and the state bytes per slot."""
+        counter, and the fabric block: ``fabric`` (the bundle fabric's
+        ``metrics()`` with each step's resolved ``placements`` and
+        ``lease_fallbacks``), ``transport_decisions`` and
+        ``transport_telemetry``. Paged engines add the pool's keys,
+        recurrent ones the snapshot counters and the state bytes per slot."""
         done = [e for e in self._entries_everywhere() if e.req.done]
         ttfts = sorted(e.first_token_time - e.submit_time
                        for e in done if e.first_token_time is not None)
@@ -441,6 +537,7 @@ class Engine:
                 "scheduler": self.policy.name,
                 "slots": self.slots,
                 "max_len": self.max_len,
+                "placement": self.placement,
                 "device": str(self.device),
             },
             "ticks": self.ticks,
@@ -456,6 +553,10 @@ class Engine:
             "kernel_launches": dict(self.kernel_launches),
             "nonfinite_logits": int(self.bundle.meta["nonfinite_logits"]),
             "chunk": self.chunk,
+            "transport_decisions": [est.describe() for _, est in self.fabric.decisions],
+            "transport_telemetry": transport_telemetry().summary(),
+            "fabric": dict(self.fabric.metrics(), placements=dict(self._placements),
+                           lease_fallbacks=self.lease_fallbacks),
         }
         if self.cache_kind == "paged":
             out.update({
@@ -474,6 +575,18 @@ class Engine:
         else:
             out.update(self.state.metrics())
         return out
+
+
+def _leaves(tree):
+    """The tensors of a params or cache tree, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _to_device(tree, device: torch.device):

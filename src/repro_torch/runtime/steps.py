@@ -1,7 +1,9 @@
 """The serve steps, on one device: the paged step (block-pool cache, dense
 and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
 pure-SSM stacks), each serving decode and chunked prefill in one fixed
-shape. Mesh and fabric lowering are later slices (ROADMAP A11/A14)."""
+shape. Every bundle owns a ``Fabric`` (``meta["fabric"]``, as in the JAX
+package's ``_bundle_fabric``): the Engine registers the step on it and
+invokes it through ``fabric.call``. Mesh lowering is ROADMAP A14."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.fabric import Fabric
 from repro_torch.kernels import moe_jam, paged_attention, ssm_scan
 from repro_torch.kernels.loader import resolve_kernel
 from repro_torch.models import blocks as blocks_mod
@@ -78,7 +81,7 @@ def make_paged_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
         block_size=block_size, num_blocks=num_blocks, chunk=chunk, slots=slots,
         max_blocks_per_seq=max_blocks_per_seq, paged_kernel=paged_kernel,
         kernel=paged_kernel, emit=emit, device=dev, nonfinite_logits=nonfinite,
-        kernels=("paged_attention", "moe_jam")))
+        kernels=("paged_attention", "moe_jam"), fabric=Fabric(name="steps.paged_decode")))
 
 
 def _last_valid(logits: torch.Tensor, n_valid: torch.Tensor,
@@ -130,4 +133,5 @@ def make_recurrent_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
 
     return StepBundle(fn=recurrent_step, meta=dict(
         kind="recurrent_decode", chunk=chunk, slots=slots, kernel=kind, device=dev,
-        nonfinite_logits=nonfinite, kernels=("ssm_scan",)))
+        nonfinite_logits=nonfinite, kernels=("ssm_scan",),
+        fabric=Fabric(name="steps.recurrent_decode")))

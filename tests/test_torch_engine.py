@@ -32,6 +32,14 @@ chunk 4) and on a smaller pool that forces preemption.
   the port's expert FFN is the moe_jam kernel's plain version: float32
   sums, ``h`` rounded to bf16 once; the JAX model's ``expert_ffn`` rounds
   ``g``, ``u`` and ``h``. Neither rounds in float32.)
+* Fabric placement (``placement="local"|"injected"|"auto"``) on the llama
+  smoke: at each placement the schedule, the resolved placement, the
+  params lease's counters, the fabric's call counts and every
+  ``placement="auto"`` decision equal the JAX ``Engine(placement=...)``'s
+  on the same requests, and the tokens meet the float32 oracle as above;
+  placement changes no token (local, injected and auto are compared
+  exactly with each other, and with ``inject_params``, which makes
+  ``auto`` resolve injected from the first tick).
 * ``get_smoke("mamba-130m")`` on the recurrent backend: 3 requests on 2
   slots, prompts of 4, 5 and 7 tokens with chunk 4 (on and off the chunk
   boundary), one forced mid-decode ``preempt(rid)``. The schedule
@@ -197,6 +205,70 @@ def test_engine_defaults_to_cuda_and_raises_without_it(setup):
         Engine(setup["cfg"], device="cpu", cache="slots", **GEOM)
 
 
+PLACEMENTS = ("local", "injected", "auto")
+FABRIC_KEYS = ("functions", "calls", "decisions", "leases", "placements", "lease_fallbacks")
+
+
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_placement_schedule_and_fabric_telemetry_match_jax(setup, placement):
+    prompts = _workload(setup["cfg"], 3, 40)
+    prio = [0] * 3
+    je = _serve_jax(setup, prompts, 4, prio, placement=placement)
+    te, _ = _serve_torch(setup, prompts, 4, prio, placement=placement)
+    assert _schedule(te) == _schedule(je)
+    tm, jm = te.metrics(), je.metrics()
+    assert tm["engine"]["placement"] == jm["engine"]["placement"] == placement
+    for key in FABRIC_KEYS:
+        assert tm["fabric"][key] == jm["fabric"][key], key
+    assert tm["transport_decisions"] == jm["transport_decisions"]
+    step = "engine.paged_step"
+    assert tm["fabric"]["calls"] == {step: te.steps} and te.steps == te.ticks
+    if placement == "injected":
+        lease = tm["fabric"]["leases"][f"{step}.params"]
+        assert (lease["misses"], lease["hits"]) == (1, te.ticks - 1)
+    else:
+        assert tm["fabric"]["leases"] == {}
+    if placement == "auto":
+        assert len(tm["transport_decisions"]) == te.ticks
+        assert all(d.endswith("-> local") for d in tm["transport_decisions"])
+    faults, exceptions, total = _oracle_exceptions(setup, prompts, te)
+    assert not faults, faults
+    assert exceptions <= total // 10
+
+
+def test_placement_changes_no_token_and_inject_params_warms_auto(setup):
+    prompts = _workload(setup["cfg"], 3, 41)
+    prio = [0] * 3
+    outs = {}
+    for placement in PLACEMENTS:
+        te, _ = _serve_torch(setup, prompts, 5, prio, placement=placement)
+        outs[placement] = {r.rid: r.out_tokens for r in te.completed}
+    assert outs["local"] == outs["injected"] == outs["auto"]
+
+    def injected_auto(engine, request_cls):
+        engine.inject_params(setup["jparams"] if request_cls is JRequest else setup["tparams"])
+        for rid, p in enumerate(prompts):
+            engine.submit(request_cls(rid, p, max_new_tokens=5))
+        engine.run_until_drained()
+        return engine.metrics()
+
+    with setup["mesh"]:
+        jm = injected_auto(JEngine(setup["jcfg"], setup["run"], setup["mesh"], cache="paged",
+                                   kernel="ref", placement="auto", **GEOM), JRequest)
+    e = Engine(setup["cfg"], device="cpu", cache="paged", kernel="ref", placement="auto",
+               **GEOM)
+    tm = injected_auto(e, Request)
+    for key in FABRIC_KEYS:
+        assert tm["fabric"][key] == jm["fabric"][key], key
+    assert tm["fabric"]["placements"]["engine.paged_step"] == "injected"
+    lease = tm["fabric"]["leases"]["engine.paged_step.params"]
+    assert (lease["misses"], lease["hits"]) == (1, e.ticks)
+    assert all(d.endswith("-> injected") for d in tm["transport_decisions"])
+    assert {r.rid: r.out_tokens for r in e.completed} == outs["local"]
+    with pytest.raises(ValueError, match="placement"):
+        Engine(setup["cfg"], device="cpu", placement="teleport", **GEOM)
+
+
 @pytest.fixture(scope="module")
 def olmoe(setup):
     jcfg = j_get_smoke("olmoe-1b-7b")
@@ -313,10 +385,10 @@ def mamba(setup):
                 tparams=params_from_jax(jax.tree.map(np.asarray, jparams), cfg))
 
 
-def _recurrent_engine(s, dtype, **geom):
+def _recurrent_engine(s, dtype, placement="local", **geom):
     """The port's recurrent engine on the CPU, its step, cache and state
     template built in ``dtype``."""
-    e = Engine(s["cfg"], device="cpu", cache="auto", **geom)
+    e = Engine(s["cfg"], device="cpu", cache="auto", placement=placement, **geom)
     e.load_params(s["tparams"])
     if dtype != torch.bfloat16:
         e.bundle = make_recurrent_serve_step(s["cfg"], slots=e.slots, chunk=e.chunk,
@@ -366,6 +438,23 @@ def test_recurrent_engine_schedule_and_tokens_match_jax(mamba):
               f"argmax inside the margin {margin}")
         assert not faults, faults
         assert exceptions <= total // 10
+
+
+def test_recurrent_engine_placement_injected_changes_no_token(mamba):
+    """The recurrent step through the fabric at placement="injected": the
+    tokens of local, the params lease one miss and a hit every later step,
+    also with a step bundle swapped in after construction (float32)."""
+    outs = {}
+    for placement in ("local", "injected"):
+        e = _recurrent_engine(mamba, torch.float32, placement=placement, **REC_GEOM)
+        _drive_recurrent(e, Request, mamba["prompts"])
+        outs[placement] = {r.rid: r.out_tokens for r in e.completed}
+        m = e.metrics()
+        assert m["fabric"]["placements"] == {"engine.recurrent_step": placement}
+        assert m["fabric"]["calls"] == {"engine.recurrent_step": e.steps}
+    lease = m["fabric"]["leases"]["engine.recurrent_step.params"]
+    assert (lease["misses"], lease["hits"]) == (1, e.steps - 1)
+    assert outs["local"] == outs["injected"]
 
 
 def test_recurrent_engine_retemplates_a_freed_slot(mamba):

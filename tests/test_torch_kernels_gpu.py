@@ -26,6 +26,13 @@ port's dependencies:
   rounded to bf16), zeros past n_valid, ``h_last`` within 1e-4 * (1 +
   |plain|), ``h0`` bit for bit on empty rows; a second launch from the
   first one's ``h_last`` equals one launch over both chunks, bit for bit;
+* the Server-Side Sum and Indirect Put kernels against their plain
+  versions, exactly (integers): N of 1, 33 and 1000, USR widths 1, 15,
+  16, 64 and 1024 at an offset that is and one that is not 16-byte
+  aligned, sums that wrap, keys at int32's extremes and negative, tables
+  of 1 row (every frame on one row), 7 and 4096 rows, heap bases 0, -5
+  and 2^31 - 1; the frame path's fabric on the card against the same
+  fabric on the CPU;
 * the wrappers' input checks;
 * the smoke engines through the kernels against the same engines through
   the plain versions: identical schedule, one launch of each kernel per
@@ -37,7 +44,8 @@ import torch
 
 from repro_torch.configs.registry import get_smoke
 from repro_torch.engine import Engine, Request
-from repro_torch.kernels import moe_jam, ssm_scan
+from repro_torch.core.message import FrameSpec, pack_frames
+from repro_torch.kernels import mailbox, moe_jam, ssm_scan
 from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
                                                  paged_attention,
                                                  paged_attention_cuda,
@@ -304,3 +312,83 @@ def test_mamba_smoke_engine_through_kernel(cuda):
     assert m_r["kernel_launches"] == {"ssm_scan": 0}
     assert m_c["snapshots_restored"] == m_c["snapshots_taken"] == 1
     assert m_c["nonfinite_logits"] == 0
+
+
+def _mailbox_frames(rng, dev, n, spec):
+    usr = rng.integers(-2 ** 31, 2 ** 31, size=(n, spec.payload_words),
+                       dtype=np.int64).astype(np.int32)
+    usr[:, 0] = rng.integers(-50, 50, size=n)
+    usr[:min(n, 3), 0] = [-2 ** 31, 2 ** 31 - 1, -7][:min(n, 3)]
+    usr[0, :] = 2 ** 31 - 1                              # its sum wraps
+    return pack_frames(spec, func_id=0, payload_words=torch.from_numpy(usr).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pw", [1, 15, 16, 64, 1024])
+@pytest.mark.parametrize("n,got_slots", [(1, 4), (33, 3), (1000, 5)])
+def test_mailbox_kernels_match_plain_versions(cuda, n, got_slots, pw):
+    rng = np.random.default_rng(n * pw + got_slots)
+    spec = FrameSpec(got_slots=got_slots, state_words=0, payload_words=pw)
+    off = spec.offsets()["usr"]                       # 12 (48 B), 11 or 13 words
+    frames = _mailbox_frames(rng, cuda, n, spec)
+    sums = mailbox.am_server_sum(frames, spec, kernel="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(sums, mailbox.server_sum_ref(frames, off, pw))
+    for slots in (1, 7, 4096):
+        for base in (0, -5, 2 ** 31 - 1):
+            table = torch.from_numpy(rng.integers(-9, 9, size=(slots, 2)).astype(np.int32)).to(cuda)
+            heap = torch.from_numpy(rng.integers(-9, 9, size=(slots, pw - 1))
+                                    .astype(np.int32)).to(cuda)
+            t_ref, h_ref = table.clone(), heap.clone()
+            got = torch.tensor([base, 1, 2, 3], dtype=torch.int32, device=cuda)
+            before = mailbox.PUT_LAUNCHES.count
+            out = mailbox.am_indirect_put(frames, table, heap, got, spec, kernel="cuda")
+            assert out[0] is table and out[1] is heap
+            assert mailbox.PUT_LAUNCHES.count == before + 1
+            mailbox.indirect_put_ref(frames, t_ref, h_ref, off, pw, base)
+            torch.cuda.synchronize()
+            assert torch.equal(table, t_ref), (slots, base)
+            assert torch.equal(heap, h_ref), (slots, base)
+
+
+@pytest.mark.gpu
+def test_mailbox_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    spec = FrameSpec(got_slots=4, state_words=0, payload_words=16)
+    frames = _mailbox_frames(np.random.default_rng(0), cuda, 8, spec)
+    table = torch.zeros((16, 2), dtype=torch.int32, device=cuda)
+    heap = torch.zeros((16, 15), dtype=torch.int32, device=cuda)
+    got = torch.zeros(4, dtype=torch.int32, device=cuda)
+    put = mailbox.indirect_put_cuda
+    with pytest.raises(ValueError, match="int32"):
+        mailbox.server_sum_cuda(frames.float(), 12, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        mailbox.server_sum_cuda(frames[:, ::2], 12, 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        mailbox.server_sum_cuda(frames, 20, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        put(frames, table, heap, got.cpu(), 12, 16)
+    with pytest.raises(ValueError, match="do not fit"):
+        put(frames, table, heap[:, :14].contiguous(), got, 12, 16)
+    with pytest.raises(ValueError, match="key word"):
+        put(frames, table, heap[:, :0].contiguous(), got, 12, 0)
+    before = (mailbox.SUM_LAUNCHES.count, mailbox.PUT_LAUNCHES.count)
+    assert mailbox.server_sum_cuda(frames[:0], 12, 16).shape == (0,)
+    put(frames[:0], table, heap, got, 12, 16)
+    assert (mailbox.SUM_LAUNCHES.count, mailbox.PUT_LAUNCHES.count) == before
+
+
+@pytest.mark.gpu
+def test_kv_fabric_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels.mailbox import bench
+
+    rng = np.random.default_rng(1)
+    usr = bench.put_payloads(rng, 3000)
+    rows = {}
+    for dev in ("cpu", cuda):
+        fabric = bench.kv_fabric(dev, slots=1024)
+        frames = torch.cat([fabric.pack("indirect_put", torch.from_numpy(usr[:2000]).to(dev)),
+                            fabric.pack("server_side_sum", torch.from_numpy(usr[2000:]).to(dev))])
+        frames[5, bench.SPEC.offsets()["usr"]] ^= 1
+        rows[str(dev)] = fabric.dispatcher(bench.SPEC, 2)(frames).cpu()
+    assert torch.equal(rows["cpu"], rows[str(cuda)])
+    assert (rows["cpu"][5] == 0).all()

@@ -1,0 +1,162 @@
+"""Port parity: the plain versions of the mailbox handler kernels against
+the JAX package's Server-Side Sum and Indirect Put.
+
+The same numpy frames go through the port's ``am_server_sum`` /
+``am_indirect_put`` on the CPU (their plain versions) and through the JAX
+package's oracles (``server_sum_ref``, the sequential ``indirect_put_ref``)
+and its Pallas kernels in interpret mode. Integers throughout: every
+comparison is exact. The CUDA kernels themselves are held against these
+plain versions on the card (``tests/test_torch_kernels_gpu.py``,
+``chip_smoke.py``).
+"""
+import jax.experimental.pallas as jpl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.message import FrameSpec as JSpec
+from repro.kernels.mailbox import am_indirect_put as j_am_indirect_put
+from repro.kernels.mailbox import am_server_sum as j_am_server_sum
+from repro.kernels.mailbox.ref import indirect_put_ref as j_indirect_put_ref
+from repro.kernels.mailbox.ref import server_sum_ref as j_server_sum_ref
+from repro_torch.core.message import FrameSpec, pack_frames
+from repro_torch.kernels import mailbox as mb
+from repro_torch.kernels.mailbox import bench
+
+SPEC, J_SPEC = FrameSpec(4, 0, 16), JSpec(4, 0, 16)
+USR_OFF, PW = SPEC.offsets()["usr"], SPEC.payload_words
+I32 = np.iinfo(np.int32)
+
+
+def _frames(usr):
+    return pack_frames(SPEC, func_id=0, payload_words=torch.from_numpy(usr))
+
+
+def _put_usr(rng, n, slots):
+    usr = rng.integers(I32.min, I32.max, size=(n, PW), endpoint=True,
+                       dtype=np.int64).astype(np.int32)
+    usr[:, 0] = rng.integers(-3 * slots, 3 * slots, size=n)       # negative keys, collisions
+    usr[8:, 0] += usr[8:, 0] % slots == 5                         # frame 7 writes 5's row last
+    usr[:4, 0] = [I32.min, I32.max, -1, 5]
+    usr[4:8, 0] = 5 + slots * np.arange(1, 5)                     # all on key 5's row
+    return usr
+
+
+@pytest.mark.parametrize("n", [1, 7, 127, 130])
+def test_server_sum_matches_jax(n):
+    rng = np.random.default_rng(n)
+    usr = rng.integers(I32.min, I32.max, size=(n, PW), endpoint=True,
+                       dtype=np.int64).astype(np.int32)
+    usr[0] = I32.max                                   # wraps
+    frames = _frames(usr)
+    got = mb.am_server_sum(frames, SPEC)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    jf = jnp.asarray(frames.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_am_server_sum(jf, J_SPEC)))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(j_server_sum_ref(jf, USR_OFF, PW)))
+    np.testing.assert_array_equal(
+        got.numpy(), mb.am_server_sum(frames, SPEC, kernel="ref").numpy())
+    assert int(got[0]) == int(np.int64(I32.max) * PW % 2 ** 32 - 2 ** 32)
+
+
+@pytest.mark.parametrize("got_base", [0, 3])
+def test_indirect_put_matches_jax_sequential_ref(got_base):
+    rng = np.random.default_rng(10 + got_base)
+    slots = 16
+    usr = _put_usr(rng, 40, slots)
+    frames = _frames(usr)
+    table0 = rng.integers(-9, 9, size=(slots, 2)).astype(np.int32)
+    heap0 = rng.integers(-9, 9, size=(slots, PW - 1)).astype(np.int32)
+    table, heap = torch.from_numpy(table0.copy()), torch.from_numpy(heap0.copy())
+    got = torch.tensor([got_base, 7, 7, 7], dtype=torch.int32)
+    out = mb.am_indirect_put(frames, table, heap, got, SPEC)
+    assert out[0] is table and out[1] is heap           # in place
+    jt, jh = j_indirect_put_ref(jnp.asarray(frames.numpy()), jnp.asarray(table0),
+                                jnp.asarray(heap0), USR_OFF, PW, got_base)
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(heap.numpy(), np.asarray(jh))
+    row = (5 % slots + got_base) % slots                # the later frame's row lands
+    np.testing.assert_array_equal(heap[row].numpy(), usr[7, 1:])
+    assert table[row].tolist() == [int(usr[7, 0]), row]
+
+
+@pytest.mark.parametrize("got_base", [0, 3])
+def test_indirect_put_matches_jax_pallas_kernel(got_base):
+    if not hasattr(jpl, "store"):
+        pytest.skip("this jax's Pallas has no pl.store, which the JAX package's "
+                    "indirect_put_pallas calls; the sequential oracle test covers it")
+    rng = np.random.default_rng(20 + got_base)
+    slots = 8
+    frames = _frames(_put_usr(rng, 12, slots))
+    table = torch.zeros((slots, 2), dtype=torch.int32)
+    heap = torch.zeros((slots, PW - 1), dtype=torch.int32)
+    got = torch.tensor([got_base, 0, 0, 0], dtype=torch.int32)
+    mb.am_indirect_put(frames, table, heap, got, SPEC)
+    jt, jh = j_am_indirect_put(jnp.asarray(frames.numpy()), jnp.zeros((slots, 2), jnp.int32),
+                               jnp.zeros((slots, PW - 1), jnp.int32),
+                               jnp.asarray(got.numpy()), J_SPEC)
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(heap.numpy(), np.asarray(jh))
+
+
+def test_indirect_put_equals_numpy_sequential_replay():
+    """4,096 frames on 64 rows: every row is written many times; the plain
+    version must leave what frame-by-frame puts leave."""
+    rng = np.random.default_rng(30)
+    slots, base = 64, 12_345
+    usr = bench.put_payloads(rng, 4096)
+    table = torch.zeros((slots, 2), dtype=torch.int32)
+    heap = torch.zeros((slots, PW - 1), dtype=torch.int32)
+    mb.indirect_put_ref(_frames(usr), table, heap, USR_OFF, PW, base)
+    want_t, want_h = np.zeros((slots, 2), np.int32), np.zeros((slots, PW - 1), np.int32)
+    rows = bench.put_rows(usr[:, 0], slots, base)
+    for i, r in enumerate(rows):
+        want_t[r] = usr[i, 0], r
+        want_h[r] = usr[i, 1:]
+    np.testing.assert_array_equal(table.numpy(), want_t)
+    np.testing.assert_array_equal(heap.numpy(), want_h)
+    uniq, last = bench.last_writers(rows)                  # chip_smoke's replay
+    np.testing.assert_array_equal(want_h[uniq], usr[last, 1:])
+    assert len(uniq) == slots
+    np.testing.assert_array_equal(
+        mb.put_slots(torch.from_numpy(usr[:, 0]), slots, torch.tensor(base)).numpy(), rows)
+
+
+def test_frame_path_traffic_and_work():
+    rng = np.random.default_rng(0)
+    usr = bench.put_payloads(rng, 20_000)
+    hot = np.isin(usr[:, 0], bench.hot_keys())
+    assert 0.08 < hot.mean() < 0.12 and (usr[:, 0] < 0).mean() > 0.4
+    assert {bench.INT32_MIN, bench.INT32_MAX} <= set(bench.hot_keys().tolist())
+    frames = _frames(bench.sum_payloads(rng, 5000))
+    before = frames.clone()
+    bad = bench.corrupt(frames, rng)
+    assert len(bad) == 5
+    changed = (frames != before).any(1).nonzero().squeeze(1).numpy()
+    np.testing.assert_array_equal(changed, bad)
+    valid = mb.am_server_sum(frames, SPEC) == frames[:, SPEC.offsets()["sig"] + 1]
+    np.testing.assert_array_equal((~valid).nonzero().squeeze(1).numpy(), bad)
+    assert bench.sum_work(10) == {"bytes": 680}
+    assert bench.put_work(10, 4) == {"bytes": 40 + 4 * 128 + 4}
+
+
+def test_wrappers_resolve_and_raise_on_the_cpu():
+    frames = _frames(np.zeros((3, PW), np.int32))
+    table = torch.zeros((4, 2), dtype=torch.int32)
+    heap = torch.zeros((4, PW - 1), dtype=torch.int32)
+    got = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mb.am_server_sum(frames, SPEC, kernel="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mb.am_indirect_put(frames, table, heap, got, SPEC, kernel="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mb.server_sum_cuda(frames, USR_OFF, PW)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mb.indirect_put_cuda(frames, table, heap, got, USR_OFF, PW)
+    with pytest.raises(ValueError, match="kernel must be"):
+        mb.am_server_sum(frames, SPEC, kernel="pallas")
+    with pytest.raises(NotImplementedError, match="A14"):
+        mb.ring_am_put(frames)
+    assert mb.SUM_LAUNCHES.count == 0 and mb.PUT_LAUNCHES.count == 0
