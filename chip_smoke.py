@@ -744,7 +744,6 @@ def frame_path(torch, dev, card):
     if not (torch.equal(table, plain_table) and torch.equal(heap, plain_heap)):
         raise AssertionError("the timed puts left the kernel's and the plain version's "
                              "shards unequal")
-    del flush, fabric, table, heap, plain_table, plain_heap, last, blk
     return [sum_entry, put_entry]
 
 

@@ -14,6 +14,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class GotTable:
     """Symbol name -> (index, resident value)."""
@@ -52,10 +54,11 @@ class GotTable:
         return tuple(self._values[self._index[n]] for n in names)
 
     def got_indices(self, names: Sequence[str], slots: int, device=None) -> torch.Tensor:
-        """GOTP section content for a frame (padded with -1)."""
+        """GOTP section content for a frame (padded with -1), on ``device``
+        (default ``cuda``; ``"cpu"`` to ask for the CPU)."""
         idx = [self._index[n] for n in names]
         idx += [-1] * (slots - len(idx))
-        return torch.tensor(idx[:slots], dtype=torch.int32, device=device)
+        return torch.tensor(idx[:slots], dtype=torch.int32, device=resolve_device(device))
 
     def layout_hash(self) -> int:
         """Hash of the symbol -> index layout; sender and receiver must

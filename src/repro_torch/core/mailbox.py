@@ -16,6 +16,7 @@ from typing import Callable, Dict, Tuple, Union
 import torch
 
 from repro_torch.core.message import SIG_MAGIC, FrameSpec
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +31,9 @@ class MailboxConfig:
 
 
 def init_mailbox(cfg: MailboxConfig, device=None) -> Dict[str, torch.Tensor]:
-    """Preallocated frame slots and full credits."""
+    """Preallocated frame slots and full credits, on ``device`` (default
+    ``cuda``; ``"cpu"`` to ask for the CPU)."""
+    device = resolve_device(device)
     return {
         "frames": torch.zeros((cfg.banks, cfg.frames_per_bank, cfg.words),
                               dtype=torch.int32, device=device),

@@ -26,6 +26,8 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 MAGIC = 0x7C4A_11                   # "Two-Chains" header magic
 SIG_MAGIC = 0x516A_22               # signal magic ("SIG MAG" of Fig. 1)
 HEADER_WORDS = 8
@@ -133,7 +135,8 @@ def pack_frames(spec: FrameSpec, *, func_id: Field, elem_id: Field = 0,
     ``payload_words`` ``(..., PW)`` are int32 word tensors (``None``:
     zeros); header fields are ints or tensors of the batch shape. The batch
     shape is what they broadcast to; ``()`` gives one frame ``(W,)``. The
-    frames land on the device of the first tensor given, else ``device``.
+    frames land on the device of the first tensor given, else on
+    ``device`` (default ``cuda``; ``"cpu"`` to ask for the CPU).
     """
     o = spec.offsets()
     sections = ((got, spec.got_slots, "got", "got"),
@@ -157,7 +160,7 @@ def pack_frames(spec: FrameSpec, *, func_id: Field, elem_id: Field = 0,
     # shape machinery at first use, a second of host time)
     batch = torch.Size(np.broadcast_shapes(*shapes))
     frames = torch.zeros(batch + (spec.total_words,), dtype=torch.int32,
-                         device=dev or device)
+                         device=dev or resolve_device(device))
     header = (MAGIC, func_id, elem_id, spec.payload_words, spec.state_words,
               src_rank, seq_no, flags)
     for i, value in enumerate(header):

@@ -104,12 +104,6 @@ class _JamPackageImpl:
             return fn
         return deco
 
-    def jam(self, name: str) -> Jam:
-        return self._jams[name]
-
-    def __len__(self) -> int:
-        return len(self._order)
-
     def pack(self, name: str, got_table: GotTable, *, payload_words: torch.Tensor,
              state_words: Optional[torch.Tensor] = None, src_rank=0,
              seq_no=0) -> torch.Tensor:

@@ -3,8 +3,10 @@
 The parts of ``repro/core/costmodel.py`` (``TransportEstimate``) and
 ``repro/core/transport.py`` (``TransportTelemetry``, ``get_telemetry``,
 ``reset_telemetry``) that ``Fabric.metrics()`` and the Engine's
-``placement="auto"`` read. The shard_map seam (``sharded_call``), the MoE
-transport choice and its weight-gather cache wait for ROADMAP A14, and
+``placement="auto"`` read; the summary keeps the JAX package's format.
+The shard_map seam (``sharded_call``), the MoE transport (which records
+builds and decisions here, and whose estimates carry token and capacity
+counts) and its weight-gather cache wait for ROADMAP A14, and
 ``estimate_transport`` (TPU constants) for A15.
 """
 from __future__ import annotations
@@ -22,8 +24,6 @@ class TransportEstimate:
     injected_bytes: int       # what 'injected' ships (the function state)
     common_bytes: int         # shipped either way
     chosen: str
-    n_tokens_per_tp_rank: int
-    capacity: int
     affinity_bytes: int = 0   # upstream state not co-resident with the placement
 
     def describe(self) -> str:
@@ -43,12 +43,6 @@ class TransportTelemetry:
         default_factory=list)
     gather_hits: int = 0
     gather_misses: int = 0
-
-    def record_build(self, label: str) -> None:
-        self.builds[label] = self.builds.get(label, 0) + 1
-
-    def record_decision(self, label: str, est: TransportEstimate) -> None:
-        self.decisions.append((label, est))
 
     def summary(self) -> str:
         builds = " ".join(f"{k}={v}" for k, v in sorted(self.builds.items()))

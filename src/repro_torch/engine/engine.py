@@ -157,7 +157,6 @@ class Engine:
         self.preempt_count = 0
         self._pending_pump: List[_Entry] = []
         self._placements: Dict[str, str] = {}
-        self._params_nbytes_memo: Optional[int] = None
         # auto resolutions of injected demoted to local because the params
         # lease went cold before the step ran; that window opens with the
         # fault_hook seam (ROADMAP A12), so it stays 0 in this slice
@@ -212,7 +211,6 @@ class Engine:
             params = model_lib.init_params(self.cfg, gen, self.device,
                                            dtype=torch.bfloat16)
         self.params = _to_device(params, self.device)
-        self._params_nbytes_memo = None
         if self.cache_kind == "paged":
             self.cache = model_lib.init_paged_cache(
                 self.cfg, self.num_blocks, self.block_size, device=self.device)
@@ -454,11 +452,6 @@ class Engine:
         self.fabric.register_collective(self._step_name, invoke_step, placements=PLACEMENTS)
         self._placements[self._step_name] = self.placement
 
-    def _params_nbytes(self) -> int:
-        if self._params_nbytes_memo is None and self.params is not None:
-            self._params_nbytes_memo = sum(t.nbytes for t in _leaves(self.params))
-        return self._params_nbytes_memo or 0
-
     def _lease_warm(self, state) -> bool:
         """True when a live params lease holds exactly these tensors (the
         ``is`` hit rule of ``fabric.leases``)."""
@@ -473,11 +466,10 @@ class Engine:
         ships nothing), local while it is cold (a first injection would
         ship the whole weight tree for one tick's payload). The estimate is
         recorded on the fabric's decision log either way."""
-        injected_bytes = 0 if self._lease_warm(state) else self._params_nbytes()
+        injected_bytes = 0 if self._lease_warm(state) else sum(t.nbytes for t in _leaves(state))
         est = TransportEstimate(
             local_bytes=payload_bytes, injected_bytes=injected_bytes, common_bytes=0,
-            chosen="injected" if injected_bytes <= payload_bytes else "local",
-            n_tokens_per_tp_rank=0, capacity=0)
+            chosen="injected" if injected_bytes <= payload_bytes else "local")
         self.fabric.record_decision(name, est)
         return est.chosen
 

@@ -25,7 +25,6 @@ transport (``moe_transport``) waits for ROADMAP A14.
 """
 from __future__ import annotations
 
-import threading
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -48,7 +47,6 @@ class Fabric:
     def __init__(self, *, name: str = "fabric"):
         self.name = name
         self.got = GotTable()
-        self._lock = threading.Lock()
         # frame functions grouped into lanes, one package per (spec,
         # result_words) geometry; func_ids are dense within a lane
         self._lanes: Dict[Tuple[FrameSpec, int], _JamPackageImpl] = {}
@@ -97,24 +95,22 @@ class Fabric:
         got_symbols = tuple(got_symbols)
 
         def deco(fn: Callable) -> Callable:
-            with self._lock:
-                if name in self._frame_fn_lane or name in self._collectives:
-                    raise ValueError(f"function {name!r} already registered on "
-                                     f"fabric {self.name!r}")
-                if got_symbols and all(s in self.got for s in got_symbols):
-                    # before the lane sees it: a failed registration must
-                    # not poison the lane's later dispatchers
-                    validate_result_width(Jam(name, -1, fn, got_symbols), spec,
-                                          result_words, self.got.resolve(got_symbols),
-                                          package=self.name)
-                lane_key = (spec, result_words)
-                lane = self._lanes.get(lane_key)
-                if lane is None:
-                    lane = self._lanes[lane_key] = _JamPackageImpl(
-                        f"{self.name}.lane{len(self._lanes)}", spec, result_words)
-                lane.register(name, got_symbols)(fn)
-                self._frame_fn_lane[name] = lane_key
-                self._bump_generation()
+            if name in self._frame_fn_lane or name in self._collectives:
+                raise ValueError(f"function {name!r} already registered on "
+                                 f"fabric {self.name!r}")
+            if got_symbols and all(s in self.got for s in got_symbols):
+                # before the lane sees it: a failed registration must not
+                # poison the lane's later dispatchers
+                validate_result_width(Jam(name, -1, fn, got_symbols), spec, result_words,
+                                      self.got.resolve(got_symbols), package=self.name)
+            lane_key = (spec, result_words)
+            lane = self._lanes.get(lane_key)
+            if lane is None:
+                lane = self._lanes[lane_key] = _JamPackageImpl(
+                    f"{self.name}.lane{len(self._lanes)}", spec, result_words)
+            lane.register(name, got_symbols)(fn)
+            self._frame_fn_lane[name] = lane_key
+            self._bump_generation()
             return fn
         return deco
 
@@ -123,13 +119,12 @@ class Fabric:
         """Register a function with its own lowering:
         ``invoke(payload, state, placement, **kwargs)``. A second
         registration under the same name is refused."""
-        with self._lock:
-            if name in self._collectives or name in self._frame_fn_lane:
-                raise ValueError(f"function {name!r} already registered on "
-                                 f"fabric {self.name!r}")
-            self._collectives[name] = invoke
-            self._collective_placements[name] = placements
-            self._bump_generation()
+        if name in self._collectives or name in self._frame_fn_lane:
+            raise ValueError(f"function {name!r} already registered on "
+                             f"fabric {self.name!r}")
+        self._collectives[name] = invoke
+        self._collective_placements[name] = placements
+        self._bump_generation()
 
     def moe_transport(self, **kwargs) -> Callable:
         raise NotImplementedError(
@@ -233,8 +228,7 @@ class Fabric:
     # -- telemetry ----------------------------------------------------------------
 
     def record_decision(self, name: str, est: TransportEstimate) -> None:
-        with self._lock:
-            self._decisions.append((name, est))
+        self._decisions.append((name, est))
 
     @property
     def decisions(self) -> List[Tuple[str, TransportEstimate]]:

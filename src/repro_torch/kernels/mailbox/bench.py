@@ -5,7 +5,9 @@ key-value shard of 2^26 rows (table 512 MiB + heap 3.75 GiB) resident on
 the card, and deliveries of 2^20 frames of 128 B (a 64-bank x 16,384-slot
 mailbox block) with 16 USR words each. Run as a module on a machine with
 a CUDA card, it times both kernels, their plain versions and a library
-yardstick at that size (the L2 cache flushed before every launch):
+yardstick at that size (the L2 cache flushed before every launch), and
+splits the Indirect Put's time over its three passes with
+``torch.profiler``:
 
     PYTHONPATH=src python -m repro_torch.kernels.mailbox.bench
 """
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.core.message import FrameSpec, checksum, pack_frames
 from repro_torch.core.registry import RiedPackage
+from repro_torch.device import resolve_device
 from repro_torch.fabric import Fabric
 from repro_torch.kernels.mailbox.ref import put_slots
 from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
@@ -30,11 +33,12 @@ HOT_KEYS, HOT_SHARE, CORRUPT_SHARE = 1024, 0.10, 0.001
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
-def kv_fabric(device, slots: int = SLOTS, heap_base: int = HEAP_BASE) -> Fabric:
+def kv_fabric(device=None, slots: int = SLOTS, heap_base: int = HEAP_BASE) -> Fabric:
     """The server of the frame path: a ``Fabric`` holding a key-value shard
     (``kv.table`` (slots, 2), ``kv.heap`` (slots, 15) int32 zeros and
     ``kv.heap_base``, a 0-d int32 tensor) installed by the ried ``kv`` on
-    ``device``, and two jams in one lane of ``SPEC`` and 2 result words:
+    ``device`` (default ``cuda``), and two jams in one lane of ``SPEC`` and
+    2 result words:
 
     * ``server_side_sum`` returns ``[sum(usr), 0]`` (wrapping);
     * ``indirect_put`` returns ``[key, idx]``, the table row the frame's
@@ -43,6 +47,7 @@ def kv_fabric(device, slots: int = SLOTS, heap_base: int = HEAP_BASE) -> Fabric:
     The jams compute what a frame asks for and leave the shard alone (the
     dispatcher runs every jam on every frame); the handler kernels apply
     the puts."""
+    device = resolve_device(device)
     ried = RiedPackage("kv")
     ried.export("kv.table")(lambda: torch.zeros((slots, 2), dtype=torch.int32, device=device))
     ried.export("kv.heap")(lambda: torch.zeros((slots, SPEC.payload_words - 1),
@@ -138,6 +143,23 @@ def frames_on(device, usr: np.ndarray, func_id: int = 0) -> torch.Tensor:
     return pack_frames(SPEC, func_id=func_id, payload_words=torch.from_numpy(usr).to(device))
 
 
+def put_passes_ms(put, flush, iters: int = 20) -> dict:
+    """Mean device time (ms) of each of the Indirect Put's kernels (mark,
+    claim, write) over ``iters`` calls, the L2 flushed before each, read
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    put()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            put()
+        torch.cuda.synchronize()
+    return {name: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
+            for name in ("mark", "claim", "write") if f"put_{name}_kernel" in e.key}
+
+
 def main() -> int:
     from repro_torch.kernels.mailbox.ops import (indirect_put_cuda, indirect_put_ref,
                                                  server_sum_cuda, server_sum_ref)
@@ -181,10 +203,14 @@ def main() -> int:
                                                    got[0]), 20, flush),
         library_ms=timed_ms(lambda: (table.index_put_((rows_t,), t_vals),
                                      heap.index_put_((rows_t,), h_vals)), 100, flush))
+    out["indirect_put"]["passes_ms"] = put_passes_ms(
+        lambda: indirect_put_cuda(frames, table, heap, got, usr_off, pw), flush)
     for name, r in out.items():
         print(f"[bench] {name}: {n} frames: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    print(f"[bench] indirect_put passes (profiler, device time per call): "
+          f"{out['indirect_put']['passes_ms']}", flush=True)
     print(json.dumps({"card": card_name(), **out}), flush=True)
     return 0
 

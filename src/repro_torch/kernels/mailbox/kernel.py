@@ -88,8 +88,8 @@ def indirect_put_cuda(frames: torch.Tensor, table: torch.Tensor, heap: torch.Ten
     slots = table.shape[0]
     if payload_words < 1:
         raise ValueError("an Indirect Put frame needs at least the key word")
-    if n >= 2 ** 31:
-        raise ValueError(f"at most 2**31 - 1 frames per call, got {n}")
+    if n >= 2 ** 31 or slots >= 2 ** 31:
+        raise ValueError(f"at most 2**31 - 1 frames and table rows, got {n} and {slots}")
     if (table.dim() != 2 or table.shape[1] != 2 or slots < 1
             or heap.shape != (slots, payload_words - 1) or got.dim() != 1 or got.numel() < 1):
         raise ValueError(f"table {tuple(table.shape)}, heap {tuple(heap.shape)}, got "

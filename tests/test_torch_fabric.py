@@ -71,7 +71,7 @@ def test_got_layout_hash_and_bridge_match_jax():
         assert t.bind(n, i) == j.bind(n, i)
     assert t.layout_hash() == j.layout_hash() and t.symbols == j.symbols
     t.check_layout(j.layout_hash())
-    np.testing.assert_array_equal(t.got_indices(["bias", "kv.heap"], 4).numpy(),
+    np.testing.assert_array_equal(t.got_indices(["bias", "kv.heap"], 4, device="cpu").numpy(),
                                   np.asarray(j.got_indices(["bias", "kv.heap"], 4)))
     other = GotTable()
     other.bind("kv.heap", 0)
@@ -275,7 +275,7 @@ def test_post_local_and_drain_mailbox_match_jax():
     t_fab = bench.kv_fabric("cpu", SLOTS, BASE)
     j_cfg = j_mb.MailboxConfig(banks=2, frames_per_bank=3, spec=j_spec)
     t_cfg = t_mb.MailboxConfig(banks=2, frames_per_bank=3, spec=bench.SPEC)
-    j_box, t_box = j_mb.init_mailbox(j_cfg), t_mb.init_mailbox(t_cfg)
+    j_box, t_box = j_mb.init_mailbox(j_cfg), t_mb.init_mailbox(t_cfg, device="cpu")
     usr = _usr(rng, 9)
     # bank 1 gets 5 frames: the last 2 have no credit and are dropped
     for i, bank in enumerate([1, 0, 1, 1, 1, 0, 1, 1, 0]):
@@ -313,3 +313,17 @@ def test_wait_loops_match_jax(max_spins):
         t_w, t_wf = t_mb.wfe_wait(frames, spec)
         j_w, j_wf = j_mb.wfe_wait(jf, j_spec)
         assert (int(t_w), bool(t_wf)) == (int(j_w), bool(j_wf))
+
+
+def test_frame_path_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    spec = FrameSpec(got_slots=4, state_words=0, payload_words=8)
+    for make in (lambda: t_mb.init_mailbox(t_mb.MailboxConfig(spec=spec)),
+                 lambda: pack_frames(spec, func_id=0),
+                 lambda: GotTable().got_indices([], 4),
+                 lambda: bench.kv_fabric(slots=4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # given tensors, the frames follow them
+    assert pack_frames(spec, func_id=0, payload_words=torch.zeros(8, dtype=torch.int32)).is_cpu

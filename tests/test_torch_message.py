@@ -63,7 +63,7 @@ def test_pack_frames_equals_jax_pack_frame(geom):
     np.testing.assert_array_equal(
         one.numpy(), np.asarray(jm.pack_frame(j, func_id=3, seq_no=9,
                                               payload_words=jnp.asarray(usr[0]))))
-    np.testing.assert_array_equal(tm.pack_frames(t, func_id=1).numpy(),
+    np.testing.assert_array_equal(tm.pack_frames(t, func_id=1, device="cpu").numpy(),
                                   np.asarray(jm.pack_frame(j, func_id=1)))
 
 
