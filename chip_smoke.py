@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; with no card it fails at once; each
 phase prints the seconds it took):
 
 1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build: compile every kernel of the three paths from ``src/`` (one
+2. build: compile every kernel of the paths from ``src/`` (one
    ``nvcc`` per source, all started together) and print ptxas's register /
    shared-memory / spill report;
 3. kernel vs plain: call each kernel's wrapper at its path's shapes on the
@@ -18,7 +18,10 @@ phase prints the seconds it took):
    FFN at olmoe's buckets (64 experts x 40 rows x 2048, F 1024) with empty,
    partial and full experts; the ssm_scan selective scan at mamba-130m's
    engine shape (32 rows x 32 columns x 1536 channels, N 16) with 0, 1,
-   partial and full valid columns per row. Each is timed (kernel, plain
+   partial and full valid columns per row; flash attention at gemma3-4b's
+   prefill (8/4 heads of 256, 4,096 tokens, causal, window None and
+   1,024), granite-20b's heads (48/1 of 128, 2,304 tokens) and an odd
+   shape (2 x 32 heads of 80, 2,113 tokens from position 7). Each is timed (kernel, plain
    version, and one PyTorch library yardstick the port never calls, where
    there is one) with the L2 cache flushed before every launch, as the
    serving loop finds it, and bounded by the bytes and operations this
@@ -42,7 +45,18 @@ phase prints the seconds it took):
    placement changes no token; its params lease must show one miss and a
    hit every later step); then the replay and the logits check as above.
    Every engine's step goes through its fabric (``metrics()["fabric"]``);
-7. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
+7. end to end, ``gemma3-4b`` on the slots backend: a full-width
+   ``Engine(cache="slots", slots=8, max_len=4224)`` (34 layers, 29 of them
+   sliding-window, 3.88 B random bf16 parameters) serves 16 FIFO requests
+   alternating long prompts (2,112-4,096 tokens: past the JAX package's
+   chunking threshold, so each prefill runs the flash-attention kernel on
+   every layer) and short ones (64-1,024 tokens: plain ``_sdpa``), 32 new
+   tokens each; flash's launches must be 34 x the long prompts, counted
+   around exactly that run. The same requests are served again through
+   ``kernel="ref"`` (identical schedule; greedy agreement reported), and
+   one long prefill's last-position logits through the kernel and through
+   the plain version are each held against a float32 plain forward;
+8. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
    key-value shard of 2^26 rows (table 512 MiB, heap 3.75 GiB, heap base
    12,345 in its GOT) and two jams, Server-Side Sum and Indirect Put; 8
    deliveries of 2^20 frames of 128 B (a full 64-bank x 16,384-slot
@@ -63,7 +77,7 @@ phase prints the seconds it took):
    gives identical words. Both kernels are timed (kernel, plain version,
    library yardstick; the L2 cache flushed before every launch) and
    bounded by the bytes this input needs;
-8. the last line: ``{"ok": true, "device": {...}}``.
+9. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -91,6 +105,15 @@ REC_PREEMPT_AFTER = {3: "prefill", 12: "decode"}
 FRAME_DELIVERIES = ("indirect_put", "server_side_sum") * 4
 EXPERT_D, EXPERT_FF, EXPERT_TOKENS = 2048, 1024, 8
 ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba-130m")
+# the slots engine (gemma3-4b): 16 FIFO requests, even rids long (past the
+# 2,048-token chunking threshold), odd rids short
+SLOTS_ARCH, SLOTS_SLOTS, SLOTS_MAX_LEN, SLOTS_REQUESTS = "gemma3-4b", 8, 4224, 16
+LONG_PROMPT, SHORT_PROMPT = (2112, 4096), (64, 1024)
+# flash attention vs plain, per element: |kernel - plain| <= 2e-2 * (rms of
+# the element's (batch, head, position) row + |plain|) (``flash_attention.
+# compare``): bf16 outputs, and the kernel rounds the unnormalized p to bf16
+# before P.V where the plain version rounds the normalized probabilities
+FLASH_TOL = 2e-2
 # paged attention vs plain, per element: |kernel - plain| <= 2e-2 * (min(1,
 # rms of the element's (request, column, head) row) + |plain|). bf16
 # output, and p rounded to bf16 before P.V at different points
@@ -120,6 +143,13 @@ SCAN_Y_TOL, SCAN_H_TOL = 1e-2, 1e-4
 # so no absolute bound is known in advance)
 LOGITS = {"llama3.2-1b": dict(atol=2e-2), "olmoe-1b-7b": dict(vs_f32=1.5),
           "mamba-130m": dict(vs_f32=1.5)}
+# gemma3-4b: one long prefill's last-position logits (262,144 of them,
+# soft-capped at 30) through the kernel's bf16 path and the plain bf16 path,
+# each against the plain path in float32 on the same bf16 weights: the
+# kernel path's mean and rms |logit - logit_f32| within 1.5x the plain
+# path's (both paths round the same activations to bf16; only attention's
+# rounding differs)
+SLOTS_VS_F32 = 1.5
 
 
 def log(msg: str) -> None:
@@ -315,6 +345,62 @@ def check_ssm_scan(torch, dev, cfg):
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:60",
         "launches": None, "max_abs_err": max(max_y, max_h), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def check_flash(torch, dev, cfg):
+    """Phase 3 for flash attention at gemma3-4b's prefill (global and local
+    layers), granite-20b's heads and an odd shape; returns its JSON entry
+    (without ``launches``), timed on the gemma global layer, with every
+    shape's numbers under ``shapes``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.flash_attention import bench as fbench
+
+    a = cfg.attention
+    gemma = fbench.SHAPES["gemma3-4b global"]
+    if (gemma[1], gemma[2], gemma[5], fbench.SHAPES["gemma3-4b local"][7]) != (
+            a.num_heads, a.num_kv_heads, a.head_dim, a.sliding_window):
+        raise AssertionError("the flash check's gemma shape is not the model's")
+    flush = timing.l2_flush_buffer(dev)
+    shapes = {}
+    for name, shape in fbench.SHAPES.items():
+        q, k, v = fbench.check_inputs(dev, shape)
+        kw = dict(causal=shape[6], window=shape[7], q_offset=shape[8])
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = fa.mha_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, worst, bad = fa.compare(out, ref, tol=FLASH_TOL)
+        log(f"[kernel] flash_attention {name} {tuple(q.shape)} x {tuple(k.shape)} {kw}: max "
+            f"|kernel - plain| = {err:.3e}, largest share of the allowed error {worst:.3f} "
+            f"({bad} elements over {FLASH_TOL} x (row rms + |plain|))")
+        if bad or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"flash attention disagrees with the plain version ({name})")
+        del out, ref
+        work = fbench.needed_work(shape)
+        bound, bound_by = timing.bound_ms(work)
+        r = dict(max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+                 ms=timing.timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 50, flush),
+                 plain_ms=timing.timed_ms(lambda: fa.mha_ref(q, k, v, **kw), 5, flush),
+                 library_ms=timing.timed_ms(fbench.yardstick(q, k, v, shape), 50, flush))
+        shapes[name] = r
+        log(f"[kernel] flash_attention {name} timing (L2 flushed per launch): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; "
+            f"{work['pairs']} visible pairs -> {work['flops']} flops -> "
+            f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
+            f"{work['bytes']} bytes -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"at 3.35 TB/s; bound {bound:.5f} ms ({bound_by}), kernel at "
+            f"{bound / r['ms']:.3f} of it")
+        del q, k, v
+    del flush
+    g = shapes["gemma3-4b global"]
+    return {
+        "name": "flash_attention", "route": "cuda", "path": SLOTS_ARCH,
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+        "launches": None, "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"], "shapes": shapes,
     }
 
 
@@ -623,6 +709,256 @@ def _check_exact_without_preemption(torch, dev, arch, engine):
     gc.collect()
 
 
+def slots_requests(cfg):
+    """16 FIFO requests from numpy seed ``SEED``: even rids long prompts,
+    odd rids short ones, ``MAX_NEW`` new tokens each."""
+    rng = np.random.default_rng(SEED)
+    prompts = []
+    for rid in range(SLOTS_REQUESTS):
+        lo, hi = LONG_PROMPT if rid % 2 == 0 else SHORT_PROMPT
+        n = int(rng.integers(lo, hi + 1))
+        prompts.append(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32))
+    return prompts
+
+
+def serve_slots(torch, dev, engine, prompts):
+    """Serve ``prompts`` on the slots ``engine``, timing each prefill and
+    decode step (synchronized) around the steps' functions; returns the
+    summary (launches read around exactly this run)."""
+    from repro_torch.engine import Request
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS
+
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid, p, max_new_tokens=MAX_NEW))
+    prefill_ms, decode_ms = {}, []
+    prefill, decode = engine.prefill_bundle.fn, engine.bundle.fn
+
+    def timed(fn, into):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into((time.perf_counter() - t) * 1e3, args)
+            return out
+        return run
+
+    engine.prefill_bundle.fn = timed(prefill, lambda ms, a: prefill_ms.setdefault(
+        a[1].shape[1], []).append(ms))
+    engine.bundle.fn = timed(decode, lambda ms, a: decode_ms.append(ms))
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    engine.prefill_bundle.fn, engine.bundle.fn = prefill, decode
+    m = engine.metrics()
+    tokens = sum(len(r.out_tokens) for r in engine.completed)
+    long_ms = [t for n, ts in prefill_ms.items() for t in ts if n > LONG_PROMPT[0] - 1]
+    short_ms = [t for n, ts in prefill_ms.items() for t in ts if n <= SHORT_PROMPT[1]]
+    return dict(arch=engine.cfg.name, kernel=engine.kernel, requests=len(engine.completed),
+                tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall, ticks=engine.ticks,
+                prefills=sum(len(ts) for ts in prefill_ms.values()),
+                prefill_long_ms_median=float(np.median(long_ms)),
+                prefill_short_ms_median=float(np.median(short_ms)),
+                prefill_total_ms=float(sum(long_ms) + sum(short_ms)),
+                decode_steps=len(decode_ms), decode_p50_ms=float(np.median(decode_ms)),
+                decode_p90_ms=float(np.percentile(decode_ms, 90)),
+                decode_total_ms=float(sum(decode_ms)), shared_length=engine.cache["length"],
+                launches=launches, engine_launches=m["kernel_launches"],
+                nonfinite_logits=m["nonfinite_logits"], fabric_calls=m["fabric"]["calls"],
+                placements=m["fabric"]["placements"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def slots_path(torch, dev, card):
+    """Phase 7: gemma3-4b on the slots engine through the kernel, again
+    through the plain version, and one long prefill's logits against
+    float32; returns flash attention's launches on the main path."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.models import attention
+    from repro_torch.models.model import flat_block_types
+
+    cfg = get_config(SLOTS_ARCH)
+    prompts = slots_requests(cfg)
+    n_long = sum(attention._use_chunked(len(p), len(p)) for p in prompts)
+    engine = Engine(cfg, device=dev, cache="slots", kernel="auto", slots=SLOTS_SLOTS,
+                    max_len=SLOTS_MAX_LEN)
+    t0 = time.perf_counter()
+    engine.load_params(seed=SEED)
+    torch.cuda.synchronize()
+    params = engine.params
+    n_params = sum(p.numel() for p in _leaves(params))
+    a = cfg.attention
+    n_local = sum(bt == "attn_local" for bt in flat_block_types(cfg))
+    log(f"[slots] {cfg.name}: {cfg.num_layers} layers ({n_local} with window "
+        f"{a.sliding_window}), d_model {cfg.d_model}, {a.num_heads}/"
+        f"{a.num_kv_heads} heads of {a.head_dim}, vocab {cfg.vocab_size}, {n_params} bf16 "
+        f"params drawn in {time.perf_counter() - t0:.1f}s; cache=slots, kernel="
+        f"{engine.kernel}, {engine.slots} slots of {engine.max_len}; prompts "
+        f"{[len(p) for p in prompts]} ({n_long} past the threshold)")
+    if engine.kernel != "cuda":
+        raise AssertionError(f"auto resolved to {engine.kernel!r} on the card")
+    summary = serve_slots(torch, dev, engine, prompts)
+    log(f"[slots] {json.dumps(summary)}")
+    if summary["requests"] != len(prompts) or any(
+            len(r.out_tokens) != MAX_NEW for r in engine.completed):
+        raise AssertionError("not every request completed with all its tokens")
+    flash = summary["launches"]["flash_attention"]
+    if flash != cfg.num_layers * n_long or summary["engine_launches"] != {
+            "flash_attention": flash} or any(
+            n for k, n in summary["launches"].items() if k != "flash_attention"):
+        raise AssertionError(f"flash attention launched {flash} times for {n_long} long "
+                             f"prompts of {cfg.num_layers} layers: {summary['launches']}")
+    if summary["nonfinite_logits"] or summary["fabric_calls"] != {
+            "engine.prefill": len(prompts), "engine.decode": engine.ticks}:
+        raise AssertionError(f"non-finite logits or fabric calls off: {summary}")
+    tokens = {r.rid: r.out_tokens for r in engine.completed}
+    schedule = (list(engine.admission_log), engine.ticks, engine.cache["length"])
+    step_tokens = torch.zeros((engine.slots, 1), dtype=torch.int32, device=dev)
+    long_prompt = torch.from_numpy(prompts[0][None]).to(dev)
+    for what, fn in (("decode step", lambda: engine.bundle.fn(params, engine.cache, step_tokens)),
+                     (f"prefill of {len(prompts[0])} tokens",
+                      lambda: engine.prefill_bundle.fn(params, long_prompt))):
+        b = _busy(torch, fn)
+        idle = (f"idle share {1 - b['busy_ms'] / b['wall_ms']:.3f}" if b["busy_ms"] is not None
+                else "device time not measured (the trace holds no device event)")
+        log(f"[slots] one {what}: host wall {b['wall_ms']:.2f} ms (median of 3, no profiler); "
+            f"device busy {b['busy_ms']} ms over {b['device_ops']} device operations "
+            f"(torch.profiler); {idle}; most device time (ms): {b['top']}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = Engine(cfg, device=dev, cache="slots", kernel="ref", slots=SLOTS_SLOTS,
+                 max_len=SLOTS_MAX_LEN)
+    ref.load_params(params)
+    ref_summary = serve_slots(torch, dev, ref, prompts)
+    if (list(ref.admission_log), ref.ticks, ref.cache["length"]) != schedule:
+        raise AssertionError("the plain path's schedule differs")
+    if ref_summary["launches"]["flash_attention"]:
+        raise AssertionError("kernel='ref' launched the flash kernel")
+    agree = sum(t == u for r in ref.completed for t, u in zip(r.out_tokens, tokens[r.rid]))
+    same = sum(r.out_tokens == tokens[r.rid] for r in ref.completed)
+    first = sum(r.out_tokens[0] == tokens[r.rid][0] for r in ref.completed)
+    log(f"[slots] replay through kernel='ref' (identical schedule, {ref.ticks} ticks): greedy "
+        f"agreement {agree}/{SLOTS_REQUESTS * MAX_NEW} tokens, {same}/{SLOTS_REQUESTS} requests "
+        f"identical, first tokens {first}/{SLOTS_REQUESTS}; plain path {ref_summary['tokens_per_s']:.1f} "
+        f"tokens/s, long prefill median {ref_summary['prefill_long_ms_median']:.1f} ms")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits = _slots_logits(torch, dev, cfg, params, prompts[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[e2e] {cfg.name} (slots): {summary['tokens']} tokens in {summary['wall_s']:.2f}s = "
+        f"{summary['tokens_per_s']:.1f} tokens/s; prefill median {summary['prefill_long_ms_median']:.1f}"
+        f" ms long, {summary['prefill_short_ms_median']:.1f} ms short ({summary['prefill_total_ms']:.0f}"
+        f" ms of prefill, {summary['decode_total_ms']:.0f} ms of decode); decode step p50 "
+        f"{summary['decode_p50_ms']:.2f} ms, p90 {summary['decode_p90_ms']:.2f} ms; flash "
+        f"{logits['flash_ms']:.1f} of a {logits['prefill_ms']:.1f} ms prefill of "
+        f"{len(prompts[0])} tokens; peak {summary['peak_mem_gb']:.2f} GB; greedy agreement "
+        f"{agree}/{SLOTS_REQUESTS * MAX_NEW} on {card}")
+    return flash
+
+
+def _busy(torch, fn, repeats: int = 3):
+    """Host wall ms of one synchronized call of ``fn`` (the median of
+    ``repeats``, no profiler) and the card's busy ms in one more call traced
+    by ``torch.profiler``: the summed durations of the kernels, copies and
+    fills it ran (one stream, so they do not overlap; None when the trace
+    holds no device event), and the six device operations that took most of
+    it, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3 if ops else None
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=float(np.median(walls)), busy_ms=busy, device_ops=len(ops),
+                top=[(name[:60], round(ms, 3)) for name, ms in top])
+
+
+def _slots_logits(torch, dev, cfg, params, prompt):
+    """One long prefill's last-position logits through the kernel (bf16),
+    the plain version (bf16) and the plain version in float32 (the same
+    bf16 weights): the kernel path must be as close to float32 as the
+    plain path (``SLOTS_VS_F32``). Also times the flash launches inside the
+    kernel path's prefill with CUDA events."""
+    from repro_torch.models import attention
+    from repro_torch.runtime.steps import make_prefill_step
+
+    tokens = torch.from_numpy(prompt[None]).to(dev)
+    inner, flash_events = attention.flash_attention, []
+
+    def timed_flash(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner(*args, **kw)
+        ev[1].record()
+        flash_events.append(ev)
+        return out
+
+    outs = {}
+    for name, kernel, dtype in (("cuda", "cuda", torch.bfloat16), ("ref", "ref", torch.bfloat16),
+                                ("f32", "ref", torch.float32)):
+        step = make_prefill_step(cfg, max_len=len(prompt), kernel=kernel, device=dev,
+                                 compute_dtype=dtype)
+        attention.flash_attention = timed_flash if name == "cuda" else inner
+        try:
+            step.fn(params, tokens)                 # warm
+            flash_events.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs[name] = step.fn(params, tokens)[0][0].float()
+            torch.cuda.synchronize()
+            if name == "cuda":
+                prefill_ms = (time.perf_counter() - t) * 1e3
+                flash_ms = sum(s.elapsed_time(e) for s, e in flash_events)
+                n_flash = len(flash_events)
+        finally:
+            attention.flash_attention = inner
+    f32 = outs["f32"]
+    err = {k: (outs[k] - f32).abs() for k in ("cuda", "ref")}
+    out = dict(prompt=len(prompt), prefill_ms=prefill_ms, flash_ms=flash_ms, flash_calls=n_flash,
+               **{f"{s}_{k}": v for k in ("cuda", "ref") for s, v in (
+                   ("mean", err[k].mean().item()), ("rms", err[k].pow(2).mean().sqrt().item()),
+                   ("max", err[k].max().item()))},
+               argmax=[int(outs[k].argmax()) for k in ("cuda", "ref", "f32")],
+               max_cuda_vs_ref=(outs["cuda"] - outs["ref"]).abs().max().item())
+    k = SLOTS_VS_F32
+    out["ok"] = (out["mean_cuda"] <= k * out["mean_ref"] and out["rms_cuda"] <= k * out["rms_ref"]
+                 and n_flash == cfg.num_layers)
+    log(f"[slots] one long prefill ({len(prompt)} tokens), last-position logits (max |logit| "
+        f"{f32.abs().max().item():.3f}) against the float32 plain forward: kernel path mean "
+        f"{out['mean_cuda']:.5f}, rms {out['rms_cuda']:.5f}, max {out['max_cuda']:.5f}; plain "
+        f"path mean {out['mean_ref']:.5f}, rms {out['rms_ref']:.5f}, max {out['max_ref']:.5f} "
+        f"(kernel path within {k}x of it required); argmax cuda/ref/f32 {out['argmax']}; max "
+        f"|cuda - ref| {out['max_cuda_vs_ref']:.5f}; {n_flash} flash launches took "
+        f"{flash_ms:.2f} of the kernel path's {prefill_ms:.2f} ms")
+    if not out["ok"]:
+        raise AssertionError(f"the kernel path is further from float32 than the plain path: {out}")
+    return out
+
+
 def frame_path(torch, dev, card):
     """Phase 7: the Two-Chains frame path at a key-value shard's size;
     returns the JSON entries of its two kernels (launches filled in)."""
@@ -919,6 +1255,7 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import loader, timing
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mailbox import kernel as mb_kernel
     from repro_torch.kernels.moe_jam import kernel as mj_kernel
     from repro_torch.kernels.paged_attention import bench
@@ -935,7 +1272,7 @@ def main() -> int:
 
     with Phase("build"):
         libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE,
-                                 mb_kernel.SOURCE])
+                                 mb_kernel.SOURCE, fa_kernel.SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -958,6 +1295,8 @@ def main() -> int:
                                                             get_config("olmoe-1b-7b"))
         entries[("ssm_scan", "mamba-130m")] = check_ssm_scan(torch, dev,
                                                              get_config("mamba-130m"))
+        entries[("flash_attention", SLOTS_ARCH)] = check_flash(torch, dev,
+                                                              get_config(SLOTS_ARCH))
         torch.cuda.empty_cache()
 
     for arch in ARCHS:
@@ -978,6 +1317,8 @@ def main() -> int:
             del engine, records, events
             gc.collect()              # request handles and the engine form cycles
             torch.cuda.empty_cache()
+    with Phase(f"end to end {SLOTS_ARCH} (slots)"):
+        entries[("flash_attention", SLOTS_ARCH)]["launches"] = slots_path(torch, dev, card)
     with Phase("frame path"):
         frame_entries = frame_path(torch, dev, card)
         gc.collect()

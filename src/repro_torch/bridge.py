@@ -13,8 +13,9 @@ No transposition is made anywhere: every weight keeps its JAX layout
 (W, inner), ``a_log`` (inner, N)). Dtypes are kept; bfloat16 arrays are
 moved bit for bit. The bridge takes numpy only and imports no JAX.
 
-``recurrent_cache_from_jax`` does the same for a recurrent cache, so that
-both packages can start from one mid-sequence state. ``got_from_jax`` and
+``recurrent_cache_from_jax`` and ``slot_cache_from_jax`` do the same for a
+recurrent and a contiguous cache, so that both packages can start from one
+mid-sequence state and their caches can be compared. ``got_from_jax`` and
 ``mailbox_from_jax`` carry a GOT and a mailbox across; frames themselves
 cross as plain int32 arrays.
 """
@@ -80,6 +81,17 @@ def recurrent_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
     scalar is dropped: the port's per-request positions live in the
     engine."""
     return {"layers": [_tree_to_torch(t, device)
+                       for t in flatten_groups(np_cache["groups"], cfg)]}
+
+
+def slot_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
+                        device=None) -> Dict[str, Any]:
+    """``repro.models.model.init_cache`` or a contiguous forward's new cache
+    (``{"length", "groups": [[{"k", "v"}]]}``, leaves with a leading repeats
+    axis when the group repeats), passed as numpy arrays -> the port's
+    ``{"length": int, "layers": [{"k", "v"}]}``."""
+    return {"length": int(np_cache["length"]),
+            "layers": [_tree_to_torch(t, device)
                        for t in flatten_groups(np_cache["groups"], cfg)]}
 
 

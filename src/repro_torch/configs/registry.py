@@ -8,10 +8,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import llama32_1b, mamba_130m, olmoe_1b_7b
+from repro_torch.configs import (gemma3_4b, granite_20b, llama32_1b, mamba_130m,
+                                 olmoe_1b_7b, stablelm_3b)
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m)
+_MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m, gemma3_4b, stablelm_3b, granite_20b)
 
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.config for m in _MODULES}
 SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MODULES}
@@ -19,8 +20,7 @@ SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MOD
 # archs the JAX package has and the port does not serve yet -> the ROADMAP
 # queue-A item that ports them
 _LATER = {
-    "gemma3-4b": "A7", "granite-20b": "A7", "stablelm-3b": "A7",
-    "deepseek-v2-lite-16b": "A7",
+    "deepseek-v2-lite-16b": "A16",
     "xlstm-1.3b": "A9", "hymba-1.5b": "A10",
     "qwen2-vl-72b": "A10", "hubert-xlarge": "A10",
 }
@@ -36,12 +36,15 @@ def _check(arch: str) -> None:
 
 
 def default_cache_backend(cfg: ModelConfig) -> str:
-    """The serving Engine's sequence-state backend per model family.
+    """The serving Engine's sequence-state backend per model family, as the
+    JAX package's ``default_cache_backend`` picks it.
 
-    Plain-GQA archs, MoE ones included, take the paged pool; pure-SSM
-    stacks the recurrent backend (constant-size state per slot). xLSTM
-    stacks (the rest of ROADMAP item A9), hybrid attention+SSM stacks
-    (A10) and MLA or mrope archs (the slots backend, A7) are not ported.
+    Plain-GQA archs, MoE ones included, take the paged pool (the slots
+    backend serves them too, by ``cache="slots"``); pure-SSM stacks the
+    recurrent backend (constant-size state per slot). The archs the JAX
+    package sends to slots by default are not ported: MLA stacks (ROADMAP
+    item A16), hybrid attention+SSM stacks and mrope archs (A10); nor are
+    xLSTM stacks (the rest of A9).
     """
     if cfg.xlstm is not None:
         raise NotImplementedError("xLSTM blocks (mLSTM/sLSTM) are ROADMAP item A9")
@@ -50,8 +53,11 @@ def default_cache_backend(cfg: ModelConfig) -> str:
     if cfg.parallel_ssm_attn:
         raise NotImplementedError("hybrid attention+SSM stacks are ROADMAP item A10")
     a = cfg.attention
-    if a is not None and (a.kind == "mla" or a.mrope):
-        raise NotImplementedError("the slots backend is ROADMAP item A7")
+    if a is not None and a.kind == "mla":
+        raise NotImplementedError("MLA attention (MLACache, absorbed decode) is ROADMAP "
+                                  "item A16")
+    if a is not None and a.mrope:
+        raise NotImplementedError("mrope archs are ROADMAP item A10")
     return "paged"
 
 

@@ -1,5 +1,5 @@
-"""repro_torch.engine — the paged serving engine with pluggable schedulers
-and streaming outputs::
+"""repro_torch.engine — the serving engine (paged, recurrent and slots
+backends) with pluggable schedulers and streaming outputs::
 
     from repro_torch.engine import Engine, Request
 
@@ -15,5 +15,5 @@ from repro_torch.engine.scheduler import (  # noqa: F401
     POLICIES, FIFOPolicy, PriorityPolicy, SchedulerPolicy, SchedulerState,
     SJFPolicy, resolve_policy)
 from repro_torch.engine.state import (  # noqa: F401
-    BlockPool, PagedKVState, RecurrentState, SequenceCapacity, SequenceState)
+    BlockPool, PagedKVState, RecurrentState, SequenceCapacity, SequenceState, SlotKVState)
 from repro_torch.engine.stream import RequestHandle  # noqa: F401

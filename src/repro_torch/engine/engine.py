@@ -1,35 +1,38 @@
-"""``repro_torch.engine.Engine`` — the serving engine, paged and recurrent
-backends.
+"""``repro_torch.engine.Engine`` — the serving engine: paged, recurrent and
+slots backends.
 
-The port of the ``cache="paged"`` and ``cache="recurrent"`` halves of the
-JAX package's ``engine/engine.py``: one submit/admit/step/complete loop
-(``tick``) over a sequence-state backend, a pluggable ``SchedulerPolicy``
-(admission order, victim choice, block budgets), streaming outputs through
-``RequestHandle``, and chunked prefill through the same fixed-shape step as
-decode. The paged backend gates admission on its block budget and preempts
-by recompute when the pool runs dry; the recurrent backend gates on free
-slots alone and preempts (``preempt(rid)``) by snapshot and resume.
+The port of the JAX package's ``engine/engine.py``: one submit/admit/step/
+complete loop (``tick``) over a sequence-state backend, a pluggable
+``SchedulerPolicy`` (admission order, victim choice, block budgets) and
+streaming outputs through ``RequestHandle``. The paged backend gates
+admission on its block budget, prefills in chunks through the same
+fixed-shape step as decode and preempts by recompute when the pool runs
+dry; the recurrent backend gates on free slots alone and preempts
+(``preempt(rid)``) by snapshot and resume; the slots backend prefills each
+admitted request in one forward into a fresh contiguous row, decodes every
+slot in lockstep at one shared cache length, and cannot preempt.
 
-Fabric-routed invocation: the serve step is registered on the step
-bundle's ``Fabric`` (``engine.paged_step`` / ``engine.recurrent_step``)
-and every tick invokes it through ``fabric.call`` at the engine's
-``placement``: ``"local"`` (weights resident), ``"injected"`` (the
-step's params lease is acquired every tick: the first acquire is the
-injection, a miss; later ticks hit warm) or ``"auto"`` (injected while
-that lease is warm, local while it is cold; each resolution is recorded
-as a ``TransportEstimate``). Placement never changes the math: every
-branch runs the same step on the same device.
+Fabric-routed invocation: the steps are registered on the step bundle's
+``Fabric`` (``engine.paged_step`` / ``engine.recurrent_step``, or
+``engine.decode`` and ``engine.prefill`` for slots) and every tick invokes
+them through ``fabric.call`` at the engine's ``placement`` (a prefill
+always at ``"local"``, as in the JAX package): ``"local"`` (weights
+resident), ``"injected"`` (the step's params lease is acquired every tick:
+the first acquire is the injection, a miss; later ticks hit warm) or
+``"auto"`` (injected while that lease is warm, local while it is cold;
+each resolution is recorded as a ``TransportEstimate``). Placement never
+changes the math: every branch runs the same step on the same device.
 
-Not in this slice: the slots backend (ROADMAP A7), graphs, the
-``fault_hook`` chaos seam, request migration
+Not ported yet: graphs, the ``fault_hook`` chaos seam, request migration
 (``export_request``/``import_request``/``snapshot_request``) and the
-``fail``/``restart`` lifecycle (A12).
+``fail``/``restart`` lifecycle (ROADMAP A12).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,13 +43,14 @@ from repro_torch.configs.registry import default_cache_backend
 from repro_torch.core.transport import TransportEstimate
 from repro_torch.core.transport import get_telemetry as transport_telemetry
 from repro_torch.device import resolve_device
-from repro_torch.engine.scheduler import (SchedulerPolicy, SchedulerState,
+from repro_torch.engine.scheduler import (SchedulerPolicy, SchedulerState, _PolicyBase,
                                           resolve_policy)
-from repro_torch.engine.state import PagedKVState, RecurrentState
+from repro_torch.engine.state import PagedKVState, RecurrentState, SlotKVState
 from repro_torch.engine.stream import RequestHandle
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.steps import (LAUNCH_COUNTERS, make_paged_serve_step,
-                                       make_recurrent_serve_step)
+                                       make_prefill_step, make_recurrent_serve_step,
+                                       make_serve_step)
 
 __all__ = ["Request", "Engine"]
 
@@ -130,9 +134,9 @@ class Engine:
                              f"'auto', got {placement!r}")
         if cache == "auto":
             cache = default_cache_backend(cfg)
-        if cache not in ("paged", "recurrent"):
-            raise NotImplementedError(
-                f"cache={cache!r} is not ported: the slots backend is ROADMAP item A7")
+        if cache not in ("paged", "slots", "recurrent"):
+            raise ValueError(f"cache must be 'paged', 'slots', or 'recurrent', "
+                             f"got {cache!r}")
         if cache == "paged" and num_blocks is None:
             raise ValueError("cache='paged' requires num_blocks=")
         self.device = resolve_device(device)
@@ -182,19 +186,33 @@ class Engine:
             self.peak_blocks_used = 0
             self.state = PagedKVState(num_blocks, block_size)
             self.pool = self.state.pool
-        else:
+        elif cache == "recurrent":
             self.bundle = make_recurrent_serve_step(
                 cfg, slots=slots, chunk=chunk, kernel=kernel, device=self.device)
             self.state = RecurrentState(slots, lambda: model_lib.init_recurrent_cache(
                 cfg, 1, device=self.device))
+        else:
+            self.bundle = make_serve_step(cfg, slots=slots, kernel=kernel, device=self.device)
+            self.prefill_bundle = make_prefill_step(cfg, max_len=max_len, kernel=kernel,
+                                                    device=self.device)
+            self.state = SlotKVState(slots)
+        if not self.state.supports_preemption:
+            pv = getattr(type(self.policy), "pick_victim", None)
+            if pv is not None and pv is not _PolicyBase.pick_victim:
+                warnings.warn(
+                    f"cache='slots' has no preemption path: "
+                    f"{type(self.policy).__name__}.pick_victim will never "
+                    "be consulted (admission order still applies); use "
+                    "cache='paged' or 'recurrent' for preemption-aware "
+                    "scheduling", UserWarning, stacklevel=2)
         # the fabric of the bundle built here; a bundle swapped in later
         # (tests build their step in float32) runs through the same seam
         self.fabric = self.bundle.meta["fabric"]
-        self._step_name = f"engine.{cache}_step"
+        self._step_name = "engine.decode" if cache == "slots" else f"engine.{cache}_step"
         self._params_lease = f"{self._step_name}.params"
         self._register_fabric_steps()
         # resolved kernel kind ("cuda" | "ref"), and CUDA kernel launches in
-        # steps, per kernel the step can run
+        # steps, per kernel the steps can run
         self.kernel: str = self.bundle.meta["kernel"]
         self.kernel_launches = {name: 0 for name in self.bundle.meta["kernels"]}
 
@@ -214,9 +232,12 @@ class Engine:
         if self.cache_kind == "paged":
             self.cache = model_lib.init_paged_cache(
                 self.cfg, self.num_blocks, self.block_size, device=self.device)
-        else:
+        elif self.cache_kind == "recurrent":
             self.cache = model_lib.init_recurrent_cache(self.cfg, self.slots,
                                                         device=self.device)
+        else:
+            self.cache = model_lib.init_cache(self.cfg, self.slots, self.max_len,
+                                              device=self.device)
 
     def inject_params(self, params: Optional[Dict[str, Any]] = None,
                       seed: int = 0) -> None:
@@ -372,6 +393,8 @@ class Engine:
     def tick(self) -> int:
         """Admit + advance every active request one step. Returns the number
         of rows advanced."""
+        if self.cache_kind == "slots":
+            return self._tick_slots()
         self._admit_chunked()
         paged = self.cache_kind == "paged"
 
@@ -431,26 +454,82 @@ class Engine:
         self._flush_streams()
         return len(sched)
 
+    # -- slots (fixed-slot contiguous cache) backend ----------------------
+
+    def _admit_slots(self) -> None:
+        for slot in range(self.slots):
+            if self.slot_entry[slot] is not None or not self.queue:
+                continue
+            idx = self.policy.admit(self.queue, self._sched_state(None))
+            if idx is None:
+                return
+            entry = self.queue.pop(idx)
+            self._stamp_admitted(entry)
+            self._prefill_slot(slot, entry)
+
+    def _prefill_slot(self, slot: int, entry: _Entry) -> None:
+        """Run the prompt through the ``engine.prefill`` step (a (1, L)
+        forward into a fresh ``max_len`` row, through the fabric at
+        ``placement="local"``), emit its greedy token, and scatter the row
+        into ``slot`` of the live cache."""
+        prompt = torch.tensor([entry.prompt_tokens], dtype=torch.int32, device=self.device)
+        logits, filled = self._call("engine.prefill", prompt, "local")
+        self._emit(entry, int(torch.argmax(logits[0])))
+        self.cache = self.state.scatter(self.cache, filled, slot)
+        self.slot_entry[slot] = entry
+
+    def _tick_slots(self) -> int:
+        """Admit (prefilling each admitted request), then one decode step
+        for every slot; a tick with no active slot does not count."""
+        self._admit_slots()
+        active = [i for i, e in enumerate(self.slot_entry) if e is not None]
+        if not active:
+            self._flush_streams()
+            return 0
+        self.peak_active = max(self.peak_active, len(active))
+        tokens = np.zeros((self.slots, 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self.slot_entry[i].req.out_tokens[-1]
+        next_np = self._step_call(tokens)
+        for i in active:
+            e = self.slot_entry[i]
+            tok = int(next_np[i, 0])
+            self._emit(e, tok)
+            if (len(e.req.out_tokens) >= e.req.max_new_tokens
+                    or (self.eos_id is not None and tok == self.eos_id)):
+                self._complete(i, e)
+        self.ticks += 1
+        self._flush_streams()
+        return len(active)
+
     # ------------------------------------------------------------------
     # fabric registration / invocation
     # ------------------------------------------------------------------
 
     def _register_fabric_steps(self) -> None:
-        """Register the serve step on the bundle's fabric, so every tick
-        invokes it through ``fabric.call``. The payload is ``(cache,
-        *step arrays)``; the state is the params tree. The resolved
-        placement lands in ``metrics()["fabric"]["placements"]``."""
-        def invoke_step(payload, state, placement):
+        """Register the serve step (and the slots backend's prefill) on the
+        bundle's fabric, so every tick invokes it through ``fabric.call``.
+        The step's payload is ``(cache, *step arrays)``, the prefill's the
+        prompt; the state is the params tree. The resolved placement of
+        each lands in ``metrics()["fabric"]["placements"]``."""
+        self._register(self._step_name, lambda state, payload: self.bundle.fn(state, *payload),
+                       lambda payload: sum(a.nbytes for a in payload[1:]))
+        if self.cache_kind == "slots":
+            self._register("engine.prefill",
+                           lambda state, prompt: self.prefill_bundle.fn(state, prompt),
+                           lambda prompt: prompt.nbytes)
+
+    def _register(self, name: str, run, payload_bytes) -> None:
+        def invoke(payload, state, placement):
             if placement == "auto":
-                placement = self._resolve_auto(
-                    self._step_name, sum(a.nbytes for a in payload[1:]), state)
+                placement = self._resolve_auto(name, payload_bytes(payload), state)
             if placement == "injected":
                 self.fabric.lease(self._params_lease, list(_leaves(state)))
-            self._placements[self._step_name] = placement
-            return self.bundle.fn(state, *payload)
+            self._placements[name] = placement
+            return run(state, payload)
 
-        self.fabric.register_collective(self._step_name, invoke_step, placements=PLACEMENTS)
-        self._placements[self._step_name] = self.placement
+        self.fabric.register_collective(name, invoke, placements=PLACEMENTS)
+        self._placements[name] = self.placement
 
     def _lease_warm(self, state) -> bool:
         """True when a live params lease holds exactly these tensors (the
@@ -473,18 +552,22 @@ class Engine:
         self.fabric.record_decision(name, est)
         return est.chosen
 
+    def _call(self, name: str, payload, placement: str):
+        """``fabric.call`` of a registered step on the params, counting the
+        CUDA kernel launches it makes."""
+        before = {k: LAUNCH_COUNTERS[k].count for k in self.kernel_launches}
+        out = self.fabric.call(name, payload, state=self.params, placement=placement)
+        for k in self.kernel_launches:
+            self.kernel_launches[k] += LAUNCH_COUNTERS[k].count - before[k]
+        return out
+
     def _step_call(self, *arrays: np.ndarray) -> np.ndarray:
         """Run the serve step on host-built inputs, through the fabric at
         this engine's placement; returns next tokens."""
         args = [torch.from_numpy(a).to(self.device) for a in arrays]
-        before = {name: LAUNCH_COUNTERS[name].count for name in self.kernel_launches}
-        next_tok, self.cache = self.fabric.call(self._step_name, (self.cache, *args),
-                                                state=self.params, placement=self.placement)
-        next_np = next_tok.cpu().numpy()
-        for name in self.kernel_launches:
-            self.kernel_launches[name] += LAUNCH_COUNTERS[name].count - before[name]
+        next_tok, self.cache = self._call(self._step_name, (self.cache, *args), self.placement)
         self.steps += 1
-        return next_np
+        return next_tok.cpu().numpy()
 
     # ------------------------------------------------------------------
     # metrics
@@ -512,13 +595,14 @@ class Engine:
         """Engine telemetry snapshot (JSON-friendly), with the JAX engine's
         keys for what the port has, plus the resolved kernel kind
         (``kernel``), the launch count of each kernel the step can run
-        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}`` or
-        ``{"ssm_scan": n}``), the step count and the non-finite-logits
-        counter, and the fabric block: ``fabric`` (the bundle fabric's
-        ``metrics()`` with each step's resolved ``placements`` and
-        ``lease_fallbacks``), ``transport_decisions`` and
-        ``transport_telemetry``. Paged engines add the pool's keys,
-        recurrent ones the snapshot counters and the state bytes per slot."""
+        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}``,
+        ``{"ssm_scan": n}`` or ``{"flash_attention": n}``, prefills
+        included), the step count and the non-finite-logits counter, and
+        the fabric block: ``fabric`` (the bundle fabric's ``metrics()`` with
+        each step's resolved ``placements`` and ``lease_fallbacks``),
+        ``transport_decisions`` and ``transport_telemetry``. Paged engines
+        add the pool's keys and ``chunk``, recurrent ones ``chunk``, the
+        snapshot counters and the state bytes per slot."""
         done = [e for e in self._entries_everywhere() if e.req.done]
         ttfts = sorted(e.first_token_time - e.submit_time
                        for e in done if e.first_token_time is not None)
@@ -544,12 +628,13 @@ class Engine:
             "kernel": self.kernel,
             "kernel_launches": dict(self.kernel_launches),
             "nonfinite_logits": int(self.bundle.meta["nonfinite_logits"]),
-            "chunk": self.chunk,
             "transport_decisions": [est.describe() for _, est in self.fabric.decisions],
             "transport_telemetry": transport_telemetry().summary(),
             "fabric": dict(self.fabric.metrics(), placements=dict(self._placements),
                            lease_fallbacks=self.lease_fallbacks),
         }
+        if self.cache_kind != "slots":
+            out["chunk"] = self.chunk
         if self.cache_kind == "paged":
             out.update({
                 "paged_kernel": self.kernel,

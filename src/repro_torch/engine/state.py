@@ -2,9 +2,10 @@
 
 ``PagedKVState`` runs over the shared per-layer block pool, with the
 host-side ``BlockPool`` free list; ``RecurrentState`` over constant-size
-per-slot recurrent state. The slots backend is ROADMAP item A7; the
-migration half of the protocol (``gather``/``serialize``/``restore``,
-and the recurrent backend's ``state_to_bytes`` format) is A12.
+per-slot recurrent state; ``SlotKVState`` over one contiguous ``max_len``
+cache row per slot. The migration half of the protocol (``gather``/
+``serialize``/``restore``, and the recurrent backend's ``state_to_bytes``
+format) is ROADMAP item A12.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from repro_torch.models.kvcache import (SequenceCapacity, SequenceState,
                                         gather_slot_rows, scatter_slot_rows)
 
 __all__ = ["BlockPool", "PagedKVState", "RecurrentState", "SequenceCapacity",
-           "SequenceState"]
+           "SequenceState", "SlotKVState"]
 
 
 class BlockPool:
@@ -131,10 +132,14 @@ class PagedKVState:
 
     def validate(self, prompt_len: int, max_new: int,
                  max_len: int) -> Optional[str]:
-        if prompt_len + max_new > max_len:
-            return (f"prompt ({prompt_len}) + max_new_tokens ({max_new}) "
-                    f"exceeds max_len={max_len}")
-        return None
+        return _over_length(prompt_len, max_new, max_len)
+
+
+def _over_length(prompt_len: int, max_new: int, max_len: int) -> Optional[str]:
+    if prompt_len + max_new > max_len:
+        return (f"prompt ({prompt_len}) + max_new_tokens ({max_new}) "
+                f"exceeds max_len={max_len}")
+    return None
 
 
 class RecurrentState:
@@ -214,6 +219,75 @@ class RecurrentState:
     def validate(self, prompt_len: int, max_new: int,
                  max_len: int) -> Optional[str]:
         return None                      # constant-size state: no length limit
+
+
+class SlotKVState:
+    """``SequenceState`` over one contiguous ``max_len`` cache row per slot.
+
+    Capacity is the slot rows themselves (not consumable: ``free_units``
+    is None); the engine's prefill step fills a fresh row at admission and
+    scatters it in (``scatter``), and there is **no preemption path**: a
+    slot row has no snapshot or recompute seam, so ``evict`` raises
+    instead of silently corrupting the row. ``SchedulerPolicy.pick_victim``
+    is never consulted on this backend (the engine warns at construction
+    when a policy overrides it). Moving a row between engines
+    (``gather``/``serialize``/``restore``) is ROADMAP item A12.
+    """
+
+    kind = "slots"
+    supports_preemption = False
+
+    def __init__(self, slots: int):
+        self.slots = slots
+
+    def init(self, entry: Any, cache: Any, slot: int) -> Any:
+        return cache                      # the engine's prefill scatter fills it
+
+    def scatter(self, cache: Any, filled: Any, slot: int) -> Any:
+        """Copy a one-row prefilled cache into ``slot`` of the batched one,
+        **in place**. The cache keeps ONE ``length`` for every row, so it
+        rises to the longest row's (the JAX package's rule: decode masks
+        by absolute position, so the other rows see the gap)."""
+        for live, one in zip(cache["layers"], filled["layers"]):
+            for key in live:
+                live[key][slot].copy_(one[key][0])
+        cache["length"] = max(cache["length"], filled["length"])
+        return cache
+
+    def append(self, entry: Any, n: int) -> None:
+        return None
+
+    def units_needed(self, entry: Any) -> int:
+        return 0
+
+    def grow(self, entry: Any, upto_tokens: int) -> bool:
+        return True                       # the row always covers max_len
+
+    def evict(self, entry: Any, cache: Any, slot: int) -> Any:
+        raise RuntimeError(
+            "cache='slots' cannot preempt: a slot row has no snapshot or "
+            "recompute path (SchedulerPolicy.pick_victim is never consulted "
+            "on this backend) — use cache='paged' (recompute) or "
+            "cache='recurrent' (state snapshot)")
+
+    def release(self, entry: Any) -> None:
+        return None
+
+    def gather(self, *args: Any) -> Any:
+        raise NotImplementedError("moving a slot row between engines is ROADMAP item A12")
+
+    serialize = restore = gather
+
+    def capacity(self) -> SequenceCapacity:
+        return SequenceCapacity(kind="slots", unit="slots",
+                                total_units=self.slots, free_units=None)
+
+    def metrics(self) -> Dict[str, Any]:
+        return {}
+
+    def validate(self, prompt_len: int, max_new: int,
+                 max_len: int) -> Optional[str]:
+        return _over_length(prompt_len, max_new, max_len)
 
 
 def _leaves(tree):

@@ -1,0 +1,116 @@
+"""Prefill-shaped inputs and the work count of flash attention.
+
+``chip_smoke.py`` takes its flash-attention checks from here. Run as a
+module on a machine with a CUDA card, it times the kernel, its plain
+version and ``scaled_dot_product_attention`` (the L2 cache flushed before
+every launch) against the bound at each check shape:
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.bench
+
+The shapes: gemma3-4b's prefill of 4,096 tokens (8 query heads over 4 kv
+heads of 256), causal, on a global layer (no window) and on a local one
+(window 1,024); granite-20b's heads (48 over 1 of 128) at 2,304 tokens;
+and an odd one, 32 heads of 80 (MHA) at 2,113 tokens, batch 2, queries
+starting at position 7 of 2,113 keys.
+"""
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
+
+# name -> (B, Hq, Hkv, S, T, D, causal, window, q_offset)
+SHAPES = {
+    "gemma3-4b global": (1, 8, 4, 4096, 4096, 256, True, None, 0),
+    "gemma3-4b local": (1, 8, 4, 4096, 4096, 256, True, 1024, 0),
+    "granite-20b": (1, 48, 1, 2304, 2304, 128, True, None, 0),
+    "odd": (2, 32, 32, 2113, 2113, 80, True, None, 7),
+}
+
+
+def check_inputs(device, shape, seed: int = 0):
+    """(q, k, v) bf16 on ``device`` from numpy seed ``seed``: standard
+    normals, so the scaled scores of a row spread over ~1 (head dim's
+    square root divides them). q is a (B, Hq, S, D) view of a (B, S, Hq, D)
+    tensor, as the model passes its projections; k and v likewise."""
+    B, Hq, Hkv, S, T, D = shape[:6]
+    rng = np.random.default_rng(seed)
+
+    def bf16(*dims):
+        x = rng.standard_normal(dims, dtype=np.float32)
+        return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16).permute(0, 2, 1, 3)
+
+    return bf16(B, S, Hq, D), bf16(B, T, Hkv, D), bf16(B, T, Hkv, D)
+
+
+def visible_pairs(s: int, t: int, *, causal: bool, window: Optional[int],
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs of one head with the key visible to the query."""
+    q_pos = np.arange(s, dtype=np.int64) + q_offset
+    hi = np.minimum(q_pos, t - 1) if causal else np.full(s, t - 1, np.int64)
+    lo = np.maximum(q_pos - window + 1, 0) if window is not None else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def needed_work(shape) -> dict:
+    """The bytes and operations one call needs, for its bound: q, k, v read
+    once and the output written once (bf16); 4 D flops per visible pair and
+    query head (2 D for q . k, 2 D for p . v), on the tensor cores."""
+    B, Hq, Hkv, S, T, D, causal, window, q_offset = shape
+    pairs = B * Hq * visible_pairs(S, T, causal=causal, window=window, q_offset=q_offset)
+    nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * T * D)
+    return dict(bytes=nbytes, flops=4 * D * pairs, pairs=pairs)
+
+
+def yardstick(q, k, v, shape):
+    """One ``scaled_dot_product_attention`` call on the same tensors: with
+    ``is_causal`` where the mask is the plain causal one, else with the
+    boolean (S, T) mask."""
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    B, Hq, Hkv, S, T, D, causal, window, q_offset = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = dict(enable_gqa=Hq != Hkv)
+    if causal and window is None and q_offset == 0 and S == T:
+        return lambda: sdpa(q, k, v, is_causal=True, **gqa)
+    mask = visible_mask(S, T, causal=causal, window=window, q_offset=q_offset, device=q.device)
+    return lambda: sdpa(q, k, v, attn_mask=mask, **gqa)
+
+
+def main() -> int:
+    from repro_torch.kernels.flash_attention.ops import (compare, flash_attention_cuda,
+                                                         mha_ref)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card: this times the CUDA kernel")
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    rows = []
+    for name, shape in SHAPES.items():
+        q, k, v = check_inputs(dev, shape)
+        kw = dict(causal=shape[6], window=shape[7], q_offset=shape[8])
+        err, _, bad = compare(flash_attention_cuda(q, k, v, **kw), mha_ref(q, k, v, **kw))
+        work = needed_work(shape)
+        bound, by = bound_ms(work)
+        rows.append(dict(
+            shape=name, pairs=work["pairs"], flops=work["flops"], bytes=work["bytes"],
+            bound_ms=bound, bound_by=by, max_abs_err=err, over_tolerance=bad,
+            ms=timed_ms(lambda: flash_attention_cuda(q, k, v, **kw), 50, flush),
+            plain_ms=timed_ms(lambda: mha_ref(q, k, v, **kw), 5, flush),
+            library_ms=timed_ms(yardstick(q, k, v, shape), 50, flush)))
+        r = rows[-1]
+        print(f"[bench] flash_attention {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
+              f"({by}; {work['pairs']} visible pairs); max |kernel - plain| {err:.3e}",
+              flush=True)
+        del q, k, v
+    print(json.dumps({"card": card_name(), "flash_attention": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

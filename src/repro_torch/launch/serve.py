@@ -1,4 +1,5 @@
-"""Serving launcher: the paged or recurrent engine with pluggable schedulers.
+"""Serving launcher: the paged, recurrent or slots engine with pluggable
+schedulers.
 
   # on the card, full-width llama3.2-1b with random bf16 weights:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -15,6 +16,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
       --slots 32 --chunk 32 --requests 48 --prompt-len 256 --max-new 32
 
+  # on the card, full-width gemma3-4b on the slots backend: prompts past
+  # 2,048 tokens prefill through the flash-attention kernel:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --cache slots --slots 8 --max-len 4224 --requests 8 --prompt-len 4000 \
+      --max-new 32
+
   # on the CPU, a smoke config through the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --requests 4 --stream
@@ -22,6 +29,8 @@
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --smoke --device cpu --cache slots --max-len 64 --prompt-len 20
 """
 from __future__ import annotations
 
@@ -42,9 +51,11 @@ def main() -> None:
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
-    p.add_argument("--cache", choices=("auto", "paged", "recurrent"), default="auto",
+    p.add_argument("--cache", choices=("auto", "paged", "recurrent", "slots"),
+                   default="auto",
                    help="sequence-state backend; auto: paged for attention "
-                        "stacks, recurrent for pure-SSM ones")
+                        "stacks, recurrent for pure-SSM ones; slots: one "
+                        "contiguous max_len row per slot (plain-GQA stacks)")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-len", type=int, default=256)
     p.add_argument("--blocks", type=int, default=0,
@@ -65,10 +76,10 @@ def main() -> None:
                         "instead of run_until_drained")
     p.add_argument("--paged-kernel", choices=("auto", "cuda", "ref"),
                    default="auto",
-                   help="every kernel of the step (paged attention, the MoE "
-                        "expert FFN, the selective scan): the CUDA kernels, their "
-                        "plain PyTorch versions, or auto (cuda on the card, ref "
-                        "on the CPU)")
+                   help="every kernel of the steps (paged attention, the MoE "
+                        "expert FFN, the selective scan, flash attention): the "
+                        "CUDA kernels, their plain PyTorch versions, or auto "
+                        "(cuda on the card, ref on the CPU)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights and of the prompts")
     p.add_argument("--metrics-json", action="store_true",
@@ -113,8 +124,10 @@ def main() -> None:
     if engine.cache_kind == "paged":
         state = (f"live-token fraction last={m['live_token_fraction']:.3f} "
                  f"mean={m['live_token_fraction_mean']:.3f}")
-    else:
+    elif engine.cache_kind == "recurrent":
         state = f"state bytes per slot={m['state_bytes_per_slot']}"
+    else:
+        state = f"shared cache length={engine.cache['length']}"
     print(f"{tag}] kernels={m['kernel']} launches={m['kernel_launches']} {state}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out_tokens[:8]}...")

@@ -1,22 +1,37 @@
-"""Paged GQA attention (serving: block-table cache, decode + chunked prefill).
+"""GQA attention: contiguous (prefill, decode over a ``KVCache``, no cache)
+and paged (serving: block-table cache, decode + chunked prefill).
 
 Weights keep the JAX package's layouts: ``wq`` (d, H, D), ``wk``/``wv``
-(d, K, D), ``wo`` (H, D, d).
+(d, K, D), ``wo`` (H, D, d). Scores and softmax run in float32; inputs
+and outputs stay in the compute dtype.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import visible_mask
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_ref,
                                                  resolve_kernel)
 from repro_torch.models.common import ParamBuilder
-from repro_torch.models.kvcache import PagedKVCache, PagedLayout
+from repro_torch.models.kvcache import KVCache, PagedKVCache, PagedLayout
 from repro_torch.models.rope import apply_rope
+
+NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
+
+# A prefill (or a forward with no cache) whose (S x S) score matrix per
+# (batch, head) has more elements than this takes the flash path: the CUDA
+# kernel on the card, its plain version on the CPU. At or below it, plain
+# ``_sdpa``. The JAX package's threshold (``repro/models/attention.py``),
+# where the same split sends long sequences to ``_sdpa_chunked``, its
+# flash formulation; the two branches round differently, so the port
+# keeps the split where the JAX package has it.
+CHUNK_THRESHOLD = 1 << 22
 
 
 def init_gqa(b: ParamBuilder, d_model: int, a: AttentionConfig) -> None:
@@ -30,6 +45,87 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul on the flattened weight."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
+
+
+def _use_chunked(s: int, t: int) -> bool:
+    return s > 1 and s * t > CHUNK_THRESHOLD
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """q: (B,S,K,G,D) grouped; k, v: (B,T,K,D); mask broadcastable to
+    (B,K,G,S,T). Float32 scores and softmax, probabilities cast to v's
+    dtype before ``P.V``. Returns (B,S,K,G,D)."""
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
+def gqa_attention(
+    params,
+    x: torch.Tensor,                       # (B, S, d)
+    a: AttentionConfig,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,          # sliding window (None = full)
+    cache: Optional[KVCache] = None,
+    kernel: str = "auto",
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """GQA attention at positions ``arange(S) + cache.length`` (0 without a
+    cache). Three branches, the JAX package's:
+
+    * prefill into a cache (S > 1): append k/v, attend over the new
+      tokens alone;
+    * decode (a cache, S == 1): append, then attend over all ``max_len``
+      cache rows, masked by absolute position (rows between a row's own
+      tokens and ``length`` are visible to it, as in the JAX package);
+    * no cache: attend over the tokens.
+
+    A prefill or cacheless pass above ``CHUNK_THRESHOLD`` takes flash
+    attention (``kernel``: ``"cuda"``, ``"ref"`` or ``"auto"``); the rest
+    is plain ``_sdpa``. The cache is updated in place."""
+    if a.mrope:
+        raise NotImplementedError("mrope archs are ROADMAP item A10")
+    B, S, d = x.shape
+    H, K, D = a.num_heads, a.num_kv_heads, a.head_dim
+    G = H // K
+    offset = cache.length if cache is not None else 0
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :] + offset
+
+    q = _project(x, params["wq"])                            # (B,S,H,D)
+    k = _project(x, params["wk"])                            # (B,S,K,D)
+    v = _project(x, params["wv"])
+    if a.rotary_pct > 0:
+        q = apply_rope(q, positions, a.rope_theta, a.rotary_pct)
+        k = apply_rope(k, positions, a.rope_theta, a.rotary_pct)
+    q, k, v = q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
+    scale = 1.0 / math.sqrt(D)
+
+    new_cache = None
+    if cache is not None:
+        new_cache = cache.append(k, v)
+    if cache is not None and S == 1:
+        # decode: dense scores over every cache row (B,K,G,1,T)
+        rel = positions[:, :, None] - torch.arange(new_cache.max_len, device=x.device)
+        mask = rel >= 0
+        if window is not None:
+            mask &= rel < window
+        out = _sdpa(q.view(B, S, K, G, D), new_cache.k.to(x.dtype),
+                    new_cache.v.to(x.dtype), mask[:, None, None], scale)
+    elif _use_chunked(S, S):
+        # canonical positions: the mask depends on i - j alone
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal, window=window, scale=scale,
+                              kernel=kernel).transpose(1, 2)
+    else:
+        mask = None
+        if causal or window is not None:
+            mask = visible_mask(S, S, causal=causal, window=window, device=x.device)
+        out = _sdpa(q.view(B, S, K, G, D), k, v, mask, scale)
+    y = out.reshape(B, S, H * D) @ params["wo"].reshape(H * D, d)
+    return y, new_cache
 
 
 def gqa_paged_attention(

@@ -1,13 +1,15 @@
 """Decoder block assembly for the serving paths.
 
-The paged path has the plain-GQA block types ``attn_full`` and
-``attn_local`` (sliding window) and the GQA MoE block ``attn_moe``; the
-recurrent path has the pure selective-SSM block ``ssm`` (mamba). MLA,
-xLSTM and hybrid blocks come with ROADMAP items A7, A9 and A10.
+The plain-GQA block types ``attn_full`` and ``attn_local`` (sliding
+window) and the GQA MoE block ``attn_moe`` run on the paged path; the
+plain-GQA ones also on the contiguous path (the slots backend's
+``KVCache``, or no cache). The recurrent path has the pure selective-SSM
+block ``ssm`` (mamba). MLA blocks come with ROADMAP item A16, xLSTM ones
+with A9 and hybrid ones with A10.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -17,10 +19,12 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamBuilder, rms_norm
-from repro_torch.models.kvcache import PagedKVCache, PagedLayout, RecurrentLayout
+from repro_torch.models.kvcache import KVCache, PagedKVCache, PagedLayout, RecurrentLayout
 
 # Block types whose cache is plain GQA k/v and whose paged path is ported.
 PAGED_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe")
+# Block types whose contiguous path (KVCache rows, or no cache) is ported.
+CONTIGUOUS_BLOCK_TYPES = ("attn_full", "attn_local")
 # Block types whose per-request state is constant-size (conv history +
 # recurrent state) and whose recurrent path is ported.
 RECURRENT_BLOCK_TYPES = ("ssm",)
@@ -30,13 +34,20 @@ def _check(bt: str) -> None:
     if bt not in PAGED_BLOCK_TYPES + RECURRENT_BLOCK_TYPES:
         raise ValueError(f"block type {bt!r} is not ported: the port serves "
                          f"{PAGED_BLOCK_TYPES + RECURRENT_BLOCK_TYPES} (ROADMAP items "
-                         "A7, A9, A10 bring the rest)")
+                         "A9, A10, A16 bring the rest)")
 
 
 def _check_paged(bt: str) -> None:
     if bt not in PAGED_BLOCK_TYPES:
         raise ValueError(f"paged serving supports block types {PAGED_BLOCK_TYPES}, "
                          f"got {bt!r}: use cache='recurrent' for this arch")
+
+
+def _check_contiguous(bt: str) -> None:
+    if bt not in CONTIGUOUS_BLOCK_TYPES:
+        raise ValueError(f"the contiguous path supports block types "
+                         f"{CONTIGUOUS_BLOCK_TYPES}, got {bt!r}: use cache='paged' or "
+                         "'recurrent' for this arch")
 
 
 def _check_recurrent(bt: str) -> None:
@@ -63,6 +74,17 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
         moe_mod.init_moe(b.scope("moe"), d, cfg.moe)
     else:
         mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
+
+
+def init_block_cache(bt: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """``{"k", "v"}`` of (batch, max_len, K, D) zeros: one layer's rows of
+    the slots backend's contiguous cache."""
+    _check_contiguous(bt)
+    a = cfg.attention
+    shape = (batch, max_len, a.num_kv_heads, a.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
@@ -100,6 +122,28 @@ def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
         h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
         x = x + mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
     return x, cache
+
+
+def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
+                cache: Optional[Dict[str, Any]], length: int, kernel: str = "auto"
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Pre-norm residual block on the contiguous path: GQA attention over
+    the layer's ``{"k", "v"}`` rows holding ``length`` tokens (or over the
+    tokens alone when ``cache`` is None), then the MLP. ``attn_local``
+    attends within ``sliding_window``. ``kernel`` selects flash attention's
+    kernel or its plain version for long prefills. Returns ``(x, cache)``;
+    the rows are updated in place."""
+    _check_contiguous(bt)
+    a = cfg.attention
+    window = a.sliding_window if bt.endswith("_local") else None
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    kv = None if cache is None else KVCache(cache["k"], cache["v"], length)
+    y_attn, kv = attn.gqa_attention(params["attn"], h, a, causal=not cfg.is_encoder,
+                                    window=window, cache=kv, kernel=kernel)
+    x = x + y_attn
+    h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
+    x = x + mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
+    return x, (None if kv is None else {"k": kv.k, "v": kv.v})
 
 
 def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,

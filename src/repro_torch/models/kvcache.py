@@ -1,5 +1,10 @@
-"""Paged KV cache and recurrent layout for serving, and the sequence-state
+"""KV caches and the recurrent layout for serving, and the sequence-state
 protocol pieces.
+
+``KVCache`` is the slots backend's contiguous cache: ``(B, S_max, K, D)``
+k/v per layer and one ``length`` shared by every row, the JAX package's
+``KVCache`` without its ``ring`` option (no path of the JAX package
+passes ``ring=True``).
 
 ``PagedKVCache`` is one shared block pool ``(N_blocks, block_size, K, D)``
 per layer; requests own blocks through a per-request block table, so
@@ -17,6 +22,32 @@ import dataclasses
 from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 import torch
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Contiguous GQA cache: k/v (B, S_max, K, D), ``length`` tokens already
+    in it (a host int, shared by every row)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[1]
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
+        """Write S_new tokens (B, S_new, K, D) at row ``length`` of every
+        batch row, **in place**; the new cache counts ``length + S_new``.
+        The start is clamped into ``[0, S_max - S_new]``, as the JAX
+        package's ``dynamic_update_slice`` clamps it: past the end, the
+        tokens land on the last rows."""
+        s_new = k_new.shape[1]
+        pos = min(max(self.length, 0), self.max_len - s_new)
+        self.k[:, pos:pos + s_new] = k_new.to(self.k.dtype)
+        self.v[:, pos:pos + s_new] = v_new.to(self.v.dtype)
+        return KVCache(self.k, self.v, self.length + s_new)
 
 
 @dataclasses.dataclass

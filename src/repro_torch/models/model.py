@@ -1,17 +1,22 @@
 """The LM model: layer plan -> per-layer blocks -> logits (serving paths).
 
 The JAX package stacks the layers of each repeated-pattern group and scans
-over them; it unrolls the loop on the paged path, and always scans pure-
-recurrent stacks. The port keeps one parameter dict per layer, in
-``flat_block_types`` order, and always runs the loop unrolled (scan and
-unrolled loop round differently in bf16; the tests measure the margin).
+over them; it unrolls the loop on the paged path and at decode, and scans
+at prefill and for pure-recurrent stacks. The port keeps one parameter
+dict per layer, in ``flat_block_types`` order, and always runs the loop
+unrolled (scan and unrolled loop round differently in bf16; the tests
+measure the margin).
 
 Entry points:
   init_params(cfg, generator, device)               -> params
+  init_cache(cfg, batch, max_len)                   -> cache (contiguous)
   init_paged_cache(cfg, num_blocks, block_size)     -> cache
   init_recurrent_cache(cfg, slots)                  -> cache
+  forward(cfg, params, tokens)                      -> (logits, None, aux)
+  forward(cfg, params, tokens, cache=)              -> (logits, cache, aux)
   forward(cfg, params, tokens, cache=, paged=)      -> (logits, cache, aux)
   forward(cfg, params, tokens, cache=, recurrent=)  -> (logits, cache, aux)
+  decode_step(cfg, params, cache, token)            -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(pattern, repeats), ...] covering cfg.num_layers in order: the JAX
     package's plan for plain attention, GQA MoE and pure-SSM stacks (the
-    bridge reads its group structure). MLA stacks are ROADMAP item A7,
+    bridge reads its group structure). MLA stacks are ROADMAP item A16,
     xLSTM ones A9 and hybrid ones A10."""
     L = cfg.num_layers
     if cfg.xlstm is not None:
@@ -44,7 +49,7 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     if cfg.family == "moe":
         if a.kind == "mla":
             raise NotImplementedError(f"{cfg.name}: the MLA blocks mla_dense/mla_moe "
-                                      "are ROADMAP item A7")
+                                      "are ROADMAP item A16")
         first = cfg.moe.first_dense_layers
         groups = [(("attn_full",), first)] if first else []
         groups.append((("attn_moe",), L - first))
@@ -90,6 +95,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return b.params
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> Dict[str, Any]:
+    """The contiguous cache: one ``{"k", "v"}`` of (batch, max_len, K, D)
+    per layer, and one ``length`` (a host int) shared by every row."""
+    return {"length": 0,
+            "layers": [blocks_mod.init_block_cache(bt, cfg, batch, max_len, dtype, device)
+                       for bt in flat_block_types(cfg)]}
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """One (num_blocks, block_size, K, D) k/v pool per layer. One logical
@@ -122,42 +136,69 @@ def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,                       # (B, S) int
     *,
-    cache: Dict[str, Any],
+    cache: Optional[Dict[str, Any]] = None,
     paged: Optional[PagedLayout] = None,
     recurrent: Optional[RecurrentLayout] = None,
     paged_kernel: str = "auto",                 # "auto" | "cuda" | "ref"
     compute_dtype: torch.dtype = torch.bfloat16,
-) -> Tuple[torch.Tensor, Dict[str, Any], Union[torch.Tensor, float]]:
-    """Serving forward over a paged pool (``paged=``) or over per-slot
-    recurrent state (``recurrent=``): float32 logits (B, S, V), the cache,
+    last_only: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Union[torch.Tensor, float]]:
+    """Forward over a paged pool (``paged=``), over per-slot recurrent
+    state (``recurrent=``), over a contiguous cache (``cache=`` from
+    ``init_cache``: tokens at positions ``length ..``, the new cache counts
+    ``length + S``), or with no cache: float32 logits (B, S, V), the cache,
     and the MoE router losses summed over the layers (a float32 scalar
-    tensor; the float 0.0 for a stack without MoE). Paged pools are
-    updated in place; the recurrent cache is returned new.
-    ``paged_kernel`` selects every kernel of the path: paged attention and
-    the MoE expert FFN, or the selective scan. The dense/contiguous
-    forward comes with ROADMAP item A7."""
-    if cache is None or (paged is None) == (recurrent is None):
-        raise NotImplementedError("the port's forward runs the paged or the recurrent "
-                                  "serving path (one layout and a cache); the "
-                                  "contiguous path is ROADMAP item A7")
+    tensor; the float 0.0 for a stack without MoE). Paged pools and
+    contiguous caches are updated in place; the recurrent cache is
+    returned new. ``last_only`` applies the head to the last position
+    alone (logits (B, 1, V)), all a prefill reads. ``paged_kernel``
+    selects every kernel of the path: paged attention and the MoE expert
+    FFN, the selective scan, or flash attention."""
+    if paged is not None and recurrent is not None:
+        raise ValueError("pass one of paged= and recurrent=")
+    if (paged is not None or recurrent is not None) and cache is None:
+        raise ValueError("the paged and recurrent paths need their cache")
     strict_fp32()
     x = params["embed"].to(compute_dtype)[tokens.long()]
     # the JAX package rounds sqrt(d_model) to the compute dtype first
     x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype))
+    contiguous = paged is None and recurrent is None
+    length = cache["length"] if contiguous and cache is not None else 0
+    caches = cache["layers"] if cache is not None else [None] * cfg.num_layers
     new_layers = []
     aux = 0.0
-    for bt, lp, lc in zip(flat_block_types(cfg), params["layers"], cache["layers"]):
+    for bt, lp, lc in zip(flat_block_types(cfg), params["layers"], caches):
         lp = _cast(lp, compute_dtype)
         if recurrent is not None:
             x, lc = blocks_mod.apply_block_recurrent(bt, lp, x, cfg, lc, recurrent,
                                                      paged_kernel)
-        else:
+        elif paged is not None:
             x, lc, a = blocks_mod.apply_block_paged(bt, lp, x, cfg, lc, paged,
                                                     paged_kernel)
             aux = aux + a
+        else:
+            x, lc = blocks_mod.apply_block(bt, lp, x, cfg, lc, length, paged_kernel)
         new_layers.append(lc)
+    if last_only:
+        x = x[:, -1:]
     x = rms_norm(x, params["final_norm"].to(compute_dtype), cfg.norm_eps)
     head = (params["embed"].to(compute_dtype).t() if cfg.tie_embeddings
             else params["head"].to(compute_dtype))
     logits = softcap((x @ head).float(), cfg.final_logit_softcap)
-    return logits, {"layers": new_layers}, aux
+    if cache is None:
+        return logits, None, aux
+    new_cache = {"layers": new_layers}
+    if contiguous:
+        new_cache["length"] = length + tokens.shape[1]
+    return logits, new_cache, aux
+
+
+def decode_step(cfg: ModelConfig, params: Dict[str, Any], cache: Dict[str, Any],
+                token: torch.Tensor, *, kernel: str = "auto",
+                compute_dtype: torch.dtype = torch.bfloat16
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token decode over a contiguous cache: token (B, 1) -> (logits
+    (B, 1, V), new cache)."""
+    logits, cache, _ = forward(cfg, params, token, cache=cache, paged_kernel=kernel,
+                               compute_dtype=compute_dtype)
+    return logits, cache

@@ -1,9 +1,11 @@
 """The serve steps, on one device: the paged step (block-pool cache, dense
 and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
 pure-SSM stacks), each serving decode and chunked prefill in one fixed
-shape. Every bundle owns a ``Fabric`` (``meta["fabric"]``, as in the JAX
-package's ``_bundle_fabric``): the Engine registers the step on it and
-invokes it through ``fabric.call``. Mesh lowering is ROADMAP A14."""
+shape; and the slots backend's two steps over the contiguous cache, the
+one-request prefill and the one-token decode of every slot. Every bundle
+owns a ``Fabric`` (``meta["fabric"]``, as in the JAX package's
+``_bundle_fabric``): the Engine registers its steps on it and invokes them
+through ``fabric.call``. Mesh lowering is ROADMAP A14."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.fabric import Fabric
-from repro_torch.kernels import moe_jam, paged_attention, ssm_scan
+from repro_torch.kernels import flash_attention, moe_jam, paged_attention, ssm_scan
 from repro_torch.kernels.loader import resolve_kernel
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import model as model_lib
@@ -24,7 +26,8 @@ from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 # the launch counter of every kernel a step can run
 LAUNCH_COUNTERS = {"paged_attention": paged_attention.LAUNCHES,
                    "moe_jam": moe_jam.LAUNCHES,
-                   "ssm_scan": ssm_scan.LAUNCHES}
+                   "ssm_scan": ssm_scan.LAUNCHES,
+                   "flash_attention": flash_attention.LAUNCHES}
 
 
 @dataclasses.dataclass
@@ -135,3 +138,72 @@ def make_recurrent_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
         kind="recurrent_decode", chunk=chunk, slots=slots, kernel=kind, device=dev,
         nonfinite_logits=nonfinite, kernels=("ssm_scan",),
         fabric=Fabric(name="steps.recurrent_decode")))
+
+
+def _check_contiguous(cfg: ModelConfig) -> None:
+    if cfg.is_encoder:
+        raise ValueError("encoder-only arch has no decode step")
+    bad = sorted(set(model_lib.flat_block_types(cfg)) - set(blocks_mod.CONTIGUOUS_BLOCK_TYPES))
+    if bad:
+        raise ValueError(f"the slots backend supports block types "
+                         f"{blocks_mod.CONTIGUOUS_BLOCK_TYPES}, got {bad}")
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
+                      device=None, compute_dtype: torch.dtype = torch.bfloat16) -> StepBundle:
+    """One request's prefill into a fresh contiguous cache of ``max_len``, in
+    the compute dtype.
+
+    fn(params, tokens (1, L)) -> (logits (1, V) float32 at the last
+    position, filled cache holding L tokens). The head runs on the last
+    position alone: it is all the JAX package's prefill step returns and
+    all the Engine reads. ``kernel`` selects flash attention's kernel or
+    its plain version for a prompt past ``models.attention.CHUNK_THRESHOLD``.
+    """
+    _check_contiguous(cfg)
+    dev = resolve_device(device)
+    kind = resolve_kernel(kernel, dev)
+
+    @torch.no_grad()
+    def prefill_step(params, tokens):
+        cache = model_lib.init_cache(cfg, tokens.shape[0], max_len, dtype=compute_dtype,
+                                     device=dev)
+        logits, cache, _ = model_lib.forward(cfg, params, tokens, cache=cache,
+                                             paged_kernel=kind, compute_dtype=compute_dtype,
+                                             last_only=True)
+        return logits[:, -1], cache
+
+    return StepBundle(fn=prefill_step, meta=dict(
+        kind="prefill", max_len=max_len, kernel=kind, device=dev,
+        kernels=("flash_attention",), fabric=Fabric(name="steps.prefill")))
+
+
+def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", device=None,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> StepBundle:
+    """One decode token for every slot over the contiguous cache.
+
+    fn(params, cache, token (slots, 1)) -> (next_token (slots, 1), cache
+    holding one token more). Every row decodes at the cache's one shared
+    ``length`` and attends over all ``max_len`` rows, masked by that
+    position (the JAX package's lockstep: exact only for slots whose
+    prompts end at the same position). The cache is updated in place.
+    ``meta["nonfinite_logits"]`` counts rows whose logits held a NaN or an
+    infinity; ``kernel`` is accepted for the Engine's one ``kernel``
+    option (decode runs no kernel: attention over one query is plain
+    ``_sdpa``)."""
+    _check_contiguous(cfg)
+    dev = resolve_device(device)
+    kind = resolve_kernel(kernel, dev)
+    nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @torch.no_grad()
+    def serve_step(params, cache, token):
+        logits, cache = model_lib.decode_step(cfg, params, cache, token, kernel=kind,
+                                              compute_dtype=compute_dtype)
+        last = logits[:, -1]
+        nonfinite.add_((~torch.isfinite(last).all(-1)).sum())
+        return torch.argmax(last, dim=-1).to(torch.int32)[:, None], cache
+
+    return StepBundle(fn=serve_step, meta=dict(
+        kind="decode", slots=slots, kernel=kind, device=dev, nonfinite_logits=nonfinite,
+        kernels=("flash_attention",), fabric=Fabric(name="steps.decode")))

@@ -201,8 +201,10 @@ def test_engine_defaults_to_cuda_and_raises_without_it(setup):
         Engine(setup["cfg"], **GEOM)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         Engine(setup["cfg"], device="cpu", kernel="cuda", **GEOM)
-    with pytest.raises(NotImplementedError, match="A7"):
-        Engine(setup["cfg"], device="cpu", cache="slots", **GEOM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(setup["cfg"], cache="slots", **GEOM)
+    with pytest.raises(ValueError, match="cache must be"):
+        Engine(setup["cfg"], device="cpu", cache="contiguous", **GEOM)
 
 
 PLACEMENTS = ("local", "injected", "auto")
@@ -490,8 +492,8 @@ def test_recurrent_engine_retemplates_a_freed_slot(mamba):
 def test_default_cache_backend_per_family(mamba):
     assert default_cache_backend(mamba["cfg"]) == "recurrent"
     assert default_cache_backend(get_smoke("llama3.2-1b")) == "paged"
-    for arch, item in (("xlstm-1.3b", "A9"), ("deepseek-v2-lite-16b", "A7"),
-                       ("qwen2-vl-72b", "A7"), ("hymba-1.5b", "A10")):
+    for arch, item in (("xlstm-1.3b", "A9"), ("deepseek-v2-lite-16b", "A16"),
+                       ("qwen2-vl-72b", "A10"), ("hymba-1.5b", "A10")):
         with pytest.raises(NotImplementedError, match=item):
             default_cache_backend(j_get_smoke(arch))
     with pytest.raises(ValueError, match="recurrent serving supports"):

@@ -392,3 +392,97 @@ def test_kv_fabric_on_the_card_matches_the_cpu(cuda):
         rows[str(dev)] = fabric.dispatcher(bench.SPEC, 2)(frames).cpu()
     assert torch.equal(rows["cpu"], rows[str(cuda)])
     assert (rows["cpu"][5] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _flash_case(dev, rng, *, B, Hkv, G, S, T, D, strided):
+    """q, k, v bf16 from numpy: (B, H, S, D) views of (B, S, H, D) tensors
+    when ``strided`` (the model's layout), else contiguous."""
+    def bf16(h, n):
+        x = torch.from_numpy(rng.standard_normal((B, n, h, D), dtype=np.float32))
+        x = x.to(dev, torch.bfloat16)
+        return x.permute(0, 2, 1, 3) if strided else x.permute(0, 2, 1, 3).contiguous()
+    return bf16(Hkv * G, S), bf16(Hkv, T), bf16(Hkv, T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 33, 2113])
+@pytest.mark.parametrize("G", [1, 2, 8, 48])
+@pytest.mark.parametrize("D", [16, 80, 128, 256])
+def test_flash_kernel_matches_plain_version(cuda, D, G, S):
+    """Every query row sees at least one key in these cases (causal at
+    q_offset >= 0; windows never past the row's own position), so the
+    kernel's zero for a row that sees none never arises."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(D * 100 + G * 10 + S)
+    Hkv = 2 if G < 48 else 1
+    cases = [dict(causal=True, window=None, q_offset=0, T=S),
+             dict(causal=True, window=17, q_offset=0, T=S),
+             dict(causal=True, window=None, q_offset=7, T=S + 7),
+             dict(causal=False, window=None, q_offset=0, T=S + 5)]
+    for i, c in enumerate(cases):
+        q, k, v = _flash_case(cuda, rng, B=2, Hkv=Hkv, G=G, S=S, T=c["T"], D=D,
+                              strided=i % 2 == 0)
+        kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_offset"])
+        before = fa.LAUNCHES.count
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.mha_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES.count == before + 1
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+        assert bad == 0, (c, err, worst)
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _flash_case(cuda, np.random.default_rng(0), B=1, Hkv=2, G=2, S=8, T=8, D=16,
+                          strided=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_cuda(q.float(), k, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        fa.flash_attention_cuda(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(q[..., :8], k[..., :8], v[..., :8])
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention_cuda(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_cuda(q, k, v, window=0)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fa.flash_attention(q.cpu(), k.cpu(), v.cpu(), kernel="cuda")
+
+
+@pytest.mark.gpu
+def test_slots_smoke_engine_through_flash_kernel(cuda, monkeypatch):
+    """The gemma smoke on the slots engine, prompts over a lowered
+    threshold so every prefill takes the flash path: the kernel and the
+    plain version give the same schedule; one launch per layer per prefill
+    through the kernel, none through the plain version."""
+    from repro_torch.models import attention
+
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 64)
+    cfg = get_smoke("gemma3-4b")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 30, 5, 17)]
+    runs = {}
+    for kernel in ("cuda", "ref"):
+        e = Engine(cfg, device=cuda, cache="slots", kernel=kernel, slots=2, max_len=64)
+        e.load_params(seed=0)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=6))
+        e.run_until_drained()
+        runs[kernel] = (e.admission_log, e.ticks, e.metrics())
+    assert runs["cuda"][:2] == runs["ref"][:2]
+    long_prompts = sum(len(p) ** 2 > 64 for p in prompts)
+    assert runs["cuda"][2]["kernel_launches"] == {"flash_attention": cfg.num_layers * long_prompts}
+    assert runs["ref"][2]["kernel_launches"] == {"flash_attention": 0}
+    assert runs["cuda"][2]["nonfinite_logits"] == 0

@@ -198,7 +198,7 @@ def test_olmoe_config_and_layer_plan_match_jax(olmoe):
                                 moe=dataclasses.replace(jcfg.moe, first_dense_layers=first))
         assert tmodel.layer_plan(t) == jmodel.layer_plan(j)
     mla = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, kind="mla"))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A16"):
         tmodel.layer_plan(mla)
 
 
