@@ -33,10 +33,17 @@ port's dependencies:
   of 1 row (every frame on one row), 7 and 4096 rows, heap bases 0, -5
   and 2^31 - 1; the frame path's fabric on the card against the same
   fabric on the CPU;
+* the flash-attention kernel against its plain version over head dims
+  16, 80, 128 and 256, 1, 2, 8 and 48 query heads per kv head, 1, 33 and
+  2,113 positions, each causal, with a window of 17, at q_offset 7 and
+  bidirectional, strided (the model's layout) and contiguous; each
+  element within 2e-2 * (rms of its (batch, head, position) row + |plain|)
+  (bf16 outputs; the kernel rounds the unnormalized p to bf16 before P.V,
+  the plain version the normalized probabilities);
 * the wrappers' input checks;
 * the smoke engines through the kernels against the same engines through
   the plain versions: identical schedule, one launch of each kernel per
-  layer per step.
+  layer per step (per layer per long prefill for the slots engine).
 """
 import numpy as np
 import pytest
