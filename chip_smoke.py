@@ -77,7 +77,23 @@ phase prints the seconds it took):
    gives identical words. Both kernels are timed (kernel, plain version,
    library yardstick; the L2 cache flushed before every launch) and
    bounded by the bytes this input needs;
-9. the last line: ``{"ok": true, "device": {...}}``.
+9. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
+   the mailbox in the receiver's shared memory): the kernel against its
+   plain version, bit for bit, over 1, 2, 4 and 8 ranks, shifts 1, 2,
+   n - 1 and n + 1, 1, 3, 385 (one more than a 48 KiB chunk) and 131,072
+   frames of 128 B, WFE and poll, stashed (with and without the fused
+   sum) and not: spins 0 under WFE and without stash, in [1, 2^20) under
+   poll, and exactly 2^20 on every rank when the last frame's SIG word is
+   zeroed. Then the Two-Chains ring at a key-value shard's size: 8 ranks,
+   each packing 131,072 Server-Side Sum frames (16 MiB) through the
+   fabric, put stashed with the sum fused (WFE), stashed under poll, and
+   not stashed and then drained by the Server-Side Sum kernel on each
+   rank: all three sums equal the fabric dispatcher's. The paper's two
+   comparisons are timed on the card: stashing (the fused put against the
+   non-stash put and its drain) and WFE against poll (with the poll's
+   spins), at 1 frame, 16 frames of 64, 1,024 and 8,192 USR words, and
+   the 16 MiB-a-rank ring;
+10. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -104,6 +120,9 @@ REC_PREEMPT_AFTER = {3: "prefill", 12: "decode"}
 # local against injected
 FRAME_DELIVERIES = ("indirect_put", "server_side_sum") * 4
 EXPERT_D, EXPERT_FF, EXPERT_TOKENS = 2048, 1024, 8
+# the ring put: ranks of the kernel-vs-plain grid (the ring itself is
+# ``mailbox.bench.RING_RANKS`` x ``RING_FRAMES``)
+RING_GRID_RANKS = (1, 2, 4, 8)
 ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba-130m")
 # the slots engine (gemma3-4b): 16 FIFO requests, even rids long (past the
 # 2,048-token chunking threshold), odd rids short
@@ -960,7 +979,7 @@ def _slots_logits(torch, dev, cfg, params, prompt):
 
 
 def frame_path(torch, dev, card):
-    """Phase 7: the Two-Chains frame path at a key-value shard's size;
+    """Phase 8: the Two-Chains frame path at a key-value shard's size;
     returns the JSON entries of its two kernels (launches filled in)."""
     from repro_torch.core import mailbox as mbx
     from repro_torch.kernels import mailbox as mk
@@ -1083,18 +1102,145 @@ def frame_path(torch, dev, card):
     return [sum_entry, put_entry]
 
 
-def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, work):
-    """A frame-path kernel's JSON entry."""
+def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, work,
+           path="frame path", source="src/repro_torch/kernels/mailbox/csrc/mailbox.cu"):
+    """A mailbox kernel's JSON entry."""
     from repro_torch.kernels import timing
 
     bound, bound_by = timing.bound_ms(work)
     log(f"[kernel] {name} timing (L2 flushed per launch, {n} frames): kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms; needed bytes {work['bytes']} "
         f"-> {bound:.5f} ms at 3.35 TB/s ({bound_by})")
-    return {"name": name, "route": "cuda", "path": "frame path",
-            "source": "src/repro_torch/kernels/mailbox/csrc/mailbox.cu", "replaces": replaces,
+    return {"name": name, "route": "cuda", "path": path, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def ring_path(torch, dev, card):
+    """Phase 9: the one-sided ring put (B7), ranks as the CTAs of a cluster;
+    returns its JSON entry (launches from the Two-Chains ring)."""
+    from repro_torch.core.message import FrameSpec
+    from repro_torch.kernels import mailbox as mk
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.mailbox import bench as fb
+    from repro_torch.kernels.mailbox.kernel import ring_chunk_frames
+
+    spec, n, N = fb.SPEC, fb.RING_RANKS, fb.RING_FRAMES
+    sig = spec.offsets()["sig"]
+    chunk = ring_chunk_frames(spec.total_words)
+    rng = np.random.default_rng(SEED)
+    err, cases, capped = 0, 0, 0
+    for frames in (1, 3, chunk + 1, N):
+        base = fb.ring_blocks(dev, rng, max(RING_GRID_RANKS), frames)
+        for ranks in RING_GRID_RANKS:
+            blocks = base[:ranks]
+            for shift in sorted({1, 2, ranks - 1, ranks + 1}):
+                for wait, stash, handler in RING_ROUTES:
+                    err = max(err, _check_ring(torch, mk, blocks, spec, shift=shift, wait=wait,
+                                               stash=stash, handler=handler))
+                    cases += 1
+            # the last frame's SIG word missing: the poll runs to its cap
+            blocks = blocks.clone()
+            blocks[:, -1, sig] = 0
+            err = max(err, _check_ring(torch, mk, blocks, spec, wait="poll", handler="sum",
+                                       capped=True))
+            capped += 1
+        del base
+    log(f"[ring] kernel == plain, bit for bit: {cases} cases (1/2/4/8 ranks, shifts 1, 2, "
+        f"n-1, n+1, 1/3/{chunk + 1}/{N} frames of {spec.total_bytes} B, wfe/poll x stash "
+        f"+/- sum and no stash), spins 0 / [1, 2^20) / exact; {capped} cases with the last "
+        f"SIG missing: 2^20 spins on every rank, arrivals right; max |diff| {err}")
+
+    # the Two-Chains ring: 8 ranks of a key-value shard's 16 MiB of frames each
+    fabric = fb.kv_fabric(dev)
+    usr = torch.from_numpy(fb.sum_payloads(rng, n * N)).to(dev).view(n, N, spec.payload_words)
+    blocks = torch.stack([fabric.pack("server_side_sum", usr[r], src_rank=r) for r in range(n)])
+    del usr
+    want = torch.roll(fabric.dispatcher(spec, 2)(blocks)[..., 0], 1, 0)   # what each rank gets
+    landed = torch.roll(blocks, 1, 0)
+    torch.cuda.synchronize()
+    mk.RING_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    fused = mk.ring_am_put(blocks, spec=spec, handler="sum")
+    polled = mk.ring_am_put(blocks, spec=spec, wait="poll", handler="sum")
+    to_hbm = mk.ring_am_put(blocks, spec=spec, stash=False)
+    drained = torch.stack([mk.am_server_sum(a, spec) for a in to_hbm[0]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mk.RING_LAUNCHES.count
+    sums_ok = [torch.equal(fused[2][..., 0], want), torch.equal(polled[2][..., 0], want),
+               torch.equal(drained, want)]
+    landed_ok = all(torch.equal(r[0], landed) for r in (fused, polled, to_hbm))
+    spins = polled[1].view(-1).tolist()
+    log(f"[ring] the Two-Chains ring: {n} ranks x {N} frames ({N * spec.total_bytes / 2 ** 20:.0f} "
+        f"MiB a rank, packed by fabric {fabric.name!r}); stash+sum (wfe), stash+sum (poll), "
+        f"no stash + am_server_sum on each rank: sums == the dispatcher's {sums_ok}, arrivals "
+        f"== roll {landed_ok}; spins wfe {fused[1].view(-1).tolist()}, poll {spins}, no stash "
+        f"{to_hbm[1].view(-1).tolist()}; {launches} ring launches, {wall * 1e3:.2f} ms for "
+        f"the three (host clock, first calls)")
+    if not (all(sums_ok) and landed_ok and launches == 3 and (fused[1] == 0).all()
+            and (to_hbm[1] == 0).all() and all(1 <= s < mk.MAX_SPINS for s in spins)):
+        raise AssertionError("the Two-Chains ring disagrees")
+    del fused, polled, to_hbm, drained, want, landed
+
+    # the paper's two comparisons: stashing (Fig. 9/10), WFE vs poll (Fig. 13/14)
+    flush = timing.l2_flush_buffer(dev)
+    sizes = [("1 frame", spec, 1, 200)]
+    sizes += [(f"16 frames of {pw} USR words", FrameSpec(4, 0, pw), 16, 200)
+              for pw in fb.PAYLOADS]
+    sizes += [(f"{N} frames ({N * spec.total_bytes / 2 ** 20:.0f} MiB) a rank", spec, N, 30)]
+    times = {}
+    for label, sp, frames, iters in sizes:
+        blk = blocks if frames == N and sp == spec else fb.ring_blocks(dev, rng, n, frames, sp)
+        err = max(err, _check_ring(torch, mk, blk, sp, handler="sum"))
+        t = times[label] = fb.ring_times(blk, flush, iters, sp)
+        rate = {k: n * frames / (t[k]["ms"] * 1e-3) for k in ("stash+sum", "non-stash+drain")}
+        log(f"[ring] {n} ranks x {label}, {sp.total_bytes} B frames, on {card}: STASHING: "
+            f"stash+sum {t['stash+sum']['ms']:.4f} ms (warm {t['stash+sum']['warm_ms']:.4f}) "
+            f"vs non-stash put + drain {t['non-stash+drain']['ms']:.4f} ms (warm "
+            f"{t['non-stash+drain']['warm_ms']:.4f}; the put alone "
+            f"{t['non-stash']['ms']:.4f}): "
+            f"{t['non-stash+drain']['ms'] / t['stash+sum']['ms']:.2f}x, "
+            f"{rate['stash+sum']:.4g} vs {rate['non-stash+drain']:.4g} frames/s; WFE vs POLL: "
+            f"wfe {t['wfe']['ms']:.4f} ms (warm {t['wfe']['warm_ms']:.4f}) vs poll "
+            f"{t['poll']['ms']:.4f} ms (warm {t['poll']['warm_ms']:.4f}), poll spins "
+            f"{t['poll_spins']}, wfe spins 0; torch.roll {t['roll_ms']:.4f} ms, roll + sum "
+            f"{t['roll+sum_ms']:.4f} ms (L2 flushed per launch unless warm)")
+    big = times[sizes[-1][0]]
+    plain_ms = timing.timed_ms(lambda: mk.ring_am_put(blocks, spec=spec, handler="sum",
+                                                      kernel="ref"), 10, flush)
+    log(f"[ring] timings {json.dumps(times)}")
+    return _entry("mailbox_put", "src/repro/kernels/mailbox/kernel.py:96", launches, n * N, err,
+                  ms=big["stash+sum"]["ms"], plain_ms=plain_ms, library_ms=big["roll+sum_ms"],
+                  work=fb.ring_work(n, N, spec.total_words, summed=True), path="ring put",
+                  source="src/repro_torch/kernels/mailbox/csrc/ring_put.cu")
+
+
+# the grid's routes: (wait, stash, handler); a fused sum needs the stash
+RING_ROUTES = [("wfe", True, None), ("wfe", True, "sum"), ("poll", True, None),
+               ("poll", True, "sum"), ("wfe", False, None), ("poll", False, None)]
+
+
+def _check_ring(torch, mk, blocks, spec, capped=False, **kw):
+    """One ring put through the kernel against its plain version: arrivals
+    and sums bit for bit; spins where the plain version says 0 or 2^20
+    exactly, in [1, 2^20) where its poll finds the SIG word; with
+    ``capped``, 2^20 on every rank. Returns the largest |kernel - plain|."""
+    got = mk.ring_am_put(blocks, spec=spec, **kw)
+    want = mk.ring_am_put(blocks, spec=spec, kernel="ref", **kw)
+    found = want[1] == 1
+    spins_ok = bool(torch.where(found, (got[1] >= 1) & (got[1] < mk.MAX_SPINS),
+                                got[1] == want[1]).all())
+    if capped:
+        spins_ok = spins_ok and bool((got[1] == mk.MAX_SPINS).all())
+    same = (torch.equal(got[0], want[0]) and (got[2] is None) == (want[2] is None)
+            and (want[2] is None or torch.equal(got[2], want[2])))
+    if not (same and spins_ok):
+        raise AssertionError(f"ring put {tuple(blocks.shape)} {kw} capped={capped}: kernel != "
+                             f"plain (arrivals/sums equal {same}, spins "
+                             f"{got[1].view(-1).tolist()} vs {want[1].view(-1).tolist()})")
+    return max(_max_diff(torch, got[0], want[0]),
+               0 if want[2] is None else _max_diff(torch, got[2], want[2]))
 
 
 def _check_put(torch, dev, fb, d, usr_np, block, results, table, heap, plain_table,
@@ -1272,7 +1418,7 @@ def main() -> int:
 
     with Phase("build"):
         libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE,
-                                 mb_kernel.SOURCE, fa_kernel.SOURCE])
+                                 mb_kernel.SOURCE, mb_kernel.RING_SOURCE, fa_kernel.SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -1322,6 +1468,9 @@ def main() -> int:
     with Phase("frame path"):
         frame_entries = frame_path(torch, dev, card)
         gc.collect()
+        torch.cuda.empty_cache()
+    with Phase("ring put"):
+        frame_entries.append(ring_path(torch, dev, card))
         torch.cuda.empty_cache()
     log(f"[phase] total: {time.perf_counter() - t_start:.1f}s")
 

@@ -5,8 +5,11 @@ The port of ``repro/core/mailbox.py`` on one device: ``post_local`` is the
 loopback put, ``drain_mailbox`` executes every slot through a dispatcher.
 The receiver has ``banks`` x ``frames_per_bank`` slots; a sender holds one
 credit per free slot of a bank and may not put to a bank without one.
-The ring and all-to-all puts between devices (``ring_put``,
-``alltoall_put``) wait for ROADMAP A14.
+``ring_put`` and ``alltoall_put`` are the reference transports, with the
+ranks on the leading axis of one tensor instead of the devices of a
+``shard_map`` axis; the ring put through the CUDA kernel, ranks as the
+CTAs of a cluster, is ``kernels.mailbox.ring_am_put``. Puts between cards
+wait for ROADMAP A14.
 """
 from __future__ import annotations
 
@@ -61,16 +64,18 @@ def post_local(mb: Dict[str, torch.Tensor], bank: Union[int, torch.Tensor],
     return mb
 
 
-def ring_put(frame_block: torch.Tensor, axis_name: str, shift: int = 1) -> torch.Tensor:
-    raise NotImplementedError(
-        "ring_put is a put between devices: it waits for ROADMAP A14 (multi-GPU, "
-        "torch.distributed)")
+def ring_put(frame_blocks: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """One-sided put to the ring neighbour: ``(n, ..., W)`` frames, rank
+    ``r``'s on row ``r``, -> the frames that landed on each rank (rank
+    ``r`` sends to ``(r + shift) % n``)."""
+    return torch.roll(frame_blocks, shift, 0)
 
 
-def alltoall_put(frame_blocks: torch.Tensor, axis_name: str) -> torch.Tensor:
-    raise NotImplementedError(
-        "alltoall_put is a put between devices: it waits for ROADMAP A14 (multi-GPU, "
-        "torch.distributed)")
+def alltoall_put(frame_blocks: torch.Tensor) -> torch.Tensor:
+    """Every rank streams to every other: ``(n, n, N, W)``, where
+    ``frame_blocks[r][j]`` is what rank ``r`` addresses to rank ``j``, ->
+    arrivals ``(n, n, N, W)`` with ``arrivals[r][j] = frame_blocks[j][r]``."""
+    return frame_blocks.transpose(0, 1).contiguous()
 
 
 def drain_frames(frames: torch.Tensor, dispatch: Callable[[torch.Tensor], torch.Tensor],

@@ -1,13 +1,15 @@
-"""Frame-path inputs and the work count of the mailbox handler kernels.
+"""Frame-path inputs and the work count of the mailbox kernels.
 
 ``chip_smoke.py`` takes its frame path's shapes and traffic from here: a
 key-value shard of 2^26 rows (table 512 MiB + heap 3.75 GiB) resident on
 the card, and deliveries of 2^20 frames of 128 B (a 64-bank x 16,384-slot
-mailbox block) with 16 USR words each. Run as a module on a machine with
-a CUDA card, it times both kernels, their plain versions and a library
-yardstick at that size (the L2 cache flushed before every launch), and
-splits the Indirect Put's time over its three passes with
-``torch.profiler``:
+mailbox block) with 16 USR words each; and its ring: 8 ranks of 131,072
+such frames (16 MiB a rank, 2^20 in all), plus latency frames of 64,
+1,024 and 8,192 USR words. Run as a module on a machine with a CUDA card,
+it times the handler kernels, their plain versions and a library
+yardstick at that size (the L2 cache flushed before every launch), splits
+the Indirect Put's time over its three passes with ``torch.profiler``,
+and times the ring put's routes (``ring_times``):
 
     PYTHONPATH=src python -m repro_torch.kernels.mailbox.bench
 """
@@ -30,6 +32,8 @@ BANKS, FRAMES_PER_BANK = 64, 16384                 # 2^20 frames per delivery
 SLOTS = 1 << 26                                    # rows of the resident shard
 HEAP_BASE = 12_345                                 # got[0] of the put
 HOT_KEYS, HOT_SHARE, CORRUPT_SHARE = 1024, 0.10, 0.001
+RING_RANKS, RING_FRAMES = 8, 131072                # 16 MiB of frames a rank
+PAYLOADS = (64, 1024, 8192)                        # USR words of the latency frames
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
 
@@ -91,10 +95,11 @@ def put_payloads(rng: np.random.Generator, n: int) -> np.ndarray:
     return usr
 
 
-def sum_payloads(rng: np.random.Generator, n: int) -> np.ndarray:
-    """(n, 16) int32 USR words of Server-Side Sum frames, uniform over
-    int32, so most sums wrap."""
-    return rng.integers(INT32_MIN, INT32_MAX, size=(n, SPEC.payload_words), endpoint=True,
+def sum_payloads(rng: np.random.Generator, n: int,
+                 payload_words: int = SPEC.payload_words) -> np.ndarray:
+    """(n, payload_words) int32 USR words of Server-Side Sum frames,
+    uniform over int32, so most sums wrap."""
+    return rng.integers(INT32_MIN, INT32_MAX, size=(n, payload_words), endpoint=True,
                         dtype=np.int64).astype(np.int32)
 
 
@@ -137,6 +142,59 @@ def put_work(n: int, rows_written: int, payload_words: int = SPEC.payload_words)
     B) and heap row written; got[0] read."""
     data = 4 * (payload_words - 1)
     return dict(bytes=4 * n + rows_written * (2 * data + 8) + 4)
+
+
+def ring_work(n: int, frames: int, words: int, summed: bool = False) -> dict:
+    """Bytes the ring put needs: every frame read once and written once;
+    with the fused sum, one int32 written per frame."""
+    return dict(bytes=8 * n * frames * words + (4 * n * frames if summed else 0))
+
+
+def ring_blocks(device, rng: np.random.Generator, n: int, frames: int,
+                spec: FrameSpec = SPEC) -> torch.Tensor:
+    """(n, frames, W) Server-Side Sum frames of ``spec`` on ``device``,
+    rank r's with src_rank r, USR words uniform over int32."""
+    usr = torch.from_numpy(sum_payloads(rng, n * frames, spec.payload_words)).to(device)
+    ranks = torch.arange(n, dtype=torch.int32, device=device).view(n, 1)
+    return pack_frames(spec, func_id=0, src_rank=ranks,
+                       payload_words=usr.view(n, frames, spec.payload_words))
+
+
+def ring_routes(blocks: torch.Tensor, spec: FrameSpec = SPEC) -> dict:
+    """The ring put of ``blocks`` five ways, name -> call: stashed with the
+    fused sum (execute on arrival), non-stash then ``am_server_sum`` on
+    each rank (the drain's extra round trip through device memory), the
+    non-stash put alone, and stashed without a handler under WFE and under
+    poll."""
+    from repro_torch.kernels.mailbox.ops import am_server_sum, ring_am_put
+
+    def non_stash():
+        arrivals, _, _ = ring_am_put(blocks, spec=spec, stash=False)
+        return [am_server_sum(a, spec) for a in arrivals]
+
+    return {"stash+sum": lambda: ring_am_put(blocks, spec=spec, handler="sum"),
+            "non-stash+drain": non_stash,
+            "non-stash": lambda: ring_am_put(blocks, spec=spec, stash=False),
+            "wfe": lambda: ring_am_put(blocks, spec=spec),
+            "poll": lambda: ring_am_put(blocks, spec=spec, wait="poll")}
+
+
+def ring_times(blocks: torch.Tensor, flush: torch.Tensor, iters: int,
+               spec: FrameSpec = SPEC) -> dict:
+    """Device ms of each of ``ring_routes`` with the L2 flushed before every
+    launch (``ms``) and warm (``warm_ms``), of the library calls
+    ``torch.roll`` and ``roll`` + ``usr.sum(dtype=int32)`` (flushed), and
+    the poll's spins on each rank in one more call."""
+    from repro_torch.kernels.mailbox.ops import ring_am_put
+
+    usr = slice(spec.offsets()["usr"], spec.offsets()["usr"] + spec.payload_words)
+    out = {name: dict(ms=timed_ms(fn, iters, flush), warm_ms=timed_ms(fn, iters, None))
+           for name, fn in ring_routes(blocks, spec).items()}
+    out["roll_ms"] = timed_ms(lambda: torch.roll(blocks, 1, 0), iters, flush)
+    out["roll+sum_ms"] = timed_ms(
+        lambda: torch.roll(blocks, 1, 0)[..., usr].sum(-1, dtype=torch.int32), iters, flush)
+    out["poll_spins"] = ring_am_put(blocks, spec=spec, wait="poll")[1].view(-1).tolist()
+    return out
 
 
 def frames_on(device, usr: np.ndarray, func_id: int = 0) -> torch.Tensor:
@@ -211,6 +269,14 @@ def main() -> int:
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     print(f"[bench] indirect_put passes (profiler, device time per call): "
           f"{out['indirect_put']['passes_ms']}", flush=True)
+
+    blocks = ring_blocks(dev, rng, RING_RANKS, RING_FRAMES)
+    out["ring_put"] = dict(ranks=RING_RANKS, frames=RING_FRAMES,
+                           bound_ms=bound_ms(ring_work(RING_RANKS, RING_FRAMES,
+                                                       SPEC.total_words, summed=True))[0],
+                           **ring_times(blocks, flush, 50))
+    print(f"[bench] ring_put {RING_RANKS} x {RING_FRAMES} frames: {out['ring_put']}",
+          flush=True)
     print(json.dumps({"card": card_name(), **out}), flush=True)
     return 0
 

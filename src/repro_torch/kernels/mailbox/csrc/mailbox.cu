@@ -51,8 +51,8 @@
 // random 4-byte accesses into a scratch far larger than L2 (256 MiB at
 // 2^26 rows), a 32-byte sector each; sorting the frames by row (or
 // claiming per block in shared memory first) would make them local. The
-// sum could fuse into the mailbox receive (the TPU kernel's stash path)
-// once frames arrive by a put between cards (ROADMAP A14).
+// sum also runs fused into the receive of the ring put (ring_put.cu, the
+// TPU kernel's stash path); here it is the drain of the non-stash route.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

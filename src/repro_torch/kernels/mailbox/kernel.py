@@ -1,36 +1,48 @@
-"""Load and launch the CUDA mailbox handler kernels.
+"""Load and launch the CUDA mailbox kernels.
 
-``csrc/mailbox.cu`` has a plain C interface; ``kernels.loader`` builds it
-with ``nvcc`` at first use and loads it with ``ctypes``. Nothing is built
-or loaded when this module is imported.
+``csrc/mailbox.cu`` (the Server-Side Sum and Indirect Put handlers) and
+``csrc/ring_put.cu`` (the one-sided ring put, ranks as the CTAs of a
+cluster) have plain C interfaces; ``kernels.loader`` builds each with
+``nvcc`` at first use and loads it with ``ctypes``. Nothing is built or
+loaded when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import loader
+from repro_torch.kernels.mailbox.ref import check_ring_options
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mailbox.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "mailbox.cu"
+RING_SOURCE = CSRC / "ring_put.cu"
 SUM_LAUNCHES = loader.LaunchCounter()
 PUT_LAUNCHES = loader.LaunchCounter()
+RING_LAUNCHES = loader.LaunchCounter()
+MAX_RANKS = 8                   # the portable cluster size: ranks on one card
+CHUNK_BYTES = 48 * 1024         # a ring mailbox buffer (two per rank, two staging)
+_ARGTYPES = {
+    # frames, sums; n; w, usr_off, pw
+    "mailbox_server_sum": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3,
+    # frames, got, last, table, heap; n; w, usr_off, pw; slots
+    "mailbox_indirect_put": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 3 + [ctypes.c_longlong]),
+    # frames, arrivals, spins, sums; n; N; w, shift, stash, poll, sig_off, usr_off,
+    # pw, chunk
+    "mailbox_ring_put": ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
+                         + [ctypes.c_int] * 8),
+}
 _fns = {}
 
 
 def _load(name: str):
     if name not in _fns:
-        fn = getattr(loader.load(SOURCE), name)
-        if name == "mailbox_server_sum":
-            # frames, sums; n; w, usr_off, pw; stream
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        else:
-            # frames, got, last, table, heap; n; w, usr_off, pw; slots; stream
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                           + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+        fn = getattr(loader.load(RING_SOURCE if name == "mailbox_ring_put" else SOURCE), name)
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]          # ... stream
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -101,3 +113,51 @@ def indirect_put_cuda(frames: torch.Tensor, table: torch.Tensor, heap: torch.Ten
                 payload_words, slots)
         PUT_LAUNCHES.count += 1
     return table, heap
+
+
+def ring_chunk_frames(words: int) -> int:
+    """Frames of ``words`` int32 words in one ring mailbox buffer."""
+    if words < 1 or 4 * words > CHUNK_BYTES:
+        raise ValueError(f"a ring put takes frames of 1 to {CHUNK_BYTES // 4} words, got {words}")
+    return CHUNK_BYTES // (4 * words)
+
+
+def mailbox_put_cuda(frame_blocks: torch.Tensor, *, shift: int = 1, wait: str = "wfe",
+                     stash: bool = True, handler: Optional[str] = None, sig_off: int,
+                     usr_off: int, payload_words: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The one-sided ring put on the card: ``(n, N, W)`` int32 frames, one
+    block per rank, the ranks the CTAs of one cluster -> ``(arrivals (n, N,
+    W), spins (n, 1, 1), sums (n, N, 1) | None)``, as ``mailbox_put_ref``.
+    As many clusters as fit on the card share the frames, each a slice of
+    48 KiB chunks; only the one that holds frame N-1 polls. Raises on
+    inputs the kernel does not take and on a refused launch."""
+    n = frame_blocks.shape[0] if frame_blocks.dim() == 3 else 0
+    if n > MAX_RANKS:
+        raise ValueError(f"a ring on one card has at most {MAX_RANKS} ranks (the CTAs of a "
+                         f"cluster), got {n}: puts between cards are ROADMAP A14")
+    if not frame_blocks.is_cuda:
+        raise ValueError(f"frame_blocks must be a CUDA tensor, got {frame_blocks.device}")
+    if frame_blocks.dtype != torch.int32 or not frame_blocks.is_contiguous():
+        raise ValueError(f"frame_blocks must be contiguous int32, got {frame_blocks.dtype}")
+    if frame_blocks.dim() != 3 or n < 1 or frame_blocks.shape[1] < 1:
+        raise ValueError(f"frame_blocks must be (n >= 1, N >= 1, W), got "
+                         f"{tuple(frame_blocks.shape)}")
+    _, frames, words = frame_blocks.shape
+    if words % 4 or frame_blocks.data_ptr() % 16:
+        raise ValueError(f"frames must be 16-byte rows on a 16-byte boundary, got W = {words}")
+    check_ring_options(shift, wait, stash, handler)
+    if not 0 <= sig_off < words or usr_off < 0 or payload_words < 0 \
+            or usr_off + payload_words > words:
+        raise ValueError(f"SIG word {sig_off} or USR words [{usr_off}, "
+                         f"{usr_off + payload_words}) do not fit frames of {words} words")
+    chunk = min(ring_chunk_frames(words), frames)
+    dev = frame_blocks.device
+    arrivals = torch.empty_like(frame_blocks)
+    spins = torch.empty((n, 1, 1), dtype=torch.int32, device=dev)
+    sums = (torch.empty((n, frames, 1), dtype=torch.int32, device=dev) if handler == "sum"
+            else None)
+    _launch("mailbox_ring_put", frame_blocks, arrivals, spins, sums, n, frames, words, shift,
+            int(stash), int(wait == "poll"), sig_off, usr_off, payload_words, chunk)
+    RING_LAUNCHES.count += 1
+    return arrivals, spins, sums

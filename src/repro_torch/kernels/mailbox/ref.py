@@ -1,18 +1,69 @@
-"""Plain PyTorch versions of the mailbox handler kernels.
+"""Plain PyTorch versions of the mailbox kernels.
 
-The port of ``repro/kernels/mailbox/ref.py``'s ``server_sum_ref`` and
-``indirect_put_ref`` (paper §VI-B1 and §VI-B2, Fig. 4). Frames are
-``(N, W)`` int32 in the layout of ``core.message.FrameSpec``; the USR
-words start at ``usr_off``. The CPU path uses these, and ``chip_smoke.py``
-holds the CUDA kernels against them on the card.
+The port of ``repro/kernels/mailbox/ref.py``'s ``ring_put_ref``,
+``server_sum_ref`` and ``indirect_put_ref`` (paper Fig. 1, §VI-B1 and
+§VI-B2, Fig. 4), and ``mailbox_put_ref``, what the ring put kernel
+(``mailbox_put_pallas``) returns. Frames are ``(N, W)`` int32 in the
+layout of ``core.message.FrameSpec`` (a ring's ``(n, N, W)``, one block
+per rank); the USR words start at ``usr_off``. The CPU path uses these,
+and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.message import wrap_int32
+from repro_torch.core.message import SIG_MAGIC, wrap_int32
+
+MAX_SPINS = 1 << 20          # the poll's cap (``mailbox_put_pallas``)
+
+
+def ring_put_ref(frame_blocks: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """``(n, N, W)`` frames, one block per rank -> what lands on each rank:
+    rank ``r`` sends to ``(r + shift) % n``."""
+    return torch.roll(frame_blocks, shift, 0)
+
+
+def check_ring_options(shift: int, wait: str, stash: bool, handler: Optional[str]) -> None:
+    """Raise ``ValueError`` on options the ring put does not take. A fused
+    sum needs the stashed mailbox: the JAX kernel cannot read an HBM
+    mailbox from inside the kernel either."""
+    if wait not in ("wfe", "poll") or handler not in (None, "sum"):
+        raise ValueError(f"wait must be 'wfe' or 'poll' and handler None or 'sum', got "
+                         f"{wait!r}, {handler!r}")
+    if handler == "sum" and not stash:
+        raise ValueError("handler='sum' needs stash=True: the non-stash mailbox is drained "
+                         "by am_server_sum afterwards")
+    if shift < 0:
+        raise ValueError(f"shift must be >= 0, got {shift}")
+
+
+def mailbox_put_ref(frame_blocks: torch.Tensor, *, shift: int = 1, wait: str = "wfe",
+                    stash: bool = True, handler: Optional[str] = None, sig_off: int,
+                    usr_off: int, payload_words: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The ring put with its wait and its fused handler: ``(n, N, W)`` int32
+    -> ``(arrivals (n, N, W), spins (n, 1, 1), sums (n, N, 1) | None)``.
+
+    ``spins`` is 0 for ``wait="wfe"`` and for ``stash=False``. A poll on a
+    stashed mailbox reads the SIG word of the last frame that arrived: the
+    put has landed before it looks, so it counts 1 spin where that word is
+    ``SIG_MAGIC`` and ``MAX_SPINS`` where it is not. ``handler="sum"``
+    gives each arrived frame's Server-Side Sum."""
+    check_ring_options(shift, wait, stash, handler)
+    arrivals = ring_put_ref(frame_blocks, shift)
+    n = frame_blocks.shape[0]
+    if wait == "wfe" or not stash:
+        spins = torch.zeros((n,), dtype=torch.int32, device=frame_blocks.device)
+    else:
+        found = arrivals[:, -1, sig_off] == SIG_MAGIC
+        spins = torch.where(found, 1, MAX_SPINS).to(torch.int32)
+    sums = None
+    if handler == "sum":
+        sums = server_sum_ref(arrivals.reshape(-1, arrivals.shape[-1]), usr_off,
+                              payload_words).view(n, -1, 1)
+    return arrivals, spins.view(n, 1, 1), sums
 
 
 def server_sum_ref(frames: torch.Tensor, usr_off: int, payload_words: int) -> torch.Tensor:

@@ -7,6 +7,7 @@ bytes and operations its input needs. Only meaningful on a CUDA card.
 from __future__ import annotations
 
 import subprocess
+from typing import Optional
 
 import torch
 
@@ -36,18 +37,20 @@ def bound_ms(work: dict):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def timed_ms(fn, iters: int, flush: torch.Tensor) -> float:
+def timed_ms(fn, iters: int, flush: Optional[torch.Tensor]) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after the L2 cache was overwritten. A device-side spin
-    before each start event keeps the card busy while the host enqueues
-    the call, so a launch shorter than its Python call overhead is timed
-    as the kernel, not as the host's gap."""
+    CUDA events after the L2 cache was overwritten (``flush=None``: warm,
+    nothing overwritten). A device-side spin before each start event keeps
+    the card busy while the host enqueues the call, so a launch shorter
+    than its Python call overhead is timed as the kernel, not as the
+    host's gap."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(1_000_000)
         s.record()
         fn()

@@ -294,9 +294,12 @@ def test_post_local_and_drain_mailbox_match_jax():
     assert t_box["head"].tolist() == [3, 3]           # the drained box is left as it was
     bridged = mailbox_from_jax(jax.tree.map(np.asarray, j_box))
     assert all(torch.equal(bridged[k], t_box[k]) for k in t_box)
-    for fn in (t_mb.ring_put, t_mb.alltoall_put):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn(t_box["frames"], "x")
+    # the drained banks as ranks: a ring put hands bank r's frames to bank r + 1,
+    # an all-to-all of (rank, dest) blocks hands rank r what each rank sent it
+    ring = t_mb.ring_put(t_box["frames"])
+    assert torch.equal(ring[1], t_box["frames"][0]) and torch.equal(ring[0], t_box["frames"][1])
+    blocks = t_box["frames"][:, None].expand(2, 2, *t_box["frames"].shape[1:])
+    assert torch.equal(t_mb.alltoall_put(blocks)[0, 1], t_box["frames"][1])
 
 
 @pytest.mark.parametrize("max_spins", [0, 1, 64, 1 << 20])

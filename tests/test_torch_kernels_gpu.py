@@ -26,6 +26,13 @@ port's dependencies:
   rounded to bf16), zeros past n_valid, ``h_last`` within 1e-4 * (1 +
   |plain|), ``h0`` bit for bit on empty rows; a second launch from the
   first one's ``h_last`` equals one launch over both chunks, bit for bit;
+* the ring put kernel against its plain version, exactly (integers): 1,
+  2, 3 and 8 ranks, shifts 1, 2, n - 1 and n + 1, 1 frame to 20,000
+  (53 chunks of 48 KiB, several to a cluster), WFE and poll, stashed (with
+  and without the fused sum) and not; spins 0 where the plain version
+  says 0, in [1, 2^20) where its poll finds the SIG word, and exactly
+  2^20 on every rank when the last frame's SIG word is zeroed; the fused
+  sum over USR widths 1 to 8,192;
 * the Server-Side Sum and Indirect Put kernels against their plain
   versions, exactly (integers): N of 1, 33 and 1000, USR widths 1, 15,
   16, 64 and 1024 at an offset that is and one that is not 16-byte
@@ -399,6 +406,111 @@ def test_kv_fabric_on_the_card_matches_the_cpu(cuda):
         rows[str(dev)] = fabric.dispatcher(bench.SPEC, 2)(frames).cpu()
     assert torch.equal(rows["cpu"], rows[str(cuda)])
     assert (rows["cpu"][5] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the ring put (ranks as the CTAs of a cluster)
+# ---------------------------------------------------------------------------
+
+RING_SPEC = FrameSpec(got_slots=4, state_words=0, payload_words=16)
+RING_CHUNK = 384                                  # 128-B frames in one 48 KiB buffer
+
+
+def _ring_blocks(dev, n, frames, spec=RING_SPEC, seed=0):
+    from repro_torch.kernels.mailbox import bench
+
+    return bench.ring_blocks(dev, np.random.default_rng(seed), n, frames, spec)
+
+
+def _ring_geom(spec):
+    o = spec.offsets()
+    return dict(sig_off=o["sig"], usr_off=o["usr"], payload_words=spec.payload_words)
+
+
+def _check_ring(got, want):
+    """Arrivals and sums bit for bit; spins 0 and MAX_SPINS exactly, and
+    in [1, MAX_SPINS) where the plain version's poll found the SIG (1)."""
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert (got[2] is None) == (want[2] is None)
+    if want[2] is not None:
+        assert torch.equal(got[2], want[2])
+    found = want[1] == 1
+    ok = torch.where(found, (got[1] >= 1) & (got[1] < mailbox.MAX_SPINS), got[1] == want[1])
+    assert bool(ok.all()), (got[1].view(-1).tolist(), want[1].view(-1).tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [1, 3, RING_CHUNK + 1, 3 * RING_CHUNK + 5, 20000])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_ring_put_kernel_matches_plain_version(cuda, n, frames):
+    blocks = _ring_blocks(cuda, n, frames)
+    geom = _ring_geom(RING_SPEC)
+    for shift in sorted({1, 2, n - 1, n + 1}):
+        for wait, stash, handler in [("wfe", True, None), ("wfe", True, "sum"),
+                                     ("poll", True, None), ("poll", True, "sum"),
+                                     ("wfe", False, None), ("poll", False, None)]:
+            kw = dict(shift=shift, wait=wait, stash=stash, handler=handler, **geom)
+            before = mailbox.RING_LAUNCHES.count
+            got = mailbox.mailbox_put_cuda(blocks, **kw)
+            assert mailbox.RING_LAUNCHES.count == before + 1
+            _check_ring(got, mailbox.mailbox_put_ref(blocks, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [1, 3, 3 * RING_CHUNK + 5, 20000])
+@pytest.mark.parametrize("n", [2, 8])
+def test_ring_put_poll_without_sig_counts_the_cap(cuda, n, frames):
+    """The last frame's SIG word zeroed: every rank's poll runs to the cap
+    (exactly 2^20) and the arrivals are still right."""
+    blocks = _ring_blocks(cuda, n, frames)
+    blocks[:, -1, RING_SPEC.offsets()["sig"]] = 0
+    geom = _ring_geom(RING_SPEC)
+    got = mailbox.mailbox_put_cuda(blocks, wait="poll", handler="sum", **geom)
+    want = mailbox.mailbox_put_ref(blocks, wait="poll", handler="sum", **geom)
+    assert (want[1] == mailbox.MAX_SPINS).all()
+    _check_ring(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pw", [1, 64, 65, 1024, 8192])
+def test_ring_put_fused_sum_over_payload_widths(cuda, pw):
+    spec = FrameSpec(got_slots=3, state_words=0, payload_words=pw)   # USR off 16 B alignment
+    blocks = _ring_blocks(cuda, 4, 5, spec, seed=pw)
+    for wait in ("wfe", "poll"):
+        got = mailbox.ring_am_put(blocks, spec=spec, wait=wait, handler="sum", shift=3)
+        _check_ring(got, mailbox.ring_am_put(blocks, spec=spec, wait=wait, handler="sum",
+                                             shift=3, kernel="ref"))
+
+
+@pytest.mark.gpu
+def test_ring_put_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    blocks = _ring_blocks(cuda, 2, 4)
+    geom = _ring_geom(RING_SPEC)
+    put = mailbox.mailbox_put_cuda
+    with pytest.raises(ValueError, match="A14"):
+        put(_ring_blocks(cuda, 9, 1), **geom)
+    with pytest.raises(ValueError, match="int32"):
+        put(blocks.float(), **geom)
+    with pytest.raises(ValueError, match="contiguous"):
+        put(blocks[:, ::2], **geom)
+    with pytest.raises(ValueError, match="16-byte"):
+        put(torch.zeros((2, 3, 30), dtype=torch.int32, device=cuda), **geom)
+    with pytest.raises(ValueError, match="16-byte"):
+        put(blocks.view(-1)[1:1 + 2 * 3 * 32].view(2, 3, 32), **geom)
+    with pytest.raises(ValueError, match="N >= 1"):
+        put(blocks[:, :0], **geom)
+    with pytest.raises(ValueError, match="do not fit"):
+        put(blocks, sig_off=32, usr_off=12, payload_words=16)
+    with pytest.raises(ValueError, match="frames of 1 to"):
+        put(torch.zeros((2, 1, 12800), dtype=torch.int32, device=cuda), sig_off=0, usr_off=0,
+            payload_words=1)
+    with pytest.raises(ValueError, match="stash=True"):
+        put(blocks, stash=False, handler="sum", **geom)
+    with pytest.raises(ValueError, match="shift"):
+        put(blocks, shift=-1, **geom)
+    with pytest.raises(ValueError, match="wait"):
+        put(blocks, wait="spin", **geom)
 
 
 # ---------------------------------------------------------------------------

@@ -157,6 +157,11 @@ def test_wrappers_resolve_and_raise_on_the_cpu():
         mb.indirect_put_cuda(frames, table, heap, got, USR_OFF, PW)
     with pytest.raises(ValueError, match="kernel must be"):
         mb.am_server_sum(frames, SPEC, kernel="pallas")
-    with pytest.raises(NotImplementedError, match="A14"):
-        mb.ring_am_put(frames)
-    assert mb.SUM_LAUNCHES.count == 0 and mb.PUT_LAUNCHES.count == 0
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mb.ring_am_put(frames[None], spec=SPEC, kernel="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mb.mailbox_put_cuda(frames[None], sig_off=30, usr_off=USR_OFF, payload_words=PW)
+    arrivals, spins, sums = mb.ring_am_put(frames[None], spec=SPEC, handler="sum")
+    assert torch.equal(arrivals[0], frames) and spins.tolist() == [[[0]]]
+    assert torch.equal(sums[0, :, 0], mb.am_server_sum(frames, SPEC))
+    assert (mb.SUM_LAUNCHES.count, mb.PUT_LAUNCHES.count, mb.RING_LAUNCHES.count) == (0, 0, 0)

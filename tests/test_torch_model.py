@@ -3,7 +3,8 @@
 ``repro_torch.models.model.forward`` against ``repro.models.model.forward(
 ..., paged=, paged_kernel="ref", compute_dtype=float32)`` with float32 pools
 on ``get_smoke("llama3.2-1b")`` (2 layers, d_model 64, 4 heads / 2 kv heads)
-and on ``get_smoke("olmoe-1b-7b")`` (2 MoE layers, 4/4 heads, 8 experts,
+(and the ``gemma3-4b``, ``stablelm-3b`` and ``granite-20b`` smokes, whose
+default backend is paged too) and on ``get_smoke("olmoe-1b-7b")`` (2 MoE layers, 4/4 heads, 8 experts,
 top-2) with the same weights (JAX ``init_params`` -> numpy ->
 ``params_from_jax``), over a scripted schedule of three steps: prefill
 chunks, a decode row, an idle row, table holes and a reused block with
@@ -120,9 +121,18 @@ _SCHEDULE = [
 ]
 
 
-def test_paged_forward_matches_jax_over_schedule(smoke):
-    cfg, jparams, np_params = smoke
-    jcfg = j_get_smoke("llama3.2-1b")
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-4b", "stablelm-3b", "granite-20b"])
+def test_paged_forward_matches_jax_over_schedule(smoke, arch):
+    """The dense-GQA smokes on the paged backend, their default in both
+    packages: gemma3-4b with windows of 8 over rows of up to 9 tokens,
+    stablelm-3b's partial rotary, granite-20b's single kv head."""
+    jcfg = j_get_smoke(arch)
+    if arch == "llama3.2-1b":
+        cfg, jparams, np_params = smoke
+    else:
+        cfg = get_smoke(arch)
+        jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))[0]
+        np_params = jax.tree.map(np.asarray, jparams)
     N, bs = 8, 4
     tparams = params_from_jax(np_params, cfg)
     jcache = jmodel.init_paged_cache(jcfg, N, bs, dtype=jnp.float32)
