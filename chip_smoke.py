@@ -12,25 +12,28 @@ phase prints the seconds it took):
    shared-memory / spill report;
 3. kernel vs plain: call each kernel's wrapper at its path's shapes on the
    card and hold it against its plain PyTorch version (stated tolerance):
-   paged attention at llama3.2-1b's heads (32/8 of 64) and at
-   olmoe-1b-7b's (16/16 of 128), valid columns only, the tables holding
+   paged attention (split-K v5) at llama3.2-1b's heads (32/8 of 64) and
+   at olmoe-1b-7b's (16/16 of 128), valid columns only, the tables holding
    entries that name no pool block inside live ranges; the moe_jam expert
    FFN at olmoe's buckets (64 experts x 40 rows x 2048, F 1024) with empty,
    partial and full experts; the ssm_scan selective scan at mamba-130m's
    engine shape (32 rows x 32 columns x 1536 channels, N 16) with 0, 1,
    partial and full valid columns per row; flash attention at gemma3-4b's
    prefill (8/4 heads of 256, 4,096 tokens, causal, window None and
-   1,024), granite-20b's heads (48/1 of 128, 2,304 tokens) and an odd
-   shape (2 x 32 heads of 80, 2,113 tokens from position 7). Each is timed (kernel, plain
-   version, and one PyTorch library yardstick the port never calls, where
-   there is one) with the L2 cache flushed before every launch, as the
-   serving loop finds it, and bounded by the bytes and operations this
-   input needs;
+   1,024), granite-20b's heads (48/1 of 128, 2,304 tokens) (TMA + wgmma
+   v2) and an odd shape (2 x 32 heads of 80, 2,113 tokens from position
+   7; mma.sync v1), with the share of visited key tiles that take the
+   mask. Each is timed (kernel, plain version, and one PyTorch library
+   yardstick the port never calls, where there is one) with the L2 cache
+   flushed before every launch, as the serving loop finds it, and bounded
+   by the bytes and operations this input needs;
 4. end to end, ``llama3.2-1b``: a full-width paged ``Engine`` (16 layers,
    random bf16 weights from a seed) serves 12 requests with preemption;
    launch counts are read around exactly that run; the same step inputs
    are then replayed through ``kernel="ref"`` for greedy agreement, and
-   one step's logits are compared on identical inputs;
+   one step's logits are compared on identical inputs; that mixed
+   prefill + decode step is profiled (``torch.profiler``): device busy and
+   idle time, and paged attention's device ms in it;
 5. end to end, ``olmoe-1b-7b``: the same for a full-width MoE engine (16
    layers, 64 experts, top-8, 6.9 B random bf16 parameters) on the same
    12 requests; every layer runs both kernels, so each kernel's launches
@@ -253,7 +256,7 @@ def check_paged(torch, dev, *, arch, heads, kv_heads, head_dim):
         f"{work['flops']} flops over {work['keys']} visible keys -> "
         f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s")
     return {
-        "name": "paged_attention", "route": "cuda", "path": arch,
+        "name": "paged_attention", "route": "cuda", "path": arch, "design": "split-K v5",
         "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:108",
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -398,7 +401,8 @@ def check_flash(torch, dev, cfg):
         del out, ref
         work = fbench.needed_work(shape)
         bound, bound_by = timing.bound_ms(work)
-        r = dict(max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+        walk = fa.tile_counts(q, k, v, **kw)
+        r = dict(design=walk["design"], max_abs_err=err, bound_ms=bound, bound_by=bound_by,
                  ms=timing.timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 50, flush),
                  plain_ms=timing.timed_ms(lambda: fa.mha_ref(q, k, v, **kw), 5, flush),
                  library_ms=timing.timed_ms(fbench.yardstick(q, k, v, shape), 50, flush))
@@ -409,12 +413,13 @@ def check_flash(torch, dev, cfg):
             f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
             f"{work['bytes']} bytes -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms "
             f"at 3.35 TB/s; bound {bound:.5f} ms ({bound_by}), kernel at "
-            f"{bound / r['ms']:.3f} of it")
+            f"{bound / r['ms']:.3f} of it; {walk['design']}, the mask on {walk['masked']} of "
+            f"{walk['visited']} visited tiles (counted by the kernel)")
         del q, k, v
     del flush
     g = shapes["gemma3-4b global"]
     return {
-        "name": "flash_attention", "route": "cuda", "path": SLOTS_ARCH,
+        "name": "flash_attention", "route": "cuda", "path": SLOTS_ARCH, "design": g["design"],
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
         "launches": None, "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
@@ -601,10 +606,7 @@ def replay(torch, dev, engine, records, events):
             cfg, slots=SLOTS, chunk=CHUNK, num_blocks=NUM_BLOCKS, block_size=BLOCK,
             max_blocks_per_seq=engine.max_blocks_per_seq, kernel="ref", device=dev).fn
         cache = model_lib.init_paged_cache(cfg, NUM_BLOCKS, BLOCK, device=dev)
-    # the logits check takes the step with the most prefill and decode rows
-    mixed = max(range(len(records)), key=lambda i: (
-        int(((records[i][-2] > 1).sum() > 0) and ((records[i][-2] == 1).sum() > 0)),
-        int(records[i][-2].sum())))
+    mixed = _mixed_index(records)
     agree = total = 0
     first = None
     logit = None
@@ -636,6 +638,35 @@ def replay(torch, dev, engine, records, events):
     if logit is None or not logit["ok"]:
         raise AssertionError(f"logits disagree: {logit}")
     return dict(agree=agree, rows=total, first_divergence=first, logits=logit)
+
+
+def _mixed_index(records):
+    """The recorded step with prefill and decode rows that has the most
+    valid rows (n_valid is each record's last input)."""
+    return max(range(len(records)), key=lambda i: (
+        int(((records[i][-2] > 1).sum() > 0) and ((records[i][-2] == 1).sum() > 0)),
+        int(records[i][-2].sum())))
+
+
+def _paged_step_profile(torch, engine, records):
+    """Device busy and idle time of one mixed prefill + decode step (the
+    replay's, on a clone of the engine's final pool), and paged attention's
+    device ms in it: what the kernel costs on the path it serves."""
+    i = _mixed_index(records)
+    *args, _ = records[i]
+    cache = {"layers": [{k: v.clone() for k, v in lc.items()} for lc in engine.cache["layers"]]}
+    b = _busy(torch, lambda: engine.bundle.fn(engine.params, cache, *args), match="paged_")
+    nv = args[-1]
+    idle = (f"idle {b['wall_ms'] - b['busy_ms']:.2f} ms (share "
+            f"{1 - b['busy_ms'] / b['wall_ms']:.3f})" if b["busy_ms"] is not None
+            else "device time not measured (the trace holds no device event)")
+    log(f"[e2e] {engine.cfg.name} one mixed step (step {i}, n_valid {nv.tolist()}): host wall "
+        f"{b['wall_ms']:.2f} ms (median of 3, no profiler); device busy {b['busy_ms']} ms over "
+        f"{b['device_ops']} device operations (torch.profiler); {idle}; paged attention "
+        f"{b['match_ms']} ms in {b['match_ops']} device operations ({engine.cfg.num_layers} "
+        f"layers); most device time (ms): {b['top']}")
+    del cache
+    return b
 
 
 def _mixed_step(torch, dev, engine, cache, i, args, rule):
@@ -886,13 +917,13 @@ def slots_path(torch, dev, card):
     return flash
 
 
-def _busy(torch, fn, repeats: int = 3):
+def _busy(torch, fn, repeats: int = 3, match=None):
     """Host wall ms of one synchronized call of ``fn`` (the median of
     ``repeats``, no profiler) and the card's busy ms in one more call traced
     by ``torch.profiler``: the summed durations of the kernels, copies and
     fills it ran (one stream, so they do not overlap; None when the trace
-    holds no device event), and the six device operations that took most of
-    it, by name."""
+    holds no device event), the six device operations that took most of
+    it, by name, and the ms and count of those whose name holds ``match``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,8 +943,11 @@ def _busy(torch, fn, repeats: int = 3):
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    hits = [e for e in ops if match is not None and match in e.name]
     return dict(wall_ms=float(np.median(walls)), busy_ms=busy, device_ops=len(ops),
-                top=[(name[:60], round(ms, 3)) for name, ms in top])
+                top=[(name[:60], round(ms, 3)) for name, ms in top],
+                match_ms=sum(e.time_range.elapsed_us() for e in hits) / 1e3 if ops else None,
+                match_ops=len(hits))
 
 
 def _slots_logits(torch, dev, cfg, params, prompt):
@@ -1451,6 +1485,8 @@ def main() -> int:
             if engine.cache_kind == "recurrent":
                 _check_exact_without_preemption(torch, dev, arch, engine)
             rep = replay(torch, dev, engine, records, events)
+            if engine.cache_kind == "paged":
+                _paged_step_profile(torch, engine, records)
             for (kname, path), entry in entries.items():
                 if path == arch:
                     entry["launches"] = summary["launches"][kname]

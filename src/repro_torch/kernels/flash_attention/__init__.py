@@ -1,3 +1,3 @@
 """Flash attention: the CUDA kernel, its plain version, and the wrapper."""
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
-    HEAD_DIMS, LAUNCHES, compare, flash_attention, flash_attention_cuda, mha_ref)
+    LAUNCHES, compare, design, flash_attention, flash_attention_cuda, mha_ref, tile_counts)

@@ -3,7 +3,9 @@
 ``chip_smoke.py`` takes its flash-attention checks from here. Run as a
 module on a machine with a CUDA card, it times the kernel, its plain
 version and ``scaled_dot_product_attention`` (the L2 cache flushed before
-every launch) against the bound at each check shape:
+every launch) against the bound at each check shape, and prints the share
+of the key tiles the kernel visits that take the per-element mask, as the
+kernel counts them on the device (``kernel.tile_counts``):
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.bench
 
@@ -83,7 +85,7 @@ def yardstick(q, k, v, shape):
 
 def main() -> int:
     from repro_torch.kernels.flash_attention.ops import (compare, flash_attention_cuda,
-                                                         mha_ref)
+                                                         mha_ref, tile_counts)
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card: this times the CUDA kernel")
@@ -96,8 +98,10 @@ def main() -> int:
         err, _, bad = compare(flash_attention_cuda(q, k, v, **kw), mha_ref(q, k, v, **kw))
         work = needed_work(shape)
         bound, by = bound_ms(work)
+        walk = tile_counts(q, k, v, **kw)
+        walk["masked_share"] = walk["masked"] / max(walk["visited"], 1)
         rows.append(dict(
-            shape=name, pairs=work["pairs"], flops=work["flops"], bytes=work["bytes"],
+            shape=name, **walk, pairs=work["pairs"], flops=work["flops"], bytes=work["bytes"],
             bound_ms=bound, bound_by=by, max_abs_err=err, over_tolerance=bad,
             ms=timed_ms(lambda: flash_attention_cuda(q, k, v, **kw), 50, flush),
             plain_ms=timed_ms(lambda: mha_ref(q, k, v, **kw), 5, flush),
@@ -105,8 +109,9 @@ def main() -> int:
         r = rows[-1]
         print(f"[bench] flash_attention {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
-              f"({by}; {work['pairs']} visible pairs); max |kernel - plain| {err:.3e}",
-              flush=True)
+              f"({by}; {work['pairs']} visible pairs); max |kernel - plain| {err:.3e}; "
+              f"{walk['design']}: the mask on {walk['masked']} of {walk['visited']} visited "
+              f"tiles ({walk['masked_share']:.3f})", flush=True)
         del q, k, v
     print(json.dumps({"card": card_name(), "flash_attention": rows}), flush=True)
     return 0

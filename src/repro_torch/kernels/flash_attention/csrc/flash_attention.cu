@@ -12,50 +12,70 @@
 //   acc = acc * exp(m_old - m) + bf16(p) . v      f32 accumulation
 //   out = acc / max(l, 1e-30), rounded to bf16
 // and skips every kv tile in which no (query, key) pair of the CTA is
-// visible, as the TPU kernel skips its fully masked blocks.
+// visible, as the TPU kernel skips its fully masked blocks. Keys past T
+// score -inf, so they add nothing even to a row that has seen no visible
+// key yet.
 //
-// Design (simple: mma.sync on the tensor cores, cp.async staging):
-//   * One CTA per (batch, kv head, tile of 64 query rows). The rows of a kv
-//     head are its (position, group head) pairs in position-major order,
-//     row r = s * G + g, so a tile holds every group head of 64 / G
-//     positions (G <= 64) and each K/V tile loaded feeds all 64 rows: the
-//     G heads that share it are never loaded apart. At G = 48 (MQA) a tile
-//     spans two or three positions; the tile's position range still bounds
-//     its visible keys.
-//   * 4 warps, 16 rows each. Per kv tile of BK keys: S = Q . K^T by
-//     mma.sync.m16n8k16 (bf16 in, f32 out) with Q and K fragments by
-//     ldmatrix from shared memory; the mask and the online softmax on the
-//     accumulators (a row's four lanes reduce by shuffles); the f32 scores
-//     become the A fragments of P . V after rounding to bf16, with V
-//     fragments by ldmatrix.trans. The f32 output tile stays in registers:
-//     D / 2 a thread.
-//   * K/V tiles are double-buffered through cp.async: tile j + 1 lands
-//     while tile j is computed. Rows are padded by 16 bytes in shared
-//     memory, so ldmatrix reads are free of bank conflicts.
-//   * Fixed tiles with masked tails, whatever S and T: rows past S * G and
-//     keys past T are zero-filled by cp.async; keys past T score -inf, so
-//     they add nothing even to a row that has seen no visible key yet.
-//   * Heaviest tiles first: under a causal mask the last query tiles see
-//     the most keys, so blockIdx.x walks the tiles from the end.
-//   * Tiles: BK = 64 keys for D <= 128; 32 for D = 256, where the output
-//     tile alone takes 128 registers a thread. Instances for D in {16, 64,
-//     80, 128, 256}: the smoke heads, llama, stablelm, granite, gemma.
-//   * Strided q, k, v and out (the element stride along D must be 1): the
-//     model passes its (B, S, H, D) projections as (B, H, S, D) views, with
-//     no transposing copy.
+// Two designs, chosen by the head dim D alone (design_of, which the C
+// interface also exports as flash_design):
+//   D 64, 128, 256 (llama-width, granite-20b, gemma3-4b): v2, TMA and
+//     wgmma, below;
+//   D 16, 80 (the smoke heads, stablelm-3b): v1, mma.sync and cp.async,
+//     the first design, kept for the head dims v2 does not cover yet.
+//
+// Both keep the rows of a kv head in position-major order, row r = s * G +
+// g, so a CTA's tile holds every group head of its positions and each K/V
+// tile loaded feeds all of them: the G heads that share it are never
+// loaded apart (at G = 48 a tile spans a few positions; its position range
+// still bounds its visible keys). Both walk the heaviest tiles first:
+// under a causal mask the last query tiles see the most keys, so
+// blockIdx.x counts the tiles from the end. Both take strided q, k, v and
+// out (element stride 1 along D): the model passes its (B, S, H, D)
+// projections as (B, H, S, D) views, with no transposing copy.
+//
+// v2 (TMA + wgmma):
+//   * A CTA is 128 query rows and three warpgroups: two consumers of 64
+//     rows each and a producer. setmaxnreg moves the registers to the
+//     consumers (240 a thread: at D 256 a thread holds 128 float32 of the
+//     output and 32 of the scores); the producer keeps 24. (A lone
+//     producer warp would leave 168 a thread: nine warps put three on one
+//     SM sub-partition, and setmaxnreg needs whole warpgroups.)
+//   * One producer thread loads each K and V tile by TMA into a 2-stage
+//     ring, K and V each with full and free mbarriers: a stage's K is
+//     refilled once Q . K^T has read it, its V once P . V has. The tensor
+//     maps read the strided (B, Hkv, T, D) views as they are (4-D, the
+//     model's strides, 128-byte swizzle, D in 64-element boxes); keys past
+//     T arrive as zeros. Q is loaded once per CTA by the consumers with
+//     16-byte cp.async in the same swizzled layout: a tile's rows are
+//     (position, group head) pairs, which a tensor map box covers only
+//     where G divides 128, and granite-20b has G = 48.
+//   * Per tile and warpgroup: S = Q . K^T by wgmma.mma_async m64nBKk16,
+//     both operands K-major from shared memory; the softmax; P . V by
+//     wgmma with P from registers (rounded to bf16, as the Pallas kernel
+//     casts p to v's dtype) and V from shared memory, transposed by its
+//     descriptor (MN-major). The two warpgroups share the tensor cores.
+//     Key tiles: BK = 128 at D <= 128, 64 at D 256. Shared memory at
+//     D 256: Q 64 KB plus two stages of K and V, 128 KB.
+//   * Softmax in exp2 with scale * log2(e) folded into one multiply. The
+//     per-element mask runs only on the tiles that cross the causal
+//     diagonal, a window edge or the tail T for some row of the
+//     warpgroup; every pair of the other visited tiles is visible.
 //
 // What bounds it on an H100: operations. At gemma3-4b's prefill of 4,096
 // tokens a global layer has 67 M visible (query, key) pairs over 8 heads,
 // 4 D = 1,024 flops each: 6.9e10 flops against ~50 MB of q, k, v and out,
 // ~1,400 flops a byte, far above the ~295 where the tensor cores and not
-// HBM become the limit. mma.sync reaches a fraction of the 989 TFLOP/s
-// that wgmma does on Hopper; the design keeps the tensor cores fed from
-// shared memory and reads each K/V tile once per 64 query rows.
+// HBM become the limit. v2 runs wgmma, the only way to the tensor
+// cores' full rate on Hopper, from two warpgroups while the producer
+// keeps the next tile in flight.
 //
-// What a later design changes: TMA loads into a deeper ring, wgmma on
-// 64-row warpgroup tiles with a producer warp, exp2 with the scale folded
-// into log2(e), and a split of long causal rows across CTAs.
+// What a later design changes: the softmax under a product inside a
+// warpgroup (issuing tile i - 1's P . V with tile i's Q . K^T, as
+// FlashAttention-3 does, needed more than 240 registers here and ptxas
+// serialized the products), 80-key tiles at D 256, a persistent grid, TMA
+// for Q where G divides 128, and v2 for D 16 and 80.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -63,6 +83,9 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// v1: mma.sync (D 16, 80)
+// ---------------------------------------------------------------------------
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kM = 16 * kWarps;              // query rows per CTA
@@ -82,6 +105,9 @@ struct Params {
   int causal, window, q_offset;              // window <= 0: no window
   float scale;
   int n_tiles;                               // ceil(S * G / kM)
+  // when not null: [0] += kv tiles visited, [1] += those that took the
+  // per-element mask, per CTA (v1) or per consumer warpgroup (v2)
+  unsigned long long* tiles;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -130,7 +156,7 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 }
 
 template <int D, int BK>
-__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) flash_mma_kernel(const Params p) {
   constexpr int kLd = D + 8;                 // bf16 per shared row (+16 bytes)
   constexpr int kChunks = D / 8;             // 16-byte chunks per row
   constexpr int kNT = BK / 8;                // n8 score tiles per warp
@@ -302,6 +328,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
       }
     }
     cp_async_wait_all();                     // no copy outlives the CTA
+    if (p.tiles != nullptr && tid == 0) {    // every tile visited takes the mask
+      atomicAdd(p.tiles, static_cast<unsigned long long>(j_hi - j_lo + 1));
+      atomicAdd(p.tiles + 1, static_cast<unsigned long long>(j_hi - j_lo + 1));
+    }
   }
 
   // out = acc / max(l, 1e-30): lane holds columns 2 t4, 2 t4 + 1 of each
@@ -326,28 +356,641 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
 }
 
 template <int D, int BK>
-cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
+cudaError_t launch_mma(const Params& p, int B, int Hkv, cudaStream_t stream) {
   // Q tile and two stages of K and V: 99 KB at D = 256, 85 KB at 128
   constexpr int smem = static_cast<int>(sizeof(__nv_bfloat16)) * (kM + 4 * BK) * (D + 8);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, BK>,
+  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<D, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.n_tiles, Hkv, B);
-  flash_kernel<D, BK><<<grid, kThreads, smem, stream>>>(p);
+  flash_mma_kernel<D, BK><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// v2: TMA + wgmma (D 64, 128, 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;                  // warpgroups of 64 query rows
+constexpr int kWgThreads = 128 * (kConsumers + 1);   // + one producer warpgroup
+constexpr int kWgRows = 64 * kConsumers;       // query rows per CTA
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned long long kTimeoutNs = 2000000000ull;   // a lost barrier traps
+
+template <int D>
+struct Wg {
+  static constexpr int BK = D == 256 ? 64 : 128;           // keys per tile
+  static constexpr int kRingK = 2;                         // K stages
+  static constexpr int kRingV = 2;                         // V stages
+  static constexpr int kChunks = D / 64;                   // 128-byte column chunks
+  static constexpr int kQBytes = kWgRows * D * 2;
+  static constexpr int kTileBytes = BK * D * 2;            // one K or V tile
+  static constexpr int kVOff = kQBytes + kRingK * kTileBytes;
+  static constexpr int kBarOff = kVOff + kRingV * kTileBytes;
+  static constexpr int kSmem = 1024 + kBarOff + 16 * (kRingK + kRingV);   // + 1 KB to align
+};
+
+// The positions (1-3) of a tensor map's key, head and batch coordinates:
+// the outer dims go in order of stride.
+struct MapSlots {
+  int t, h, b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+               "selp.u32 %0, 1, 0, p;\n\t}"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of parity `parity` to complete; trap after 2 s so a
+// lost arrival fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = now_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (now_ns() - t0 > kTimeoutNs) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4, %5}], [%6];"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+                  "r"(c3), "r"(bar)
+               : "memory");
+}
+
+// A shared-memory matrix descriptor for wgmma, 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units). The swizzle
+// atoms (8 rows x 128 bytes) start 1024-byte aligned, so base offset 0.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+         | (1ull << 62);
+}
+
+// `base` advanced by `bytes`, in an instruction the compiler may neither
+// hoist nor share between uses, so an unrolled loop of products keeps one
+// descriptor live, not one for each step
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t bytes) {
+  uint64_t d;
+  asm volatile("add.s64 %0, %1, %2;" : "=l"(d) : "l"(base), "l"(static_cast<uint64_t>(bytes >> 4)));
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that wgmma writes asynchronously: no read is moved above
+// the wait that precedes this, no write below the fence that follows.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (64 x 64, f32) {=, +=} A (64 x 16, smem desc) . B (16 x 64, smem desc),
+// both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) {=, +=} A (64 x 16, smem desc) . B (16 x 128, smem desc),
+// both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem desc,
+// MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128, smem desc,
+// MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256, f32) += A (64 x 16, bf16 registers) . B (16 x 256, smem desc,
+// MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The per-tile softmax of a warpgroup's 64 rows x BK keys (log2 units):
+// scale, mask where the tile needs it, the new running max, alpha, p and
+// l; p goes to bf16 A fragments for P . V.
+template <int BK>
+struct Softmax {
+  float m[2] = {kMInit, kMInit};
+  float l[2] = {0.0f, 0.0f};                   // this lane's part of the row sums
+
+  __device__ __forceinline__ void tile(float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4],
+                                       float (&alpha)[2], const Params& p, int k0,
+                                       bool need_mask, const int (&qp)[2], int t4, float sl) {
+    constexpr float kMasked2 = kMasked * kLog2e;          // -2^30 in log2 units
+    float mx[2] = {m[0], m[1]};
+    if (need_mask) {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + n * 8 + 2 * t4 + (e & 1);
+          const int q = qp[e >> 1];
+          float x = sc[4 * n + e] * sl;
+          if (kp >= p.T) {
+            x = -INFINITY;
+          } else if ((p.causal && kp > q) || (p.window > 0 && q - kp >= p.window)) {
+            x = kMasked2;
+          }
+          sc[4 * n + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * n + e] *= sl;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = exp2f(sc[4 * n + e] - m[e >> 1]);
+        sc[4 * n + e] = pv;
+        ps[e >> 1] += pv;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + ps[h];
+    // score tiles 2kk, 2kk + 1 are the A fragment of P . V's kk-th k16 step
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = f2_to_bf2(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = f2_to_bf2(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = f2_to_bf2(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = f2_to_bf2(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const Params p,
+                   const MapSlots ks, const MapSlots vs) {
+  using W = Wg<D>;
+  constexpr int BK = W::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t q_base = smem_u32(smem);
+  const uint32_t k_base = q_base + W::kQBytes;             // K stages, then V stages
+  const uint32_t v_base = q_base + W::kVOff;
+  // barriers, 8 bytes each: K landed, K free (kRingK each), V landed, V
+  // free (kRingV each)
+  const uint32_t full_k = q_base + W::kBarOff;
+  const uint32_t free_k = full_k + 8 * W::kRingK;
+  const uint32_t full_v = free_k + 8 * W::kRingK;
+  const uint32_t free_v = full_v + 8 * W::kRingV;
+
+  const int tile = p.n_tiles - 1 - static_cast<int>(blockIdx.x);
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rows = p.S * p.G;
+  const int r0 = tile * kWgRows;
+  const int q_lo = r0 / p.G + p.q_offset;
+  const int q_hi = (min(r0 + kWgRows, rows) - 1) / p.G + p.q_offset;
+  int j_lo = 0;
+  int j_hi = (p.T + BK - 1) / BK - 1;
+  if (p.causal) j_hi = min(j_hi, floor_div(q_hi, BK));
+  if (p.window > 0) j_lo = max(0, floor_div(q_lo - p.window + 1, BK));
+  const int n = j_hi - j_lo + 1;                           // tiles to visit
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::kRingK; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(free_k + 8 * s, 4 * kConsumers);           // one arrival a consumer warp
+    }
+    for (int s = 0; s < W::kRingV; ++s) {
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(free_v + 8 * s, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // the producer: one thread keeps the ring full, K of a tile before its
+    // V, each into its stage once the consumers have freed it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      int ck[4], cv[4];
+      ck[ks.h] = kvh; ck[ks.b] = b;
+      cv[vs.h] = kvh; cv[vs.b] = b;
+      for (int i = 0; i < n; ++i) {
+        const int sk = i % W::kRingK, sv = i % W::kRingV;
+        ck[ks.t] = (j_lo + i) * BK;
+        cv[vs.t] = (j_lo + i) * BK;
+        if (i >= W::kRingK) mbar_wait(free_k + 8 * sk, ((i / W::kRingK) - 1) & 1);
+        mbar_expect(full_k + 8 * sk, W::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < W::kChunks; ++c)
+          tma_load_4d(k_base + sk * W::kTileBytes + c * BK * 128, &tm_k, full_k + 8 * sk,
+                      c * 64, ck[1], ck[2], ck[3]);
+        if (i >= W::kRingV) mbar_wait(free_v + 8 * sv, ((i / W::kRingV) - 1) & 1);
+        mbar_expect(full_v + 8 * sv, W::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < W::kChunks; ++c)
+          tma_load_4d(v_base + sv * W::kTileBytes + c * BK * 128, &tm_v, full_v + 8 * sv,
+                      c * 64, cv[1], cv[2], cv[3]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int ct = threadIdx.x % 128;
+    const int warp = ct >> 5;
+    const int lane = ct & 31;
+    const int gq = lane >> 2, t4 = lane & 3;
+
+    // Q: this warpgroup's 64 rows, swizzled as TMA would (16-byte group
+    // x of row r at x ^ (r % 8)), zeros past the last row
+    {
+      const __nv_bfloat16* qb = p.q + b * p.q_b + static_cast<long long>(kvh) * p.G * p.q_h;
+      for (int idx = ct; idx < 64 * (D / 8); idx += 128) {
+        const int r = 64 * wg + idx / (D / 8), ch = idx % (D / 8);
+        const int fr = r0 + r;
+        const bool live = fr < rows;
+        const long long off = live ? (fr % p.G) * p.q_h + static_cast<long long>(fr / p.G) * p.q_s
+                                   : 0;
+        const uint32_t dst = q_base + (ch / 8) * (kWgRows * 128) + r * 128
+                             + (((ch % 8) ^ (r % 8)) << 4);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(dst), "l"(qb + off + ch * 8), "r"(live ? 16 : 0));
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+    }
+
+    // this thread's rows: g and g + 8 of its warp's 16
+    const int fr0 = r0 + 64 * wg + warp * 16 + gq;
+    const int fr1 = fr0 + 8;
+    const int qp[2] = {fr0 / p.G + p.q_offset, fr1 / p.G + p.q_offset};
+    const int w_first = r0 + 64 * wg;
+    const int w_lo = w_first / p.G + p.q_offset;
+    const int w_hi = (min(w_first + 64, rows) - 1) / p.G + p.q_offset;
+    const bool w_rows = w_first < rows;
+    const float sl = p.scale * kLog2e;
+    const uint32_t q_wg = q_base + 64 * wg * 128;
+    auto need_mask = [&](int k0) {
+      return !w_rows || k0 + BK > p.T || (p.causal && k0 + BK - 1 > w_lo)
+             || (p.window > 0 && w_hi - k0 >= p.window);
+    };
+    const uint64_t q_desc = gmma_desc(q_wg, 16, 1024);
+    auto start_qk = [&](float (&sc)[BK / 2], int s) {      // S = Q . K^T, 64 x BK
+      const uint64_t k_desc = gmma_desc(k_base + s * W::kTileBytes, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(sc, desc_at(q_desc, (kk / 4) * (kWgRows * 128) + (kk % 4) * 32),
+                 desc_at(k_desc, (kk / 4) * (BK * 128) + (kk % 4) * 32), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto start_pv = [&](float (&o)[D / 2], uint32_t (&pa)[BK / 16][4], int s) {
+      // o += bf16(P) . V; V's descriptor walks 16 keys (2 KB) a k16 step
+      const uint64_t v_desc = gmma_desc(v_base + s * W::kTileBytes, BK * 128, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 2048), 1);
+      wgmma_commit();
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    Softmax<BK> sm;
+    float sc[BK / 2];
+    uint32_t pa[BK / 16][4];
+    float alpha[2];
+
+    // Per tile: Q . K^T, the softmax, P . V; K is freed for the next load
+    // once Q . K^T has read it, V once P . V has.
+    for (int i = 0; i < n; ++i) {
+      const int sk = i % W::kRingK, sv = i % W::kRingV;
+      const int k0 = (j_lo + i) * BK;
+      mbar_wait(full_k + 8 * sk, (i / W::kRingK) & 1);
+      wgmma_fence();
+      start_qk(sc, sk);
+      wgmma_wait_all();
+      fence_regs(sc);
+      release(free_k + 8 * sk);
+      sm.tile(sc, pa, alpha, p, k0, need_mask(k0), qp, t4, sl);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * c + e] *= alpha[e >> 1];
+      }
+      mbar_wait(full_v + 8 * sv, (i / W::kRingV) & 1);
+      wgmma_fence();
+      start_pv(o, pa, sv);
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+      release(free_v + 8 * sv);
+    }
+
+    // out = o / max(l, 1e-30): columns 8 c + 2 t4, + 1 of rows fr0, fr1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = sm.l[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float denom = fmaxf(l, 1e-30f);
+      const int fr = h ? fr1 : fr0;
+      if (fr >= rows) continue;
+      __nv_bfloat16* dst = p.o + b * p.o_b
+                           + static_cast<long long>(kvh * p.G + fr % p.G) * p.o_h
+                           + static_cast<long long>(fr / p.G) * p.o_s + 2 * t4;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(dst + c * 8) =
+            f2_to_bf2(o[4 * c + 2 * h] / denom, o[4 * c + 2 * h + 1] / denom);
+      }
+    }
+
+    // the tiles this warpgroup visited, and those need_mask sent through
+    // the per-element mask (counted here, after the output, so the tile
+    // loop holds no counter)
+    if (p.tiles != nullptr && ct == 0 && n > 0) {
+      int masked = 0;
+      for (int i = 0; i < n; ++i) masked += need_mask((j_lo + i) * BK);
+      atomicAdd(p.tiles, static_cast<unsigned long long>(n));
+      atomicAdd(p.tiles + 1, static_cast<unsigned long long>(masked));
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no -lcuda at build time).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                  cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over a (B, H, T, D) view with element strides (sb, sh, st, 1):
+// D inner, then T, H and B in order of stride; a box of 64 elements of D
+// by BK keys, 128-byte swizzle; keys past T read as zeros.
+bool make_map(CUtensorMap* map, const void* base, long long sb, long long sh, long long st,
+              int B, int H, int T, int D, int BK, MapSlots* slots) {
+  struct Dim {
+    unsigned long long size, stride;
+    int role;                                  // 0 key, 1 head, 2 batch
+  } d[3] = {{static_cast<unsigned long long>(T), static_cast<unsigned long long>(st) * 2, 0},
+            {static_cast<unsigned long long>(H), static_cast<unsigned long long>(sh) * 2, 1},
+            {static_cast<unsigned long long>(B), static_cast<unsigned long long>(sb) * 2, 2}};
+  for (int i = 1; i < 3; ++i) {                // stable: ties keep key, head, batch
+    for (int k = i; k > 0 && d[k].stride < d[k - 1].stride; --k) {
+      const Dim t = d[k];
+      d[k] = d[k - 1];
+      d[k - 1] = t;
+    }
+  }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), d[0].size, d[1].size, d[2].size};
+  cuuint64_t strides[3] = {d[0].stride, d[1].stride, d[2].stride};
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    if (d[i].role == 0) { box[1 + i] = BK; slots->t = 1 + i; }
+    if (d[i].role == 1) slots->h = 1 + i;
+    if (d[i].role == 2) slots->b = 1 + i;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+         == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(Params p, int B, int Hkv, cudaStream_t stream) {
+  using W = Wg<D>;
+  CUtensorMap tm_k, tm_v;
+  MapSlots ks, vs;
+  if (!make_map(&tm_k, p.k, p.k_b, p.k_h, p.k_s, B, Hkv, p.T, D, W::BK, &ks)
+      || !make_map(&tm_v, p.v, p.v_b, p.v_h, p.v_s, B, Hkv, p.T, D, W::BK, &vs)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmem);
+  if (err != cudaSuccess) return err;
+  p.n_tiles = (p.S * p.G + kWgRows - 1) / kWgRows;
+  const dim3 grid(p.n_tiles, Hkv, B);
+  flash_wgmma_kernel<D><<<grid, kWgThreads, W::kSmem, stream>>>(tm_k, tm_v, p, ks, vs);
+  return cudaGetLastError();
+}
+
+// The design that serves head dim D, by D alone: 2 = v2 (TMA + wgmma),
+// 1 = v1 (mma.sync), 0 = no instance.
+constexpr int design_of(int D) {
+  return (D == 64 || D == 128 || D == 256) ? 2 : (D == 16 || D == 80) ? 1 : 0;
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
+  static_assert(design_of(D) != 0, "an instance with no design");
+  if constexpr (design_of(D) == 2) {
+    return launch_wgmma<D>(p, B, Hkv, stream);
+  } else {
+    return launch_mma<D, 64>(p, B, Hkv, stream);
+  }
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. q, k, v, out bf16 with the element
-// stride along D equal to 1; strides[12] = (q, k, v, out) x (batch, head,
-// position), in elements, each a multiple of 8, and every base pointer
-// 16-byte aligned. window <= 0 means no window. Returns a cudaError_t
+// C interface, loaded with ctypes. flash_design(D) names the design that
+// serves head dim D (design_of; 0: flash_attention_bf16 refuses D).
+extern "C" int flash_design(int D) { return design_of(D); }
+
+// q, k, v, out bf16 with the element stride along D equal to 1;
+// strides[12] = (q, k, v, out) x (batch, head, position), in elements,
+// each a multiple of 8, and every base pointer 16-byte aligned. window <= 0
+// means no window. tiles: null, or two zeroed counters that the launch
+// adds its visited and masked kv tiles to. Returns a cudaError_t
 // (0 = launched).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     const long long* strides, int B, int Hkv, int S, int T,
                                     int G, int D, int causal, int window, int q_offset,
-                                    float scale, void* stream) {
+                                    float scale, void* tiles, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || S <= 0 || T <= 0 || G <= 0
       || static_cast<long long>(S) * G > 2147483647LL - kM) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -365,13 +1008,14 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.scale = scale;
   p.n_tiles = (S * G + kM - 1) / kM;
+  p.tiles = static_cast<unsigned long long*>(tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return static_cast<int>(launch<16, 64>(p, B, Hkv, s));
-    case 64: return static_cast<int>(launch<64, 64>(p, B, Hkv, s));
-    case 80: return static_cast<int>(launch<80, 64>(p, B, Hkv, s));
-    case 128: return static_cast<int>(launch<128, 64>(p, B, Hkv, s));
-    case 256: return static_cast<int>(launch<256, 32>(p, B, Hkv, s));
+  switch (D) {                               // the instances
+    case 16: return static_cast<int>(launch<16>(p, B, Hkv, s));
+    case 64: return static_cast<int>(launch<64>(p, B, Hkv, s));
+    case 80: return static_cast<int>(launch<80>(p, B, Hkv, s));
+    case 128: return static_cast<int>(launch<128>(p, B, Hkv, s));
+    case 256: return static_cast<int>(launch<256>(p, B, Hkv, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,21 +16,32 @@ from repro_torch.kernels import loader
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LAUNCHES = loader.LaunchCounter()
-HEAD_DIMS = (16, 64, 80, 128, 256)     # the D the kernel is instantiated for
-_fn = None
+# the C interface's design codes (flash_design)
+DESIGN_NAMES = {1: "mma v1", 2: "tma-wgmma v2"}
+_lib = None
 
 
 def _load():
-    global _fn
-    if _fn is None:
-        fn = loader.load(SOURCE).flash_attention_bf16
+    global _lib
+    if _lib is None:
+        lib = loader.load(SOURCE)
         # q, k, v, out, strides; B, Hkv, S, T, G, D, causal, window, q_offset;
-        # scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        # scale; tiles; stream
+        lib.flash_attention_bf16.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        lib.flash_attention_bf16.restype = ctypes.c_int
+        lib.flash_design.argtypes = [ctypes.c_int]
+        lib.flash_design.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def design(head_dim: int) -> Optional[str]:
+    """The design the kernel runs at ``head_dim``, as its C interface
+    chooses it (by the head dim alone), or None where it has no instance.
+    Builds the kernel at first use, so it needs ``nvcc``."""
+    return DESIGN_NAMES.get(_load().flash_design(head_dim))
 
 
 def _check(q, k, v, window):
@@ -52,8 +63,8 @@ def _check(q, k, v, window):
     Hkv = k.shape[1]
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"query heads {Hq} must be a multiple of kv heads {Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in the kernel's instances {HEAD_DIMS}")
+    if design(D) is None:
+        raise ValueError(f"head dim {D} has no instance in the kernel")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
@@ -66,18 +77,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     projections pass as permuted views). Returns (B, Hq, S, D) bf16 laid out
     as ``q`` is. Raises on inputs the kernel does not take and on a refused
     launch."""
+    return _launch(q, k, v, causal, window, q_offset, scale, None)
+
+
+def tile_counts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True, window: Optional[int] = None,
+                q_offset: int = 0, scale: Optional[float] = None) -> dict:
+    """One launch of the kernel that counts, on the device, the kv tiles it
+    visits and those that take the per-element mask (per CTA for v1, which
+    masks every tile, per warpgroup of 64 rows for v2). Returns
+    ``dict(design, visited, masked)``."""
+    tiles = torch.zeros(2, dtype=torch.int64, device=q.device)
+    _launch(q, k, v, causal, window, q_offset, scale, tiles)
+    visited, masked = tiles.tolist()
+    return dict(design=design(q.shape[-1]), visited=visited, masked=masked)
+
+
+def _launch(q, k, v, causal, window, q_offset, scale, tiles):
     _check(q, k, v, window)
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)                # q's layout when q is dense, else contiguous
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     scale = scale if scale is not None else D ** -0.5
-    fn = _load()
+    fn = _load().flash_attention_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
                 B, Hkv, S, T, Hq // Hkv, D, int(causal), window or 0, q_offset,
-                float(scale), stream)
+                float(scale), None if tiles is None else tiles.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
     LAUNCHES.count += 1

@@ -13,8 +13,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, LAUNCHES,
-                                                        flash_attention_cuda)
+from repro_torch.kernels.flash_attention.kernel import (LAUNCHES, design,
+                                                        flash_attention_cuda, tile_counts)
 from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.loader import resolve_kernel
 
@@ -46,5 +46,5 @@ def compare(out: torch.Tensor, ref: torch.Tensor, *, tol: float = 2e-2):
     return float(err.max()), worst, bad
 
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "compare", "flash_attention", "flash_attention_cuda",
-           "mha_ref"]
+__all__ = ["LAUNCHES", "compare", "design", "flash_attention", "flash_attention_cuda",
+           "mha_ref", "tile_counts"]

@@ -3,7 +3,9 @@
 ``chip_smoke.py`` takes its kernel check from here. Run as a module on a
 machine with a CUDA card, it profiles the kernel on the same input: the
 whole input, then each row alone (the other rows idle), so it shows which
-row a launch waits for:
+row a launch waits for; then the whole input cut into 1, 2, 4, 8 and 16
+splits and into ``split_plan``'s, at llama3.2-1b's and olmoe-1b-7b's
+heads, so the split size is a measured choice:
 
     PYTHONPATH=src python -m repro_torch.kernels.paged_attention.bench
 """
@@ -92,8 +94,13 @@ def needed_work(tables, starts, n_valid, *, num_blocks: int, block_size: int,
                 flops=4 * D * heads * keys, keys=keys)
 
 
+SPLIT_COUNTS = (1, 2, 4, 8, 16)
+SPLIT_HEADS = {"llama3.2-1b": (HEADS, KV_HEADS, HEAD_DIM), "olmoe-1b-7b": (16, 16, 128)}
+
+
 def main() -> int:
-    from repro_torch.kernels.paged_attention.ops import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.kernel import _launch
+    from repro_torch.kernels.paged_attention.ops import paged_attention_cuda, split_plan
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card: this profiles the CUDA kernel")
@@ -113,7 +120,18 @@ def main() -> int:
     for r in rows:
         what = "all rows" if r["start"] is None else f"row {r['start']}+{r['n_valid']} alone"
         print(f"[bench] paged_attention {what}: {r['ms']:.4f} ms", flush=True)
-    print(json.dumps({"card": card, "paged_attention_ms": rows}), flush=True)
+    plan = split_plan(MAX_BLOCKS, BLOCK)
+    splits = []
+    for arch, (h, kv, d) in SPLIT_HEADS.items():
+        a = check_inputs(dev, heads=h, kv_heads=kv, head_dim=d)
+        for n in sorted(set(SPLIT_COUNTS) | {plan.n_splits}):
+            kps = BLOCK * -(-MAX_BLOCKS // n)
+            ms = timed_ms(lambda: _launch(*a, BLOCK, None, None, kps), 200, flush)
+            splits.append(dict(heads=arch, n_splits=n, keys_per_split=kps, ms=ms,
+                               plan=kps == plan.keys_per_split))
+            print(f"[bench] paged_attention {arch} ({h}/{kv} x {d}) in {n} splits of {kps} "
+                  f"keys{' (the plan)' if splits[-1]['plan'] else ''}: {ms:.4f} ms", flush=True)
+    print(json.dumps({"card": card, "paged_attention_ms": rows, "splits": splits}), flush=True)
     return 0
 
 

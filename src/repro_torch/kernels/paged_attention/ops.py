@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.kernels.loader import KERNEL_KINDS, resolve_kernel
 from repro_torch.kernels.paged_attention.kernel import LAUNCHES, paged_attention_cuda
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     paged_attention_split_ref,
+                                                     split_plan)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -78,4 +80,4 @@ def modeled_hbm_bytes(seq_lens: Sequence[int], *, block_size: int,
 
 __all__ = ["KERNEL_KINDS", "LAUNCHES", "compare_valid", "modeled_hbm_bytes",
            "paged_attention", "paged_attention_cuda", "paged_attention_ref",
-           "resolve_kernel"]
+           "paged_attention_split_ref", "resolve_kernel", "split_plan"]

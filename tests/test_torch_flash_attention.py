@@ -108,6 +108,18 @@ def test_kernel_kinds_on_the_cpu():
         fa.flash_attention(q, q, q, kernel="pallas")
 
 
+def test_tile_counts_takes_cuda_tensors_only():
+    """The counting launch has no plain version: on CPU tensors it raises
+    before building the kernel, and counts no launch."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q = torch.zeros((1, 2, 4, 16), dtype=torch.bfloat16)
+    before = fa.LAUNCHES.count
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fa.tile_counts(q, q, q, causal=True)
+    assert fa.LAUNCHES.count == before and kernel._lib is None
+
+
 @pytest.mark.parametrize("name", sorted(bench.SHAPES))
 def test_bench_work_counts(name):
     """The bound's work counts: visible pairs against the mask itself (at a

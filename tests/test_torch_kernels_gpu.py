@@ -11,7 +11,12 @@ port's dependencies:
   group sizes and head dims (16, 64, 66, 128 at G = 1 as olmoe-1b-7b has
   it, 256), valid columns only; each element within 2e-2 * (min(1, its
   row's rms) + |plain|) (bf16 output; p rounded to bf16 before P.V), never
-  looser than atol = rtol = 2e-2;
+  looser than atol = rtol = 2e-2; rows of 1,000+ keys over many splits
+  with and without a window of 128, decode-only and prefill-only batches,
+  the olmoe-1b-7b heads (16/16 x 128), every split count from 1 to 32,
+  two launches that must give the same bits (the splits' scratch carries
+  nothing from one call to the next), and a column that sees no key
+  against the split form in plain PyTorch;
 * the moe_jam expert-FFN kernel against its plain version at the smoke's
   and the serving engine's bucket shapes and at uneven ones (C not a
   multiple of 16, C over one 64-row tile), silu and gelu, with empty,
@@ -43,7 +48,10 @@ port's dependencies:
 * the flash-attention kernel against its plain version over head dims
   16, 80, 128 and 256, 1, 2, 8 and 48 query heads per kv head, 1, 33 and
   2,113 positions, each causal, with a window of 17, at q_offset 7 and
-  bidirectional, strided (the model's layout) and contiguous; each
+  bidirectional, strided (the model's layout) and contiguous; at D 256
+  G 2, 127, 129 and 4,096 positions with a window of 1,024 at q_offset 7
+  and without, strided and contiguous; each design at each head dim it
+  serves (v1 at D 16 and 80, v2 at 64, 128 and 256); each
   element within 2e-2 * (rms of its (batch, head, position) row + |plain|)
   (bf16 outputs; the kernel rounds the unnormalized p to bf16 before P.V,
   the plain version the normalized probabilities);
@@ -60,10 +68,12 @@ from repro_torch.configs.registry import get_smoke
 from repro_torch.engine import Engine, Request
 from repro_torch.core.message import FrameSpec, pack_frames
 from repro_torch.kernels import mailbox, moe_jam, ssm_scan
+from repro_torch.kernels.paged_attention import kernel as paged_kernel
 from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
                                                  paged_attention,
                                                  paged_attention_cuda,
-                                                 paged_attention_ref)
+                                                 paged_attention_ref,
+                                                 paged_attention_split_ref)
 
 BF16_TOL = 2e-2
 MOE_TOL = 1e-2
@@ -116,6 +126,104 @@ def test_kernel_matches_plain_version(cuda, bs, G, D, C, window):
     valid = (torch.arange(C, device=cuda)[None, :] < args[5][:, None])[:, :, None, None]
     # columns past n_valid are written as zeros, not left uninitialized
     assert (torch.where(valid, 0.0, got.float()) == 0).all()
+
+
+def _long_rows(rng, *, kind, H, K, D, B=6, C=32, bs=16, M=80):
+    """Requests of up to 1,280 keys (M * bs) in splits of 128: ``mixed``
+    prefill chunks and decode rows deep into the table, ``decode`` rows
+    only (n_valid 1, one idle), ``prefill`` chunks only; holes (-1, an id
+    past the pool) inside the live ranges, before each chunk."""
+    N = B * M + 3
+    if kind == "decode":
+        starts = np.asarray([1100, 999, 0, 1278, 640, 5], np.int32)[:B]
+        n_valid = np.asarray([1, 1, 1, 1, 0, 1], np.int32)[:B]
+    elif kind == "prefill":
+        starts = np.asarray([1000, 0, 1248, 480, 129, 700], np.int32)[:B]
+        n_valid = np.asarray([C, C, C, 17, C, 5], np.int32)[:B]
+    else:
+        starts = np.asarray([1200, 0, 1023, 900, 37, 1248], np.int32)[:B]
+        n_valid = np.asarray([1, C, 1, 24, 0, C], np.int32)[:B]
+    tables = np.stack([rng.permutation(N)[:M] for _ in range(B)]).astype(np.int32)
+    for b in range(B):
+        tables[b, -(-int(starts[b] + n_valid[b]) // bs):] = -1
+        if starts[b] >= 400:
+            tables[b, 3], tables[b, (int(starts[b]) - 60) // bs] = -1, N + 2
+    q = rng.normal(size=(B, C, H, D)).astype(np.float32)
+    kp = rng.normal(size=(N, bs, K, D)).astype(np.float32)
+    vp = rng.normal(size=(N, bs, K, D)).astype(np.float32)
+    return q, kp, vp, tables, starts, n_valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("heads", [(32, 8, 64), (16, 16, 128)])
+@pytest.mark.parametrize("kind", ["mixed", "decode", "prefill"])
+def test_kernel_long_rows_over_many_splits(cuda, kind, heads, window):
+    """llama3.2-1b's and olmoe-1b-7b's heads, rows of 1,000+ keys over the
+    10 splits of a 1,280-key table, against the plain version."""
+    H, K, D = heads
+    args = _on(cuda, _long_rows(np.random.default_rng(H + D), kind=kind, H=H, K=K, D=D))
+    before = LAUNCHES.count
+    got = paged_attention(*args, block_size=16, window=window)
+    want = paged_attention_ref(*args, block_size=16, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES.count == before + 1
+    assert torch.isfinite(got.float()).all()
+    err, worst, bad = compare_valid(got, want, args[5], tol=BF16_TOL)
+    assert bad == 0, (err, worst)
+    valid = (torch.arange(args[0].shape[1], device=cuda)[None, :]
+             < args[5][:, None])[:, :, None, None]
+    assert (torch.where(valid, 0.0, got.float()) == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kps", [1280, 640, 256, 128, 80, 48, 40])
+def test_kernel_every_split_count(cuda, kps):
+    """1, 2, 5, 10, 16, 27 and 32 splits (splits that end inside a block,
+    and inside a 32-key ring tile) give the plain version's result."""
+    args = _on(cuda, _long_rows(np.random.default_rng(kps), kind="mixed", H=8, K=2, D=64))
+    got = paged_kernel._launch(*args, 16, 128, None, kps)
+    want = paged_attention_ref(*args, block_size=16, window=128)
+    torch.cuda.synchronize()
+    err, worst, bad = compare_valid(got, want, args[5], tol=BF16_TOL)
+    assert bad == 0, (kps, err, worst)
+
+
+@pytest.mark.gpu
+def test_kernel_twice_gives_the_same_bits(cuda):
+    """The splits' partials live in scratch that the wrapper allocates per
+    call: a second launch on the same inputs, after a call on other inputs
+    that filled the allocator's blocks with other partials, is bit for bit
+    the first."""
+    rng = np.random.default_rng(11)
+    args = _on(cuda, _long_rows(rng, kind="mixed", H=32, K=8, D=64))
+    other = _on(cuda, _long_rows(rng, kind="prefill", H=32, K=8, D=64))
+    first = paged_attention(*args, block_size=16)
+    paged_attention(*other, block_size=16)
+    second = paged_attention(*args, block_size=16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_kernel_row_that_sees_no_key(cuda):
+    """A column whose own key lies in a table hole and whose window of 1
+    reaches no other key gets the mean of its live range's V rows, holes
+    counting as zero rows, as the split form in plain PyTorch says (and
+    v4 gave); its neighbour sees its key."""
+    rng = np.random.default_rng(3)
+    q, kp, vp, tb, _, _ = _long_rows(rng, kind="mixed", H=4, K=1, D=64)
+    tb = np.stack([rng.permutation(kp.shape[0])[:tb.shape[1]] for _ in tb]).astype(np.int32)
+    st = np.full(6, 207, np.int32)
+    nv = np.full(6, 2, np.int32)
+    tb[:, 208 // 16:] = -1                      # the column at 208 is in a hole
+    args = _on(cuda, (q, kp, vp, tb, st, nv))
+    for kps in (None, 1280):
+        got = paged_kernel._launch(*args, 16, 1, None, kps)
+        want = paged_attention_split_ref(*args, block_size=16, window=1, keys_per_split=kps)
+        torch.cuda.synchronize()
+        err, worst, bad = compare_valid(got, want, args[5], tol=BF16_TOL)
+        assert bad == 0, (kps, err, worst)
 
 
 @pytest.mark.gpu
@@ -555,6 +663,67 @@ def test_flash_kernel_matches_plain_version(cuda, D, G, S):
         assert got.shape == q.shape and got.dtype == torch.bfloat16
         err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
         assert bad == 0, (c, err, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("S", [127, 129, 4096])
+def test_flash_v2_ragged_and_long_at_gemma_heads(cuda, S, strided):
+    """D 256, G 2: a last CTA of 127 or 129 rows' worth of positions, and
+    a 4,096-token prefill, causal with a window of 1,024 from position 7
+    (keys past T as zeros, a window edge crossing the tiles) and plain
+    causal."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(S + strided)
+    for c in (dict(causal=True, window=1024, q_offset=7, T=S + 7),
+              dict(causal=True, window=None, q_offset=0, T=S)):
+        q, k, v = _flash_case(cuda, rng, B=1, Hkv=2, G=2, S=S, T=c["T"], D=256,
+                              strided=strided)
+        kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_offset"])
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.mha_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+        assert bad == 0, (c, err, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
+def test_flash_each_design_at_its_head_dims(cuda, D):
+    """v1 (mma.sync) still serves D 16 and 80, v2 (TMA + wgmma) D 64, 128
+    and 256; each matches the plain version at llama3.2-1b's grouping (G 4),
+    500 positions from q_offset 3, with and without a window of 100."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.design(D) == ("mma v1" if D in (16, 80) else "tma-wgmma v2")
+    rng = np.random.default_rng(D)
+    for window in (None, 100):
+        q, k, v = _flash_case(cuda, rng, B=2, Hkv=2, G=4, S=500, T=503, D=D, strided=True)
+        got = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=3)
+        want = fa.mha_ref(q, k, v, causal=True, window=window, q_offset=3)
+        torch.cuda.synchronize()
+        err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+        assert bad == 0, (window, err, worst)
+
+
+@pytest.mark.gpu
+def test_flash_tile_counts(cuda):
+    """The kernel's own count of the kv tiles it visits and masks. v2,
+    causal over 1,024 positions at G 2 and D 128: 16 CTAs of 64 positions
+    visit 1, 1, 2, 2, ..., 8, 8 tiles of 128 keys (72), each walked by both
+    warpgroups of 32 positions (144), and each warpgroup masks only the
+    tile on its diagonal (32). v1 masks every tile it visits."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    q, k, v = _flash_case(cuda, rng, B=1, Hkv=1, G=2, S=1024, T=1024, D=128, strided=True)
+    got = fa.tile_counts(q, k, v, causal=True)
+    assert got == dict(design="tma-wgmma v2", visited=144, masked=32)
+    q, k, v = _flash_case(cuda, rng, B=1, Hkv=1, G=2, S=300, T=300, D=80, strided=True)
+    got = fa.tile_counts(q, k, v, causal=True)
+    assert got["design"] == "mma v1" and got["visited"] == got["masked"] > 0
+    assert fa.design(32) is None
 
 
 @pytest.mark.gpu

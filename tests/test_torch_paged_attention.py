@@ -11,7 +11,14 @@
 * ``PagedKVCache.write`` against the JAX write, exactly, dropped columns
   included;
 * ``resolve_kernel``, the launch counter on the CPU, the bytes model and
-  ``compare_valid`` (the kernel check's comparison).
+  ``compare_valid`` (the kernel check's comparison);
+* the CUDA kernel's split-K form in plain PyTorch
+  (``paged_attention_split_ref``: per-split partials merged by the
+  log-sum-exp rule) against the plain version (float32) and the JAX oracle
+  (bf16) over the same grid, rows spread over many splits, windows whose
+  lower edge falls inside a split, splits of only masked or past-the-end
+  keys and table holes; what it gives a column that sees no key; and
+  ``split_plan``, the cut of a table into splits that the wrapper uses.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
@@ -35,7 +42,8 @@ from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
                                                  paged_attention,
                                                  paged_attention_cuda,
                                                  paged_attention_ref,
-                                                 resolve_kernel)
+                                                 paged_attention_split_ref,
+                                                 resolve_kernel, split_plan)
 from repro_torch.models.kvcache import PagedKVCache, PagedLayout
 
 F32_TOL = dict(atol=1e-5, rtol=0)
@@ -230,6 +238,20 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     assert LAUNCHES.count == before
 
 
+def test_split_override_takes_cuda_tensors_only():
+    """The launcher behind the bench's split sweep has no plain version
+    either: on CPU tensors it raises and counts no launch."""
+    from repro_torch.kernels.paged_attention import kernel
+
+    rng = np.random.default_rng(9)
+    args = [torch.from_numpy(a) for a in _case(rng, bs=4, B=2, C=2, K=1, G=2, D=8, M=3)]
+    args[0] = args[0].bfloat16()
+    before = LAUNCHES.count
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        kernel._launch(*args, 4, None, None, 4)
+    assert LAUNCHES.count == before
+
+
 def test_modeled_bytes_match_jax():
     """The plain path's model is the JAX one; the CUDA kernel reads each
     live position's row, up to seq_end, where the TPU kernel reads whole
@@ -257,3 +279,126 @@ def test_compare_valid_scales_with_each_row():
     assert bad == 1 and worst > 2 and abs(err - 5e-3) < 1e-6
     out[0, 0, 0, 0] = float("nan")
     assert compare_valid(out, ref, torch.tensor([1]))[2] == 1
+
+
+# ---------------------------------------------------------------------------
+# the split-K form of the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _split_vs(args, dtype, kps, oracle="plain", **kw):
+    """(split form, plain version) or (split form, JAX oracle) in
+    ``dtype``, on valid columns."""
+    q, kp, vp, tb, st, nv = args
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    t = [torch.from_numpy(a) for a in args]
+    for i in range(3):
+        t[i] = t[i].to(td)
+    got = paged_attention_split_ref(*t, keys_per_split=kps, **kw)
+    assert got.dtype == td and tuple(got.shape) == q.shape
+    if oracle == "plain":
+        want = paged_attention_ref(*t, **kw).float().numpy()
+    else:
+        want = _both(args, dtype, **kw)[1]
+    return _valid(got.float().numpy(), nv), _valid(want, nv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_split_form_matches_plain_version_and_jax(bs, G, window, dtype):
+    """The plain grid with one block a split (4 splits) and with the
+    default plan (one split at these widths)."""
+    rng = np.random.default_rng(1000 * bs + 10 * G + (window or 0))
+    args = _case(rng, bs=bs, B=4, C=4, K=2, G=G, D=16, M=4)
+    for kps in (bs, None):
+        got, want = _split_vs(args, dtype, kps, "plain" if dtype == "float32" else "jax",
+                              block_size=bs, window=window)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def _long_case(seed, *, holes=True):
+    """Rows spread over a table of 64 keys: deep prefill chunks, decode
+    rows, an idle row, and (``holes``) table entries that name no pool
+    block (-1, ids past the pool) inside the live ranges before each
+    chunk."""
+    rng = np.random.default_rng(seed)
+    q, kp, vp, tb, _, _ = _case(rng, bs=4, B=4, C=5, K=2, G=2, D=16, M=16, holes=False)
+    N = kp.shape[0]
+    st = np.asarray([40, 59, 13, 0], np.int32)
+    nv = np.asarray([5, 1, 0, 5], np.int32)
+    for b in range(4):
+        tb[b, -(-int(st[b] + nv[b]) // 4):] = -1
+    if holes:
+        tb[0, 3], tb[0, 8], tb[1, 5], tb[1, 13] = -1, N, N + 3, -1
+    return q, kp, vp, tb, st, nv
+
+
+@pytest.mark.parametrize("dtype,oracle", [("float32", "plain"), ("bfloat16", "plain"),
+                                          ("bfloat16", "jax")])
+@pytest.mark.parametrize("window", [None, 11, 22])
+@pytest.mark.parametrize("kps", [4, 8, 12])
+def test_split_form_over_many_splits(kps, window, dtype, oracle):
+    """M * bs = 64 keys in 6 to 16 splits; with a window, the splits below
+    its lower edge hold only masked keys (or none of the live range);
+    splits past each row's end are empty. Against the plain version with
+    table holes inside the live ranges; against the JAX oracle, which
+    reads the clamped block at a hole, without them."""
+    args = _long_case(77 + kps, holes=oracle == "plain")
+    assert split_plan(16, 4, kps).n_splits >= 64 // 12
+    got, want = _split_vs(args, dtype, kps, oracle, block_size=4, window=window)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def test_split_form_does_not_depend_on_the_cut():
+    """One split, 2, 4 and 16 splits of the same float32 input agree."""
+    args = [torch.from_numpy(a) for a in _long_case(5)]
+    outs = [paged_attention_split_ref(*args, block_size=4, window=9, keys_per_split=kps)
+            for kps in (64, 32, 16, 4)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o.numpy(), outs[0].numpy(), **F32_TOL)
+
+
+def test_split_form_row_that_sees_no_key():
+    """A column whose own key lies in a table hole and whose window (1)
+    reaches no other key: every key of its live range scores -2^30, so it
+    gets the mean of the live range's V rows, the hole's counting as zero;
+    the splits that hold only masked keys merge with equal weight. Its
+    neighbour column sees its own key; columns >= n_valid are zeros."""
+    rng = np.random.default_rng(3)
+    q, kp, vp, tb, _, _ = _case(rng, bs=4, B=1, C=3, K=1, G=1, D=8, M=8, holes=False)
+    st = np.asarray([9], np.int32)
+    nv = np.asarray([2], np.int32)
+    tb[0, 2] = -1                              # positions 8..11: the column at 9
+    tb[0, 3:] = -1
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tb, st, nv)]
+    for kps in (4, 8, 32):
+        got = paged_attention_split_ref(*args, block_size=4, window=1, keys_per_split=kps)
+        # window 1 at start 9: the live range starts at block 2 (position 8)
+        live = [8, 9, 10]                        # seq_end 11
+        rows = [kp.shape[1] * tb[0, p // 4] + p % 4 if tb[0, p // 4] >= 0 else None
+                for p in live]
+        v = vp.reshape(-1, 1, 8)
+        mean = sum(v[r, 0] for r in rows if r is not None) / len(live)
+        np.testing.assert_allclose(got[0, 0, 0].numpy(), mean, atol=1e-6)
+        assert (got[0, 2] == 0).all()
+    ref = paged_attention_ref(*args, block_size=4, window=1)
+    assert not np.allclose(ref[0, 0, 0].numpy(), got[0, 0, 0].numpy())
+
+
+def test_split_plan():
+    # the engine's table: 64 blocks of 16 -> 8 splits of 128 keys
+    assert split_plan(64, 16) == (128, 8)
+    # narrower than one split: one split, which the kernel writes directly
+    assert split_plan(4, 16) == (128, 1)
+    assert split_plan(3, 5) == (130, 1)
+    # whole blocks of about 128 keys for other block sizes
+    assert split_plan(64, 5) == (130, 3)
+    # wide tables: at most 32 splits, of whole blocks
+    kps, n = split_plan(1000, 16)
+    assert n <= 32 and kps % 16 == 0 and (n - 1) * kps < 16000 <= n * kps
+    assert split_plan(64, 16, 32) == (32, 32)
+    with pytest.raises(ValueError, match="more than 32 splits"):
+        split_plan(64, 16, 16)
