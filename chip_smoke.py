@@ -15,8 +15,9 @@ phase prints the seconds it took):
    paged attention (split-K v5) at llama3.2-1b's heads (32/8 of 64) and
    at olmoe-1b-7b's (16/16 of 128), valid columns only, the tables holding
    entries that name no pool block inside live ranges; the moe_jam expert
-   FFN at olmoe's buckets (64 experts x 40 rows x 2048, F 1024) with empty,
-   partial and full experts; the ssm_scan selective scan at mamba-130m's
+   FFN (v2: a persistent TMA weight stream into wgmma) at olmoe's buckets
+   (64 experts x 40 rows x 2048, F 1024) with empty, partial and full
+   experts; the ssm_scan selective scan at mamba-130m's
    engine shape (32 rows x 32 columns x 1536 channels, N 16) with 0, 1,
    partial and full valid columns per row; flash attention at gemma3-4b's
    prefill (8/4 heads of 256, 4,096 tokens, causal, window None and
@@ -79,7 +80,9 @@ phase prints the seconds it took):
    (weights in the GOT) and ``injected`` (weights in the frame, leased)
    gives identical words. Both kernels are timed (kernel, plain version,
    library yardstick; the L2 cache flushed before every launch) and
-   bounded by the bytes this input needs;
+   bounded by the bytes this input needs; the Indirect Put (v3: a claim
+   table in L2) also by the 32-byte sectors it must move, with each of its
+   three passes' device time (``torch.profiler``);
 9. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
    the mailbox in the receiver's shared memory): the kernel against its
    plain version, bit for bit, over 1, 2, 4 and 8 ranks, shifts 1, 2,
@@ -270,6 +273,7 @@ def check_moe_jam(torch, dev, cfg):
     from repro_torch.kernels import moe_jam as mj
     from repro_torch.kernels import timing
     from repro_torch.kernels.moe_jam import bench as mbench
+    from repro_torch.kernels.moe_jam.kernel import DESIGN
     from repro_torch.models.moe import expert_capacity
 
     m = cfg.moe
@@ -307,7 +311,7 @@ def check_moe_jam(torch, dev, cfg):
         f"ms at 3.35 TB/s; {work['flops']} flops -> "
         f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s")
     return {
-        "name": "moe_jam", "route": "cuda", "path": cfg.name,
+        "name": "moe_jam", "route": "cuda", "path": cfg.name, "design": DESIGN,
         "source": "src/repro_torch/kernels/moe_jam/csrc/moe_jam.cu",
         "replaces": "src/repro/kernels/moe_jam/kernel.py:62",
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -1019,6 +1023,7 @@ def frame_path(torch, dev, card):
     from repro_torch.kernels import mailbox as mk
     from repro_torch.kernels import timing
     from repro_torch.kernels.mailbox import bench as fb
+    from repro_torch.kernels.mailbox.kernel import PUT_DESIGN
 
     spec, n = fb.SPEC, fb.BANKS * fb.FRAMES_PER_BANK
     o = spec.offsets()
@@ -1120,16 +1125,30 @@ def frame_path(torch, dev, card):
     h_vals = blk[win, usr_off + 1:usr_off + pw].contiguous()
     # the same frames again leave the same state: every timed call is a
     # whole put
+    def put():
+        return mk.indirect_put_cuda(blk, table, heap, got, usr_off, pw)
+
+    passes = fb.put_passes_ms(put, flush)
+    sectors = fb.put_sector_work(n, rows_np, last_np)
     put_entry = _entry(
         "indirect_put", "src/repro/kernels/mailbox/kernel.py:215", launches["indirect_put"], n,
         err["indirect_put"],
-        ms=timing.timed_ms(lambda: mk.indirect_put_cuda(blk, table, heap, got, usr_off, pw),
-                           100, flush),
+        ms=timing.timed_ms(put, 100, flush),
         plain_ms=timing.timed_ms(lambda: mk.indirect_put_ref(blk, plain_table, plain_heap,
                                                              usr_off, pw, base), 20, flush),
         library_ms=timing.timed_ms(lambda: (table.index_put_((rows,), t_vals),
                                             heap.index_put_((rows,), h_vals)), 100, flush),
-        work=fb.put_work(n, len(rows_np)))
+        work=fb.put_work(n, len(rows_np)),
+        note=(f"; {PUT_DESIGN}: passes (profiler, device ms per call) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+              + f"; 32-byte sectors {sectors['sectors']} ({sectors['partial_sectors']} partly "
+              f"written) -> {timing.bound_ms(sectors)[0]:.5f} ms, "
+              f"{timing.bound_ms(dict(bytes=sectors['rmw_bytes']))[0]:.5f} ms if each partly "
+              f"written one is read too"))
+    put_entry["design"] = PUT_DESIGN
+    if set(passes) != set(fb.PUT_PASSES):
+        raise AssertionError(f"the profiler saw the put's passes {sorted(passes)}, want "
+                             f"{list(fb.PUT_PASSES)}")
     if not (torch.equal(table, plain_table) and torch.equal(heap, plain_heap)):
         raise AssertionError("the timed puts left the kernel's and the plain version's "
                              "shards unequal")
@@ -1137,14 +1156,15 @@ def frame_path(torch, dev, card):
 
 
 def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, work,
-           path="frame path", source="src/repro_torch/kernels/mailbox/csrc/mailbox.cu"):
-    """A mailbox kernel's JSON entry."""
+           path="frame path", source="src/repro_torch/kernels/mailbox/csrc/mailbox.cu",
+           note=""):
+    """A mailbox kernel's JSON entry; ``note`` ends its log line."""
     from repro_torch.kernels import timing
 
     bound, bound_by = timing.bound_ms(work)
     log(f"[kernel] {name} timing (L2 flushed per launch, {n} frames): kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms; needed bytes {work['bytes']} "
-        f"-> {bound:.5f} ms at 3.35 TB/s ({bound_by})")
+        f"-> {bound:.5f} ms at 3.35 TB/s ({bound_by}){note}")
     return {"name": name, "route": "cuda", "path": path, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}

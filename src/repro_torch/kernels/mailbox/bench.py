@@ -8,8 +8,11 @@ such frames (16 MiB a rank, 2^20 in all), plus latency frames of 64,
 1,024 and 8,192 USR words. Run as a module on a machine with a CUDA card,
 it times the handler kernels, their plain versions and a library
 yardstick at that size (the L2 cache flushed before every launch), splits
-the Indirect Put's time over its three passes with ``torch.profiler``,
-and times the ring put's routes (``ring_times``):
+the Indirect Put's time over its three passes (clear, claim, fix) with
+``torch.profiler``, bounds the put also by the 32-byte sectors it must
+move (``put_sector_work``), times its yardstick also with the rows in
+the order the kernel writes them, and times the ring put's routes
+(``ring_times``):
 
     PYTHONPATH=src python -m repro_torch.kernels.mailbox.bench
 """
@@ -25,7 +28,8 @@ from repro_torch.core.registry import RiedPackage
 from repro_torch.device import resolve_device
 from repro_torch.fabric import Fabric
 from repro_torch.kernels.mailbox.ref import put_slots
-from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
+from repro_torch.kernels.timing import (bound_ms, card_name, kernel_ms, l2_flush_buffer,
+                                        timed_ms)
 
 SPEC = FrameSpec(got_slots=4, state_words=0, payload_words=16)   # 32 words, 128 B
 BANKS, FRAMES_PER_BANK = 64, 16384                 # 2^20 frames per delivery
@@ -35,6 +39,7 @@ HOT_KEYS, HOT_SHARE, CORRUPT_SHARE = 1024, 0.10, 0.001
 RING_RANKS, RING_FRAMES = 8, 131072                # 16 MiB of frames a rank
 PAYLOADS = (64, 1024, 8192)                        # USR words of the latency frames
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+PUT_PASSES = ("clear", "claim", "fix")             # the Indirect Put's kernels, in order
 
 
 def kv_fabric(device=None, slots: int = SLOTS, heap_base: int = HEAP_BASE) -> Fabric:
@@ -144,6 +149,53 @@ def put_work(n: int, rows_written: int, payload_words: int = SPEC.payload_words)
     return dict(bytes=4 * n + rows_written * (2 * data + 8) + 4)
 
 
+SECTOR = 32                 # bytes: the unit a random access moves
+
+
+def _sectors(first_byte: np.ndarray, nbytes: int):
+    """The 32-byte sectors that ranges [first_byte, first_byte + nbytes)
+    touch, and the bytes of each range in each: (sector ids, bytes), one
+    entry per (range, sector)."""
+    lo = first_byte // SECTOR
+    span = int((SECTOR - 1 + nbytes - 1) // SECTOR + 1)          # at most this many
+    ids = lo[:, None] + np.arange(span)[None, :]
+    start = np.maximum(ids * SECTOR, first_byte[:, None])
+    end = np.minimum((ids + 1) * SECTOR, first_byte[:, None] + nbytes)
+    keep = end > start
+    return ids[keep], (end - start)[keep]
+
+
+def put_sector_work(n: int, rows: np.ndarray, last: np.ndarray, *, w: int = SPEC.total_words,
+                    usr_off: int = SPEC.offsets()["usr"],
+                    payload_words: int = SPEC.payload_words) -> dict:
+    """The Indirect Put's needed traffic counted in whole 32-byte sectors,
+    as random accesses move it (arrays from 32-byte boundaries): the sector
+    of every frame's key, the sectors of each winner's data words, and the
+    sectors that the written table rows (8 B each) and heap rows (4 (pw -
+    1) B at that pitch) fall in, each sector once, plus got[0]. ``bytes``
+    counts a partly written sector as one write; ``rmw_bytes`` adds a read
+    of each such sector, as a device that must merge the bytes it keeps
+    would do. ``rows`` are the rows written, ``last`` their last writers'
+    frame indices."""
+    rows, last = np.asarray(rows, np.int64), np.asarray(last, np.int64)
+    data = 4 * (payload_words - 1)
+    keys = (np.arange(n, dtype=np.int64) * w + usr_off) * 4 // SECTOR
+    read = np.union1d(keys, _sectors((last * w + usr_off + 1) * 4, data)[0]) \
+        if data else keys
+    written = partial = 0
+    for first, nbytes in ((rows * 8, 8), (rows * data, data)):
+        if not nbytes:
+            continue
+        ids, got = _sectors(first, nbytes)
+        uniq, inv = np.unique(ids, return_inverse=True)
+        full = np.bincount(inv, weights=got) >= SECTOR
+        written += len(uniq)
+        partial += int((~full).sum())
+    sectors = len(read) + written + 1
+    return dict(bytes=SECTOR * sectors, rmw_bytes=SECTOR * (sectors + partial),
+                sectors=sectors, partial_sectors=partial)
+
+
 def ring_work(n: int, frames: int, words: int, summed: bool = False) -> dict:
     """Bytes the ring put needs: every frame read once and written once;
     with the fused sum, one int32 written per frame."""
@@ -201,24 +253,14 @@ def frames_on(device, usr: np.ndarray, func_id: int = 0) -> torch.Tensor:
     return pack_frames(SPEC, func_id=func_id, payload_words=torch.from_numpy(usr).to(device))
 
 
-def put_passes_ms(put, flush, iters: int = 20) -> dict:
-    """Mean device time (ms) of each of the Indirect Put's kernels (mark,
-    claim, write) over ``iters`` calls, the L2 flushed before each, read
-    from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    put()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            put()
-        torch.cuda.synchronize()
-    return {name: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
-            for name in ("mark", "claim", "write") if f"put_{name}_kernel" in e.key}
+def put_passes_ms(put, flush) -> dict:
+    """Mean device time (ms) of each of the Indirect Put's kernels
+    (``PUT_PASSES``) per call, the L2 flushed before each call."""
+    return kernel_ms(put, flush, {name: f"put_{name}_kernel" for name in PUT_PASSES})
 
 
 def main() -> int:
+    from repro_torch.kernels.mailbox.kernel import PUT_DESIGN
     from repro_torch.kernels.mailbox.ops import (indirect_put_cuda, indirect_put_ref,
                                                  server_sum_cuda, server_sum_ref)
 
@@ -250,25 +292,38 @@ def main() -> int:
     win = torch.from_numpy(last).to(dev)
     t_vals = torch.stack([frames[win, usr_off], rows_t.to(torch.int32)], 1)
     h_vals = frames[win, usr_off + 1:usr_off + pw].contiguous()
+    # the same writes in the order the kernel makes them: by winning frame
+    by_frame = torch.from_numpy(np.argsort(last)).to(dev)
+    rows_f, t_f, h_f = rows_t[by_frame], t_vals[by_frame], h_vals[by_frame]
     bound, by = bound_ms(put_work(n, len(rows)))
+    sectors = put_sector_work(n, rows, last)
     # the same frames again give the same state: every timed call is a
     # full put
     out["indirect_put"] = dict(
-        frames=n, rows_written=len(rows), bound_ms=bound, bound_by=by,
+        frames=n, rows_written=len(rows), bound_ms=bound, bound_by=by, design=PUT_DESIGN,
+        sector_bound_ms=bound_ms(sectors)[0], rmw_bound_ms=bound_ms(
+            dict(bytes=sectors["rmw_bytes"]))[0], **sectors,
         ms=timed_ms(lambda: indirect_put_cuda(frames, table, heap, got, usr_off, pw), 100,
                     flush),
         plain_ms=timed_ms(lambda: indirect_put_ref(frames, table, heap, usr_off, pw,
                                                    got[0]), 20, flush),
         library_ms=timed_ms(lambda: (table.index_put_((rows_t,), t_vals),
-                                     heap.index_put_((rows_t,), h_vals)), 100, flush))
+                                     heap.index_put_((rows_t,), h_vals)), 100, flush),
+        library_frame_order_ms=timed_ms(lambda: (table.index_put_((rows_f,), t_f),
+                                                 heap.index_put_((rows_f,), h_f)), 100, flush))
     out["indirect_put"]["passes_ms"] = put_passes_ms(
         lambda: indirect_put_cuda(frames, table, heap, got, usr_off, pw), flush)
     for name, r in out.items():
         print(f"[bench] {name}: {n} frames: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-    print(f"[bench] indirect_put passes (profiler, device time per call): "
-          f"{out['indirect_put']['passes_ms']}", flush=True)
+    r = out["indirect_put"]
+    print(f"[bench] indirect_put library with the rows in winning-frame order (the "
+          f"kernel's): {r['library_frame_order_ms']:.4f} ms", flush=True)
+    print(f"[bench] indirect_put {r['design']}: passes (profiler, device time per call) "
+          f"{r['passes_ms']}; bound by 32-byte sectors {r['sector_bound_ms']:.4f} ms "
+          f"({r['sectors']} sectors, {r['partial_sectors']} partly written; "
+          f"{r['rmw_bound_ms']:.4f} ms if each of those is read too)", flush=True)
 
     blocks = ring_blocks(dev, rng, RING_RANKS, RING_FRAMES)
     out["ring_put"] = dict(ranks=RING_RANKS, frames=RING_FRAMES,

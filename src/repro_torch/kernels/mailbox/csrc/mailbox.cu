@@ -18,9 +18,11 @@
 // pw 16): the sum must read 64 B of USR and write 4 B per frame (~71 MB,
 // ~21 us at 3.35 TB/s); the put must read every key and, for each row's
 // last writer, its data, and write that row's 68 B (at most ~138 MB,
-// ~41 us). Neither uses a tensor core.
+// ~41 us); counted in the whole 32-byte sectors its random accesses move
+// (mailbox/bench.py, put_sector_work), ~205 MB, ~61 us. Neither uses a
+// tensor core.
 //
-// Design (simple first; v2 after the first measurement):
+// Design:
 //   * Sum: one group of G lanes per frame, G = 16 when pw <= 16 (two frames
 //     per warp) else 32. Lane l loads USR words l, l + G, ... (neighbouring
 //     lanes on neighbouring words; scalar loads, since usr_off need not be
@@ -30,29 +32,54 @@
 //     a round and issues all their loads before the first shuffle (v1 had
 //     one load in flight per lane). The TPU kernel pads N to a tile of 8
 //     rows (_drain_geometry); here any N, any pw, any usr_off.
-//   * Put, last writer wins, in parallel: three launches on one stream over
-//     an int32 scratch of one word per table row (4 B per slot, allocated by
-//     the wrapper, nothing kept between calls, nothing cleared over all rows):
-//       1. mark:  last[row_i] = -1 for every frame i;
-//       2. claim: atomicMax(&last[row_i], i): each touched row ends with the
-//          index of its last frame;
-//       3. write: one group of lanes per frame; the frame with
-//          i == last[row_i] writes its table row and pw - 1 heap words.
-//     That is the sequential result exactly, and only the winners write.
-//     Each pass reads the key again (its sector mostly still in L2). The
-//     row is a floor modulo: CUDA's % truncates, so a negative key would
-//     index below the table, and key % slots + got[0] may leave int32's
-//     range. v1 took two 64-bit modulos per frame and pass; v2 one 32-bit
-//     modulo and a subtraction (put_row). (A v2 candidate that kept each
-//     frame's row in a second scratch, read back coalesced, was slower:
-//     the key reads it saved were L2 hits.)
+//   * Put, last writer wins, in parallel (v3): three launches on one stream
+//     over a claim table sized by the frames, not by the server's table:
+//     H = the power of two >= 2 min(n, slots) entries of 8 bytes and a
+//     contest flag byte each (18 MiB at 2^20 frames), allocated by the
+//     wrapper, nothing kept between calls. An entry is (row << 32) | frame
+//     index; ~0 is empty (rows are < 2^31).
+//       1. clear: every entry to ~0, every flag to 0 (16-byte stores);
+//       2. claim: a group of G lanes per frame, frames in order, loads the
+//          frame's USR words together (the frames stream). The leader
+//          hashes the row (murmur3's finalizer, linear probing, load <=
+//          1/2) and takes an empty entry by atomicCAS, or finds its row's
+//          entry, flags it contested and raises the index by a 64-bit
+//          atomicMax (the row half is equal, so the larger word is the
+//          later frame; a frame that reads a later index already there
+//          skips the atomic). A frame that is its row's latest so far
+//          writes the row at once: the table row as one 8-byte store
+//          [key, row], the pw - 1 heap words from the lanes that hold them.
+//          An uncontested row (nearly all) gets exactly that one write,
+//          from its only frame;
+//       3. fix: a contested row's writes in pass 2 may have landed in any
+//          order; the frame left in its entry, the last writer, writes it
+//          once more. A warp reads 32 flags and its lane groups copy the
+//          flagged entries' frames.
+//     That is the sequential result exactly, and deterministic. The row is
+//     a floor modulo: CUDA's % truncates, so a negative key would index
+//     below the table, and key % slots + got[0] may leave int32's range;
+//     put_row takes one 32-bit modulo and a subtraction. Hot rows: ~100
+//     frames a hot row per 2^20-frame delivery reach the same entry; its
+//     atomics serialize in L2, but 1,024 hot entries spread over the L2's
+//     slices, and a hot row gets a few optimistic writes and one fix.
 //
-// What a later design changes: mark, claim and the check in write are
-// random 4-byte accesses into a scratch far larger than L2 (256 MiB at
-// 2^26 rows), a 32-byte sector each; sorting the frames by row (or
-// claiming per block in shared memory first) would make them local. The
-// sum also runs fused into the receive of the ring put (ring_put.cu, the
-// TPU kernel's stash path); here it is the drain of the non-stash route.
+// What held v2 back (measured on an NVIDIA H100 80GB HBM3, 700.00 W,
+// 0.4712 ms at 2^20 frames: mark 0.097 + claim 0.088 + write 0.282
+// ms): its scratch had one int32 per table row, 256 MiB at 2^26 rows, five
+// times the 50 MB L2, so mark and claim each took 2^20 random DRAM
+// sectors, and the write pass read last[row] from DRAM in front of every
+// frame's random row write. v3's claim table stays in L2 and the claim
+// writes the rows it wins at once. What bounds v3 is the random row
+// writes themselves: two index_put_ of the same rows, given the winners,
+// take ~0.24 ms on the same card, and the put must also stream the frames
+// (128 MiB) to find them (PERF.md, the Indirect Put's findings).
+//
+// What a later design changes: the sum also runs fused into the receive
+// of the ring put (ring_put.cu, the TPU kernel's stash path); here it is
+// the drain of the non-stash route. The put's writes land in frame order,
+// random rows; writes in row order would save a DRAM row opening now and
+// then (the library's writes are a little faster in row order than in the
+// kernel's; PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,51 +143,124 @@ __device__ __forceinline__ int32_t base_mod(const int32_t* got, int32_t slots) {
   return bm < 0 ? bm + slots : bm;
 }
 
-// Pass 1: last[row] = -1 at every frame's row.
+constexpr unsigned long long kEmpty = ~0ull;   // a claim entry no row has taken
+
+__device__ __forceinline__ uint32_t hash_row(int32_t row) {   // murmur3's finalizer
+  uint32_t h = static_cast<uint32_t>(row);
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// Pass 1: every claim entry empty, every contest flag clear.
 __global__ void __launch_bounds__(kThreads)
-put_mark_kernel(const int32_t* __restrict__ frames, const int32_t* __restrict__ got,
-                int32_t* __restrict__ last, long long n, int w, int usr_off, int32_t slots) {
-  const int32_t bm = base_mod(got, slots);
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+put_clear_kernel(ulonglong2* __restrict__ claims, uint4* __restrict__ flags, long long pairs) {
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < pairs;
        i += static_cast<long long>(gridDim.x) * kThreads) {
-    last[put_row(frames[i * w + usr_off], slots, bm)] = -1;
+    claims[i] = make_ulonglong2(kEmpty, kEmpty);
+    if (i < pairs / 8) flags[i] = make_uint4(0, 0, 0, 0);     // 2 pairs a flag byte
   }
 }
 
-// Pass 2: each touched row ends with the index of its last frame.
-__global__ void __launch_bounds__(kThreads)
-put_claim_kernel(const int32_t* __restrict__ frames, const int32_t* __restrict__ got,
-                 int32_t* __restrict__ last, long long n, int w, int usr_off, int32_t slots) {
-  const int32_t bm = base_mod(got, slots);
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kThreads) {
-    atomicMax(last + put_row(frames[i * w + usr_off], slots, bm), static_cast<int32_t>(i));
+// The frame's USR words from a group of G lanes: lane k0 holds word k0.
+// Copies the frame to its row: the table row as one 8-byte store, the
+// heap words by the lanes that hold them (and, past G, loaded again).
+template <int G>
+__device__ __forceinline__ void put_copy(const int32_t* usr, int32_t v, int k0, int32_t key,
+                                         int32_t row, int pw, int32_t* table, int32_t* heap) {
+  if (k0 == 0) {
+    *reinterpret_cast<int2*>(table + 2 * static_cast<long long>(row)) = make_int2(key, row);
   }
+  int32_t* dst = heap + static_cast<long long>(row) * (pw - 1);
+  if (k0 >= 1 && k0 < pw) dst[k0 - 1] = v;
+  for (int k = k0 + G; k < pw; k += G) dst[k - 1] = usr[k];
 }
 
-// Pass 3: a group of G lanes per frame; the frame that owns its row writes
-// the table row and its pw - 1 heap words.
+// Pass 2: a group of G lanes per frame, frames in order (they stream). The
+// group's leader claims the row's entry: an empty one by atomicCAS, or its
+// row's one by a 64-bit atomicMax (the row half is equal, so the larger
+// word is the later frame); a frame that finds its row taken flags the
+// entry as contested. A frame that is the row's latest so far writes its
+// row at once: on an uncontested row (nearly all) that is the last
+// writer's row, and the only write it gets.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
-put_write_kernel(const int32_t* __restrict__ frames, const int32_t* __restrict__ got,
-                 const int32_t* __restrict__ last, int32_t* __restrict__ table,
-                 int32_t* __restrict__ heap, long long n, int w, int usr_off, int pw,
-                 int32_t slots) {
+put_claim_kernel(const int32_t* __restrict__ frames, const int32_t* __restrict__ got,
+                 unsigned long long* __restrict__ claims, uint8_t* __restrict__ flags,
+                 int32_t* __restrict__ table, int32_t* __restrict__ heap, long long n, int w,
+                 int usr_off, int pw, int32_t slots, unsigned long long mask) {
   const int32_t bm = base_mod(got, slots);
-  const int lane = threadIdx.x % G;
-  const int data = pw - 1;
+  const int lane = threadIdx.x % 32;
+  const int k0 = lane % G;
+  const int leader = lane - k0;
+  const unsigned group = G == 32 ? 0xffffffffu : ((1u << G) - 1) << leader;
   for (long long f = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G; f < n;
        f += static_cast<long long>(gridDim.x) * (kThreads / G)) {
     const int32_t* usr = frames + f * w + usr_off;
-    const int32_t key = usr[0];
-    const long long row = put_row(key, slots, bm);
-    if (last[row] != static_cast<int32_t>(f)) continue;      // a later frame owns the row
-    if (lane == 0) {
-      table[2 * row] = key;
-      table[2 * row + 1] = static_cast<int32_t>(row);
+    const int32_t v = k0 < pw ? usr[k0] : 0;
+    const int32_t key = __shfl_sync(group, v, leader);       // the group shares f
+    const int32_t row = put_row(key, slots, bm);
+    int latest = 0;
+    if (k0 == 0) {
+      const unsigned long long mine = (static_cast<unsigned long long>(row) << 32)
+                                      | static_cast<unsigned long long>(f);
+      unsigned long long h = hash_row(row) & mask;
+      for (;;) {
+        unsigned long long seen = __ldcg(claims + h);    // L2: a taken entry keeps its row
+        if (seen == kEmpty) {
+          seen = atomicCAS(claims + h, kEmpty, mine);
+          if (seen == kEmpty) {
+            latest = 1;
+            break;
+          }
+        }
+        if ((seen >> 32) == static_cast<unsigned long long>(row)) {
+          flags[h] = 1;
+          latest = seen < mine && atomicMax(claims + h, mine) < mine;   // indices only grow
+          break;
+        }
+        h = (h + 1) & mask;
+      }
     }
-    int32_t* dst = heap + row * data;
-    for (int k = lane; k < data; k += G) dst[k] = usr[1 + k];
+    if (__shfl_sync(group, latest, leader)) put_copy<G>(usr, v, k0, key, row, pw, table, heap);
+  }
+}
+
+// Pass 3: a contested row's writes in pass 2 may have landed in any order;
+// its last writer, the frame in its claim entry, writes it once more. A
+// warp reads 32 flags; a group of G lanes copies each flagged entry's frame.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+put_fix_kernel(const int32_t* __restrict__ frames,
+               const unsigned long long* __restrict__ claims, const uint8_t* __restrict__ flags,
+               int32_t* __restrict__ table, int32_t* __restrict__ heap, long long entries, int w,
+               int usr_off, int pw) {
+  constexpr int kGroups = 32 / G;
+  const int lane = threadIdx.x % 32;
+  const int group = lane / G;
+  const int k0 = lane % G;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long first = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / 32 * 32;
+       first < entries; first += warps * 32) {               // entries % 32 == 0
+    unsigned flagged = __ballot_sync(0xffffffffu, flags[first + lane] != 0);
+    while (flagged) {                                      // warp-uniform
+      int src = -1;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {                  // group g takes the g-th next entry
+        const int next = flagged ? __ffs(flagged) - 1 : -1;
+        if (g == group) src = next;
+        if (flagged) flagged &= flagged - 1;
+      }
+      if (src < 0) continue;                               // group-uniform
+      const unsigned long long e = claims[first + src];
+      const int32_t row = static_cast<int32_t>(e >> 32);
+      const int32_t* usr = frames + static_cast<long long>(e & 0xffffffffull) * w + usr_off;
+      const int32_t v = k0 < pw ? usr[k0] : 0;
+      put_copy<G>(usr, v, k0, usr[0], row, pw, table, heap);
+    }
   }
 }
 
@@ -193,39 +293,53 @@ extern "C" int mailbox_server_sum(const void* frames, void* sums, long long n, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// frames (n, w) int32; got (>= 1,) int32, got[0] the heap base; last
-// (slots,) int32 scratch, any contents; table (slots, 2) and heap (slots,
-// pw - 1) int32, updated in place.
+// frames (n, w) int32; got (>= 1,) int32, got[0] the heap base; claims
+// (entries + entries / 8,) 8-byte scratch, any contents: the claim table
+// (entries a power of two >= 2 min(n, slots) and >= 32) and a flag byte an
+// entry, 16-byte aligned; table (slots, 2) (8-byte aligned) and heap
+// (slots, pw - 1) int32, updated in place.
 // Needs pw >= 1 (the key), usr_off + pw <= w, 1 <= slots < 2^31, n < 2^31
-// (frame indices are int32 in the scratch). Launches nothing when n == 0.
-// Returns a cudaError_t (0 = launched).
-extern "C" int mailbox_indirect_put(const void* frames, const void* got, void* last,
+// (frame indices are the low half of a claim entry). Launches nothing when
+// n == 0. Returns a cudaError_t (0 = launched).
+extern "C" int mailbox_indirect_put(const void* frames, const void* got, void* claims,
                                     void* table, void* heap, long long n, int w,
-                                    int usr_off, int pw, long long slots, void* stream) {
+                                    int usr_off, int pw, long long slots, long long entries,
+                                    void* stream) {
+  const long long distinct = n < slots ? n : slots;
   if (n < 0 || n > 0x7fffffffLL || w <= 0 || usr_off < 0 || pw < 1 || usr_off + pw > w ||
-      slots < 1 || slots > 0x7fffffffLL) {
+      slots < 1 || slots > 0x7fffffffLL || entries < 32 || (entries & (entries - 1)) != 0 ||
+      entries < 2 * distinct) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* f = static_cast<const int32_t*>(frames);
   const int32_t* g = static_cast<const int32_t*>(got);
-  int32_t* l = static_cast<int32_t*>(last);
+  unsigned long long* c = static_cast<unsigned long long*>(claims);
+  uint8_t* flags = reinterpret_cast<uint8_t*>(c + entries);
   int32_t* t = static_cast<int32_t*>(table);
   int32_t* h = static_cast<int32_t*>(heap);
   const int32_t sl = static_cast<int32_t>(slots);
-  put_mark_kernel<<<blocks_for(n, kThreads), kThreads, 0, s>>>(f, g, l, n, w, usr_off, sl);
+  const unsigned long long mask = static_cast<unsigned long long>(entries - 1);
+  put_clear_kernel<<<blocks_for(entries / 2, kThreads), kThreads, 0, s>>>(
+      reinterpret_cast<ulonglong2*>(c), reinterpret_cast<uint4*>(flags), entries / 2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  put_claim_kernel<<<blocks_for(n, kThreads), kThreads, 0, s>>>(f, g, l, n, w, usr_off, sl);
+  if (pw <= 16) {
+    put_claim_kernel<16><<<blocks_for(n, kThreads / 16), kThreads, 0, s>>>(
+        f, g, c, flags, t, h, n, w, usr_off, pw, sl, mask);
+  } else {
+    put_claim_kernel<32><<<blocks_for(n, kThreads / 32), kThreads, 0, s>>>(
+        f, g, c, flags, t, h, n, w, usr_off, pw, sl, mask);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (pw - 1 <= 16) {
-    put_write_kernel<16><<<blocks_for(n, kThreads / 16), kThreads, 0, s>>>(
-        f, g, l, t, h, n, w, usr_off, pw, sl);
+  if (pw <= 16) {
+    put_fix_kernel<16><<<blocks_for(entries, kThreads), kThreads, 0, s>>>(
+        f, c, flags, t, h, entries, w, usr_off, pw);
   } else {
-    put_write_kernel<32><<<blocks_for(n, kThreads / 32), kThreads, 0, s>>>(
-        f, g, l, t, h, n, w, usr_off, pw, sl);
+    put_fix_kernel<32><<<blocks_for(entries, kThreads), kThreads, 0, s>>>(
+        f, c, flags, t, h, entries, w, usr_off, pw);
   }
   return static_cast<int>(cudaGetLastError());
 }

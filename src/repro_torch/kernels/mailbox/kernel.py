@@ -23,14 +23,15 @@ RING_SOURCE = CSRC / "ring_put.cu"
 SUM_LAUNCHES = loader.LaunchCounter()
 PUT_LAUNCHES = loader.LaunchCounter()
 RING_LAUNCHES = loader.LaunchCounter()
+PUT_DESIGN = "v3: claim table in L2, first write at the claim, contested rows fixed"
 MAX_RANKS = 8                   # the portable cluster size: ranks on one card
 CHUNK_BYTES = 48 * 1024         # a ring mailbox buffer (two per rank, two staging)
 _ARGTYPES = {
     # frames, sums; n; w, usr_off, pw
     "mailbox_server_sum": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3,
-    # frames, got, last, table, heap; n; w, usr_off, pw; slots
+    # frames, got, claims, table, heap; n; w, usr_off, pw; slots, claim entries
     "mailbox_indirect_put": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                             + [ctypes.c_int] * 3 + [ctypes.c_longlong]),
+                             + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2),
     # frames, arrivals, spins, sums; n; N; w, shift, stash, poll, sig_off, usr_off,
     # pw, chunk
     "mailbox_ring_put": ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
@@ -92,9 +93,10 @@ def indirect_put_cuda(frames: torch.Tensor, table: torch.Tensor, heap: torch.Ten
     """Indirect Put on the card, in place: ``(N, W)`` int32 frames into
     ``table`` ``(slots, 2)`` and ``heap`` ``(slots, PW - 1)`` int32 at rows
     hashed through ``got[0]`` (``got`` ``(G,)`` int32 on the card); returns
-    ``(table, heap)``. Takes a scratch of 4 bytes per table row for the
-    call. Raises on inputs the kernel does not take and on a refused
-    launch."""
+    ``(table, heap)``. Takes a claim table of ``claim_entries(n, slots)``
+    8-byte entries and a flag byte each for the call (18 MiB at 2^20
+    frames, whatever the table's size). Raises on inputs the kernel does
+    not take and on a refused launch."""
     _check(frames, usr_off, payload_words, table=table, heap=heap, got=got)
     n, w = frames.shape
     slots = table.shape[0]
@@ -107,12 +109,23 @@ def indirect_put_cuda(frames: torch.Tensor, table: torch.Tensor, heap: torch.Ten
         raise ValueError(f"table {tuple(table.shape)}, heap {tuple(heap.shape)}, got "
                          f"{tuple(got.shape)} do not fit (slots, 2), (slots, "
                          f"{payload_words - 1}), (G >= 1,)")
+    if table.data_ptr() % 8:
+        raise ValueError("table must be 8-byte aligned: a row is one 8-byte store")
     if n:
-        last = torch.empty((slots,), dtype=torch.int32, device=frames.device)
-        _launch("mailbox_indirect_put", frames, got, last, table, heap, n, w, usr_off,
-                payload_words, slots)
+        entries = claim_entries(n, slots)
+        # the claim table, then a contest flag byte an entry
+        claims = torch.empty((entries + entries // 8,), dtype=torch.int64, device=frames.device)
+        _launch("mailbox_indirect_put", frames, got, claims, table, heap, n, w, usr_off,
+                payload_words, slots, entries)
         PUT_LAUNCHES.count += 1
     return table, heap
+
+
+def claim_entries(n: int, slots: int) -> int:
+    """Entries of the Indirect Put's claim table: the power of two at least
+    twice the rows ``n`` frames can touch (so probing stays short), and at
+    least 32 (one warp's read)."""
+    return max(32, 1 << (2 * min(n, slots) - 1).bit_length())
 
 
 def ring_chunk_frames(words: int) -> int:

@@ -1,9 +1,10 @@
 """Engine-shaped buckets, the yardstick and the work count of the moe_jam FFN.
 
 ``chip_smoke.py`` takes its moe_jam check from here. Run as a module on a
-machine with a CUDA card, it times the kernel, its plain version and the
-yardstick at the engine's bucket shape with three fills: every row kept
-(a full prefill step), the check input (empty, partial and full experts),
+machine with a CUDA card, it prints the kernel's design and times the
+kernel, its plain version and the yardstick at the engine's bucket shape
+with three fills (``fills``), each beside its bound: every row kept (a
+full prefill step), the check input (empty, partial and full experts),
 and a decode step's (8 tokens, top-8):
 
     PYTHONPATH=src python -m repro_torch.kernels.moe_jam.bench
@@ -15,12 +16,15 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
+from repro_torch.kernels.timing import (bound_ms, card_name, kernel_ms, l2_flush_buffer,
+                                        timed_ms)
 
 # olmoe-1b-7b's buckets in the serving engine of chip_smoke.py: 64 experts,
 # capacity 40 (8 slots x chunk 32 = 256 columns, top-8, factor 1.25),
 # d_model 2048, expert_ff 1024
 EXPERTS, CAPACITY, D_MODEL, D_FF = 64, 40, 2048, 1024
+# the kernel's two passes, by the name of the kernel each launches
+PASSES = {"gate_up": "moe_stream_kernel<true>", "down": "moe_stream_kernel<false>"}
 
 
 def check_counts() -> np.ndarray:
@@ -31,6 +35,17 @@ def check_counts() -> np.ndarray:
     counts = np.concatenate([np.zeros(q), np.full(q, CAPACITY),
                              rng.integers(1, CAPACITY, size=EXPERTS - 2 * q)])
     return rng.permutation(counts).astype(np.int32)
+
+
+def fills() -> dict:
+    """Kept rows per expert of the three bench fills: ``full`` (every row),
+    ``check`` (``check_counts``) and ``decode`` (8 tokens to 8 distinct
+    experts each, numpy seed 3)."""
+    rng = np.random.default_rng(3)
+    decode = np.bincount(np.concatenate([rng.permutation(EXPERTS)[:8] for _ in range(8)]),
+                         minlength=EXPERTS).astype(np.int32)
+    return {"full": np.full(EXPERTS, CAPACITY, np.int32), "check": check_counts(),
+            "decode": decode}
 
 
 def check_inputs(device, counts: np.ndarray):
@@ -75,19 +90,17 @@ def yardstick(x, w_gate, w_up, w_down):
 
 
 def main() -> int:
+    from repro_torch.kernels.moe_jam.kernel import DESIGN
     from repro_torch.kernels.moe_jam.ops import moe_jam_ffn_cuda, moe_jam_ffn_ref
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card: this times the CUDA kernel")
     dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
-    decode = np.bincount(np.concatenate([rng.permutation(EXPERTS)[:8] for _ in range(8)]),
-                         minlength=EXPERTS).astype(np.int32)
-    fills = {"full": np.full(EXPERTS, CAPACITY, np.int32), "check": check_counts(),
-             "decode": decode}
+    card = card_name()
+    print(f"[bench] moe_jam design {DESIGN!r} on {card}", flush=True)
     flush = l2_flush_buffer(dev)
     rows = []
-    for name, counts in fills.items():
+    for name, counts in fills().items():
         x, wg, wu, wd, cnt = check_inputs(dev, counts)
         work = needed_work(counts, d_model=D_MODEL, d_ff=D_FF)
         bound, by = bound_ms(work)
@@ -96,13 +109,18 @@ def main() -> int:
             bound_by=by,
             ms=timed_ms(lambda: moe_jam_ffn_cuda(x, wg, wu, wd, counts=cnt), 50, flush),
             plain_ms=timed_ms(lambda: moe_jam_ffn_ref(x, wg, wu, wd, counts=cnt), 5, flush),
-            library_ms=timed_ms(lambda: yardstick(x, wg, wu, wd), 50, flush)))
+            library_ms=timed_ms(lambda: yardstick(x, wg, wu, wd), 50, flush),
+            passes_ms=kernel_ms(lambda: moe_jam_ffn_cuda(x, wg, wu, wd, counts=cnt), flush,
+                                PASSES)))
         del x, wg, wu, wd, cnt
         r = rows[-1]
         print(f"[bench] moe_jam {name}: {r['kept_rows']} kept rows in {r['experts']} "
-              f"experts: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"3 x bmm {r['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
-    print(json.dumps({"card": card_name(), "moe_jam": rows}), flush=True)
+              f"experts: kernel {r['ms']:.4f} ms (passes, profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["passes_ms"].items())
+              + f"), plain {r['plain_ms']:.4f} ms, 3 x bmm {r['library_ms']:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), weights at "
+              f"{work['weight_bytes'] / r['ms'] / 1e9:.3f} TB/s", flush=True)
+    print(json.dumps({"card": card, "design": DESIGN, "moe_jam": rows}), flush=True)
     return 0
 
 

@@ -3,8 +3,9 @@
 ``csrc/moe_jam.cu`` has a plain C interface; ``kernels.loader`` builds it
 with ``nvcc`` at first use and loads it with ``ctypes``. One call of
 ``moe_jam_ffn_cuda`` launches its two passes (gate/up into a bf16 ``h``
-scratch, then down) and counts once. Nothing is built or loaded when this
-module is imported.
+scratch, then down), each a persistent weight stream (TMA into a 5-stage
+ring, wgmma), and counts once. Nothing is built or loaded when this module
+is imported.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_jam.cu"
 LAUNCHES = loader.LaunchCounter()
 ACTS = {"silu": 0, "gelu": 1}
 TILE = 32                 # D and F must be multiples of it
+DESIGN = "v2: persistent TMA weight stream, wgmma m64n128"
 _fn = None
 
 

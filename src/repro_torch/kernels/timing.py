@@ -59,5 +59,23 @@ def timed_ms(fn, iters: int, flush: Optional[torch.Tensor]) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def kernel_ms(call, flush: torch.Tensor, kernels: dict, iters: int = 20) -> dict:
+    """Mean device time (ms) per call of each kernel that ``call`` launches,
+    ``{label: ms}`` for ``kernels`` = ``{label: a substring of the kernel's
+    name}``, over ``iters`` calls with the L2 cache overwritten before each,
+    read from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            call()
+        torch.cuda.synchronize()
+    return {label: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
+            for label, name in kernels.items() if name in e.key}
+
+
 def l2_flush_buffer(device) -> torch.Tensor:
     return torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)   # > 50 MB L2

@@ -19,8 +19,11 @@ port's dependencies:
   against the split form in plain PyTorch;
 * the moe_jam expert-FFN kernel against its plain version at the smoke's
   and the serving engine's bucket shapes and at uneven ones (C not a
-  multiple of 16, C over one 64-row tile), silu and gelu, with empty,
-  partial and full experts and without counts; each element within
+  multiple of 16, C = 65 and 130 past one and two 64-row tiles, D and F
+  96 and 160, one expert), silu and gelu, with empty, partial and full
+  experts and without counts; the engine shape under the bench's three
+  fills; x rows past counts filled with NaN (kept rows as on the zeroed
+  bucket, rows past counts exact zeros); each element within
   1e-2 * (rms of its (expert, row) output row + |plain|) (bf16 output of
   the same float32 sums in another order: the neighbouring bf16 value at
   most), empty rows exactly zero;
@@ -43,8 +46,12 @@ port's dependencies:
   16, 64 and 1024 at an offset that is and one that is not 16-byte
   aligned, sums that wrap, keys at int32's extremes and negative, tables
   of 1 row (every frame on one row), 7 and 4096 rows, heap bases 0, -5
-  and 2^31 - 1; the frame path's fabric on the card against the same
-  fabric on the CPU;
+  and 2^31 - 1; collision-heavy puts (every frame on one row, all rows
+  distinct, two rows in turn, one table row, one frame) at heap bases 0,
+  slots - 1 and +-(2^31 - 1), bit for bit; 2^20 frames with hot keys,
+  twice, equal shards (determinism under the claim's atomics) and no
+  scratch beyond the claim table; the frame path's fabric on the card
+  against the same fabric on the CPU;
 * the flash-attention kernel against its plain version over head dims
   16, 80, 128 and 256, 1, 2, 8 and 48 query heads per kv head, 1, 33 and
   2,113 positions, each causal, with a window of 17, at q_offset 7 and
@@ -282,7 +289,8 @@ def _moe_case(rng, e, c, d, f, fill):
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 @pytest.mark.parametrize("fill", ["mixed", "none"])
 @pytest.mark.parametrize("e,c,d,f", [(8, 8, 64, 32), (3, 24, 64, 96), (4, 70, 96, 64),
-                                     (64, 40, 2048, 1024)])
+                                     (64, 40, 2048, 1024), (3, 65, 64, 32),
+                                     (5, 130, 96, 160), (3, 40, 160, 96), (1, 24, 64, 96)])
 def test_moe_jam_kernel_matches_plain_version(cuda, e, c, d, f, fill, act):
     x, ws, counts = _moe_case(np.random.default_rng(e * c + f), e, c, d, f, fill)
     bf = lambda a: torch.from_numpy(a).to(cuda, torch.bfloat16)
@@ -299,6 +307,41 @@ def test_moe_jam_kernel_matches_plain_version(cuda, e, c, d, f, fill, act):
     if cnt is not None:
         empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
         assert (got[empty] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["full", "check", "decode"])
+def test_moe_jam_kernel_engine_shape_bench_fills(cuda, fill):
+    from repro_torch.kernels.moe_jam import bench
+
+    counts = bench.fills()[fill]
+    x, wg, wu, wd, cnt = bench.check_inputs(cuda, counts)
+    got = moe_jam.moe_jam_ffn(x, wg, wu, wd, counts=cnt)
+    want = moe_jam.moe_jam_ffn_ref(x, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    err, worst, bad = moe_jam.compare(got, want, tol=MOE_TOL)
+    assert bad == 0, (err, worst)
+    empty = ~(torch.arange(x.shape[1], device=cuda)[None, :] < cnt[:, None].long())
+    assert (got[empty] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,d,f", [(64, 40, 2048, 1024), (5, 130, 96, 160)])
+def test_moe_jam_kernel_ignores_rows_past_counts(cuda, e, c, d, f):
+    """x rows past counts hold NaN: kept rows equal the plain version on the
+    bucket with those rows zeroed, and rows past counts are exact zeros."""
+    x, ws, counts = _moe_case(np.random.default_rng(e + c), e, c, d, f, "mixed")
+    bf = lambda a: torch.from_numpy(a).to(cuda, torch.bfloat16)
+    xt, wg, wu, wd = bf(x), *map(bf, ws)
+    cnt = torch.from_numpy(counts.astype(np.int32)).to(cuda)
+    empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
+    got = moe_jam.moe_jam_ffn(xt.masked_fill(empty[:, :, None], float("nan")), wg, wu, wd,
+                              counts=cnt)
+    want = moe_jam.moe_jam_ffn_ref(xt, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    err, worst, bad = moe_jam.compare(got, want, tol=MOE_TOL)
+    assert bad == 0, (err, worst)
+    assert (got[empty] == 0).all() and torch.isfinite(got).all()
 
 
 @pytest.mark.gpu
@@ -471,6 +514,79 @@ def test_mailbox_kernels_match_plain_versions(cuda, n, got_slots, pw):
             torch.cuda.synchronize()
             assert torch.equal(table, t_ref), (slots, base)
             assert torch.equal(heap, h_ref), (slots, base)
+
+
+PUT_COLLISIONS = ["one_row", "distinct", "alternate", "slots1", "n1"]
+
+
+def _collision_frames(rng, dev, kind, n=3000, slots=4096):
+    """Indirect Put frames whose keys collide as ``kind`` says (the CPU
+    parity tests' cases, larger): every frame on one row, all rows
+    distinct, two rows in turn, a table of one row, one frame."""
+    spec = FrameSpec(got_slots=4, state_words=0, payload_words=16)
+    slots = 1 if kind == "slots1" else slots
+    n = 1 if kind == "n1" else n
+    usr = rng.integers(-2 ** 31, 2 ** 31, size=(n, 16), dtype=np.int64).astype(np.int32)
+    wraps = slots * rng.integers(-3, 4, size=n)
+    if kind == "one_row":
+        usr[:, 0] = 7 % slots + wraps
+    elif kind == "distinct":
+        usr[:, 0] = rng.permutation(slots)[:n] + wraps
+    elif kind == "alternate":
+        usr[:, 0] = 1 + np.arange(n) % 2 + wraps
+    return spec, pack_frames(spec, func_id=0, payload_words=torch.from_numpy(usr).to(dev)), slots
+
+
+def _put_both(frames, spec, slots, base, rng, dev):
+    """(kernel's (table, heap), plain version's) from the same random shard."""
+    pw = spec.payload_words
+    table = torch.from_numpy(rng.integers(-9, 9, size=(slots, 2)).astype(np.int32)).to(dev)
+    heap = torch.from_numpy(rng.integers(-9, 9, size=(slots, pw - 1)).astype(np.int32)).to(dev)
+    t_ref, h_ref = table.clone(), heap.clone()
+    got = torch.tensor([base, 1, 2, 3], dtype=torch.int32, device=dev)
+    mailbox.am_indirect_put(frames, table, heap, got, spec, kernel="cuda")
+    mailbox.indirect_put_ref(frames, t_ref, h_ref, spec.offsets()["usr"], pw, base)
+    torch.cuda.synchronize()
+    return (table, heap), (t_ref, h_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", [0, 4095, 2 ** 31 - 1, -(2 ** 31 - 1)])
+@pytest.mark.parametrize("kind", PUT_COLLISIONS)
+def test_indirect_put_kernel_collisions_bit_for_bit(cuda, kind, base):
+    rng = np.random.default_rng(PUT_COLLISIONS.index(kind))
+    spec, frames, slots = _collision_frames(rng, cuda, kind)
+    (table, heap), (t_ref, h_ref) = _put_both(frames, spec, slots, base, rng, cuda)
+    assert torch.equal(table, t_ref) and torch.equal(heap, h_ref)
+
+
+@pytest.mark.gpu
+def test_indirect_put_kernel_hot_keys_deterministic(cuda):
+    """2^20 frames, 10% from 1,024 hot keys, into a 2^24-row shard: two
+    launches on equal shards leave equal shards, equal to the plain
+    version's; the call's scratch is the claim table, sized by the frames."""
+    from repro_torch.kernels.mailbox import bench
+    from repro_torch.kernels.mailbox.kernel import claim_entries
+
+    spec, slots, n = bench.SPEC, 1 << 24, 1 << 20
+    frames = pack_frames(spec, func_id=0, payload_words=torch.from_numpy(
+        bench.put_payloads(np.random.default_rng(7), n)).to(cuda))
+    shards = []
+    for _ in range(2):
+        shards.append((torch.zeros((slots, 2), dtype=torch.int32, device=cuda),
+                       torch.zeros((slots, 15), dtype=torch.int32, device=cuda)))
+    got = torch.tensor([bench.HEAP_BASE, 0, 0, 0], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for table, heap in shards:
+        mailbox.am_indirect_put(frames, table, heap, got, spec, kernel="cuda")
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - held <= 9 * claim_entries(n, slots) + 2 ** 20
+    t_ref, h_ref = torch.zeros_like(shards[0][0]), torch.zeros_like(shards[0][1])
+    mailbox.indirect_put_ref(frames, t_ref, h_ref, spec.offsets()["usr"], 16, bench.HEAP_BASE)
+    for table, heap in shards:
+        assert torch.equal(table, t_ref) and torch.equal(heap, h_ref)
 
 
 @pytest.mark.gpu

@@ -5,8 +5,14 @@ The same numpy frames go through the port's ``am_server_sum`` /
 ``am_indirect_put`` on the CPU (their plain versions) and through the JAX
 package's oracles (``server_sum_ref``, the sequential ``indirect_put_ref``)
 and its Pallas kernels in interpret mode. Integers throughout: every
-comparison is exact. The CUDA kernels themselves are held against these
-plain versions on the card (``tests/test_torch_kernels_gpu.py``,
+comparison is exact. The Indirect Put also runs on collision-heavy
+traffic (every frame on one row, all rows distinct, two rows in turn, one
+table row, one frame) at heap bases 0, slots - 1 and +-(2^31 - 1). JAX
+adds ``floormod(key, slots) + got[0]`` in int32, which wraps for a base
+above 2^31 - slots, where the port computes the row exactly (ROADMAP §C);
+so JAX is given the base's floor residue, which names the same rows
+exactly. The CUDA kernels themselves are held against these plain
+versions on the card (``tests/test_torch_kernels_gpu.py``,
 ``chip_smoke.py``).
 """
 import jax.experimental.pallas as jpl
@@ -41,6 +47,32 @@ def _put_usr(rng, n, slots):
     usr[:4, 0] = [I32.min, I32.max, -1, 5]
     usr[4:8, 0] = 5 + slots * np.arange(1, 5)                     # all on key 5's row
     return usr
+
+
+COLLISIONS = ["one_row", "distinct", "alternate", "slots1", "n1"]
+
+
+def collision_usr(kind, rng, n=40, slots=16):
+    """(USR words, slots) of an Indirect Put whose keys collide as ``kind``
+    says: every frame on one row, all rows distinct (n <= slots), two rows
+    in turn, a table of one row, or one frame; keys negative and positive,
+    each row reached by several keys."""
+    if kind == "slots1":
+        slots = 1
+    if kind == "distinct":
+        slots = max(slots, n)
+    if kind == "n1":
+        n = 1
+    usr = rng.integers(I32.min, I32.max, size=(n, PW), endpoint=True,
+                       dtype=np.int64).astype(np.int32)
+    wraps = slots * rng.integers(-3, 4, size=n)                   # other keys, same row
+    if kind == "one_row":
+        usr[:, 0] = 7 % slots + wraps
+    elif kind == "distinct":
+        usr[:, 0] = rng.permutation(slots)[:n] + wraps
+    elif kind == "alternate":
+        usr[:, 0] = 1 + np.arange(n) % 2 + wraps
+    return usr, slots
 
 
 @pytest.mark.parametrize("n", [1, 7, 127, 130])
@@ -101,6 +133,51 @@ def test_indirect_put_matches_jax_pallas_kernel(got_base):
     np.testing.assert_array_equal(heap.numpy(), np.asarray(jh))
 
 
+@pytest.mark.parametrize("got_base", ["zero", "slots-1", "int32-max", "-int32-max"])
+@pytest.mark.parametrize("kind", COLLISIONS)
+def test_indirect_put_collisions_match_jax_sequential_ref(kind, got_base):
+    rng = np.random.default_rng(COLLISIONS.index(kind))
+    usr, slots = collision_usr(kind, rng)
+    base = {"zero": 0, "slots-1": slots - 1, "int32-max": I32.max,
+            "-int32-max": -I32.max}[got_base]
+    frames = _frames(usr)
+    table0 = rng.integers(-9, 9, size=(slots, 2)).astype(np.int32)
+    heap0 = rng.integers(-9, 9, size=(slots, PW - 1)).astype(np.int32)
+    table, heap = torch.from_numpy(table0.copy()), torch.from_numpy(heap0.copy())
+    got = torch.tensor([base, 7, 7, 7], dtype=torch.int32)
+    mb.am_indirect_put(frames, table, heap, got, SPEC)
+    jt, jh = j_indirect_put_ref(jnp.asarray(frames.numpy()), jnp.asarray(table0),
+                                jnp.asarray(heap0), USR_OFF, PW, base % slots)
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(heap.numpy(), np.asarray(jh))
+    rows = bench.put_rows(usr[:, 0], slots, base)
+    written = {"one_row": 1, "distinct": len(usr), "alternate": min(2, len(usr)),
+               "slots1": 1, "n1": 1}[kind]
+    assert len(np.unique(rows)) == written
+
+
+@pytest.mark.parametrize("got_base", ["zero", "slots-1", "int32-max", "-int32-max"])
+@pytest.mark.parametrize("kind", COLLISIONS)
+def test_indirect_put_collisions_match_jax_pallas_kernel(kind, got_base):
+    if not hasattr(jpl, "store"):
+        pytest.skip("this jax's Pallas has no pl.store, which the JAX package's "
+                    "indirect_put_pallas calls; the sequential oracle test covers it")
+    rng = np.random.default_rng(COLLISIONS.index(kind))
+    usr, slots = collision_usr(kind, rng, n=12, slots=8)
+    base = {"zero": 0, "slots-1": slots - 1, "int32-max": I32.max,
+            "-int32-max": -I32.max}[got_base]
+    frames = _frames(usr)
+    table = torch.zeros((slots, 2), dtype=torch.int32)
+    heap = torch.zeros((slots, PW - 1), dtype=torch.int32)
+    mb.am_indirect_put(frames, table, heap, torch.tensor([base, 0, 0, 0], dtype=torch.int32),
+                       SPEC)
+    jt, jh = j_am_indirect_put(jnp.asarray(frames.numpy()), jnp.zeros((slots, 2), jnp.int32),
+                               jnp.zeros((slots, PW - 1), jnp.int32),
+                               jnp.asarray([base % slots, 0, 0, 0], jnp.int32), J_SPEC)
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(heap.numpy(), np.asarray(jh))
+
+
 def test_indirect_put_equals_numpy_sequential_replay():
     """4,096 frames on 64 rows: every row is written many times; the plain
     version must leave what frame-by-frame puts leave."""
@@ -140,6 +217,41 @@ def test_frame_path_traffic_and_work():
     np.testing.assert_array_equal((~valid).nonzero().squeeze(1).numpy(), bad)
     assert bench.sum_work(10) == {"bytes": 680}
     assert bench.put_work(10, 4) == {"bytes": 40 + 4 * 128 + 4}
+
+
+def test_put_claim_table_is_sized_by_the_frames():
+    from repro_torch.kernels.mailbox.kernel import claim_entries
+
+    for n, slots in [(1, 1), (1, 2 ** 26), (17, 1000), (2 ** 20, 2 ** 26), (2 ** 20, 5)]:
+        e = claim_entries(n, slots)
+        assert e & (e - 1) == 0 and max(32, 2 * min(n, slots)) <= e < max(64, 4 * min(n, slots))
+    assert claim_entries(2 ** 20, 2 ** 26) == claim_entries(2 ** 20, 2 ** 31 - 1) == 2 ** 21
+
+
+def test_put_sector_work_counts_whole_sectors():
+    """``put_sector_work`` against a byte-by-byte count: each frame's key
+    sector, the winners' data sectors, the written table and heap rows'
+    sectors (each once) and got[0]; partly written sectors counted apart."""
+    rng = np.random.default_rng(5)
+    n, w, usr_off = 50, SPEC.total_words, USR_OFF
+    rows = np.sort(rng.choice(200, size=12, replace=False))
+    last = np.sort(rng.choice(n, size=12, replace=False))
+    rows[1] = rows[0] + 1                                  # neighbours share sectors
+    read = {(i * w + usr_off) * 4 // 32 for i in range(n)}
+    for l in last:
+        read |= {b // 32 for b in range((l * w + usr_off + 1) * 4, (l * w + usr_off + PW) * 4)}
+    written = partial = 0
+    for pitch in (8, 4 * (PW - 1)):
+        covered = {}
+        for r in rows:
+            for b in range(r * pitch, (r + 1) * pitch):
+                covered.setdefault(b // 32, set()).add(b)
+        written += len(covered)
+        partial += sum(len(v) < 32 for v in covered.values())
+    got = bench.put_sector_work(n, rows, last)
+    assert got["sectors"] == len(read) + written + 1 and got["partial_sectors"] == partial
+    assert got["bytes"] == 32 * got["sectors"]
+    assert got["rmw_bytes"] == 32 * (got["sectors"] + partial)
 
 
 def test_wrappers_resolve_and_raise_on_the_cpu():

@@ -5,7 +5,11 @@ and what the CUDA kernel is held against on the card) against JAX's
 ``expert_ffn_ref`` and against the Pallas kernel ``moe_jam_ffn`` in
 interpret mode, with block_c 8 / block_f 32 so the Pallas grid has several
 capacity tiles and accumulates over F. Uneven shapes (C = 24, F = 96, and
-C = 40 with F = 32, the engine's capacity at the smoke width).
+C = 40 with F = 32, the engine's capacity at the smoke width), and the
+edges of the CUDA kernel's tiles: C = 65 and 130 (past one and two 64-row
+M tiles), D and F = 96 and 160 (multiples of 32, not of 64 or 128), one
+expert; with counts that end inside, at and past a 64-row tile, against
+JAX's ref on the bucket with the empty rows zeroed.
 
 All three compute the same function: gate and up accumulate in float32,
 ``h`` is rounded to ``x.dtype`` once, the down product accumulates in
@@ -31,6 +35,8 @@ from repro_torch.kernels.moe_jam import (LAUNCHES, moe_jam_ffn, moe_jam_ffn_cuda
 
 TOL = {"float32": dict(atol=1e-5, rtol=0), "bfloat16": dict(atol=1e-2, rtol=1e-2)}
 SHAPES = [(3, 24, 64, 96), (4, 40, 64, 32)]
+EDGE_SHAPES = [(2, 65, 64, 32), (2, 130, 32, 64), (3, 8, 96, 160), (2, 16, 160, 96),
+               (1, 24, 64, 96)]
 
 
 def _inputs(e, c, d, f, seed=0):
@@ -51,7 +57,7 @@ def _both(arrays, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_plain_version_matches_jax_ref(shape, act, dtype):
     j_args, t_args = _both(_inputs(*shape), dtype)
     want = np.asarray(j_ref(*j_args, act), np.float32)
@@ -69,6 +75,23 @@ def test_plain_version_matches_pallas_interpret(act, dtype):
                                     interpret=True), np.float32)
     got = moe_jam_ffn_ref(*t_args, act)
     np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("shape", [(4, 65, 64, 32), (4, 130, 96, 160), (1, 70, 160, 96)])
+def test_counts_at_tile_edges_match_jax_ref(shape, act):
+    """Kept rows ending inside a 64-row tile, at its edge and one past it:
+    the plain version with counts equals JAX's ref on the bucket whose
+    empty rows are zero, as the dispatch leaves them."""
+    e, c, _, _ = shape
+    x, wg, wu, wd = _inputs(*shape, seed=4)
+    counts = np.array([0, 64, 65, c - 1][:e] if e > 1 else [c - 6], np.int32)
+    x *= (np.arange(c)[None, :] < counts[:, None])[:, :, None]
+    j_args, t_args = _both((x, wg, wu, wd), "float32")
+    want = np.asarray(j_ref(*j_args, act), np.float32)
+    got = moe_jam_ffn_ref(*t_args, act, counts=torch.from_numpy(counts))
+    np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
+    assert not got.numpy()[np.arange(c)[None, :] >= counts[:, None]].any()
 
 
 def test_counts_zero_the_empty_rows():
