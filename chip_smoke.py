@@ -17,7 +17,8 @@ phase prints the seconds it took):
    entries that name no pool block inside live ranges; the moe_jam expert
    FFN (v2: a persistent TMA weight stream into wgmma) at olmoe's buckets
    (64 experts x 40 rows x 2048, F 1024) with empty, partial and full
-   experts; the ssm_scan selective scan at mamba-130m's
+   experts; the ssm_scan selective scan (v2: lanes across the state, two
+   channels a lane, longest rows first, TMA-fed stages) at mamba-130m's
    engine shape (32 rows x 32 columns x 1536 channels, N 16) with 0, 1,
    partial and full valid columns per row; flash attention at gemma3-4b's
    prefill (8/4 heads of 256, 4,096 tokens, causal, window None and
@@ -26,8 +27,11 @@ phase prints the seconds it took):
    7; mma.sync v1), with the share of visited key tiles that take the
    mask. Each is timed (kernel, plain version, and one PyTorch library
    yardstick the port never calls, where there is one) with the L2 cache
-   flushed before every launch, as the serving loop finds it, and bounded
-   by the bytes and operations this input needs;
+   flushed before every launch, as the serving loop finds it (written,
+   then read, so no dirty line is left for the timed launch to write
+   back), and bounded by the bytes and operations this input needs; the
+   timer's floor, a one-element ``fill_`` timed the same way, is printed
+   first;
 4. end to end, ``llama3.2-1b``: a full-width paged ``Engine`` (16 layers,
    random bf16 weights from a seed) serves 12 requests with preemption;
    launch counts are read around exactly that run; the same step inputs
@@ -47,7 +51,9 @@ phase prints the seconds it took):
    to a second run without the forced preemptions, served at
    ``placement="injected"`` (the backend's exactness contract, and
    placement changes no token; its params lease must show one miss and a
-   hit every later step); then the replay and the logits check as above.
+   hit every later step); then the replay and the logits check as above,
+   and one mixed step profiled: device busy and idle time, and
+   ssm_scan's device ms over its 24 launches in it.
    Every engine's step goes through its fabric (``metrics()["fabric"]``);
 7. end to end, ``gemma3-4b`` on the slots backend: a full-width
    ``Engine(cache="slots", slots=8, max_len=4224)`` (34 layers, 29 of them
@@ -80,9 +86,11 @@ phase prints the seconds it took):
    (weights in the GOT) and ``injected`` (weights in the frame, leased)
    gives identical words. Both kernels are timed (kernel, plain version,
    library yardstick; the L2 cache flushed before every launch) and
-   bounded by the bytes this input needs; the Indirect Put (v3: a claim
-   table in L2) also by the 32-byte sectors it must move, with each of its
-   three passes' device time (``torch.profiler``);
+   bounded by the bytes this input needs, and by the 32-byte sectors they
+   must move: the Server-Side Sum (v3: a CTA a frame for few or wide
+   frames, v2's lane groups for many) with the route it took, the
+   Indirect Put (v3: a claim table in L2) with each of its three passes'
+   device time (``torch.profiler``);
 9. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
    the mailbox in the receiver's shared memory): the kernel against its
    plain version, bit for bit, over 1, 2, 4 and 8 ranks, shifts 1, 2,
@@ -97,8 +105,10 @@ phase prints the seconds it took):
    rank: all three sums equal the fabric dispatcher's. The paper's two
    comparisons are timed on the card: stashing (the fused put against the
    non-stash put and its drain) and WFE against poll (with the poll's
-   spins), at 1 frame, 16 frames of 64, 1,024 and 8,192 USR words, and
-   the 16 MiB-a-rank ring;
+   spins), at 1 frame, 16 frames of 64, 1,024 and 8,192 USR words (there
+   the drain's Server-Side Sum, on its wide route, is also held against
+   its plain version on every rank, bit for bit), and the 16 MiB-a-rank
+   ring;
 10. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -325,6 +335,7 @@ def check_ssm_scan(torch, dev, cfg):
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import timing
     from repro_torch.kernels.ssm_scan import bench as sbench
+    from repro_torch.kernels.ssm_scan.kernel import DESIGN, scan_route
 
     shape = (REC_SLOTS, CHUNK, cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim)
     if shape != (sbench.SLOTS, sbench.CHUNK, sbench.INNER, sbench.STATE):
@@ -332,8 +343,9 @@ def check_ssm_scan(torch, dev, cfg):
     nv_np = sbench.check_n_valid()
     args = sbench.check_inputs(dev, nv_np)
     n_valid = args[-1]
+    design = f"{DESIGN}, route {scan_route(*args[:4])}"
     log(f"[kernel] ssm_scan input: dt/x {tuple(args[0].shape)}, b/c "
-        f"{tuple(args[1].shape)}, valid columns per row {nv_np.tolist()}")
+        f"{tuple(args[1].shape)}, valid columns per row {nv_np.tolist()}; {design}")
     y, h = ss.ssm_scan(*args)
     y_ref, h_ref = ss.ssm_scan_ref(*args)
     torch.cuda.synchronize()
@@ -364,9 +376,9 @@ def check_ssm_scan(torch, dev, cfg):
         f"3.35 TB/s; {work['f32_flops']} float32 operations -> "
         f"{work['f32_flops'] / timing.F32_FLOPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; "
         f"{work['exps']} exponentials -> {work['exps'] / sbench.SFU_EXP_PER_S * 1e3:.5f} "
-        f"ms on the SFUs")
+        f"ms on the SFUs; {design}")
     return {
-        "name": "ssm_scan", "route": "cuda", "path": cfg.name,
+        "name": "ssm_scan", "route": "cuda", "path": cfg.name, "design": design,
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:60",
         "launches": None, "max_abs_err": max(max_y, max_h), "ms": ms,
@@ -652,21 +664,25 @@ def _mixed_index(records):
         int(records[i][-2].sum())))
 
 
-def _paged_step_profile(torch, engine, records):
+def _step_profile(torch, engine, records):
     """Device busy and idle time of one mixed prefill + decode step (the
-    replay's, on a clone of the engine's final pool), and paged attention's
-    device ms in it: what the kernel costs on the path it serves."""
+    replay's, on a clone of the engine's final pool or recurrent state),
+    and the device ms in it of the kernel that serves the path (paged
+    attention, or ssm_scan on the recurrent backend): what the kernel costs
+    on the path it serves."""
     i = _mixed_index(records)
     *args, _ = records[i]
     cache = {"layers": [{k: v.clone() for k, v in lc.items()} for lc in engine.cache["layers"]]}
-    b = _busy(torch, lambda: engine.bundle.fn(engine.params, cache, *args), match="paged_")
+    name, match = (("ssm_scan", "ssm_scan") if engine.cache_kind == "recurrent"
+                   else ("paged attention", "paged_"))
+    b = _busy(torch, lambda: engine.bundle.fn(engine.params, cache, *args), match=match)
     nv = args[-1]
     idle = (f"idle {b['wall_ms'] - b['busy_ms']:.2f} ms (share "
             f"{1 - b['busy_ms'] / b['wall_ms']:.3f})" if b["busy_ms"] is not None
             else "device time not measured (the trace holds no device event)")
     log(f"[e2e] {engine.cfg.name} one mixed step (step {i}, n_valid {nv.tolist()}): host wall "
         f"{b['wall_ms']:.2f} ms (median of 3, no profiler); device busy {b['busy_ms']} ms over "
-        f"{b['device_ops']} device operations (torch.profiler); {idle}; paged attention "
+        f"{b['device_ops']} device operations (torch.profiler); {idle}; {name} "
         f"{b['match_ms']} ms in {b['match_ops']} device operations ({engine.cfg.num_layers} "
         f"layers); most device time (ms): {b['top']}")
     del cache
@@ -1023,7 +1039,7 @@ def frame_path(torch, dev, card):
     from repro_torch.kernels import mailbox as mk
     from repro_torch.kernels import timing
     from repro_torch.kernels.mailbox import bench as fb
-    from repro_torch.kernels.mailbox.kernel import PUT_DESIGN
+    from repro_torch.kernels.mailbox.kernel import PUT_DESIGN, SUM_DESIGN, sum_route
 
     spec, n = fb.SPEC, fb.BANKS * fb.FRAMES_PER_BANK
     o = spec.offsets()
@@ -1109,13 +1125,19 @@ def frame_path(torch, dev, card):
     flush = timing.l2_flush_buffer(dev)
     blk = last["server_side_sum"]
     usr_view = blk[:, usr_off:usr_off + pw]
+    sum_design = f"{SUM_DESIGN}, route {sum_route(blk, usr_off, pw)}"
+    sum_sectors = fb.sum_sector_work(n, usr_off, pw, w=spec.total_words)
     sum_entry = _entry(
         "server_sum", "src/repro/kernels/mailbox/kernel.py:167", launches["server_sum"], n,
         err["server_side_sum"],
         ms=timing.timed_ms(lambda: mk.server_sum_cuda(blk, usr_off, pw), 200, flush),
         plain_ms=timing.timed_ms(lambda: mk.server_sum_ref(blk, usr_off, pw), 50, flush),
         library_ms=timing.timed_ms(lambda: usr_view.sum(1, dtype=torch.int32), 200, flush),
-        work=fb.sum_work(n))
+        work=fb.sum_work(n),
+        note=(f"; {sum_design}; 32-byte sectors {sum_sectors['sectors']} ("
+              f"{sum_sectors['usr_sectors']} of USR words, the rest sums) -> "
+              f"{timing.bound_ms(sum_sectors)[0]:.5f} ms"))
+    sum_entry["design"] = sum_design
     blk = last["indirect_put"]
     keys = blk[:, usr_off].cpu().numpy()
     rows_np, last_np = fb.last_writers(fb.put_rows(keys))
@@ -1247,6 +1269,8 @@ def ring_path(torch, dev, card):
     for label, sp, frames, iters in sizes:
         blk = blocks if frames == N and sp == spec else fb.ring_blocks(dev, rng, n, frames, sp)
         err = max(err, _check_ring(torch, mk, blk, sp, handler="sum"))
+        if frames < N:
+            _check_drain(torch, mk, blk, sp, label)
         t = times[label] = fb.ring_times(blk, flush, iters, sp)
         rate = {k: n * frames / (t[k]["ms"] * 1e-3) for k in ("stash+sum", "non-stash+drain")}
         log(f"[ring] {n} ranks x {label}, {sp.total_bytes} B frames, on {card}: STASHING: "
@@ -1268,6 +1292,23 @@ def ring_path(torch, dev, card):
                   ms=big["stash+sum"]["ms"], plain_ms=plain_ms, library_ms=big["roll+sum_ms"],
                   work=fb.ring_work(n, N, spec.total_words, summed=True), path="ring put",
                   source="src/repro_torch/kernels/mailbox/csrc/ring_put.cu")
+
+
+def _check_drain(torch, mk, blocks, spec, label):
+    """The drain of the non-stash ring put at the latency frames: the
+    Server-Side Sum of each rank's arrivals (a call of few frames: the
+    sum's wide route) against its plain version, bit for bit."""
+    from repro_torch.kernels.mailbox.kernel import sum_route
+
+    usr_off, pw = spec.offsets()["usr"], spec.payload_words
+    arrivals = mk.ring_am_put(blocks, spec=spec, stash=False)[0]
+    routes = sorted({sum_route(a, usr_off, pw) for a in arrivals})
+    same = all(torch.equal(mk.am_server_sum(a, spec), mk.server_sum_ref(a, usr_off, pw))
+               for a in arrivals)
+    log(f"[ring] {label}: the drain's Server-Side Sum (route {routes}) == plain on every "
+        f"rank: {same}")
+    if not same:
+        raise AssertionError(f"the drain's Server-Side Sum disagrees at {label}")
 
 
 # the grid's routes: (wait, stash, handler); a fused sum needs the stash
@@ -1485,6 +1526,11 @@ def main() -> int:
         raise AssertionError("the kernel check's shapes are not the engine's")
     entries = {}
     with Phase("kernel vs plain"):
+        flush = timing.l2_flush_buffer(dev)
+        log(f"[kernel] timer floor: a one-element fill_ timed as every kernel below is: "
+            f"{timing.floor_ms(flush):.4f} ms (L2 flushed clean), "
+            f"{timing.floor_ms(None):.4f} ms (warm)")
+        del flush
         for arch in ARCHS:
             a = get_config(arch).attention
             if a is not None:
@@ -1505,8 +1551,7 @@ def main() -> int:
             if engine.cache_kind == "recurrent":
                 _check_exact_without_preemption(torch, dev, arch, engine)
             rep = replay(torch, dev, engine, records, events)
-            if engine.cache_kind == "paged":
-                _paged_step_profile(torch, engine, records)
+            _step_profile(torch, engine, records)
             for (kname, path), entry in entries.items():
                 if path == arch:
                     entry["launches"] = summary["launches"][kname]

@@ -9,9 +9,12 @@ such frames (16 MiB a rank, 2^20 in all), plus latency frames of 64,
 it times the handler kernels, their plain versions and a library
 yardstick at that size (the L2 cache flushed before every launch), splits
 the Indirect Put's time over its three passes (clear, claim, fix) with
-``torch.profiler``, bounds the put also by the 32-byte sectors it must
-move (``put_sector_work``), times its yardstick also with the rows in
-the order the kernel writes them, and times the ring put's routes
+``torch.profiler``, bounds the sum and the put also by the 32-byte
+sectors they must move (``sum_sector_work``, ``put_sector_work``), times
+the sum also warm and at the ring's latency widths (on
+16-byte-aligned frames, its wide route, and on the same frames 4 bytes off,
+its scalar route), times the put's yardstick also with the rows in the
+order the kernel writes them, and times the ring put's routes
 (``ring_times``):
 
     PYTHONPATH=src python -m repro_torch.kernels.mailbox.bench
@@ -28,8 +31,8 @@ from repro_torch.core.registry import RiedPackage
 from repro_torch.device import resolve_device
 from repro_torch.fabric import Fabric
 from repro_torch.kernels.mailbox.ref import put_slots
-from repro_torch.kernels.timing import (bound_ms, card_name, kernel_ms, l2_flush_buffer,
-                                        timed_ms)
+from repro_torch.kernels.timing import (bound_ms, card_name, floor_ms, kernel_ms,
+                                        l2_flush_buffer, timed_ms)
 
 SPEC = FrameSpec(got_slots=4, state_words=0, payload_words=16)   # 32 words, 128 B
 BANKS, FRAMES_PER_BANK = 64, 16384                 # 2^20 frames per delivery
@@ -165,6 +168,27 @@ def _sectors(first_byte: np.ndarray, nbytes: int):
     return ids[keep], (end - start)[keep]
 
 
+def sum_sector_work(n: int, usr_off: int = SPEC.offsets()["usr"],
+                    payload_words: int = SPEC.payload_words, *,
+                    w: int = SPEC.total_words) -> dict:
+    """The Server-Side Sum's needed traffic counted in whole 32-byte
+    sectors, as the card's memory moves it (frames of ``w`` words from a
+    32-byte boundary): every sector that holds a USR word, each once, plus
+    the sectors of the sums (4 B a frame, written in order). At the frame
+    path (USR at bytes 48-111 of a 128-byte frame) that is three sectors a
+    frame where the bytes bound counts two."""
+    usr = 0
+    if n and payload_words:
+        start = np.arange(n, dtype=np.int64) * (4 * w) + 4 * usr_off
+        lo, hi = start // SECTOR, (start + 4 * payload_words - 1) // SECTOR
+        # the ranges come in order, so a sector shared with earlier frames
+        # is at most the one the previous range ended in
+        prev = np.concatenate([[-1], hi[:-1]])
+        usr = int(np.maximum(hi - np.maximum(lo, prev + 1) + 1, 0).sum())
+    sectors = usr + -(-4 * n // SECTOR)
+    return dict(bytes=SECTOR * sectors, sectors=sectors, usr_sectors=usr)
+
+
 def put_sector_work(n: int, rows: np.ndarray, last: np.ndarray, *, w: int = SPEC.total_words,
                     usr_off: int = SPEC.offsets()["usr"],
                     payload_words: int = SPEC.payload_words) -> dict:
@@ -260,7 +284,7 @@ def put_passes_ms(put, flush) -> dict:
 
 
 def main() -> int:
-    from repro_torch.kernels.mailbox.kernel import PUT_DESIGN
+    from repro_torch.kernels.mailbox.kernel import PUT_DESIGN, SUM_DESIGN, sum_route
     from repro_torch.kernels.mailbox.ops import (indirect_put_cuda, indirect_put_ref,
                                                  server_sum_cuda, server_sum_ref)
 
@@ -276,11 +300,18 @@ def main() -> int:
     frames = frames_on(dev, sum_payloads(rng, n))
     usr = frames[:, usr_off:usr_off + pw]
     bound, by = bound_ms(sum_work(n))
+
+    def ssum():
+        return server_sum_cuda(frames, usr_off, pw)
+
     out["server_sum"] = dict(
         frames=n, bound_ms=bound, bound_by=by,
-        ms=timed_ms(lambda: server_sum_cuda(frames, usr_off, pw), 200, flush),
+        design=f"{SUM_DESIGN}, route {sum_route(frames, usr_off, pw)}",
+        sector_bound_ms=bound_ms(sum_sector_work(n, usr_off, pw))[0],
+        ms=timed_ms(ssum, 200, flush),
         plain_ms=timed_ms(lambda: server_sum_ref(frames, usr_off, pw), 50, flush),
-        library_ms=timed_ms(lambda: usr.sum(1, dtype=torch.int32), 200, flush))
+        library_ms=timed_ms(lambda: usr.sum(1, dtype=torch.int32), 200, flush),
+        warm_ms=timed_ms(ssum, 200, None))
 
     keys_usr = put_payloads(rng, n)
     frames = frames_on(dev, keys_usr)
@@ -317,6 +348,21 @@ def main() -> int:
         print(f"[bench] {name}: {n} frames: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    r = out["server_sum"]
+    print(f"[bench] server_sum {r['design']}: bound by 32-byte sectors "
+          f"{r['sector_bound_ms']:.4f} ms; warm {r['warm_ms']:.4f} ms", flush=True)
+    # the ring's latency frames, drained by the sum on the non-stash route:
+    # 16 frames of 64, 1,024 and 8,192 USR words, on a 16-byte boundary and
+    # (the scalar route) a copy 4 bytes off one
+    for words in PAYLOADS:
+        wide = ring_blocks(dev, rng, 1, 16, FrameSpec(got_slots=4, state_words=0,
+                                                      payload_words=words))[0]
+        off = torch.empty(wide.numel() + 4, dtype=torch.int32, device=dev)[1:]
+        off = off[:wide.numel()].view(wide.shape).copy_(wide)
+        r[f"{words}_words"] = {sum_route(f, usr_off, words): timed_ms(
+            lambda: server_sum_cuda(f, usr_off, words), 200, flush) for f in (wide, off)}
+    print(f"[bench] server_sum of 16 frames of {PAYLOADS} USR words, by route: "
+          f"{ {k: v for k, v in r.items() if k.endswith('_words')} }", flush=True)
     r = out["indirect_put"]
     print(f"[bench] indirect_put library with the rows in winning-frame order (the "
           f"kernel's): {r['library_frame_order_ms']:.4f} ms", flush=True)
@@ -332,6 +378,8 @@ def main() -> int:
                            **ring_times(blocks, flush, 50))
     print(f"[bench] ring_put {RING_RANKS} x {RING_FRAMES} frames: {out['ring_put']}",
           flush=True)
+    out["floor_ms"] = floor_ms(flush)
+    print(f"[bench] timer floor (a one-element fill_): {out['floor_ms']:.4f} ms", flush=True)
     print(json.dumps({"card": card_name(), **out}), flush=True)
     return 0
 

@@ -16,22 +16,41 @@
 // What bounds them on an H100: bytes; neither does arithmetic worth
 // counting. At the frame path of chip_smoke.py (2^20 frames of 32 words,
 // pw 16): the sum must read 64 B of USR and write 4 B per frame (~71 MB,
-// ~21 us at 3.35 TB/s); the put must read every key and, for each row's
-// last writer, its data, and write that row's 68 B (at most ~138 MB,
-// ~41 us); counted in the whole 32-byte sectors its random accesses move
-// (mailbox/bench.py, put_sector_work), ~205 MB, ~61 us. Neither uses a
-// tensor core.
+// ~21 us at 3.35 TB/s); counted in the 32-byte sectors the USR words span
+// (bytes 48-111 of each 128-byte frame: three sectors, mailbox/bench.py,
+// sum_sector_work), ~105 MB, ~31 us. The put must read every key and, for
+// each row's last writer, its data, and write that row's 68 B (at most
+// ~138 MB, ~41 us); counted in the whole 32-byte sectors its random
+// accesses move (put_sector_work), ~205 MB, ~61 us. Neither uses a tensor
+// core.
 //
 // Design:
-//   * Sum: one group of G lanes per frame, G = 16 when pw <= 16 (two frames
-//     per warp) else 32. Lane l loads USR words l, l + G, ... (neighbouring
-//     lanes on neighbouring words; scalar loads, since usr_off need not be
-//     16-byte aligned), accumulates in uint32 (signed overflow is undefined
-//     in C++, unsigned wraps, which is the int32 wrap of the reference) and
-//     the group reduces with __shfl_xor_sync. v2: each group takes 4 frames
-//     a round and issues all their loads before the first shuffle (v1 had
-//     one load in flight per lane). The TPU kernel pads N to a tile of 8
-//     rows (_drain_geometry); here any N, any pw, any usr_off.
+//   * Sum v3, two routes chosen by shape (the wrapper picks one and names
+//     it). Route "wide", for calls of few frames (at most 4 an SM, as the
+//     ring's latency frames) or of wide ones (more than 128 USR words)
+//     whose USR words sit on 16-byte boundaries (a 16-byte-aligned base;
+//     w, usr_off and pw multiples of 4): a CTA a frame, thread t loading
+//     16-byte chunks t, t + 256, ... with loads that skip L1, reduced over
+//     the CTA; at most 4 CTAs an SM, each walking its frames. Route
+//     "scalar" (v2) takes every other call, the frame path's many frames
+//     of 16 USR words among them: one group of G lanes per frame, G = 16
+//     when pw <= 16 else 32, lane l loading USR words l, l + G, ... (4-byte
+//     loads), each group taking 4 frames a round with all their loads
+//     issued before the first shuffle. Sums in uint32 on both routes
+//     (signed overflow is undefined in C++, unsigned wraps, which is the
+//     int32 wrap of the reference), reduced by __shfl_xor_sync. The TPU
+//     kernel pads N to a tile of 8 rows (_drain_geometry); here any N, any
+//     pw, any usr_off.
+//     What held v2 back on few or wide frames: a group of 16 or 32 lanes
+//     walks a frame alone, so 16 frames of 8,192 USR words kept 16 groups
+//     busy and the rest of the card idle (0.118 ms; the wide route 0.0074
+//     ms, mailbox bench, PERF.md). On the frame path (2^20 frames of 16
+//     USR words) v2 stays: a TMA stream of the USR columns (persistent
+//     CTAs, a producer thread, an 8-stage ring of boxes of 128 frames x
+//     16 words) and lane groups making 16-byte loads, 8 frames in flight a
+//     group, were both measured there and neither beat it, so both were
+//     dropped. It runs at ~61% of the bound of the 32-byte sectors the USR
+//     words span.
 //   * Put, last writer wins, in parallel (v3): three launches on one stream
 //     over a claim table sized by the frames, not by the server's table:
 //     H = the power of two >= 2 min(n, slots) entries of 8 bytes and a
@@ -76,10 +95,11 @@
 //
 // What a later design changes: the sum also runs fused into the receive
 // of the ring put (ring_put.cu, the TPU kernel's stash path); here it is
-// the drain of the non-stash route. The put's writes land in frame order,
-// random rows; writes in row order would save a DRAM row opening now and
-// then (the library's writes are a little faster in row order than in the
-// kernel's; PERF.md).
+// the drain of the non-stash route, and the drain itself could hand the
+// USR words to the sum without a round trip through device memory. The
+// put's writes land in frame order, random rows; writes in row order would
+// save a DRAM row opening now and then (the library's writes are a little
+// faster in row order than in the kernel's; PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,16 +107,16 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSumFrames = 4;   // frames per lane group per round of the sum
+constexpr int kSumFrames = 4;   // frames per lane group a round of the scalar sum
 
-// Frames [first, first + kPerWarp * kSumFrames) of a warp: group g of the
-// warp takes frames first + g, first + g + kPerWarp, ... All loads of a
-// round are issued before the first shuffle, so each lane has kSumFrames
-// loads in flight instead of one.
+// The scalar route (v2): frames [first, first + kPerWarp * kSumFrames) of a
+// warp: group g of the warp takes frames first + g, first + g + kPerWarp,
+// ... All loads of a round are issued before the first shuffle, so each
+// lane has kSumFrames loads in flight.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
-server_sum_kernel(const int32_t* __restrict__ frames, int32_t* __restrict__ sums,
-                  long long n, int w, int usr_off, int pw) {
+server_sum_scalar_kernel(const int32_t* __restrict__ frames, int32_t* __restrict__ sums,
+                         long long n, int w, int usr_off, int pw) {
   constexpr int kPerWarp = 32 / G;
   const int lane = threadIdx.x % G;
   const int group = (threadIdx.x % 32) / G;
@@ -125,6 +145,58 @@ server_sum_kernel(const int32_t* __restrict__ frames, int32_t* __restrict__ sums
       const long long f = first + u * kPerWarp + group;
       if (lane == 0 && f < n) sums[f] = static_cast<int32_t>(acc[u]);
     }
+  }
+}
+
+// The wide route (v3): calls of few frames (at most kWideCtasPerSm an SM,
+// as the ring's latency frames are) or of wide ones (more than 128 USR
+// words), on frames whose USR words sit on 16-byte boundaries. A CTA a
+// frame, thread t loading 16-byte chunks t, t + 256, ... four at a time,
+// reduced over the CTA; at most kWideCtasPerSm CTAs an SM, each walking
+// its frames. Lane groups would leave most of the card idle on the few
+// frames such a call brings, and a group's lanes would each walk a long
+// frame alone. The loads skip L1 (ld.global.nc.L1::no_allocate): every
+// byte is read once.
+constexpr int kWideCtasPerSm = 4;
+
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+server_sum_wide_kernel(const uint4* __restrict__ frames, int32_t* __restrict__ sums,
+                       long long n, int w4, int off4, int chunks) {
+  __shared__ uint32_t part[kThreads / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (long long f = blockIdx.x; f < n; f += gridDim.x) {   // the same for the whole CTA
+    const uint4* usr = frames + f * w4 + off4;
+    uint32_t acc = 0;
+    for (int c = threadIdx.x; c < chunks; c += 4 * kThreads) {
+      uint4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int cu = c + u * kThreads;
+        v[u] = cu < chunks ? load_stream(usr + cu) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc += v[u].x + v[u].y + v[u].z + v[u].w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) part[warp] = acc;
+    __syncthreads();
+    if (warp == 0) {
+      acc = lane < kThreads / 32 ? part[lane] : 0;
+#pragma unroll
+      for (int off = kThreads / 64; off > 0; off >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      }
+      if (lane == 0) sums[f] = static_cast<int32_t>(acc);
+    }
+    __syncthreads();                                         // part is reused
   }
 }
 
@@ -272,22 +344,36 @@ unsigned blocks_for(long long items, int per_block) {
 }  // namespace
 
 // C interface, loaded with ctypes. frames (n, w) int32 contiguous; sums (n,)
-// int32. Needs 0 <= usr_off, 0 <= pw, usr_off + pw <= w. Launches nothing
-// when n == 0. Returns a cudaError_t (0 = launched).
+// int32. Needs 0 <= usr_off, 0 <= pw, usr_off + pw <= w. route 1 ("wide")
+// needs frames on a 16-byte boundary and w, usr_off and pw multiples of 4,
+// pw >= 4; route 0 ("scalar") takes any frames. The caller picks the route
+// (kernel.py, sum_route). Launches nothing when n == 0. Returns a
+// cudaError_t (0 = launched).
 extern "C" int mailbox_server_sum(const void* frames, void* sums, long long n, int w,
-                                  int usr_off, int pw, void* stream) {
-  if (n < 0 || w <= 0 || usr_off < 0 || pw < 0 || usr_off + pw > w) {
+                                  int usr_off, int pw, int route, void* stream) {
+  if (n < 0 || w <= 0 || usr_off < 0 || pw < 0 || usr_off + pw > w
+      || (route != 0 && route != 1)
+      || (route == 1 && (reinterpret_cast<uintptr_t>(frames) % 16 != 0 || w % 4 != 0
+                         || usr_off % 4 != 0 || pw % 4 != 0 || pw < 4))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* f = static_cast<const int32_t*>(frames);
   int32_t* out = static_cast<int32_t*>(sums);
-  if (pw <= 16) {
-    server_sum_kernel<16><<<blocks_for(n, kThreads / 16 * kSumFrames), kThreads, 0, s>>>(
+  if (route == 1) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long most = static_cast<long long>(kWideCtasPerSm) * sms;
+    server_sum_wide_kernel<<<static_cast<unsigned>(n < most ? n : most), kThreads, 0, s>>>(
+        reinterpret_cast<const uint4*>(f), out, n, w / 4, usr_off / 4, pw / 4);
+  } else if (pw <= 16) {
+    server_sum_scalar_kernel<16><<<blocks_for(n, kThreads / 16 * kSumFrames), kThreads, 0, s>>>(
         f, out, n, w, usr_off, pw);
   } else {
-    server_sum_kernel<32><<<blocks_for(n, kThreads / 32 * kSumFrames), kThreads, 0, s>>>(
+    server_sum_scalar_kernel<32><<<blocks_for(n, kThreads / 32 * kSumFrames), kThreads, 0, s>>>(
         f, out, n, w, usr_off, pw);
   }
   return static_cast<int>(cudaGetLastError());

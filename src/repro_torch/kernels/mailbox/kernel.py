@@ -24,11 +24,16 @@ SUM_LAUNCHES = loader.LaunchCounter()
 PUT_LAUNCHES = loader.LaunchCounter()
 RING_LAUNCHES = loader.LaunchCounter()
 PUT_DESIGN = "v3: claim table in L2, first write at the claim, contested rows fixed"
+SUM_DESIGN = ("v3: a CTA a frame with 16-byte loads for few or wide frames, v2's lane groups "
+              "for many")
+SUM_ROUTES = ("scalar", "wide")  # the C interface's route codes, in order
+WIDE_CTAS_PER_SM = 4            # the wide route's CTAs an SM (mailbox.cu, kWideCtasPerSm)
+WIDE_WORDS = 128                # USR words past which a frame takes the wide route
 MAX_RANKS = 8                   # the portable cluster size: ranks on one card
 CHUNK_BYTES = 48 * 1024         # a ring mailbox buffer (two per rank, two staging)
 _ARGTYPES = {
-    # frames, sums; n; w, usr_off, pw
-    "mailbox_server_sum": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 3,
+    # frames, sums; n; w, usr_off, pw, route
+    "mailbox_server_sum": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 4,
     # frames, got, claims, table, heap; n; w, usr_off, pw; slots, claim entries
     "mailbox_indirect_put": ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                              + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2),
@@ -74,15 +79,36 @@ def _launch(name: str, *args):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def sum_route(frames: torch.Tensor, usr_off: int, payload_words: int,
+              sms: Optional[int] = None) -> str:
+    """The route the Server-Side Sum kernel takes for these frames:
+    ``wide`` (a CTA a frame) where the USR words sit on 16-byte boundaries
+    (frames on a 16-byte boundary; the row pitch, ``usr_off`` and
+    ``payload_words`` multiples of 4 words, at least 4) and the call has at
+    most ``WIDE_CTAS_PER_SM`` frames an SM or more than ``WIDE_WORDS`` USR
+    words a frame, else ``scalar``. ``sms``: the card's SM count (None:
+    read from ``frames``' device)."""
+    n, w = frames.shape
+    aligned = (frames.data_ptr() % 16 == 0 and w % 4 == 0 and usr_off % 4 == 0
+               and payload_words % 4 == 0 and payload_words >= 4)
+    if not aligned:
+        return "scalar"
+    if sms is None:
+        sms = torch.cuda.get_device_properties(frames.device).multi_processor_count
+    return "wide" if payload_words > WIDE_WORDS or n <= WIDE_CTAS_PER_SM * sms else "scalar"
+
+
 def server_sum_cuda(frames: torch.Tensor, usr_off: int, payload_words: int) -> torch.Tensor:
     """Server-Side Sum on the card: ``(N, W)`` int32 frames -> ``(N,)``
-    int32. Raises on inputs the kernel does not take and on a refused
-    launch."""
+    int32, by the route ``sum_route`` names. Raises on inputs the kernel
+    does not take and on a refused launch."""
     _check(frames, usr_off, payload_words)
     n, w = frames.shape
     sums = torch.empty((n,), dtype=torch.int32, device=frames.device)
     if n:
-        _launch("mailbox_server_sum", frames, sums, n, w, usr_off, payload_words)
+        route = sum_route(frames, usr_off, payload_words)
+        _launch("mailbox_server_sum", frames, sums, n, w, usr_off, payload_words,
+                SUM_ROUTES.index(route))
         SUM_LAUNCHES.count += 1
     return sums
 

@@ -5,7 +5,9 @@ machine with a CUDA card, it times the kernel and its plain version (the
 L2 cache flushed before every launch) against the bound at the shape
 mamba-130m's serving engine gives it (32 slots x chunk 32 x 1536 channels,
 N 16), with three fills: full prefill (every row 32 valid columns), decode
-(every row 1) and the check's mixed rows:
+(every row 1) and the check's mixed rows; each fill also with x copied 2
+bytes off a 16-byte boundary, which sends it down the direct route
+(``direct_ms``):
 
     PYTHONPATH=src python -m repro_torch.kernels.ssm_scan.bench
 """
@@ -16,7 +18,8 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
+from repro_torch.kernels.timing import (bound_ms, card_name, floor_ms, l2_flush_buffer,
+                                        timed_ms)
 
 # mamba-130m in the serving engine of chip_smoke.py: 32 slots, chunk 32,
 # inner 1536 (expand 2 x d_model 768), state 16
@@ -73,6 +76,7 @@ def needed_work(n_valid: np.ndarray, *, inner: int = INNER, state: int = STATE) 
 
 
 def main() -> int:
+    from repro_torch.kernels.ssm_scan.kernel import DESIGN, scan_route
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_cuda, ssm_scan_ref
 
     if not torch.cuda.is_available():
@@ -84,19 +88,29 @@ def main() -> int:
     rows = []
     for name, nv in fills.items():
         args = check_inputs(dev, nv)
+        x = args[3]
+        off = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+        off.copy_(x)
+        shifted = (*args[:3], off, *args[4:])
         work = needed_work(nv)
         bound, by = bound_ms(work)
         rows.append(dict(
             fill=name, valid_columns=work["cols"], bytes=work["bytes"], bound_ms=bound,
             bound_by=by, sfu_exp_ms=work["exps"] / SFU_EXP_PER_S * 1e3,
+            design=f"{DESIGN}, route {scan_route(*args[:4])}",
             ms=timed_ms(lambda: ssm_scan_cuda(*args), 200, flush),
+            direct_ms=timed_ms(lambda: ssm_scan_cuda(*shifted), 200, flush),
+            direct_route=scan_route(*shifted[:4]),
             plain_ms=timed_ms(lambda: ssm_scan_ref(*args), 10, flush)))
         r = rows[-1]
         print(f"[bench] ssm_scan {name}: {r['valid_columns']} valid columns of "
-              f"{SLOTS * CHUNK}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}; {work['bytes']} bytes), exponentials on "
-              f"the SFUs {r['sfu_exp_ms']:.4f} ms", flush=True)
-    print(json.dumps({"card": card_name(), "ssm_scan": rows}), flush=True)
+              f"{SLOTS * CHUNK}: kernel {r['ms']:.4f} ms ({r['direct_ms']:.4f} on x 2 bytes off, "
+              f"route {r['direct_route']}), plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms "
+              f"({by}; {work['bytes']} bytes), exponentials on the SFUs "
+              f"{r['sfu_exp_ms']:.4f} ms; {r['design']}", flush=True)
+    floor = floor_ms(flush)
+    print(f"[bench] timer floor (a one-element fill_): {floor:.4f} ms", flush=True)
+    print(json.dumps({"card": card_name(), "floor_ms": floor, "ssm_scan": rows}), flush=True)
     return 0
 
 

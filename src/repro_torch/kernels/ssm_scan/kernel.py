@@ -17,6 +17,9 @@ from repro_torch.kernels import loader
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 LAUNCHES = loader.LaunchCounter()
 STATE_DIMS = (4, 8, 16)          # the N the kernel is instantiated for
+DESIGN = ("v2: N/4 lanes a channel pair, longest rows first, 8-step stages in a 4-slot "
+          "ring, ex2.approx")
+ROUTES = ("direct", "tma")       # the C interface's route codes, in order
 _fn = None
 
 
@@ -24,8 +27,8 @@ def _load():
     global _fn
     if _fn is None:
         fn = loader.load(SOURCE).ssm_scan_bf16
-        # dt, x, b, c, a, h0, n_valid, y, h_last; B, S, I, N; stream
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # dt, x, b, c, a, h0, n_valid, y, h_last; B, S, I, N, route; stream
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -61,6 +64,18 @@ def _check(dt, b, c, x, a, h0, n_valid):
     if min(B, S, I) <= 0 or N not in STATE_DIMS:
         raise ValueError(f"need B, S, I > 0 and N in {STATE_DIMS}, got B={B} S={S} "
                          f"I={I} N={N}")
+    if B > 65535:
+        raise ValueError(f"at most 65535 rows (the grid's y), got B={B}")
+
+
+def scan_route(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, x: torch.Tensor) -> str:
+    """The route the kernel takes for these inputs: ``tma`` where its TMA
+    maps can take them (N 8 or 16, so a step of b is a multiple of 16
+    bytes; I a multiple of 8, so a step of dt and x is; dt, x, b and c on
+    16-byte boundaries), else ``direct`` (the CTA's threads load each
+    stage themselves)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (dt, x, b, c))
+    return "tma" if b.shape[-1] in (8, 16) and x.shape[-1] % 8 == 0 and aligned else "direct"
 
 
 def ssm_scan_cuda(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -86,7 +101,7 @@ def ssm_scan_cuda(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(),
                 h0.data_ptr(), n_valid.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                B, S, I, N, stream)
+                B, S, I, N, ROUTES.index(scan_route(dt, b, c, x)), stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: cudaError {rc}")
     LAUNCHES.count += 1

@@ -37,20 +37,30 @@ def bound_ms(work: dict):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def flush_l2(flush: torch.Tensor) -> None:
+    """Overwrite the L2 cache: write the first half of ``flush`` (from
+    ``l2_flush_buffer``), then read the second half, so the lines the write
+    left dirty are written back to device memory here and not inside the
+    next timed launch."""
+    half = flush.numel() // 2
+    flush[:half].zero_()
+    flush[half:].view(torch.int32).amax()
+
+
 def timed_ms(fn, iters: int, flush: Optional[torch.Tensor]) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after the L2 cache was overwritten (``flush=None``: warm,
-    nothing overwritten). A device-side spin before each start event keeps
-    the card busy while the host enqueues the call, so a launch shorter
-    than its Python call overhead is timed as the kernel, not as the
-    host's gap."""
+    CUDA events after the L2 cache was overwritten (``flush_l2``;
+    ``flush=None``: warm, nothing overwritten). A device-side spin before
+    each start event keeps the card busy while the host enqueues the call,
+    so a launch shorter than its Python call overhead is timed as the
+    kernel, not as the host's gap."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         if flush is not None:
-            flush.zero_()
+            flush_l2(flush)
         torch.cuda._sleep(1_000_000)
         s.record()
         fn()
@@ -59,18 +69,25 @@ def timed_ms(fn, iters: int, flush: Optional[torch.Tensor]) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def floor_ms(flush: Optional[torch.Tensor], iters: int = 200) -> float:
+    """``timed_ms`` of a one-element ``fill_``: what the timer reads for a
+    launch that does next to no work, the floor under every kernel time."""
+    one = torch.zeros(1, device=flush.device if flush is not None else "cuda")
+    return timed_ms(lambda: one.fill_(1.0), iters, flush)
+
+
 def kernel_ms(call, flush: torch.Tensor, kernels: dict, iters: int = 20) -> dict:
     """Mean device time (ms) per call of each kernel that ``call`` launches,
     ``{label: ms}`` for ``kernels`` = ``{label: a substring of the kernel's
-    name}``, over ``iters`` calls with the L2 cache overwritten before each,
-    read from ``torch.profiler``."""
+    name}``, over ``iters`` calls with the L2 cache overwritten before each
+    (``flush_l2``), read from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            flush.zero_()
+            flush_l2(flush)
             call()
         torch.cuda.synchronize()
     return {label: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
@@ -78,4 +95,5 @@ def kernel_ms(call, flush: torch.Tensor, kernels: dict, iters: int = 20) -> dict
 
 
 def l2_flush_buffer(device) -> torch.Tensor:
-    return torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)   # > 50 MB L2
+    """Two halves of 64 MiB, each larger than the 50 MB L2 (``flush_l2``)."""
+    return torch.empty(2 * 64 * 2 ** 20, dtype=torch.uint8, device=device)

@@ -28,12 +28,16 @@ port's dependencies:
   the same float32 sums in another order: the neighbouring bf16 value at
   most), empty rows exactly zero;
 * the selective-scan kernel against its plain version with channels not a
-  multiple of 128, N 4, 8 and 16, n_valid 0 / 1 / partial / full and one
-  step: ``y`` on valid columns within 1e-2 * (rms of its (row, column) +
+  multiple of its 64-channel tile (130, 200, 1,600), N 4, 8 and 16, 1, 9
+  and 40 steps (a ragged 8-step stage, more stages than the ring's 4
+  slots), n_valid 0 / 1 / partial / full, on both routes (TMA, and
+  direct where a map cannot take the shape or a base is off 16 bytes):
+  ``y`` on valid columns within 1e-2 * (rms of its (row, column) +
   |plain|) (the same float32 sum, with and without fused multiply-adds,
   rounded to bf16), zeros past n_valid, ``h_last`` within 1e-4 * (1 +
   |plain|), ``h0`` bit for bit on empty rows; a second launch from the
-  first one's ``h_last`` equals one launch over both chunks, bit for bit;
+  first one's ``h_last`` equals one launch over both chunks, bit for bit,
+  on both routes;
 * the ring put kernel against its plain version, exactly (integers): 1,
   2, 3 and 8 ranks, shifts 1, 2, n - 1 and n + 1, 1 frame to 20,000
   (53 chunks of 48 KiB, several to a cluster), WFE and poll, stashed (with
@@ -44,8 +48,12 @@ port's dependencies:
 * the Server-Side Sum and Indirect Put kernels against their plain
   versions, exactly (integers): N of 1, 33 and 1000, USR widths 1, 15,
   16, 64 and 1024 at an offset that is and one that is not 16-byte
-  aligned, sums that wrap, keys at int32's extremes and negative, tables
-  of 1 row (every frame on one row), 7 and 4096 rows, heap bases 0, -5
+  aligned, sums that wrap; the sum's two routes (wide: a CTA a frame;
+  scalar) at USR offsets 0, 12 and 13, widths 0, 1, 3, 4, 16, 17, 32, 64,
+  128, 300 and 8,192, N of 1, 7, 255 and 2^20 + 3, and frames 4 bytes off
+  a 16-byte boundary; keys at
+  int32's extremes and negative, tables of 1 row (every frame on one
+  row), 7 and 4096 rows, heap bases 0, -5
   and 2^31 - 1; collision-heavy puts (every frame on one row, all rows
   distinct, two rows in turn, one table row, one frame) at heap bases 0,
   slots - 1 and +-(2^31 - 1), bit for bit; 2^20 frames with hot keys,
@@ -432,6 +440,88 @@ def test_ssm_scan_kernel_continues_from_its_own_state(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 9, 40])
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("i", [130, 200, 1600])
+def test_ssm_scan_kernel_at_tile_and_stage_edges(cuda, i, n, s):
+    """Channels past the last 64-channel tile, one step, a ragged 8-step
+    stage and prefixes over more stages than the ring has slots, with
+    n_valid 0, 1, partial and full in one batch, on the route the shape
+    takes (TMA at I 200 and 1600 with N 8 and 16, direct otherwise)."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_route
+
+    args = _scan_case(np.random.default_rng(i + n + s), cuda, 4, s, i, n)
+    n_valid = torch.tensor([0, 1, max(s - 3, 1), s], dtype=torch.int32, device=cuda)
+    assert scan_route(*args[:4]) == ("tma" if n > 4 and i % 8 == 0 else "direct")
+    y, h = ssm_scan.ssm_scan_cuda(*args, n_valid)
+    yr, hr = ssm_scan.ssm_scan_ref(*args, n_valid)
+    torch.cuda.synchronize()
+    max_y, max_h, worst, bad = ssm_scan.compare(y, h, yr, hr, n_valid)
+    assert bad == 0, (max_y, max_h, worst)
+    valid = torch.arange(s, device=cuda)[None, :] < n_valid[:, None]
+    assert (torch.where(valid[:, :, None], 0.0, y.float()) == 0).all()
+    assert torch.equal(h[0], args[5][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [32, 33])
+def test_ssm_scan_kernel_ranks_rows_up_to_a_warp(cuda, b):
+    """Up to 32 rows the CTAs take the rows longest first (ties in row
+    order), past 32 in row order: both agree with the plain version."""
+    args = _scan_case(np.random.default_rng(b), cuda, b, 20, 256, 16)
+    n_valid = torch.from_numpy(np.random.default_rng(b).integers(0, 21, size=b)
+                               .astype(np.int32)).to(cuda)
+    n_valid[:3] = torch.tensor([20, 20, 0], dtype=torch.int32)
+    y, h = ssm_scan.ssm_scan_cuda(*args, n_valid)
+    yr, hr = ssm_scan.ssm_scan_ref(*args, n_valid)
+    torch.cuda.synchronize()
+    assert ssm_scan.compare(y, h, yr, hr, n_valid)[3] == 0
+    valid = torch.arange(20, device=cuda)[None, :] < n_valid[:, None]
+    assert (torch.where(valid[:, :, None], 0.0, y.float()) == 0).all()
+    empty = n_valid == 0
+    assert torch.equal(h[empty], args[5][empty])
+
+
+@pytest.mark.gpu
+def test_ssm_scan_direct_route_on_an_unaligned_base(cuda):
+    """x 2 bytes off a 16-byte boundary sends the engine's shape down the
+    direct route; it agrees with the plain version and with the TMA
+    route."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_route
+
+    dt, bb, cc, x, a, h0 = _scan_case(np.random.default_rng(3), cuda, 6, 32, 1536, 16)
+    n_valid = torch.tensor([0, 1, 7, 31, 32, 20], dtype=torch.int32, device=cuda)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert scan_route(dt, bb, cc, shifted) == "direct" and scan_route(dt, bb, cc, x) == "tma"
+    y, h = ssm_scan.ssm_scan_cuda(dt, bb, cc, shifted, a, h0, n_valid)
+    yt, ht = ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a, h0, n_valid)
+    yr, hr = ssm_scan.ssm_scan_ref(dt, bb, cc, x, a, h0, n_valid)
+    torch.cuda.synchronize()
+    assert ssm_scan.compare(y, h, yr, hr, n_valid)[3] == 0
+    assert torch.equal(y, yt) and torch.equal(h, ht)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_tma_route_continues_from_its_own_state(cuda):
+    """A 40-step scan split after 10 and after 17 steps (stage boundaries
+    of the halves fall elsewhere than the whole one's) equals the whole
+    scan bit for bit on the TMA route."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_route
+
+    dt, bb, cc, x, a, h0 = _scan_case(np.random.default_rng(2), cuda, 3, 40, 1536, 16)
+    assert scan_route(dt, bb, cc, x) == "tma"
+    y, h = ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a, h0)
+    for cut in (10, 17):
+        first = [t[:, :cut].contiguous() for t in (dt, bb, cc, x)]
+        rest = [t[:, cut:].contiguous() for t in (dt, bb, cc, x)]
+        y1, h1 = ssm_scan.ssm_scan_cuda(*first, a, h0)
+        y2, h2 = ssm_scan.ssm_scan_cuda(*rest, a, h1)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h), cut
+
+
+@pytest.mark.gpu
 def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     dt, bb, cc, x, a, h0 = _scan_case(np.random.default_rng(0), cuda, 2, 4, 64, 4)
     nv = torch.tensor([4, 1], dtype=torch.int32, device=cuda)
@@ -587,6 +677,75 @@ def test_indirect_put_kernel_hot_keys_deterministic(cuda):
     mailbox.indirect_put_ref(frames, t_ref, h_ref, spec.offsets()["usr"], 16, bench.HEAP_BASE)
     for table, heap in shards:
         assert torch.equal(table, t_ref) and torch.equal(heap, h_ref)
+
+
+def _sum_frames(dev, n, usr_off, pw, *, shift=0, seed=0):
+    """(n, W) int32 frames uniform over int32 (so sums wrap), W the
+    smallest multiple of 16 words past the USR words; ``shift`` words put
+    the base that far off a 16-byte boundary."""
+    w = -(-(usr_off + pw + 1) // 16) * 16
+    rng = np.random.default_rng(seed)
+    flat = torch.empty(n * w + 4, dtype=torch.int32, device=dev)
+    frames = flat[shift:shift + n * w].view(n, w)
+    frames.copy_(torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(n, w),
+                                               dtype=np.int64).astype(np.int32)))
+    return frames
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 255])
+@pytest.mark.parametrize("pw", [0, 1, 3, 4, 16, 17, 32, 64, 128, 300, 8192])
+@pytest.mark.parametrize("usr_off", [0, 12, 13])
+def test_server_sum_routes_bit_for_bit(cuda, usr_off, pw, n):
+    """Both routes of the Server-Side Sum against the plain version, bit
+    for bit: the wide route (a CTA a frame: calls this small) at offsets
+    and widths of 4 words, the scalar route at offset 13, widths 0, 1, 3
+    and 17, and on every case on a copy of the frames 4 bytes off a
+    16-byte boundary."""
+    from repro_torch.kernels.mailbox.kernel import sum_route
+
+    frames = _sum_frames(cuda, n, usr_off, pw, seed=n + pw)
+    off = _sum_frames(cuda, n, usr_off, pw, shift=1)
+    off.copy_(frames)
+    want = "wide" if usr_off % 4 == 0 and pw % 4 == 0 and pw >= 4 else "scalar"
+    assert sum_route(frames, usr_off, pw) == want and sum_route(off, usr_off, pw) == "scalar"
+    before = mailbox.SUM_LAUNCHES.count
+    sums = mailbox.server_sum_cuda(frames, usr_off, pw)
+    scalar = mailbox.server_sum_cuda(off, usr_off, pw)
+    torch.cuda.synchronize()
+    assert mailbox.SUM_LAUNCHES.count == before + 2
+    assert torch.equal(sums, mailbox.server_sum_ref(frames, usr_off, pw))
+    assert torch.equal(scalar, sums)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("usr_off,pw", [(0, 16), (12, 16), (13, 16), (0, 32), (12, 64),
+                                        (0, 128), (12, 300)])
+def test_server_sum_routes_past_a_million_frames(cuda, usr_off, pw):
+    """2^20 + 3 frames (a last round of 3, far more rounds than CTAs; the
+    scalar route at 16 and 32 lanes a frame, the wide route at 300 words),
+    bit for bit against the plain version."""
+    from repro_torch.kernels.mailbox.kernel import sum_route
+
+    frames = _sum_frames(cuda, 2 ** 20 + 3, usr_off, pw, seed=pw)
+    assert sum_route(frames, usr_off, pw) == ("wide" if pw > 128 else "scalar")
+    sums = mailbox.server_sum_cuda(frames, usr_off, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, mailbox.server_sum_ref(frames, usr_off, pw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pw", [16, 64])
+def test_server_sum_scalar_route_off_a_16_byte_base(cuda, pw):
+    """Frames whose base is 4 bytes off a 16-byte boundary take the scalar
+    route, bit for bit."""
+    from repro_torch.kernels.mailbox.kernel import sum_route
+
+    frames = _sum_frames(cuda, 1000, 12, pw, shift=1)
+    assert frames.data_ptr() % 16 == 4 and sum_route(frames, 12, pw) == "scalar"
+    sums = mailbox.server_sum_cuda(frames, 12, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, mailbox.server_sum_ref(frames, 12, pw))
 
 
 @pytest.mark.gpu

@@ -277,3 +277,51 @@ def test_wrappers_resolve_and_raise_on_the_cpu():
     assert torch.equal(arrivals[0], frames) and spins.tolist() == [[[0]]]
     assert torch.equal(sums[0, :, 0], mb.am_server_sum(frames, SPEC))
     assert (mb.SUM_LAUNCHES.count, mb.PUT_LAUNCHES.count, mb.RING_LAUNCHES.count) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("w,usr_off,pw", [(32, 12, 16), (32, 13, 16), (32, 0, 1),
+                                          (8, 2, 3), (7, 1, 5), (4, 0, 4), (300, 3, 290)])
+def test_sum_sector_work_counts_whole_sectors(w, usr_off, pw):
+    """``sum_sector_work`` against a byte-by-byte count over frames of ``w``
+    words: every 32-byte sector holding a USR byte, each once (frames of
+    fewer than 8 words share sectors), plus the sums' sectors."""
+    n = 37
+    usr = {b // 32 for f in range(n) for b in range((f * w + usr_off) * 4,
+                                                   (f * w + usr_off + pw) * 4)}
+    got = bench.sum_sector_work(n, usr_off, pw, w=w)
+    assert got["usr_sectors"] == len(usr)
+    assert got["sectors"] == len(usr) + -(-4 * n // 32) and got["bytes"] == 32 * got["sectors"]
+
+
+def test_sum_sector_work_at_the_frame_path():
+    """Three sectors a frame of USR (bytes 48-111) and the sums: 104.9 MB,
+    0.0313 ms at 3.35 TB/s, where the bytes bound counts 71.3 MB."""
+    from repro_torch.kernels.timing import bound_ms
+
+    n = bench.BANKS * bench.FRAMES_PER_BANK
+    got = bench.sum_sector_work(n)
+    assert got == {"bytes": 104_857_600, "sectors": 3 * n + n // 8, "usr_sectors": 3 * n}
+    assert round(bound_ms(got)[0], 4) == 0.0313
+    assert bench.sum_sector_work(0) == {"bytes": 0, "sectors": 0, "usr_sectors": 0}
+    assert bench.sum_sector_work(5, payload_words=0)["usr_sectors"] == 0
+
+
+@pytest.mark.parametrize("usr_off,pw,w,offset,sms,route", [
+    (12, 16, 32, 0, 132, "wide"), (0, 4, 16, 0, 132, "wide"), (12, 300, 320, 0, 132, "wide"),
+    (0, 8192, 8208, 0, 132, "wide"), (12, 16, 32, 0, 1, "scalar"), (12, 128, 144, 0, 1, "scalar"),
+    (12, 132, 144, 0, 1, "wide"), (13, 16, 32, 0, 132, "scalar"), (12, 17, 32, 0, 132, "scalar"),
+    (12, 0, 32, 0, 132, "scalar"), (0, 3, 4, 0, 132, "scalar"), (12, 16, 30, 0, 132, "scalar"),
+    (12, 16, 32, 1, 132, "scalar"), (12, 300, 320, 1, 1, "scalar")])
+def test_sum_route_follows_alignment_and_call_size(usr_off, pw, w, offset, sms, route):
+    """The Server-Side Sum takes its wide route (a CTA a frame) where the
+    USR words sit on 16-byte boundaries (base on 16 bytes; pitch, offset
+    and width multiples of 4 words, width at least 4) and the call has at
+    most 4 frames an SM (5 frames here: 132 SMs, or 1) or more than 128
+    USR words a frame, else its scalar route; ``offset`` words shift the
+    frames' base off a 16-byte boundary."""
+    from repro_torch.kernels.mailbox.kernel import sum_route
+
+    flat = torch.zeros(5 * w + 4, dtype=torch.int32)
+    base = flat.data_ptr() % 16 // 4
+    frames = flat[(4 - base) % 4 + offset:][:5 * w].view(5, w)
+    assert sum_route(frames, usr_off, pw, sms=sms) == route

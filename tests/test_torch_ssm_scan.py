@@ -101,3 +101,31 @@ def test_wrapper_resolves_kernel_kind_on_cpu():
     assert LAUNCHES.count == before
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         ssm_scan(*args, kernel="cuda")
+
+
+@pytest.mark.parametrize("i,n,offset,route", [
+    (1536, 16, 0, "tma"), (200, 8, 0, "tma"), (1600, 16, 0, "tma"), (130, 16, 0, "direct"),
+    (1536, 4, 0, "direct"), (1536, 16, 1, "direct")])
+def test_scan_route_follows_what_tma_can_take(i, n, offset, route):
+    """The scan takes its TMA route where its maps can take the inputs (N 8
+    or 16, I a multiple of 8, dt, x, b and c on 16-byte boundaries), else
+    its direct route; ``offset`` bf16 elements shift x's base off one."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_route
+
+    def aligned(shape, shift=0):
+        numel = int(np.prod(shape))
+        flat = torch.zeros(numel + 16, dtype=torch.bfloat16)
+        lead = (16 - flat.data_ptr() % 16) % 16 // 2
+        return flat[lead + shift:lead + shift + numel].view(shape)
+
+    b = aligned((2, 3, n))
+    assert scan_route(aligned((2, 3, i)), b, aligned((2, 3, n)),
+                      aligned((2, 3, i), offset)) == route
+
+
+def test_flush_l2_writes_one_half_and_reads_the_other():
+    from repro_torch.kernels.timing import flush_l2
+
+    flush = torch.full((64,), 7, dtype=torch.uint8)
+    flush_l2(flush)
+    assert (flush[:32] == 0).all() and (flush[32:] == 7).all()
