@@ -22,10 +22,14 @@ phase prints the seconds it took):
    engine shape (32 rows x 32 columns x 1536 channels, N 16) with 0, 1,
    partial and full valid columns per row; flash attention at gemma3-4b's
    prefill (8/4 heads of 256, 4,096 tokens, causal, window None and
-   1,024), granite-20b's heads (48/1 of 128, 2,304 tokens) (TMA + wgmma
-   v2) and an odd shape (2 x 32 heads of 80, 2,113 tokens from position
-   7; mma.sync v1), with the share of visited key tiles that take the
-   mask. Each is timed (kernel, plain version, and one PyTorch library
+   1,024), granite-20b's heads (48/1 of 128, 2,304 tokens), deepseek-v2-
+   lite-16b's MLA prefill (16 heads, q and k of 192, v of 128, 4,096
+   tokens) (TMA + wgmma v2) and an odd shape (2 x 32 heads of 80, 2,113
+   tokens from position 7; mma.sync v1), with the share of visited key
+   tiles that take the mask, the key tile and the backend that took the
+   library call; moe_jam again at deepseek's buckets (64 experts of 2048 x
+   1408, top-6 routed uniformly) at a decode tick of 8 slots (capacity 8)
+   and a 4,096-token prefill (capacity 480). Each is timed (kernel, plain version, and one PyTorch library
    yardstick the port never calls, where there is one) with the L2 cache
    flushed before every launch, as the serving loop finds it (written,
    then read, so no dirty line is left for the timed launch to write
@@ -65,8 +69,18 @@ phase prints the seconds it took):
    around exactly that run. The same requests are served again through
    ``kernel="ref"`` (identical schedule; greedy agreement reported), and
    one long prefill's last-position logits through the kernel and through
-   the plain version are each held against a float32 plain forward;
-8. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
+   the plain version are each held against a float32 plain forward; one
+   decode step and one long prefill are profiled (device busy and idle;
+   device ms of flash, moe_jam and the MoE dispatch's cumulative-sum scan);
+8. end to end, ``deepseek-v2-lite-16b`` on the slots backend, the same
+   geometry and traffic: ``Engine(cache="auto")`` must resolve to slots
+   and ``kernel`` to cuda (27 layers: MLA with a 512-wide compressed
+   cache and a 64-wide rope key, the first layer dense, 26 MoE layers of
+   64 experts top-6 plus 2 shared; 15.7 B random bf16 parameters); flash
+   (at q/k 192, v 128) must launch 27 x the long prompts and moe_jam 26 x
+   (prefills + decode ticks), nothing else; the replay through
+   ``kernel="ref"``, the float32 control and the profiles as in 7;
+9. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
    key-value shard of 2^26 rows (table 512 MiB, heap 3.75 GiB, heap base
    12,345 in its GOT) and two jams, Server-Side Sum and Indirect Put; 8
    deliveries of 2^20 frames of 128 B (a full 64-bank x 16,384-slot
@@ -91,7 +105,7 @@ phase prints the seconds it took):
    frames, v2's lane groups for many) with the route it took, the
    Indirect Put (v3: a claim table in L2) with each of its three passes'
    device time (``torch.profiler``);
-9. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
+10. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
    the mailbox in the receiver's shared memory): the kernel against its
    plain version, bit for bit, over 1, 2, 4 and 8 ranks, shifts 1, 2,
    n - 1 and n + 1, 1, 3, 385 (one more than a 48 KiB chunk) and 131,072
@@ -109,7 +123,7 @@ phase prints the seconds it took):
    the drain's Server-Side Sum, on its wide route, is also held against
    its plain version on every rank, bit for bit), and the 16 MiB-a-rank
    ring;
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -140,10 +154,12 @@ EXPERT_D, EXPERT_FF, EXPERT_TOKENS = 2048, 1024, 8
 # ``mailbox.bench.RING_RANKS`` x ``RING_FRAMES``)
 RING_GRID_RANKS = (1, 2, 4, 8)
 ARCHS = ("llama3.2-1b", "olmoe-1b-7b", "mamba-130m")
-# the slots engine (gemma3-4b): 16 FIFO requests, even rids long (past the
+# the slots engines (gemma3-4b, then deepseek-v2-lite-16b on the same
+# geometry and traffic): 16 FIFO requests, even rids long (past the
 # 2,048-token chunking threshold), odd rids short
 SLOTS_ARCH, SLOTS_SLOTS, SLOTS_MAX_LEN, SLOTS_REQUESTS = "gemma3-4b", 8, 4224, 16
 LONG_PROMPT, SHORT_PROMPT = (2112, 4096), (64, 1024)
+MLA_ARCH, MLA_FLASH_SHAPE = "deepseek-v2-lite-16b", "deepseek-v2-lite mla"
 # flash attention vs plain, per element: |kernel - plain| <= 2e-2 * (rms of
 # the element's (batch, head, position) row + |plain|) (``flash_attention.
 # compare``): bf16 outputs, and the kernel rounds the unnormalized p to bf16
@@ -183,7 +199,14 @@ LOGITS = {"llama3.2-1b": dict(atol=2e-2), "olmoe-1b-7b": dict(vs_f32=1.5),
 # each against the plain path in float32 on the same bf16 weights: the
 # kernel path's mean and rms |logit - logit_f32| within 1.5x the plain
 # path's (both paths round the same activations to bf16; only attention's
-# rounding differs)
+# rounding differs). deepseek-v2-lite-16b: its router turns bf16 noise
+# into discrete changes (at random weights ~28% of (token, layer) pairs of
+# a 3,800-token prefill pick another top-6 set than float32 does, on
+# either bf16 path, and a token whose set changed early changes again in
+# later layers), so one row's error is a draw of how many of its 26
+# layers flipped: the rule is olmoe's, over every position of the same
+# prefill, the kernel path's mean and median row error (max |logit -
+# logit_f32| over the vocab) within 1.5x the plain path's
 SLOTS_VS_F32 = 1.5
 
 
@@ -329,6 +352,74 @@ def check_moe_jam(torch, dev, cfg):
     }
 
 
+def check_moe_jam_deepseek(torch, dev, cfg):
+    """Phase 3 for the moe_jam expert FFN at deepseek-v2-lite-16b's buckets
+    on the slots engine: a decode tick of 8 slots (capacity 8) and a
+    4,096-token prefill (capacity 480), routed uniformly; returns its JSON
+    entry (without ``launches``), timed at the decode tick, with both
+    fills' numbers under ``shapes``."""
+    from repro_torch.kernels import moe_jam as mj
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.moe_jam import bench as mbench
+    from repro_torch.kernels.moe_jam.kernel import DESIGN
+    from repro_torch.models.moe import expert_capacity
+
+    m, ds = cfg.moe, mbench.DEEPSEEK
+    if (m.num_experts, cfg.d_model, m.expert_ff, m.top_k) != (
+            ds["experts"], ds["d_model"], ds["d_ff"], ds["top_k"]) or any(
+            expert_capacity(n, m) != c for n, c in mbench.DEEPSEEK_FILLS.values()) or (
+            mbench.DEEPSEEK_FILLS["decode"][0] != SLOTS_SLOTS
+            or mbench.DEEPSEEK_FILLS["prefill"][0] != LONG_PROMPT[1]):
+        raise AssertionError("the deepseek moe_jam check's shapes are not the engine's")
+    flush = timing.l2_flush_buffer(dev)
+    shapes = {}
+    for fill, (n, c) in mbench.DEEPSEEK_FILLS.items():
+        counts_np = mbench.deepseek_counts(n, c)
+        x, wg, wu, wd, counts = mbench.check_inputs(
+            dev, counts_np, (m.num_experts, c, cfg.d_model, m.expert_ff))
+        out = mj.moe_jam_ffn(x, wg, wu, wd, "silu", counts=counts)
+        ref = mj.moe_jam_ffn_ref(x, wg, wu, wd, "silu", counts=counts)
+        torch.cuda.synchronize()
+        max_err, worst, bad = mj.compare(out, ref, tol=MOE_TOL)
+        empty = ~(torch.arange(c, device=dev)[None, :] < counts[:, None])
+        nonzero_empty = int((out[empty] != 0).sum())
+        del out, ref
+        work = mbench.needed_work(counts_np, d_model=cfg.d_model, d_ff=m.expert_ff)
+        bound, bound_by = timing.bound_ms(work)
+        r = dict(max_abs_err=max_err, bound_ms=bound, bound_by=bound_by,
+                 ms=timing.timed_ms(lambda: mj.moe_jam_ffn_cuda(x, wg, wu, wd, counts=counts),
+                                    50, flush),
+                 plain_ms=timing.timed_ms(lambda: mj.moe_jam_ffn_ref(x, wg, wu, wd,
+                                                                     counts=counts), 5, flush),
+                 library_ms=timing.timed_ms(lambda: mbench.yardstick(x, wg, wu, wd), 20, flush),
+                 kept_rows=work["rows"], experts=work["experts"])
+        name = f"{fill} (C {c})"
+        shapes[name] = r
+        log(f"[kernel] moe_jam {cfg.name} {name}: {tuple(x.shape)} buckets, {work['rows']} kept "
+            f"rows in {work['experts']} experts (at most {int(counts_np.max())}); max |kernel - "
+            f"plain| = {max_err:.3e}, largest share of the allowed error {worst:.3f} ({bad} "
+            f"elements over {MOE_TOL} x (row rms + |plain|)); {nonzero_empty} non-zero "
+            f"elements in empty rows; timing (L2 flushed per launch): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, 3 x bmm + act {r['library_ms']:.4f} ms; needed "
+            f"bytes {work['bytes']} -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at "
+            f"3.35 TB/s; {work['flops']} flops -> "
+            f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; bound "
+            f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.3f} of it")
+        if bad or nonzero_empty:
+            raise AssertionError(f"moe_jam disagrees with the plain version ({name})")
+        del x, wg, wu, wd, counts
+    del flush
+    d = shapes[next(iter(shapes))]
+    return {
+        "name": "moe_jam", "route": "cuda", "path": cfg.name, "design": DESIGN,
+        "source": "src/repro_torch/kernels/moe_jam/csrc/moe_jam.cu",
+        "replaces": "src/repro/kernels/moe_jam/kernel.py:62",
+        "launches": None, "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": d["library_ms"], "shapes": shapes,
+    }
+
+
 def check_ssm_scan(torch, dev, cfg):
     """Phase 3 for the ssm_scan selective scan at mamba's engine shape;
     returns its JSON entry (without ``launches``)."""
@@ -386,20 +477,27 @@ def check_ssm_scan(torch, dev, cfg):
     }
 
 
-def check_flash(torch, dev, cfg):
+def check_flash(torch, dev, cfg, mla_cfg):
     """Phase 3 for flash attention at gemma3-4b's prefill (global and local
-    layers), granite-20b's heads and an odd shape; returns its JSON entry
-    (without ``launches``), timed on the gemma global layer, with every
-    shape's numbers under ``shapes``."""
+    layers), granite-20b's heads, an odd shape and deepseek-v2-lite-16b's
+    MLA prefill (q and k of 192, v of 128); returns two JSON entries
+    (without ``launches``): gemma3-4b's, timed on the gemma global layer
+    with the numbers of every shape but MLA's under ``shapes``, and
+    deepseek's, timed on the MLA shape."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import timing
     from repro_torch.kernels.flash_attention import bench as fbench
 
-    a = cfg.attention
+    a, m = cfg.attention, mla_cfg.attention
     gemma = fbench.SHAPES["gemma3-4b global"]
     if (gemma[1], gemma[2], gemma[5], fbench.SHAPES["gemma3-4b local"][7]) != (
             a.num_heads, a.num_kv_heads, a.head_dim, a.sliding_window):
         raise AssertionError("the flash check's gemma shape is not the model's")
+    mla = fbench.SHAPES[MLA_FLASH_SHAPE]
+    if (mla[1], mla[2], mla[3], mla[5], mla[9]) != (
+            m.num_heads, m.num_heads, LONG_PROMPT[1], m.qk_nope_head_dim + m.qk_rope_head_dim,
+            m.v_head_dim):
+        raise AssertionError("the flash check's MLA shape is not the model's")
     flush = timing.l2_flush_buffer(dev)
     shapes = {}
     for name, shape in fbench.SHAPES.items():
@@ -418,30 +516,37 @@ def check_flash(torch, dev, cfg):
         work = fbench.needed_work(shape)
         bound, bound_by = timing.bound_ms(work)
         walk = fa.tile_counts(q, k, v, **kw)
-        r = dict(design=walk["design"], max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+        design = f"{walk['design']}, {fa.key_tile(shape[5], shape[9])}-key tiles"
+        r = dict(design=design, max_abs_err=err, bound_ms=bound, bound_by=bound_by,
                  ms=timing.timed_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 50, flush),
                  plain_ms=timing.timed_ms(lambda: fa.mha_ref(q, k, v, **kw), 5, flush),
-                 library_ms=timing.timed_ms(fbench.yardstick(q, k, v, shape), 50, flush))
+                 library_ms=timing.timed_ms(fbench.yardstick(q, k, v, shape), 50, flush),
+                 library_backend=fbench.yardstick_backend(q, k, v, shape))
         shapes[name] = r
         log(f"[kernel] flash_attention {name} timing (L2 flushed per launch): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; "
-            f"{work['pairs']} visible pairs -> {work['flops']} flops -> "
-            f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['library_backend']}); {work['pairs']} visible pairs -> {work['flops']} flops "
+            f"-> {work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
             f"{work['bytes']} bytes -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms "
             f"at 3.35 TB/s; bound {bound:.5f} ms ({bound_by}), kernel at "
-            f"{bound / r['ms']:.3f} of it; {walk['design']}, the mask on {walk['masked']} of "
+            f"{bound / r['ms']:.3f} of it; {design}, the mask on {walk['masked']} of "
             f"{walk['visited']} visited tiles (counted by the kernel)")
         del q, k, v
     del flush
-    g = shapes["gemma3-4b global"]
-    return {
-        "name": "flash_attention", "route": "cuda", "path": SLOTS_ARCH, "design": g["design"],
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
-        "launches": None, "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
-        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"], "library_ms": g["library_ms"], "shapes": shapes,
-    }
+    entries = []
+    for path, names in ((SLOTS_ARCH, [n for n in shapes if n != MLA_FLASH_SHAPE]),
+                        (MLA_ARCH, [MLA_FLASH_SHAPE])):
+        g = shapes[names[0]]
+        entries.append({
+            "name": "flash_attention", "route": "cuda", "path": path, "design": g["design"],
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+            "launches": None, "max_abs_err": max(shapes[n]["max_abs_err"] for n in names),
+            "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+            "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+            "shapes": {n: shapes[n] for n in names},
+        })
+    return entries
 
 
 def serve(torch, dev, arch, *, forced_preemption=True, placement="local"):
@@ -675,7 +780,7 @@ def _step_profile(torch, engine, records):
     cache = {"layers": [{k: v.clone() for k, v in lc.items()} for lc in engine.cache["layers"]]}
     name, match = (("ssm_scan", "ssm_scan") if engine.cache_kind == "recurrent"
                    else ("paged attention", "paged_"))
-    b = _busy(torch, lambda: engine.bundle.fn(engine.params, cache, *args), match=match)
+    b = _busy(torch, lambda: engine.bundle.fn(engine.params, cache, *args), matches=(match,))
     nv = args[-1]
     idle = (f"idle {b['wall_ms'] - b['busy_ms']:.2f} ms (share "
             f"{1 - b['busy_ms'] / b['wall_ms']:.3f})" if b["busy_ms"] is not None
@@ -683,7 +788,7 @@ def _step_profile(torch, engine, records):
     log(f"[e2e] {engine.cfg.name} one mixed step (step {i}, n_valid {nv.tolist()}): host wall "
         f"{b['wall_ms']:.2f} ms (median of 3, no profiler); device busy {b['busy_ms']} ms over "
         f"{b['device_ops']} device operations (torch.profiler); {idle}; {name} "
-        f"{b['match_ms']} ms in {b['match_ops']} device operations ({engine.cfg.num_layers} "
+        f"{b['match_ms'][match]} ms in {b['match_ops'][match]} device operations ({engine.cfg.num_layers} "
         f"layers); most device time (ms): {b['top']}")
     del cache
     return b
@@ -844,19 +949,25 @@ def serve_slots(torch, dev, engine, prompts):
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def slots_path(torch, dev, card):
-    """Phase 7: gemma3-4b on the slots engine through the kernel, again
-    through the plain version, and one long prefill's logits against
-    float32; returns flash attention's launches on the main path."""
-    from repro_torch.configs.registry import get_config
+def slots_path(torch, dev, card, arch):
+    """Phases 7 and 8: ``arch`` on the slots engine through the kernels,
+    again through the plain versions, and one long prefill's logits against
+    float32; returns each kernel's launches on the main path. gemma3-4b
+    takes ``cache="slots"`` (its default backend is the paged pool),
+    deepseek-v2-lite-16b ``cache="auto"``, which must resolve to slots.
+    Flash attention must launch once per layer per long prompt, and for a
+    MoE stack moe_jam once per MoE layer per prefill and per decode tick;
+    no other kernel."""
+    from repro_torch.configs.registry import default_cache_backend, get_config
     from repro_torch.engine import Engine
     from repro_torch.models import attention
     from repro_torch.models.model import flat_block_types
 
-    cfg = get_config(SLOTS_ARCH)
+    cfg = get_config(arch)
+    cache = "auto" if default_cache_backend(cfg) == "slots" else "slots"
     prompts = slots_requests(cfg)
     n_long = sum(attention._use_chunked(len(p), len(p)) for p in prompts)
-    engine = Engine(cfg, device=dev, cache="slots", kernel="auto", slots=SLOTS_SLOTS,
+    engine = Engine(cfg, device=dev, cache=cache, kernel="auto", slots=SLOTS_SLOTS,
                     max_len=SLOTS_MAX_LEN)
     t0 = time.perf_counter()
     engine.load_params(seed=SEED)
@@ -864,26 +975,39 @@ def slots_path(torch, dev, card):
     params = engine.params
     n_params = sum(p.numel() for p in _leaves(params))
     a = cfg.attention
-    n_local = sum(bt == "attn_local" for bt in flat_block_types(cfg))
-    log(f"[slots] {cfg.name}: {cfg.num_layers} layers ({n_local} with window "
-        f"{a.sliding_window}), d_model {cfg.d_model}, {a.num_heads}/"
-        f"{a.num_kv_heads} heads of {a.head_dim}, vocab {cfg.vocab_size}, {n_params} bf16 "
-        f"params drawn in {time.perf_counter() - t0:.1f}s; cache=slots, kernel="
+    types = flat_block_types(cfg)
+    n_local = sum(bt == "attn_local" for bt in types)
+    n_moe = sum(bt.endswith("_moe") for bt in types)
+    if a.kind == "mla":
+        heads = (f"MLA: {a.num_heads} heads, q/k {a.qk_nope_head_dim} + {a.qk_rope_head_dim}, "
+                 f"v {a.v_head_dim}, kv_lora_rank {a.kv_lora_rank}; {n_moe} MoE layers of "
+                 f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + {cfg.moe.num_shared} "
+                 f"shared of {cfg.moe.expert_ff}")
+    else:
+        heads = (f"{n_local} with window {a.sliding_window}, {a.num_heads}/{a.num_kv_heads} "
+                 f"heads of {a.head_dim}")
+    log(f"[slots] {cfg.name}: {cfg.num_layers} layers ({heads}), d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {n_params} bf16 params drawn in "
+        f"{time.perf_counter() - t0:.1f}s; cache={cache} -> {engine.cache_kind}, kernel="
         f"{engine.kernel}, {engine.slots} slots of {engine.max_len}; prompts "
         f"{[len(p) for p in prompts]} ({n_long} past the threshold)")
-    if engine.kernel != "cuda":
-        raise AssertionError(f"auto resolved to {engine.kernel!r} on the card")
+    if engine.kernel != "cuda" or engine.cache_kind != "slots":
+        raise AssertionError(f"auto resolved to {engine.kernel!r}, cache "
+                             f"{engine.cache_kind!r} on the card")
     summary = serve_slots(torch, dev, engine, prompts)
     log(f"[slots] {json.dumps(summary)}")
     if summary["requests"] != len(prompts) or any(
             len(r.out_tokens) != MAX_NEW for r in engine.completed):
         raise AssertionError("not every request completed with all its tokens")
-    flash = summary["launches"]["flash_attention"]
-    if flash != cfg.num_layers * n_long or summary["engine_launches"] != {
-            "flash_attention": flash} or any(
-            n for k, n in summary["launches"].items() if k != "flash_attention"):
-        raise AssertionError(f"flash attention launched {flash} times for {n_long} long "
-                             f"prompts of {cfg.num_layers} layers: {summary['launches']}")
+    want = {"flash_attention": cfg.num_layers * n_long}
+    if n_moe:
+        want["moe_jam"] = n_moe * (len(prompts) + engine.ticks)
+    if summary["engine_launches"] != want or any(
+            n != want.get(k, 0) for k, n in summary["launches"].items()):
+        raise AssertionError(f"launches {summary['launches']} (engine "
+                             f"{summary['engine_launches']}), want {want}: {n_long} long "
+                             f"prompts of {cfg.num_layers} layers, {n_moe} MoE layers, "
+                             f"{len(prompts)} prefills, {engine.ticks} decode ticks")
     if summary["nonfinite_logits"] or summary["fabric_calls"] != {
             "engine.prefill": len(prompts), "engine.decode": engine.ticks}:
         raise AssertionError(f"non-finite logits or fabric calls off: {summary}")
@@ -891,27 +1015,32 @@ def slots_path(torch, dev, card):
     schedule = (list(engine.admission_log), engine.ticks, engine.cache["length"])
     step_tokens = torch.zeros((engine.slots, 1), dtype=torch.int32, device=dev)
     long_prompt = torch.from_numpy(prompts[0][None]).to(dev)
+    # device operations by name: the flash kernel, moe_jam's two passes,
+    # and the MoE dispatch's cumulative sum (a scan kernel)
+    matches = ("flash_wgmma", "moe_stream", "scan")
     for what, fn in (("decode step", lambda: engine.bundle.fn(params, engine.cache, step_tokens)),
                      (f"prefill of {len(prompts[0])} tokens",
                       lambda: engine.prefill_bundle.fn(params, long_prompt))):
-        b = _busy(torch, fn)
+        b = _busy(torch, fn, matches=matches)
         idle = (f"idle share {1 - b['busy_ms'] / b['wall_ms']:.3f}" if b["busy_ms"] is not None
                 else "device time not measured (the trace holds no device event)")
-        log(f"[slots] one {what}: host wall {b['wall_ms']:.2f} ms (median of 3, no profiler); "
-            f"device busy {b['busy_ms']} ms over {b['device_ops']} device operations "
-            f"(torch.profiler); {idle}; most device time (ms): {b['top']}")
+        log(f"[slots] {cfg.name} one {what}: host wall {b['wall_ms']:.2f} ms (median of 3, no "
+            f"profiler); device busy {b['busy_ms']} ms over {b['device_ops']} device "
+            f"operations (torch.profiler); {idle}; device ms (operations) of "
+            + ", ".join(f"{m!r} {b['match_ms'][m]} ({b['match_ops'][m]})" for m in matches)
+            + f"; most device time (ms): {b['top']}")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
 
-    ref = Engine(cfg, device=dev, cache="slots", kernel="ref", slots=SLOTS_SLOTS,
+    ref = Engine(cfg, device=dev, cache=cache, kernel="ref", slots=SLOTS_SLOTS,
                  max_len=SLOTS_MAX_LEN)
     ref.load_params(params)
     ref_summary = serve_slots(torch, dev, ref, prompts)
     if (list(ref.admission_log), ref.ticks, ref.cache["length"]) != schedule:
         raise AssertionError("the plain path's schedule differs")
-    if ref_summary["launches"]["flash_attention"]:
-        raise AssertionError("kernel='ref' launched the flash kernel")
+    if any(ref_summary["launches"].values()):
+        raise AssertionError(f"kernel='ref' launched kernels: {ref_summary['launches']}")
     agree = sum(t == u for r in ref.completed for t, u in zip(r.out_tokens, tokens[r.rid]))
     same = sum(r.out_tokens == tokens[r.rid] for r in ref.completed)
     first = sum(r.out_tokens[0] == tokens[r.rid][0] for r in ref.completed)
@@ -934,16 +1063,17 @@ def slots_path(torch, dev, card):
         f"{logits['flash_ms']:.1f} of a {logits['prefill_ms']:.1f} ms prefill of "
         f"{len(prompts[0])} tokens; peak {summary['peak_mem_gb']:.2f} GB; greedy agreement "
         f"{agree}/{SLOTS_REQUESTS * MAX_NEW} on {card}")
-    return flash
+    return summary["launches"]
 
 
-def _busy(torch, fn, repeats: int = 3, match=None):
+def _busy(torch, fn, repeats: int = 3, matches=()):
     """Host wall ms of one synchronized call of ``fn`` (the median of
     ``repeats``, no profiler) and the card's busy ms in one more call traced
     by ``torch.profiler``: the summed durations of the kernels, copies and
     fills it ran (one stream, so they do not overlap; None when the trace
     holds no device event), the six device operations that took most of
-    it, by name, and the ms and count of those whose name holds ``match``."""
+    it, by name, and for each of ``matches`` the ms and count of those whose
+    name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -963,23 +1093,38 @@ def _busy(torch, fn, repeats: int = 3, match=None):
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    hits = [e for e in ops if match is not None and match in e.name]
+    hits = {m: [e for e in ops if m in e.name] for m in matches}
     return dict(wall_ms=float(np.median(walls)), busy_ms=busy, device_ops=len(ops),
                 top=[(name[:60], round(ms, 3)) for name, ms in top],
-                match_ms=sum(e.time_range.elapsed_us() for e in hits) / 1e3 if ops else None,
-                match_ops=len(hits))
+                match_ms={m: sum(e.time_range.elapsed_us() for e in h) / 1e3 if ops else None
+                          for m, h in hits.items()},
+                match_ops={m: len(h) for m, h in hits.items()})
 
 
 def _slots_logits(torch, dev, cfg, params, prompt):
-    """One long prefill's last-position logits through the kernel (bf16),
-    the plain version (bf16) and the plain version in float32 (the same
-    bf16 weights): the kernel path must be as close to float32 as the
-    plain path (``SLOTS_VS_F32``). Also times the flash launches inside the
-    kernel path's prefill with CUDA events."""
-    from repro_torch.models import attention
+    """One long prefill's logits through the kernels (bf16), the plain
+    versions (bf16) and the plain versions in float32 (the same bf16
+    weights): the kernel path must be as close to float32 as the plain
+    path (``SLOTS_VS_F32``), at the last position (the engine's prefill
+    step), or for a MoE stack over every position (the same forward with
+    the head on every position), where it also counts the (token, layer)
+    pairs whose top-k experts differ from float32's on each path. Also
+    times the flash launches inside the kernel path's prefill with CUDA
+    events."""
+    from repro_torch.models import attention, moe
+    from repro_torch.models import model as model_lib
     from repro_torch.runtime.steps import make_prefill_step
 
+    rows_rule = cfg.moe is not None
     tokens = torch.from_numpy(prompt[None]).to(dev)
+
+    def every_position(kernel, dtype):
+        @torch.no_grad()
+        def fn(p, t):
+            cache = model_lib.init_cache(cfg, 1, len(prompt), dtype=dtype, device=dev)
+            return model_lib.forward(cfg, p, t, cache=cache, paged_kernel=kernel,
+                                     compute_dtype=dtype)[0][0]
+        return fn
     inner, flash_events = attention.flash_attention, []
 
     def timed_flash(*args, **kw):
@@ -990,50 +1135,97 @@ def _slots_logits(torch, dev, cfg, params, prompt):
         flash_events.append(ev)
         return out
 
-    outs = {}
+    route, routes = moe.route_topk, []
+
+    def recorded_route(*args):
+        r = route(*args)
+        routes.append(torch.sort(r.expert_ids, dim=-1).values)
+        return r
+
+    outs, experts = {}, {}
     for name, kernel, dtype in (("cuda", "cuda", torch.bfloat16), ("ref", "ref", torch.bfloat16),
                                 ("f32", "ref", torch.float32)):
-        step = make_prefill_step(cfg, max_len=len(prompt), kernel=kernel, device=dev,
-                                 compute_dtype=dtype)
+        if rows_rule:
+            run = every_position(kernel, dtype)
+        else:
+            step = make_prefill_step(cfg, max_len=len(prompt), kernel=kernel, device=dev,
+                                     compute_dtype=dtype)
+            run = lambda p, t, step=step: step.fn(p, t)[0]     # (1, V): the last position
         attention.flash_attention = timed_flash if name == "cuda" else inner
         try:
-            step.fn(params, tokens)                 # warm
+            run(params, tokens)                     # warm
             flash_events.clear()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            outs[name] = step.fn(params, tokens)[0][0].float()
+            outs[name] = run(params, tokens).float()
             torch.cuda.synchronize()
             if name == "cuda":
                 prefill_ms = (time.perf_counter() - t) * 1e3
                 flash_ms = sum(s.elapsed_time(e) for s, e in flash_events)
                 n_flash = len(flash_events)
+            if rows_rule:                           # the same forward once more, routes kept
+                routes.clear()
+                moe.route_topk = recorded_route
+                run(params, tokens)
+                experts[name] = torch.stack(routes)          # (MoE layers, tokens, k)
         finally:
             attention.flash_attention = inner
-    f32 = outs["f32"]
-    err = {k: (outs[k] - f32).abs() for k in ("cuda", "ref")}
+            moe.route_topk = route
+    f32 = outs["f32"][-1]
+    err = {k: (outs[k][-1] - f32).abs() for k in ("cuda", "ref")}
     out = dict(prompt=len(prompt), prefill_ms=prefill_ms, flash_ms=flash_ms, flash_calls=n_flash,
                **{f"{s}_{k}": v for k in ("cuda", "ref") for s, v in (
                    ("mean", err[k].mean().item()), ("rms", err[k].pow(2).mean().sqrt().item()),
                    ("max", err[k].max().item()))},
-               argmax=[int(outs[k].argmax()) for k in ("cuda", "ref", "f32")],
-               max_cuda_vs_ref=(outs["cuda"] - outs["ref"]).abs().max().item())
+               argmax=[int(outs[k][-1].argmax()) for k in ("cuda", "ref", "f32")],
+               max_cuda_vs_ref=(outs["cuda"][-1] - outs["ref"][-1]).abs().max().item())
     k = SLOTS_VS_F32
-    out["ok"] = (out["mean_cuda"] <= k * out["mean_ref"] and out["rms_cuda"] <= k * out["rms_ref"]
-                 and n_flash == cfg.num_layers)
-    log(f"[slots] one long prefill ({len(prompt)} tokens), last-position logits (max |logit| "
-        f"{f32.abs().max().item():.3f}) against the float32 plain forward: kernel path mean "
-        f"{out['mean_cuda']:.5f}, rms {out['rms_cuda']:.5f}, max {out['max_cuda']:.5f}; plain "
-        f"path mean {out['mean_ref']:.5f}, rms {out['rms_ref']:.5f}, max {out['max_ref']:.5f} "
-        f"(kernel path within {k}x of it required); argmax cuda/ref/f32 {out['argmax']}; max "
-        f"|cuda - ref| {out['max_cuda_vs_ref']:.5f}; {n_flash} flash launches took "
-        f"{flash_ms:.2f} of the kernel path's {prefill_ms:.2f} ms")
+    if rows_rule:
+        rows = {n: (outs[n] - outs["f32"]).abs().amax(-1) for n in ("cuda", "ref")}
+        out.update({f"rows_{s}_{n}": v for n in ("cuda", "ref") for s, v in (
+            ("mean", rows[n].mean().item()), ("median", rows[n].median().item()))})
+        out["rows_argmax_equal"] = [int((outs[n].argmax(-1) == outs["f32"].argmax(-1)).sum())
+                                    for n in ("cuda", "ref")]
+        flips = {n: (experts[n] != experts["f32"]).any(-1) for n in ("cuda", "ref")}
+        out["route_flip_share"] = [flips[n].float().mean().item() for n in ("cuda", "ref")]
+        out["last_token_flipped_layers"] = [int(flips[n][:, -1].sum()) for n in ("cuda", "ref")]
+        steady = {n: ~flips[n].any(0) for n in ("cuda", "ref")}
+        out["rows_unflipped"] = [int(steady[n].sum()) for n in ("cuda", "ref")]
+        out["rows_unflipped_mean"] = [rows[n][steady[n]].mean().item() for n in ("cuda", "ref")]
+        out["ok"] = (out["rows_mean_cuda"] <= k * out["rows_mean_ref"]
+                     and out["rows_median_cuda"] <= k * out["rows_median_ref"])
+        rule = (f"; over all {len(prompt)} positions, row error max |logit - logit_f32|: "
+                f"kernel path mean {out['rows_mean_cuda']:.5f}, median "
+                f"{out['rows_median_cuda']:.5f}; plain path mean {out['rows_mean_ref']:.5f}, "
+                f"median {out['rows_median_ref']:.5f} (kernel path within {k}x of it "
+                f"required); argmax equal to float32's {out['rows_argmax_equal'][0]} kernels, "
+                f"{out['rows_argmax_equal'][1]} plain; (token, layer) pairs whose top-"
+                f"{cfg.moe.top_k} experts differ from float32's: {out['route_flip_share'][0]:.4f} "
+                f"kernels, {out['route_flip_share'][1]:.4f} plain; of the last token's "
+                f"{experts['f32'].shape[0]} MoE layers {out['last_token_flipped_layers'][0]} "
+                f"kernels, {out['last_token_flipped_layers'][1]} plain; rows with no such "
+                f"change {out['rows_unflipped'][0]} / {out['rows_unflipped'][1]}, their mean row "
+                f"error {out['rows_unflipped_mean'][0]:.5f} / {out['rows_unflipped_mean'][1]:.5f}")
+        where = "logits at every position (head on each)"
+    else:
+        out["ok"] = (out["mean_cuda"] <= k * out["mean_ref"]
+                     and out["rms_cuda"] <= k * out["rms_ref"])
+        rule, where = f" (kernel path within {k}x of it required)", "last-position logits"
+    out["ok"] = out["ok"] and n_flash == cfg.num_layers
+    log(f"[slots] one long prefill ({len(prompt)} tokens), {where} (max |logit| "
+        f"{f32.abs().max().item():.3f} at the last) against the float32 plain forward: at the "
+        f"last position kernel path mean {out['mean_cuda']:.5f}, rms {out['rms_cuda']:.5f}, "
+        f"max {out['max_cuda']:.5f}; plain path mean {out['mean_ref']:.5f}, rms "
+        f"{out['rms_ref']:.5f}, max {out['max_ref']:.5f}{rule}; last-position argmax "
+        f"cuda/ref/f32 {out['argmax']}; max |cuda - ref| {out['max_cuda_vs_ref']:.5f}; "
+        f"{n_flash} flash launches took {flash_ms:.2f} of the kernel path's {prefill_ms:.2f} ms")
     if not out["ok"]:
         raise AssertionError(f"the kernel path is further from float32 than the plain path: {out}")
     return out
 
 
 def frame_path(torch, dev, card):
-    """Phase 8: the Two-Chains frame path at a key-value shard's size;
+    """Phase 9: the Two-Chains frame path at a key-value shard's size;
     returns the JSON entries of its two kernels (launches filled in)."""
     from repro_torch.core import mailbox as mbx
     from repro_torch.kernels import mailbox as mk
@@ -1193,7 +1385,7 @@ def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, wo
 
 
 def ring_path(torch, dev, card):
-    """Phase 9: the one-sided ring put (B7), ranks as the CTAs of a cluster;
+    """Phase 10: the one-sided ring put (B7), ranks as the CTAs of a cluster;
     returns its JSON entry (launches from the Two-Chains ring)."""
     from repro_torch.core.message import FrameSpec
     from repro_torch.kernels import mailbox as mk
@@ -1541,8 +1733,10 @@ def main() -> int:
                                                             get_config("olmoe-1b-7b"))
         entries[("ssm_scan", "mamba-130m")] = check_ssm_scan(torch, dev,
                                                              get_config("mamba-130m"))
-        entries[("flash_attention", SLOTS_ARCH)] = check_flash(torch, dev,
-                                                              get_config(SLOTS_ARCH))
+        entries[("flash_attention", SLOTS_ARCH)], entries[("flash_attention", MLA_ARCH)] = \
+            check_flash(torch, dev, get_config(SLOTS_ARCH), get_config(MLA_ARCH))
+        torch.cuda.empty_cache()
+        entries[("moe_jam", MLA_ARCH)] = check_moe_jam_deepseek(torch, dev, get_config(MLA_ARCH))
         torch.cuda.empty_cache()
 
     for arch in ARCHS:
@@ -1564,8 +1758,14 @@ def main() -> int:
             del engine, records, events
             gc.collect()              # request handles and the engine form cycles
             torch.cuda.empty_cache()
-    with Phase(f"end to end {SLOTS_ARCH} (slots)"):
-        entries[("flash_attention", SLOTS_ARCH)]["launches"] = slots_path(torch, dev, card)
+    for arch in (SLOTS_ARCH, MLA_ARCH):
+        with Phase(f"end to end {arch} (slots)"):
+            launches = slots_path(torch, dev, card, arch)
+            for (kname, path), entry in entries.items():
+                if path == arch:
+                    entry["launches"] = launches[kname]
+            gc.collect()
+            torch.cuda.empty_cache()
     with Phase("frame path"):
         frame_entries = frame_path(torch, dev, card)
         gc.collect()

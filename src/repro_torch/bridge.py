@@ -10,7 +10,10 @@ repeat, the pattern in order). Top level: ``embed`` (V, d),
 No transposition is made anywhere: every weight keeps its JAX layout
 (``wq`` (d, H, D), ``wk``/``wv`` (d, K, D), ``wo`` (H, D, d), ``w_gate``/
 ``w_up`` (d, f), ``w_down`` (f, d), ``in_proj`` (d, 2 inner), ``conv_w``
-(W, inner), ``a_log`` (inner, N)). Dtypes are kept; bfloat16 arrays are
+(W, inner), ``a_log`` (inner, N); MLA's ``wq`` (d, H, dn + dr), ``w_dkv``
+(d, r + dr), ``kv_norm`` (r,), ``w_uk`` (r, H, dn), ``w_uv`` (r, H, dv),
+``wo`` (H, dv, d); the shared experts' ``ws_gate``/``ws_up`` (d, f_s),
+``ws_down`` (f_s, d)). Dtypes are kept; bfloat16 arrays are
 moved bit for bit. The bridge takes numpy only and imports no JAX.
 
 ``recurrent_cache_from_jax`` and ``slot_cache_from_jax`` do the same for a
@@ -87,9 +90,10 @@ def recurrent_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
 def slot_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
                         device=None) -> Dict[str, Any]:
     """``repro.models.model.init_cache`` or a contiguous forward's new cache
-    (``{"length", "groups": [[{"k", "v"}]]}``, leaves with a leading repeats
-    axis when the group repeats), passed as numpy arrays -> the port's
-    ``{"length": int, "layers": [{"k", "v"}]}``."""
+    (``{"length", "groups": [[{"k", "v"}]]}``, ``{"c_kv", "k_rope"}`` for an
+    MLA layer, leaves with a leading repeats axis when the group repeats),
+    passed as numpy arrays -> the port's ``{"length": int, "layers":
+    [{"k", "v"} or {"c_kv", "k_rope"}]}``."""
     return {"length": int(np_cache["length"]),
             "layers": [_tree_to_torch(t, device)
                        for t in flatten_groups(np_cache["groups"], cfg)]}

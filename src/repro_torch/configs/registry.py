@@ -8,11 +8,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import (gemma3_4b, granite_20b, llama32_1b, mamba_130m,
-                                 olmoe_1b_7b, stablelm_3b)
+from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b, granite_20b, llama32_1b,
+                                 mamba_130m, olmoe_1b_7b, stablelm_3b)
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m, gemma3_4b, stablelm_3b, granite_20b)
+_MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m, gemma3_4b, stablelm_3b, granite_20b,
+            deepseek_v2_lite_16b)
 
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.config for m in _MODULES}
 SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MODULES}
@@ -20,7 +21,6 @@ SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MOD
 # archs the JAX package has and the port does not serve yet -> the ROADMAP
 # queue-A item that ports them
 _LATER = {
-    "deepseek-v2-lite-16b": "A16",
     "xlstm-1.3b": "A9", "hymba-1.5b": "A10",
     "qwen2-vl-72b": "A10", "hubert-xlarge": "A10",
 }
@@ -41,9 +41,10 @@ def default_cache_backend(cfg: ModelConfig) -> str:
 
     Plain-GQA archs, MoE ones included, take the paged pool (the slots
     backend serves them too, by ``cache="slots"``); pure-SSM stacks the
-    recurrent backend (constant-size state per slot). The archs the JAX
-    package sends to slots by default are not ported: MLA stacks (ROADMAP
-    item A16), hybrid attention+SSM stacks and mrope archs (A10); nor are
+    recurrent backend (constant-size state per slot); MLA stacks, whose
+    compressed latents the paged pool cannot hold, the slots backend. Of
+    the other archs the JAX package sends to slots, hybrid attention+SSM
+    stacks and mrope archs are not ported (ROADMAP item A10); nor are
     xLSTM stacks (the rest of A9).
     """
     if cfg.xlstm is not None:
@@ -53,11 +54,10 @@ def default_cache_backend(cfg: ModelConfig) -> str:
     if cfg.parallel_ssm_attn:
         raise NotImplementedError("hybrid attention+SSM stacks are ROADMAP item A10")
     a = cfg.attention
-    if a is not None and a.kind == "mla":
-        raise NotImplementedError("MLA attention (MLACache, absorbed decode) is ROADMAP "
-                                  "item A16")
     if a is not None and a.mrope:
         raise NotImplementedError("mrope archs are ROADMAP item A10")
+    if a is not None and a.kind == "mla":
+        return "slots"
     return "paged"
 
 

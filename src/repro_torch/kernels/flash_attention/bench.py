@@ -12,8 +12,10 @@ kernel counts them on the device (``kernel.tile_counts``):
 The shapes: gemma3-4b's prefill of 4,096 tokens (8 query heads over 4 kv
 heads of 256), causal, on a global layer (no window) and on a local one
 (window 1,024); granite-20b's heads (48 over 1 of 128) at 2,304 tokens;
-and an odd one, 32 heads of 80 (MHA) at 2,113 tokens, batch 2, queries
-starting at position 7 of 2,113 keys.
+an odd one, 32 heads of 80 (MHA) at 2,113 tokens, batch 2, queries
+starting at position 7 of 2,113 keys; and deepseek-v2-lite-16b's MLA
+prefill of 4,096 tokens, 16 heads (MHA) with q and k of 192 and v of 128,
+causal.
 """
 from __future__ import annotations
 
@@ -25,12 +27,14 @@ import torch
 
 from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
 
-# name -> (B, Hq, Hkv, S, T, D, causal, window, q_offset)
+# name -> (B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv): q and k of
+# width D, v and the output of width Dv
 SHAPES = {
-    "gemma3-4b global": (1, 8, 4, 4096, 4096, 256, True, None, 0),
-    "gemma3-4b local": (1, 8, 4, 4096, 4096, 256, True, 1024, 0),
-    "granite-20b": (1, 48, 1, 2304, 2304, 128, True, None, 0),
-    "odd": (2, 32, 32, 2113, 2113, 80, True, None, 7),
+    "gemma3-4b global": (1, 8, 4, 4096, 4096, 256, True, None, 0, 256),
+    "gemma3-4b local": (1, 8, 4, 4096, 4096, 256, True, 1024, 0, 256),
+    "granite-20b": (1, 48, 1, 2304, 2304, 128, True, None, 0, 128),
+    "odd": (2, 32, 32, 2113, 2113, 80, True, None, 7, 80),
+    "deepseek-v2-lite mla": (1, 16, 16, 4096, 4096, 192, True, None, 0, 128),
 }
 
 
@@ -38,15 +42,17 @@ def check_inputs(device, shape, seed: int = 0):
     """(q, k, v) bf16 on ``device`` from numpy seed ``seed``: standard
     normals, so the scaled scores of a row spread over ~1 (head dim's
     square root divides them). q is a (B, Hq, S, D) view of a (B, S, Hq, D)
-    tensor, as the model passes its projections; k and v likewise."""
+    tensor, as the model passes its projections; k and v (of width Dv)
+    likewise."""
     B, Hq, Hkv, S, T, D = shape[:6]
+    Dv = shape[9]
     rng = np.random.default_rng(seed)
 
     def bf16(*dims):
         x = rng.standard_normal(dims, dtype=np.float32)
         return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16).permute(0, 2, 1, 3)
 
-    return bf16(B, S, Hq, D), bf16(B, T, Hkv, D), bf16(B, T, Hkv, D)
+    return bf16(B, S, Hq, D), bf16(B, T, Hkv, D), bf16(B, T, Hkv, Dv)
 
 
 def visible_pairs(s: int, t: int, *, causal: bool, window: Optional[int],
@@ -60,12 +66,13 @@ def visible_pairs(s: int, t: int, *, causal: bool, window: Optional[int],
 
 def needed_work(shape) -> dict:
     """The bytes and operations one call needs, for its bound: q, k, v read
-    once and the output written once (bf16); 4 D flops per visible pair and
-    query head (2 D for q . k, 2 D for p . v), on the tensor cores."""
-    B, Hq, Hkv, S, T, D, causal, window, q_offset = shape
+    once and the output written once (bf16; q and k of width D, v and the
+    output of width Dv); 2 (D + Dv) flops per visible pair and query head
+    (2 D for q . k, 2 Dv for p . v), on the tensor cores."""
+    B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
     pairs = B * Hq * visible_pairs(S, T, causal=causal, window=window, q_offset=q_offset)
-    nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * T * D)
-    return dict(bytes=nbytes, flops=4 * D * pairs, pairs=pairs)
+    nbytes = 2 * (B * Hq * S * (D + Dv) + B * Hkv * T * (D + Dv))
+    return dict(bytes=nbytes, flops=2 * (D + Dv) * pairs, pairs=pairs)
 
 
 def yardstick(q, k, v, shape):
@@ -74,13 +81,30 @@ def yardstick(q, k, v, shape):
     boolean (S, T) mask."""
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
-    B, Hq, Hkv, S, T, D, causal, window, q_offset = shape
+    B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = dict(enable_gqa=Hq != Hkv)
     if causal and window is None and q_offset == 0 and S == T:
         return lambda: sdpa(q, k, v, is_causal=True, **gqa)
     mask = visible_mask(S, T, causal=causal, window=window, q_offset=q_offset, device=q.device)
     return lambda: sdpa(q, k, v, attn_mask=mask, **gqa)
+
+
+def yardstick_backend(q, k, v, shape) -> str:
+    """The backend PyTorch's dispatch picks for ``yardstick``'s call on
+    these tensors (``FLASH_ATTENTION``, ``EFFICIENT_ATTENTION``,
+    ``CUDNN_ATTENTION`` or ``MATH``)."""
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
+    plain = causal and window is None and q_offset == 0 and S == T
+    mask = None if plain else visible_mask(S, T, causal=causal, window=window,
+                                           q_offset=q_offset, device=q.device)
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, is_causal=plain,
+                                     enable_gqa=Hq != Hkv)
+    return {b.value: name for name, b in SDPBackend.__members__.items()}[choice]
 
 
 def main() -> int:
@@ -105,10 +129,12 @@ def main() -> int:
             bound_ms=bound, bound_by=by, max_abs_err=err, over_tolerance=bad,
             ms=timed_ms(lambda: flash_attention_cuda(q, k, v, **kw), 50, flush),
             plain_ms=timed_ms(lambda: mha_ref(q, k, v, **kw), 5, flush),
-            library_ms=timed_ms(yardstick(q, k, v, shape), 50, flush)))
+            library_ms=timed_ms(yardstick(q, k, v, shape), 50, flush),
+            library_backend=yardstick_backend(q, k, v, shape)))
         r = rows[-1]
         print(f"[bench] flash_attention {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+              f"({r['library_backend']}), bound {bound:.4f} ms "
               f"({by}; {work['pairs']} visible pairs); max |kernel - plain| {err:.3e}; "
               f"{walk['design']}: the mask on {walk['masked']} of {walk['visited']} visited "
               f"tiles ({walk['masked_share']:.3f})", flush=True)

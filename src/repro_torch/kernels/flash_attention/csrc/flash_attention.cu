@@ -16,12 +16,17 @@
 // score -inf, so they add nothing even to a row that has seen no visible
 // key yet.
 //
-// Two designs, chosen by the head dim D alone (design_of, which the C
+// v may be narrower than q and k (width Dv, out (B, Hq, S, Dv)): MLA's
+// full-rank prefill (deepseek-v2-lite-16b) attends with q and k of
+// qk_nope + qk_rope = 128 + 64 = 192 and v of 128.
+//
+// Two designs, chosen by the widths (D, Dv) alone (design_of, which the C
 // interface also exports as flash_design):
-//   D 64, 128, 256 (llama-width, granite-20b, gemma3-4b): v2, TMA and
-//     wgmma, below;
-//   D 16, 80 (the smoke heads, stablelm-3b): v1, mma.sync and cp.async,
-//     the first design, kept for the head dims v2 does not cover yet.
+//   D = Dv 64, 128, 256 (llama-width, granite-20b, gemma3-4b) and (D 192,
+//     Dv 128) (deepseek's MLA): v2, TMA and wgmma, below;
+//   D = Dv 16, 80 (the smoke heads, stablelm-3b): v1, mma.sync and
+//     cp.async, the first design, kept for the head dims v2 does not
+//     cover yet.
 //
 // Both keep the rows of a kv head in position-major order, row r = s * G +
 // g, so a CTA's tile holds every group head of its positions and each K/V
@@ -54,8 +59,11 @@
 //     wgmma with P from registers (rounded to bf16, as the Pallas kernel
 //     casts p to v's dtype) and V from shared memory, transposed by its
 //     descriptor (MN-major). The two warpgroups share the tensor cores.
-//     Key tiles: BK = 128 at D <= 128, 64 at D 256. Shared memory at
-//     D 256: Q 64 KB plus two stages of K and V, 128 KB.
+//     Key tiles: BK = 128 at D <= 192, 64 at D 256. Shared memory at
+//     D 256: Q 64 KB plus two stages of K and V, 128 KB; at (192, 128):
+//     Q 48 KB, two stages of K 96 KB and of V 64 KB, 209 KB in all. Q . K^T
+//     takes D / 16 k-steps (12 at 192, three 128-byte swizzle chunks); the
+//     registers a thread holds are those of D 128 (O 64, S 64 float32).
 //   * Softmax in exp2 with scale * log2(e) folded into one multiply. The
 //     per-element mask runs only on the tiles that cross the causal
 //     diagonal, a window edge or the tail T for some row of the
@@ -378,17 +386,23 @@ constexpr int kWgRows = 64 * kConsumers;       // query rows per CTA
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned long long kTimeoutNs = 2000000000ull;   // a lost barrier traps
 
-template <int D>
+// DQK: the width of q and k; DV: the width of v and out (DQK == DV but
+// for MLA's full-rank prefill, 192 and 128)
+template <int DQK, int DV>
 struct Wg {
-  static constexpr int BK = D == 256 ? 64 : 128;           // keys per tile
+  static constexpr int BK = DQK == 256 ? 64 : 128;         // keys per tile
   static constexpr int kRingK = 2;                         // K stages
   static constexpr int kRingV = 2;                         // V stages
-  static constexpr int kChunks = D / 64;                   // 128-byte column chunks
-  static constexpr int kQBytes = kWgRows * D * 2;
-  static constexpr int kTileBytes = BK * D * 2;            // one K or V tile
-  static constexpr int kVOff = kQBytes + kRingK * kTileBytes;
-  static constexpr int kBarOff = kVOff + kRingV * kTileBytes;
+  static constexpr int kChunksK = DQK / 64;                // 128-byte column chunks
+  static constexpr int kChunksV = DV / 64;
+  static constexpr int kQBytes = kWgRows * DQK * 2;
+  static constexpr int kKTileBytes = BK * DQK * 2;         // one K tile
+  static constexpr int kVTileBytes = BK * DV * 2;          // one V tile
+  static constexpr int kVOff = kQBytes + kRingK * kKTileBytes;
+  static constexpr int kBarOff = kVOff + kRingV * kVTileBytes;
   static constexpr int kSmem = 1024 + kBarOff + 16 * (kRingK + kRingV);   // + 1 KB to align
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "whole 128-byte column chunks");
+  static_assert(kSmem <= 232448, "over the shared memory a block can use");
 };
 
 // The positions (1-3) of a tensor map's key, head and batch coordinates:
@@ -680,12 +694,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const Params p,
                    const MapSlots ks, const MapSlots vs) {
-  using W = Wg<D>;
+  using W = Wg<DQK, DV>;
   constexpr int BK = W::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -740,16 +754,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
         ck[ks.t] = (j_lo + i) * BK;
         cv[vs.t] = (j_lo + i) * BK;
         if (i >= W::kRingK) mbar_wait(free_k + 8 * sk, ((i / W::kRingK) - 1) & 1);
-        mbar_expect(full_k + 8 * sk, W::kTileBytes);
+        mbar_expect(full_k + 8 * sk, W::kKTileBytes);
 #pragma unroll
-        for (int c = 0; c < W::kChunks; ++c)
-          tma_load_4d(k_base + sk * W::kTileBytes + c * BK * 128, &tm_k, full_k + 8 * sk,
+        for (int c = 0; c < W::kChunksK; ++c)
+          tma_load_4d(k_base + sk * W::kKTileBytes + c * BK * 128, &tm_k, full_k + 8 * sk,
                       c * 64, ck[1], ck[2], ck[3]);
         if (i >= W::kRingV) mbar_wait(free_v + 8 * sv, ((i / W::kRingV) - 1) & 1);
-        mbar_expect(full_v + 8 * sv, W::kTileBytes);
+        mbar_expect(full_v + 8 * sv, W::kVTileBytes);
 #pragma unroll
-        for (int c = 0; c < W::kChunks; ++c)
-          tma_load_4d(v_base + sv * W::kTileBytes + c * BK * 128, &tm_v, full_v + 8 * sv,
+        for (int c = 0; c < W::kChunksV; ++c)
+          tma_load_4d(v_base + sv * W::kVTileBytes + c * BK * 128, &tm_v, full_v + 8 * sv,
                       c * 64, cv[1], cv[2], cv[3]);
       }
     }
@@ -764,8 +778,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     // x of row r at x ^ (r % 8)), zeros past the last row
     {
       const __nv_bfloat16* qb = p.q + b * p.q_b + static_cast<long long>(kvh) * p.G * p.q_h;
-      for (int idx = ct; idx < 64 * (D / 8); idx += 128) {
-        const int r = 64 * wg + idx / (D / 8), ch = idx % (D / 8);
+      for (int idx = ct; idx < 64 * (DQK / 8); idx += 128) {
+        const int r = 64 * wg + idx / (DQK / 8), ch = idx % (DQK / 8);
         const int fr = r0 + r;
         const bool live = fr < rows;
         const long long off = live ? (fr % p.G) * p.q_h + static_cast<long long>(fr / p.G) * p.q_s
@@ -796,17 +810,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     };
     const uint64_t q_desc = gmma_desc(q_wg, 16, 1024);
     auto start_qk = [&](float (&sc)[BK / 2], int s) {      // S = Q . K^T, 64 x BK
-      const uint64_t k_desc = gmma_desc(k_base + s * W::kTileBytes, 16, 1024);
+      const uint64_t k_desc = gmma_desc(k_base + s * W::kKTileBytes, 16, 1024);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         wgmma_ss(sc, desc_at(q_desc, (kk / 4) * (kWgRows * 128) + (kk % 4) * 32),
                  desc_at(k_desc, (kk / 4) * (BK * 128) + (kk % 4) * 32), kk > 0);
       }
       wgmma_commit();
     };
-    auto start_pv = [&](float (&o)[D / 2], uint32_t (&pa)[BK / 16][4], int s) {
+    auto start_pv = [&](float (&o)[DV / 2], uint32_t (&pa)[BK / 16][4], int s) {
       // o += bf16(P) . V; V's descriptor walks 16 keys (2 KB) a k16 step
-      const uint64_t v_desc = gmma_desc(v_base + s * W::kTileBytes, BK * 128, 1024);
+      const uint64_t v_desc = gmma_desc(v_base + s * W::kVTileBytes, BK * 128, 1024);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 2048), 1);
       wgmma_commit();
@@ -815,9 +829,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
     Softmax<BK> sm;
     float sc[BK / 2];
     uint32_t pa[BK / 16][4];
@@ -836,7 +850,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       release(free_k + 8 * sk);
       sm.tile(sc, pa, alpha, p, k0, need_mask(k0), qp, t4, sl);
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < DV / 8; ++c) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[4 * c + e] *= alpha[e >> 1];
       }
@@ -862,7 +876,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                            + static_cast<long long>(kvh * p.G + fr % p.G) * p.o_h
                            + static_cast<long long>(fr / p.G) * p.o_s + 2 * t4;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < DV / 8; ++c) {
         *reinterpret_cast<uint32_t*>(dst + c * 8) =
             f2_to_bf2(o[4 * c + 2 * h] / denom, o[4 * c + 2 * h + 1] / denom);
       }
@@ -941,45 +955,55 @@ bool make_map(CUtensorMap* map, const void* base, long long sb, long long sh, lo
          == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(Params p, int B, int Hkv, cudaStream_t stream) {
-  using W = Wg<D>;
+  using W = Wg<DQK, DV>;
   CUtensorMap tm_k, tm_v;
   MapSlots ks, vs;
-  if (!make_map(&tm_k, p.k, p.k_b, p.k_h, p.k_s, B, Hkv, p.T, D, W::BK, &ks)
-      || !make_map(&tm_v, p.v, p.v_b, p.v_h, p.v_s, B, Hkv, p.T, D, W::BK, &vs)) {
+  if (!make_map(&tm_k, p.k, p.k_b, p.k_h, p.k_s, B, Hkv, p.T, DQK, W::BK, &ks)
+      || !make_map(&tm_v, p.v, p.v_b, p.v_h, p.v_s, B, Hkv, p.T, DV, W::BK, &vs)) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<DQK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmem);
   if (err != cudaSuccess) return err;
   p.n_tiles = (p.S * p.G + kWgRows - 1) / kWgRows;
   const dim3 grid(p.n_tiles, Hkv, B);
-  flash_wgmma_kernel<D><<<grid, kWgThreads, W::kSmem, stream>>>(tm_k, tm_v, p, ks, vs);
+  flash_wgmma_kernel<DQK, DV><<<grid, kWgThreads, W::kSmem, stream>>>(tm_k, tm_v, p, ks, vs);
   return cudaGetLastError();
 }
 
-// The design that serves head dim D, by D alone: 2 = v2 (TMA + wgmma),
-// 1 = v1 (mma.sync), 0 = no instance.
-constexpr int design_of(int D) {
-  return (D == 64 || D == 128 || D == 256) ? 2 : (D == 16 || D == 80) ? 1 : 0;
+// The design that serves q and k of width D and v of width Dv, by the two
+// widths alone: 2 = v2 (TMA + wgmma), 1 = v1 (mma.sync), 0 = no instance.
+// Only v2 takes Dv != D, and only MLA's (192, 128).
+constexpr int design_of(int D, int Dv) {
+  return ((D == Dv && (D == 64 || D == 128 || D == 256)) || (D == 192 && Dv == 128)) ? 2
+         : (D == Dv && (D == 16 || D == 80)) ? 1 : 0;
 }
 
-template <int D>
+template <int D, int Dv>
 cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
-  static_assert(design_of(D) != 0, "an instance with no design");
-  if constexpr (design_of(D) == 2) {
-    return launch_wgmma<D>(p, B, Hkv, stream);
+  static_assert(design_of(D, Dv) != 0, "an instance with no design");
+  if constexpr (design_of(D, Dv) == 2) {
+    return launch_wgmma<D, Dv>(p, B, Hkv, stream);
   } else {
+    static_assert(D == Dv, "v1 takes one width");
     return launch_mma<D, 64>(p, B, Hkv, stream);
   }
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. flash_design(D) names the design that
-// serves head dim D (design_of; 0: flash_attention_bf16 refuses D).
-extern "C" int flash_design(int D) { return design_of(D); }
+// C interface, loaded with ctypes. flash_design(D, Dv) names the design
+// that serves q and k of width D and v of width Dv (design_of; 0:
+// flash_attention_bf16 refuses the pair).
+extern "C" int flash_design(int D, int Dv) { return design_of(D, Dv); }
+
+// The keys per tile of the design that serves (D, Dv); 0 where none does.
+extern "C" int flash_key_tile(int D, int Dv) {
+  const int d = design_of(D, Dv);
+  return d == 2 ? (D == 256 ? Wg<256, 256>::BK : Wg<128, 128>::BK) : d == 1 ? 64 : 0;
+}
 
 // q, k, v, out bf16 with the element stride along D equal to 1;
 // strides[12] = (q, k, v, out) x (batch, head, position), in elements,
@@ -989,7 +1013,7 @@ extern "C" int flash_design(int D) { return design_of(D); }
 // (0 = launched).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     const long long* strides, int B, int Hkv, int S, int T,
-                                    int G, int D, int causal, int window, int q_offset,
+                                    int G, int D, int Dv, int causal, int window, int q_offset,
                                     float scale, void* tiles, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || S <= 0 || T <= 0 || G <= 0
       || static_cast<long long>(S) * G > 2147483647LL - kM) {
@@ -1010,12 +1034,14 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   p.n_tiles = (S * G + kM - 1) / kM;
   p.tiles = static_cast<unsigned long long*>(tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 192 && Dv == 128) return static_cast<int>(launch<192, 128>(p, B, Hkv, s));
+  if (D != Dv) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {                               // the instances
-    case 16: return static_cast<int>(launch<16>(p, B, Hkv, s));
-    case 64: return static_cast<int>(launch<64>(p, B, Hkv, s));
-    case 80: return static_cast<int>(launch<80>(p, B, Hkv, s));
-    case 128: return static_cast<int>(launch<128>(p, B, Hkv, s));
-    case 256: return static_cast<int>(launch<256>(p, B, Hkv, s));
+    case 16: return static_cast<int>(launch<16, 16>(p, B, Hkv, s));
+    case 64: return static_cast<int>(launch<64, 64>(p, B, Hkv, s));
+    case 80: return static_cast<int>(launch<80, 80>(p, B, Hkv, s));
+    case 128: return static_cast<int>(launch<128, 128>(p, B, Hkv, s));
+    case 256: return static_cast<int>(launch<256, 256>(p, B, Hkv, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,23 +25,32 @@ def _load():
     global _lib
     if _lib is None:
         lib = loader.load(SOURCE)
-        # q, k, v, out, strides; B, Hkv, S, T, G, D, causal, window, q_offset;
-        # scale; tiles; stream
+        # q, k, v, out, strides; B, Hkv, S, T, G, D, Dv, causal, window,
+        # q_offset; scale; tiles; stream
         lib.flash_attention_bf16.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.flash_attention_bf16.restype = ctypes.c_int
-        lib.flash_design.argtypes = [ctypes.c_int]
-        lib.flash_design.restype = ctypes.c_int
+        for fn in (lib.flash_design, lib.flash_key_tile):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def design(head_dim: int) -> Optional[str]:
-    """The design the kernel runs at ``head_dim``, as its C interface
-    chooses it (by the head dim alone), or None where it has no instance.
-    Builds the kernel at first use, so it needs ``nvcc``."""
-    return DESIGN_NAMES.get(_load().flash_design(head_dim))
+def design(head_dim: int, v_dim: Optional[int] = None) -> Optional[str]:
+    """The design the kernel runs with q and k of width ``head_dim`` and v
+    of width ``v_dim`` (default: ``head_dim``), as its C interface chooses
+    it (by the two widths alone), or None where it has no instance. Builds
+    the kernel at first use, so it needs ``nvcc``."""
+    v_dim = head_dim if v_dim is None else v_dim
+    return DESIGN_NAMES.get(_load().flash_design(head_dim, v_dim))
+
+
+def key_tile(head_dim: int, v_dim: Optional[int] = None) -> int:
+    """The keys per kv tile of that design (0 where there is none)."""
+    v_dim = head_dim if v_dim is None else v_dim
+    return _load().flash_key_tile(head_dim, v_dim)
 
 
 def _check(q, k, v, window):
@@ -57,14 +66,14 @@ def _check(q, k, v, window):
                              f"are multiples of 8 and a 16-byte aligned start (it moves "
                              f"in 16-byte chunks); got strides {t.stride()}")
     B, Hq, S, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    Hkv = k.shape[1]
+    Hkv, Dv = k.shape[1], v.shape[3]
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"query heads {Hq} must be a multiple of kv heads {Hkv}")
-    if design(D) is None:
-        raise ValueError(f"head dim {D} has no instance in the kernel")
+    if design(D, Dv) is None:
+        raise ValueError(f"head dim {D} with v width {Dv} has no instance in the kernel")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
@@ -72,11 +81,12 @@ def _check(q, k, v, window):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
                          q_offset: int = 0, scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel on the current stream: q (B, Hq, S, D), k, v (B, Hkv,
-    T, D), bf16, any strides with unit stride along D (so (B, S, H, D)
-    projections pass as permuted views). Returns (B, Hq, S, D) bf16 laid out
-    as ``q`` is. Raises on inputs the kernel does not take and on a refused
-    launch."""
+    """Launch the kernel on the current stream: q (B, Hq, S, D), k (B, Hkv,
+    T, D), v (B, Hkv, T, Dv), bf16, any strides with unit stride along the
+    last dim (so (B, S, H, D) projections pass as permuted views). Returns
+    (B, Hq, S, Dv) bf16 laid out as ``q`` is. Raises on inputs the kernel
+    does not take (a (D, Dv) pair with no instance included) and on a
+    refused launch."""
     return _launch(q, k, v, causal, window, q_offset, scale, None)
 
 
@@ -90,21 +100,24 @@ def tile_counts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tiles = torch.zeros(2, dtype=torch.int64, device=q.device)
     _launch(q, k, v, causal, window, q_offset, scale, tiles)
     visited, masked = tiles.tolist()
-    return dict(design=design(q.shape[-1]), visited=visited, masked=masked)
+    return dict(design=design(q.shape[-1], v.shape[-1]), visited=visited, masked=masked)
 
 
 def _launch(q, k, v, causal, window, q_offset, scale, tiles):
     _check(q, k, v, window)
     B, Hq, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)                # q's layout when q is dense, else contiguous
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    # (B, Hq, S, Dv) in q's order of dims (its layout when q is dense)
+    order = sorted(range(3), key=lambda i: -q.stride(i)) + [3]
+    out = q.new_empty([(B, Hq, S, Dv)[i] for i in order]).permute(
+        *[order.index(i) for i in range(4)])
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     scale = scale if scale is not None else D ** -0.5
     fn = _load().flash_attention_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                B, Hkv, S, T, Hq // Hkv, D, int(causal), window or 0, q_offset,
+                B, Hkv, S, T, Hq // Hkv, D, Dv, int(causal), window or 0, q_offset,
                 float(scale), None if tiles is None else tiles.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")

@@ -1,8 +1,8 @@
 """Public wrapper of flash attention.
 
 ``flash_attention`` has the JAX op's signature, ``(B, Hq, S, D) x (B, Hkv,
-T, D) -> (B, Hq, S, D)`` with ``causal``, ``window``, ``q_offset`` and
-``scale``, plus ``kernel``: ``auto`` launches the CUDA kernel on CUDA
+T, D) x (B, Hkv, T, Dv) -> (B, Hq, S, Dv)`` with ``causal``, ``window``,
+``q_offset`` and ``scale``, plus ``kernel``: ``auto`` launches the CUDA kernel on CUDA
 tensors and takes the plain version on CPU tensors; ``cuda`` on the CPU
 raises (``loader.resolve_kernel``, the rule every kernel of the port
 follows). There is no fallback from one to the other.
@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (LAUNCHES, design,
-                                                        flash_attention_cuda, tile_counts)
+                                                        flash_attention_cuda, key_tile,
+                                                        tile_counts)
 from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.loader import resolve_kernel
 
@@ -23,8 +24,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, scale: Optional[float] = None,
                     kernel: str = "auto") -> torch.Tensor:
-    """(B,Hq,S,D) x (B,Hkv,T,D) -> (B,Hq,S,D): the CUDA kernel or its plain
-    version (``mha_ref``)."""
+    """(B,Hq,S,D) x (B,Hkv,T,D) x (B,Hkv,T,Dv) -> (B,Hq,S,Dv): the CUDA
+    kernel or its plain version (``mha_ref``)."""
     fn = flash_attention_cuda if resolve_kernel(kernel, q.device) == "cuda" else mha_ref
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset, scale=scale)
 
@@ -47,4 +48,4 @@ def compare(out: torch.Tensor, ref: torch.Tensor, *, tol: float = 2e-2):
 
 
 __all__ = ["LAUNCHES", "compare", "design", "flash_attention", "flash_attention_cuda",
-           "mha_ref", "tile_counts"]
+           "key_tile", "mha_ref", "tile_counts"]

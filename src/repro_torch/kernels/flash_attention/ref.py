@@ -38,9 +38,10 @@ def visible_mask(s: int, t: int, *, causal: bool, window: Optional[int],
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, window: Optional[int] = None,
             q_offset: int = 0, scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k, v: (B, Hkv, T, D), Hq % Hkv == 0 (GQA: query head
-    ``h`` reads kv head ``h // (Hq // Hkv)``). ``q_offset``: absolute
-    position of ``q[:, :, 0]``. Returns (B, Hq, S, D) in ``q.dtype``."""
+    """q: (B, Hq, S, D); k: (B, Hkv, T, D); v: (B, Hkv, T, Dv), Hq % Hkv ==
+    0 (GQA: query head ``h`` reads kv head ``h // (Hq // Hkv)``).
+    ``q_offset``: absolute position of ``q[:, :, 0]``. Returns (B, Hq, S,
+    Dv) in ``q.dtype``."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv

@@ -5,7 +5,10 @@ machine with a CUDA card, it prints the kernel's design and times the
 kernel, its plain version and the yardstick at the engine's bucket shape
 with three fills (``fills``), each beside its bound: every row kept (a
 full prefill step), the check input (empty, partial and full experts),
-and a decode step's (8 tokens, top-8):
+and a decode step's (8 tokens, top-8); then at deepseek-v2-lite-16b's
+buckets on the slots engine (``DEEPSEEK``: 64 experts of 2048 x 1408,
+top-6), a decode tick of 8 slots (capacity 8) and a 4,096-token prefill
+(capacity 480), routed uniformly (``deepseek_counts``):
 
     PYTHONPATH=src python -m repro_torch.kernels.moe_jam.bench
 """
@@ -23,6 +26,11 @@ from repro_torch.kernels.timing import (bound_ms, card_name, kernel_ms, l2_flush
 # capacity 40 (8 slots x chunk 32 = 256 columns, top-8, factor 1.25),
 # d_model 2048, expert_ff 1024
 EXPERTS, CAPACITY, D_MODEL, D_FF = 64, 40, 2048, 1024
+# deepseek-v2-lite-16b's experts and routing; its buckets on the slots
+# engine: capacity 8 at a decode tick of 8 slots, 480 at a 4,096-token
+# prefill (top-6, factor 1.25): tokens -> capacity
+DEEPSEEK = dict(experts=64, d_model=2048, d_ff=1408, top_k=6)
+DEEPSEEK_FILLS = {"decode": (8, 8), "prefill": (4096, 480)}
 # the kernel's two passes, by the name of the kernel each launches
 PASSES = {"gate_up": "moe_stream_kernel<true>", "down": "moe_stream_kernel<false>"}
 
@@ -48,23 +56,35 @@ def fills() -> dict:
             "decode": decode}
 
 
-def check_inputs(device, counts: np.ndarray):
-    """(x, w_gate, w_up, w_down, counts) at the engine's bucket shape on
-    ``device``, bf16 and int32, from numpy seed 1. Rows of x at or past each
-    expert's count are zero, as the dispatch leaves them; weights have the
-    init's std 1/sqrt(fan_in), x the post-norm scale."""
+def deepseek_counts(tokens: int, capacity: int, seed: int = 4) -> np.ndarray:
+    """Kept rows per expert when ``tokens`` tokens each pick ``top_k``
+    distinct experts uniformly (numpy ``seed``), at most ``capacity``."""
+    rng = np.random.default_rng(seed)
+    e, k = DEEPSEEK["experts"], DEEPSEEK["top_k"]
+    picks = np.argsort(rng.random((tokens, e)), axis=1)[:, :k]
+    return np.minimum(np.bincount(picks.ravel(), minlength=e), capacity).astype(np.int32)
+
+
+def check_inputs(device, counts: np.ndarray, shape=(EXPERTS, CAPACITY, D_MODEL, D_FF)):
+    """(x, w_gate, w_up, w_down, counts) at the bucket ``shape`` (E, C, D,
+    F; default the engine's) on ``device``, bf16 and int32: x from numpy
+    seed 1, the weights drawn on ``device`` from seed 1. Rows of x at or
+    past each expert's count are zero, as the dispatch leaves them; weights
+    have the init's std 1/sqrt(fan_in), x the post-norm scale."""
+    E, C, D, F = shape
     rng = np.random.default_rng(1)
+    gen = torch.Generator(device=device).manual_seed(1)
 
     def normal(shape, std):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * std) \
-            .to(device=device, dtype=torch.bfloat16)
+        return (torch.randn(shape, generator=gen, device=device) * std).to(torch.bfloat16)
 
-    x = normal((EXPERTS, CAPACITY, D_MODEL), 1.0)
-    x *= (torch.arange(CAPACITY)[None, :, None]
+    x = torch.from_numpy(rng.standard_normal((E, C, D), dtype=np.float32)).to(
+        device=device, dtype=torch.bfloat16)
+    x *= (torch.arange(C)[None, :, None]
           < torch.from_numpy(counts).long()[:, None, None]).to(device, torch.bfloat16)
-    w_gate = normal((EXPERTS, D_MODEL, D_FF), D_MODEL ** -0.5)
-    w_up = normal((EXPERTS, D_MODEL, D_FF), D_MODEL ** -0.5)
-    w_down = normal((EXPERTS, D_FF, D_MODEL), D_FF ** -0.5)
+    w_gate = normal((E, D, F), D ** -0.5)
+    w_up = normal((E, D, F), D ** -0.5)
+    w_down = normal((E, F, D), F ** -0.5)
     return x, w_gate, w_up, w_down, torch.from_numpy(counts).to(device)
 
 
@@ -100,9 +120,15 @@ def main() -> int:
     print(f"[bench] moe_jam design {DESIGN!r} on {card}", flush=True)
     flush = l2_flush_buffer(dev)
     rows = []
-    for name, counts in fills().items():
-        x, wg, wu, wd, cnt = check_inputs(dev, counts)
-        work = needed_work(counts, d_model=D_MODEL, d_ff=D_FF)
+    ds = DEEPSEEK
+    cases = [(name, counts, (EXPERTS, CAPACITY, D_MODEL, D_FF))
+             for name, counts in fills().items()]
+    cases += [(f"deepseek {name} (C {c})", deepseek_counts(n, c),
+               (ds["experts"], c, ds["d_model"], ds["d_ff"]))
+              for name, (n, c) in DEEPSEEK_FILLS.items()]
+    for name, counts, shape in cases:
+        x, wg, wu, wd, cnt = check_inputs(dev, counts, shape)
+        work = needed_work(counts, d_model=shape[2], d_ff=shape[3])
         bound, by = bound_ms(work)
         rows.append(dict(
             fill=name, kept_rows=work["rows"], experts=work["experts"], bound_ms=bound,

@@ -22,6 +22,13 @@ schedulers.
       --cache slots --slots 8 --max-len 4224 --requests 8 --prompt-len 4000 \
       --max-new 32
 
+  # on the card, full-width deepseek-v2-lite-16b (MLA, 64 experts top-6
+  # plus 2 shared; --cache auto picks slots for an MLA stack): prompts past
+  # 2,048 tokens prefill through flash attention at q/k 192 and v 128, the
+  # routed experts run through moe_jam:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+      --slots 8 --max-len 4224 --requests 8 --prompt-len 4000 --max-new 32
+
   # on the CPU, a smoke config through the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --requests 4 --stream
@@ -31,6 +38,8 @@ schedulers.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
       --smoke --device cpu --cache slots --max-len 64 --prompt-len 20
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+      --smoke --device cpu --max-len 64 --prompt-len 20
 """
 from __future__ import annotations
 
@@ -53,9 +62,10 @@ def main() -> None:
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cache", choices=("auto", "paged", "recurrent", "slots"),
                    default="auto",
-                   help="sequence-state backend; auto: paged for attention "
-                        "stacks, recurrent for pure-SSM ones; slots: one "
-                        "contiguous max_len row per slot (plain-GQA stacks)")
+                   help="sequence-state backend; auto: paged for GQA stacks, "
+                        "slots for MLA ones, recurrent for pure-SSM ones; "
+                        "slots: one contiguous max_len row per slot (GQA and "
+                        "MLA stacks)")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-len", type=int, default=256)
     p.add_argument("--blocks", type=int, default=0,

@@ -1,11 +1,12 @@
 """Decoder block assembly for the serving paths.
 
 The plain-GQA block types ``attn_full`` and ``attn_local`` (sliding
-window) and the GQA MoE block ``attn_moe`` run on the paged path; the
-plain-GQA ones also on the contiguous path (the slots backend's
-``KVCache``, or no cache). The recurrent path has the pure selective-SSM
-block ``ssm`` (mamba). MLA blocks come with ROADMAP item A16, xLSTM ones
-with A9 and hybrid ones with A10.
+window) and the GQA MoE block ``attn_moe`` run on the paged path and on
+the contiguous path (the slots backend's ``KVCache``, or no cache); the
+MLA blocks ``mla_dense`` and ``mla_moe`` (deepseek-v2) on the contiguous
+path, over an ``MLACache``. The recurrent path has the pure selective-SSM
+block ``ssm`` (mamba). xLSTM blocks come with ROADMAP item A9 and hybrid
+ones with A10.
 """
 from __future__ import annotations
 
@@ -19,22 +20,24 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamBuilder, rms_norm
-from repro_torch.models.kvcache import KVCache, PagedKVCache, PagedLayout, RecurrentLayout
+from repro_torch.models.kvcache import (KVCache, MLACache, PagedKVCache, PagedLayout,
+                                        RecurrentLayout)
 
 # Block types whose cache is plain GQA k/v and whose paged path is ported.
 PAGED_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe")
-# Block types whose contiguous path (KVCache rows, or no cache) is ported.
-CONTIGUOUS_BLOCK_TYPES = ("attn_full", "attn_local")
+# Block types whose contiguous path (KVCache or MLACache rows, or no cache)
+# is ported.
+CONTIGUOUS_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe", "mla_dense", "mla_moe")
 # Block types whose per-request state is constant-size (conv history +
 # recurrent state) and whose recurrent path is ported.
 RECURRENT_BLOCK_TYPES = ("ssm",)
 
 
 def _check(bt: str) -> None:
-    if bt not in PAGED_BLOCK_TYPES + RECURRENT_BLOCK_TYPES:
-        raise ValueError(f"block type {bt!r} is not ported: the port serves "
-                         f"{PAGED_BLOCK_TYPES + RECURRENT_BLOCK_TYPES} (ROADMAP items "
-                         "A9, A10, A16 bring the rest)")
+    ported = CONTIGUOUS_BLOCK_TYPES + RECURRENT_BLOCK_TYPES
+    if bt not in ported:
+        raise ValueError(f"block type {bt!r} is not ported: the port serves {ported} "
+                         "(ROADMAP items A9 and A10 bring the rest)")
 
 
 def _check_paged(bt: str) -> None:
@@ -69,7 +72,10 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
             mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
         return
     b.param("ln2", (d,), init="zeros")
-    attn.init_gqa(b.scope("attn"), d, cfg.attention)
+    if bt.startswith("mla"):
+        attn.init_mla(b.scope("attn"), d, cfg.attention)
+    else:
+        attn.init_gqa(b.scope("attn"), d, cfg.attention)
     if bt.endswith("_moe"):
         moe_mod.init_moe(b.scope("moe"), d, cfg.moe)
     else:
@@ -78,10 +84,17 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
 
 def init_block_cache(bt: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """``{"k", "v"}`` of (batch, max_len, K, D) zeros: one layer's rows of
-    the slots backend's contiguous cache."""
+    """One layer's rows of the slots backend's contiguous cache, zeros:
+    ``{"k", "v"}`` of (batch, max_len, K, D), or for an MLA block
+    ``{"c_kv", "k_rope"}`` of (batch, max_len, r) and (batch, max_len,
+    dr)."""
     _check_contiguous(bt)
     a = cfg.attention
+    if bt.startswith("mla"):
+        return {"c_kv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=dtype,
+                                    device=device),
+                "k_rope": torch.zeros((batch, max_len, a.qk_rope_head_dim), dtype=dtype,
+                                      device=device)}
     shape = (batch, max_len, a.num_kv_heads, a.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -126,24 +139,42 @@ def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
 
 def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Dict[str, Any]], length: int, kernel: str = "auto"
-                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Pre-norm residual block on the contiguous path: GQA attention over
-    the layer's ``{"k", "v"}`` rows holding ``length`` tokens (or over the
-    tokens alone when ``cache`` is None), then the MLP. ``attn_local``
-    attends within ``sliding_window``. ``kernel`` selects flash attention's
-    kernel or its plain version for long prefills. Returns ``(x, cache)``;
-    the rows are updated in place."""
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Union[torch.Tensor, float]]:
+    """Pre-norm residual block on the contiguous path: attention over the
+    layer's rows holding ``length`` tokens (or over the tokens alone when
+    ``cache`` is None), GQA over ``{"k", "v"}`` or MLA over ``{"c_kv",
+    "k_rope"}``, then the MLP, or the MoE FFN for ``*_moe``. ``attn_local``
+    attends within ``sliding_window``. ``kernel`` selects every kernel of
+    the block (flash attention for long prefills, the MoE expert FFN) or
+    their plain versions. Returns ``(x, cache, aux)``, ``aux`` as
+    ``apply_block_paged`` gives it; the rows are updated in place.
+
+    The MoE FFN routes every token with no token mask, as the JAX
+    package's contiguous block does: on the slots backend an idle slot's
+    decode row routes and takes expert capacity too."""
     _check_contiguous(bt)
     a = cfg.attention
-    window = a.sliding_window if bt.endswith("_local") else None
+    causal = not cfg.is_encoder
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    kv = None if cache is None else KVCache(cache["k"], cache["v"], length)
-    y_attn, kv = attn.gqa_attention(params["attn"], h, a, causal=not cfg.is_encoder,
-                                    window=window, cache=kv, kernel=kernel)
+    if bt.startswith("mla"):
+        mc = None if cache is None else MLACache(cache["c_kv"], cache["k_rope"], length)
+        y_attn, mc = attn.mla_attention(params["attn"], h, a, causal=causal, cache=mc,
+                                        norm_eps=cfg.norm_eps, kernel=kernel)
+        new_cache = None if mc is None else {"c_kv": mc.c_kv, "k_rope": mc.k_rope}
+    else:
+        window = a.sliding_window if bt.endswith("_local") else None
+        kv = None if cache is None else KVCache(cache["k"], cache["v"], length)
+        y_attn, kv = attn.gqa_attention(params["attn"], h, a, causal=causal,
+                                        window=window, cache=kv, kernel=kernel)
+        new_cache = None if kv is None else {"k": kv.k, "v": kv.v}
     x = x + y_attn
     h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
-    x = x + mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
-    return x, (None if kv is None else {"k": kv.k, "v": kv.v})
+    if bt.endswith("_moe"):
+        y_ffn, aux = moe_mod.moe_ffn(params["moe"], h2, cfg.moe, cfg.act, kernel=kernel)
+    else:
+        y_ffn = mlp_mod.mlp(params["mlp"], h2, cfg.act, cfg.mlp_gated)
+        aux = 0.0
+    return x + y_ffn, new_cache, aux
 
 
 def apply_block_paged(bt: str, params, x: torch.Tensor, cfg: ModelConfig,

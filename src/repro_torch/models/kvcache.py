@@ -4,7 +4,9 @@ protocol pieces.
 ``KVCache`` is the slots backend's contiguous cache: ``(B, S_max, K, D)``
 k/v per layer and one ``length`` shared by every row, the JAX package's
 ``KVCache`` without its ``ring`` option (no path of the JAX package
-passes ``ring=True``).
+passes ``ring=True``). ``MLACache`` is its MLA counterpart: the compressed
+latent ``c_kv`` (B, S_max, r) and the rope key ``k_rope`` (B, S_max, dr)
+shared by every head.
 
 ``PagedKVCache`` is one shared block pool ``(N_blocks, block_size, K, D)``
 per layer; requests own blocks through a per-request block table, so
@@ -48,6 +50,32 @@ class KVCache:
         self.k[:, pos:pos + s_new] = k_new.to(self.k.dtype)
         self.v[:, pos:pos + s_new] = v_new.to(self.v.dtype)
         return KVCache(self.k, self.v, self.length + s_new)
+
+
+@dataclasses.dataclass
+class MLACache:
+    """Contiguous MLA cache: ``c_kv`` (B, S_max, r), ``k_rope`` (B, S_max,
+    dr), ``length`` tokens already in it (a host int, shared by every
+    row)."""
+
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+    length: int
+
+    @property
+    def max_len(self) -> int:
+        return self.c_kv.shape[1]
+
+    def append(self, c_new: torch.Tensor, kr_new: torch.Tensor) -> "MLACache":
+        """Write S_new tokens (``c_new`` (B, S_new, r), ``kr_new`` (B, S_new,
+        dr)) at row ``length``, **in place**, the start clamped as
+        ``KVCache.append`` clamps it; the new cache counts ``length +
+        S_new``."""
+        s_new = c_new.shape[1]
+        pos = min(max(self.length, 0), self.max_len - s_new)
+        self.c_kv[:, pos:pos + s_new] = c_new.to(self.c_kv.dtype)
+        self.k_rope[:, pos:pos + s_new] = kr_new.to(self.k_rope.dtype)
+        return MLACache(self.c_kv, self.k_rope, self.length + s_new)
 
 
 @dataclasses.dataclass

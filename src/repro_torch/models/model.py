@@ -33,9 +33,9 @@ from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(pattern, repeats), ...] covering cfg.num_layers in order: the JAX
-    package's plan for plain attention, GQA MoE and pure-SSM stacks (the
-    bridge reads its group structure). MLA stacks are ROADMAP item A16,
-    xLSTM ones A9 and hybrid ones A10."""
+    package's plan for plain attention, MoE (GQA or MLA) and pure-SSM
+    stacks (the bridge reads its group structure). xLSTM stacks are
+    ROADMAP item A9 and hybrid ones A10."""
     L = cfg.num_layers
     if cfg.xlstm is not None:
         raise NotImplementedError(f"{cfg.name}: xLSTM blocks (mLSTM/sLSTM) are ROADMAP "
@@ -47,12 +47,11 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
         raise NotImplementedError(f"{cfg.name}: hybrid attention+SSM stacks are "
                                   "ROADMAP item A10")
     if cfg.family == "moe":
-        if a.kind == "mla":
-            raise NotImplementedError(f"{cfg.name}: the MLA blocks mla_dense/mla_moe "
-                                      "are ROADMAP item A16")
+        dense_bt, moe_bt = ("mla_dense", "mla_moe") if a.kind == "mla" else (
+            "attn_full", "attn_moe")
         first = cfg.moe.first_dense_layers
-        groups = [(("attn_full",), first)] if first else []
-        groups.append((("attn_moe",), L - first))
+        groups = [((dense_bt,), first)] if first else []
+        groups.append(((moe_bt,), L - first))
         return groups
     if a.local_global_ratio:
         cyc = ("attn_local",) * a.local_global_ratio + ("attn_full",)
@@ -98,7 +97,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Dict[str, Any]:
     """The contiguous cache: one ``{"k", "v"}`` of (batch, max_len, K, D)
-    per layer, and one ``length`` (a host int) shared by every row."""
+    per layer (``{"c_kv", "k_rope"}`` for an MLA layer), and one
+    ``length`` (a host int) shared by every row."""
     return {"length": 0,
             "layers": [blocks_mod.init_block_cache(bt, cfg, batch, max_len, dtype, device)
                        for bt in flat_block_types(cfg)]}
@@ -153,7 +153,7 @@ def forward(
     returned new. ``last_only`` applies the head to the last position
     alone (logits (B, 1, V)), all a prefill reads. ``paged_kernel``
     selects every kernel of the path: paged attention and the MoE expert
-    FFN, the selective scan, or flash attention."""
+    FFN, the selective scan, or flash attention and the MoE expert FFN."""
     if paged is not None and recurrent is not None:
         raise ValueError("pass one of paged= and recurrent=")
     if (paged is not None or recurrent is not None) and cache is None:
@@ -177,7 +177,8 @@ def forward(
                                                     paged_kernel)
             aux = aux + a
         else:
-            x, lc = blocks_mod.apply_block(bt, lp, x, cfg, lc, length, paged_kernel)
+            x, lc, a = blocks_mod.apply_block(bt, lp, x, cfg, lc, length, paged_kernel)
+            aux = aux + a
         new_layers.append(lc)
     if last_only:
         x = x[:, -1:]

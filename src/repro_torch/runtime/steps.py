@@ -1,8 +1,9 @@
 """The serve steps, on one device: the paged step (block-pool cache, dense
 and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
 pure-SSM stacks), each serving decode and chunked prefill in one fixed
-shape; and the slots backend's two steps over the contiguous cache, the
-one-request prefill and the one-token decode of every slot. Every bundle
+shape; and the slots backend's two steps over the contiguous cache (GQA
+or MLA, dense or MoE), the one-request prefill and the one-token decode
+of every slot. Every bundle
 owns a ``Fabric`` (``meta["fabric"]``, as in the JAX package's
 ``_bundle_fabric``): the Engine registers its steps on it and invokes them
 through ``fabric.call``. Mesh lowering is ROADMAP A14."""
@@ -140,13 +141,18 @@ def make_recurrent_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
         fabric=Fabric(name="steps.recurrent_decode")))
 
 
-def _check_contiguous(cfg: ModelConfig) -> None:
+def _contiguous_kernels(cfg: ModelConfig) -> tuple:
+    """The kernels a slots step can launch: flash attention, and the MoE
+    expert FFN where the stack has MoE blocks."""
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
-    bad = sorted(set(model_lib.flat_block_types(cfg)) - set(blocks_mod.CONTIGUOUS_BLOCK_TYPES))
+    types = set(model_lib.flat_block_types(cfg))
+    bad = sorted(types - set(blocks_mod.CONTIGUOUS_BLOCK_TYPES))
     if bad:
         raise ValueError(f"the slots backend supports block types "
                          f"{blocks_mod.CONTIGUOUS_BLOCK_TYPES}, got {bad}")
+    moe = any(bt.endswith("_moe") for bt in types)
+    return ("flash_attention", "moe_jam") if moe else ("flash_attention",)
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
@@ -158,9 +164,10 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
     position, filled cache holding L tokens). The head runs on the last
     position alone: it is all the JAX package's prefill step returns and
     all the Engine reads. ``kernel`` selects flash attention's kernel or
-    its plain version for a prompt past ``models.attention.CHUNK_THRESHOLD``.
+    its plain version for a prompt past ``models.attention.CHUNK_THRESHOLD``,
+    and the MoE expert FFN's.
     """
-    _check_contiguous(cfg)
+    kernels = _contiguous_kernels(cfg)
     dev = resolve_device(device)
     kind = resolve_kernel(kernel, dev)
 
@@ -175,7 +182,7 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
 
     return StepBundle(fn=prefill_step, meta=dict(
         kind="prefill", max_len=max_len, kernel=kind, device=dev,
-        kernels=("flash_attention",), fabric=Fabric(name="steps.prefill")))
+        kernels=kernels, fabric=Fabric(name="steps.prefill")))
 
 
 def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", device=None,
@@ -188,10 +195,10 @@ def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", devic
     position (the JAX package's lockstep: exact only for slots whose
     prompts end at the same position). The cache is updated in place.
     ``meta["nonfinite_logits"]`` counts rows whose logits held a NaN or an
-    infinity; ``kernel`` is accepted for the Engine's one ``kernel``
-    option (decode runs no kernel: attention over one query is plain
-    ``_sdpa``)."""
-    _check_contiguous(cfg)
+    infinity; ``kernel`` selects the MoE expert FFN's kernel or its plain
+    version (attention over one query runs no kernel: plain ``_sdpa``, or
+    MLA's absorbed scores)."""
+    kernels = _contiguous_kernels(cfg)
     dev = resolve_device(device)
     kind = resolve_kernel(kernel, dev)
     nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
@@ -206,4 +213,4 @@ def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", devic
 
     return StepBundle(fn=serve_step, meta=dict(
         kind="decode", slots=slots, kernel=kind, device=dev, nonfinite_logits=nonfinite,
-        kernels=("flash_attention",), fabric=Fabric(name="steps.decode")))
+        kernels=kernels, fabric=Fabric(name="steps.decode")))

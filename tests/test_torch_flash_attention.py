@@ -124,13 +124,17 @@ def test_tile_counts_takes_cuda_tensors_only():
 def test_bench_work_counts(name):
     """The bound's work counts: visible pairs against the mask itself (at a
     tenth of the length), and the gemma global layer's 67.1 M pairs."""
-    B, Hq, Hkv, S, T, D, causal, window, q_offset = bench.SHAPES[name]
+    B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = bench.SHAPES[name]
     s, t = S // 10, T // 10
     w = None if window is None else window // 10
     assert bench.visible_pairs(s, t, causal=causal, window=w, q_offset=q_offset) == int(
         visible_mask(s, t, causal=causal, window=w, q_offset=q_offset).sum())
     work = bench.needed_work(bench.SHAPES[name])
-    assert work["flops"] == 4 * D * work["pairs"]
-    assert work["bytes"] == 2 * (2 * B * Hq * S * D + 2 * B * Hkv * T * D)
+    assert work["flops"] == 2 * (D + Dv) * work["pairs"]
+    assert work["bytes"] == 2 * (B * Hq * S * (D + Dv) + B * Hkv * T * (D + Dv))
     if name == "gemma3-4b global":
         assert work["pairs"] == 8 * 4096 * 4097 // 2
+        assert work["flops"] == 4 * 256 * work["pairs"]
+    if name == "deepseek-v2-lite mla":
+        assert (D, Dv, work["pairs"]) == (192, 128, 16 * 4096 * 4097 // 2)
+        assert work["flops"] == 640 * work["pairs"]

@@ -70,10 +70,17 @@ port's dependencies:
   element within 2e-2 * (rms of its (batch, head, position) row + |plain|)
   (bf16 outputs; the kernel rounds the unnormalized p to bf16 before P.V,
   the plain version the normalized probabilities);
+* flash attention at MLA's separate widths (q and k of 192, v of 128,
+  deepseek-v2-lite-16b's full-rank prefill): 1, 65, 2,113 and 4,096
+  positions, 1 and 2 query heads per kv head, causal, from q_offset 7 and
+  bidirectional, strided and contiguous, output (B, Hq, S, 128); the
+  wrapper refuses a (D, Dv) pair with no instance; moe_jam at deepseek's
+  buckets (64 experts of 2048 x 1408, top-6) at capacity 8 and 480;
 * the wrappers' input checks;
 * the smoke engines through the kernels against the same engines through
   the plain versions: identical schedule, one launch of each kernel per
-  layer per step (per layer per long prefill for the slots engine).
+  layer per step (per layer per long prefill for the slots engine; for
+  the MLA engine also moe_jam per MoE layer per prefill and decode tick).
 """
 import numpy as np
 import pytest
@@ -1048,4 +1055,120 @@ def test_slots_smoke_engine_through_flash_kernel(cuda, monkeypatch):
     long_prompts = sum(len(p) ** 2 > 64 for p in prompts)
     assert runs["cuda"][2]["kernel_launches"] == {"flash_attention": cfg.num_layers * long_prompts}
     assert runs["ref"][2]["kernel_launches"] == {"flash_attention": 0}
+    assert runs["cuda"][2]["nonfinite_logits"] == 0
+
+
+# ---------------------------------------------------------------------------
+# MLA: flash at separate widths, moe_jam at deepseek's buckets
+# ---------------------------------------------------------------------------
+
+def _mla_case(dev, rng, *, B, Hkv, G, S, T, strided, D=192, Dv=128):
+    def bf16(h, n, d):
+        x = torch.from_numpy(rng.standard_normal((B, n, h, d), dtype=np.float32))
+        x = x.to(dev, torch.bfloat16)
+        return x.permute(0, 2, 1, 3) if strided else x.permute(0, 2, 1, 3).contiguous()
+    return bf16(Hkv * G, S, D), bf16(Hkv, T, D), bf16(Hkv, T, Dv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 65, 2113, 4096])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_mla_widths_match_plain_version(cuda, G, S):
+    """q and k of 192, v of 128 (the (192, 128) instance of v2): causal,
+    causal from q_offset 7 and bidirectional, strided and contiguous, the
+    scale MLA passes (1/sqrt(192)); the output is (B, Hq, S, 128)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(S * 10 + G)
+    Hkv = 16 // G if S == 4096 else 2
+    for i, c in enumerate((dict(causal=True, q_offset=0, T=S),
+                           dict(causal=True, q_offset=7, T=S + 7),
+                           dict(causal=False, q_offset=0, T=S + 5))):
+        q, k, v = _mla_case(cuda, rng, B=1, Hkv=Hkv, G=G, S=S, T=c["T"], strided=i % 2 == 0)
+        kw = dict(causal=c["causal"], q_offset=c["q_offset"], scale=192 ** -0.5)
+        before = fa.LAUNCHES.count
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.mha_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES.count == before + 1
+        assert got.shape == (1, Hkv * G, S, 128) and got.dtype == torch.bfloat16
+        err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+        assert bad == 0, (c, err, worst)
+
+
+@pytest.mark.gpu
+def test_flash_refuses_width_pairs_without_an_instance(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.design(192, 128) == "tma-wgmma v2" and fa.key_tile(192, 128) == 128
+    assert fa.key_tile(256) == 64 and fa.key_tile(80) == 64
+    rng = np.random.default_rng(1)
+    for d, dv in ((192, 192), (128, 192), (192, 64), (256, 128), (128, 64)):
+        assert fa.design(d, dv) is None and fa.key_tile(d, dv) == 0
+        q, k, v = _mla_case(cuda, rng, B=1, Hkv=2, G=1, S=70, T=70, strided=True, D=d, Dv=dv)
+        before = fa.LAUNCHES.count
+        with pytest.raises(ValueError, match="has no instance"):
+            fa.flash_attention(q, k, v)
+        assert fa.LAUNCHES.count == before
+    q, k, v = _mla_case(cuda, rng, B=1, Hkv=2, G=1, S=70, T=70, strided=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention_cuda(q, k, v[:, :, :60])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["decode", "prefill"])
+def test_moe_jam_kernel_at_deepseek_buckets(cuda, fill):
+    """64 experts of 2048 x 1408 (F not a multiple of the 256-column item),
+    top-6 routed uniformly: a decode tick of 8 slots (capacity 8) and a
+    4,096-token prefill (capacity 480: 8 row tiles an expert)."""
+    from repro_torch.kernels.moe_jam import bench
+
+    ds = bench.DEEPSEEK
+    n, c = bench.DEEPSEEK_FILLS[fill]
+    counts = bench.deepseek_counts(n, c)
+    x, wg, wu, wd, cnt = bench.check_inputs(cuda, counts,
+                                            (ds["experts"], c, ds["d_model"], ds["d_ff"]))
+    got = moe_jam.moe_jam_ffn(x, wg, wu, wd, counts=cnt)
+    want = moe_jam.moe_jam_ffn_ref(x, wg, wu, wd, counts=cnt)
+    torch.cuda.synchronize()
+    err, worst, bad = moe_jam.compare(got, want, tol=MOE_TOL)
+    assert bad == 0, (err, worst)
+    empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
+    assert (got[empty] == 0).all()
+
+
+@pytest.mark.gpu
+def test_mla_smoke_engine_through_kernels(cuda, monkeypatch):
+    """The deepseek smoke at MLA's real head widths (2 heads, q and k of
+    128 + 64, v of 128, kv_lora_rank 64) on the slots engine, prompts over
+    a lowered threshold so every prefill takes flash: the kernels and the
+    plain versions give the same schedule; flash launches once per layer
+    per prefill, moe_jam once per MoE layer per prefill and decode tick,
+    and none through the plain versions."""
+    import dataclasses
+
+    from repro_torch.models import attention
+
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 64)
+    smoke = get_smoke("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(smoke, attention=dataclasses.replace(
+        smoke.attention, num_heads=2, num_kv_heads=2, head_dim=192, kv_lora_rank=64,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 30, 17, 12)]
+    runs = {}
+    for kernel in ("cuda", "ref"):
+        e = Engine(cfg, device=cuda, cache="auto", kernel=kernel, slots=2, max_len=64)
+        e.load_params(seed=0)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=6))
+        e.run_until_drained()
+        runs[kernel] = (e.admission_log, e.ticks, e.metrics())
+    assert runs["cuda"][:2] == runs["ref"][:2]
+    ticks = runs["cuda"][1]
+    assert runs["cuda"][2]["kernel_launches"] == {
+        "flash_attention": cfg.num_layers * len(prompts),
+        "moe_jam": (cfg.num_layers - 1) * (len(prompts) + ticks)}
+    assert runs["ref"][2]["kernel_launches"] == {"flash_attention": 0, "moe_jam": 0}
     assert runs["cuda"][2]["nonfinite_logits"] == 0

@@ -208,8 +208,8 @@ def test_olmoe_config_and_layer_plan_match_jax(olmoe):
                                 moe=dataclasses.replace(jcfg.moe, first_dense_layers=first))
         assert tmodel.layer_plan(t) == jmodel.layer_plan(j)
     mla = dataclasses.replace(cfg, attention=dataclasses.replace(cfg.attention, kind="mla"))
-    with pytest.raises(NotImplementedError, match="A16"):
-        tmodel.layer_plan(mla)
+    jmla = dataclasses.replace(jcfg, attention=dataclasses.replace(jcfg.attention, kind="mla"))
+    assert tmodel.layer_plan(mla) == jmodel.layer_plan(jmla) == [(("mla_moe",), 2)]
 
 
 def test_olmoe_bridge_moves_moe_leaves_bit_for_bit(olmoe):

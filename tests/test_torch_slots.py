@@ -388,7 +388,7 @@ def test_slots_backend_cannot_preempt_and_warns(slots_env, monkeypatch):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         Engine(slots_env["cfg"], device="cpu", cache="slots", kernel="cuda", **GEOM)
     with pytest.raises(ValueError, match="slots backend supports"):
-        Engine(get_smoke("olmoe-1b-7b"), device="cpu", cache="slots", **GEOM)
+        Engine(get_smoke("mamba-130m"), device="cpu", cache="slots", **GEOM)
 
 
 def test_serve_cli_slots_on_the_cpu(monkeypatch, capsys):
