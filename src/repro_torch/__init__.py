@@ -5,14 +5,15 @@ easy to find, but imports only ``torch``, ``numpy`` and the standard
 library. It ports:
 
 * greedy serving on one device: paged serving of GQA decoders, dense and
-  MoE; slots serving of GQA and MLA decoders, dense and MoE (one
-  contiguous cache row per slot, prompts past the JAX package's chunking
-  threshold prefilled through flash attention; MLA decode absorbed into
-  the compressed cache); and recurrent serving of pure-SSM stacks
+  MoE; slots serving of GQA and MLA decoders, dense and MoE, of SSM and
+  xLSTM stacks and of hybrid attention + SSM stacks (one contiguous cache
+  row per slot, prompts past the JAX package's chunking threshold
+  prefilled through flash attention; MLA decode absorbed into the
+  compressed cache); and recurrent serving of SSM and xLSTM stacks
   (constant-size state per slot, preemption by snapshot and resume)::
 
-      configs -> models (common, rope, mlp, moe, ssm, kvcache, attention,
-      blocks, model) -> kernels.paged_attention, kernels.moe_jam,
+      configs -> models (common, rope, mlp, moe, ssm, xlstm, kvcache,
+      attention, blocks, model) -> kernels.paged_attention, kernels.moe_jam,
       kernels.ssm_scan, kernels.flash_attention -> runtime.steps ->
       engine.Engine -> launch.serve
 
@@ -29,7 +30,7 @@ Every kernel is hand-written CUDA beside its plain version;
 ``kernels.loader`` builds them at first use. Entry points (``Engine``,
 ``models.model.init_params``, the serve CLI) run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card they raise instead of quietly
-falling back. Not ported yet (ROADMAP queue A): the xLSTM, hybrid,
-vision and audio archs (A9, A10), migration, faults and
-graphs (A12), training (A13) and the transports between devices (A14).
+falling back. Not ported yet (ROADMAP queue A): the vision and audio
+archs (A10), migration, faults and graphs (A12), training (A13) and the
+transports between devices (A14).
 """

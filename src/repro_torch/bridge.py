@@ -10,8 +10,11 @@ repeat, the pattern in order). Top level: ``embed`` (V, d),
 No transposition is made anywhere: every weight keeps its JAX layout
 (``wq`` (d, H, D), ``wk``/``wv`` (d, K, D), ``wo`` (H, D, d), ``w_gate``/
 ``w_up`` (d, f), ``w_down`` (f, d), ``in_proj`` (d, 2 inner), ``conv_w``
-(W, inner), ``a_log`` (inner, N); MLA's ``wq`` (d, H, dn + dr), ``w_dkv``
-(d, r + dr), ``kv_norm`` (r,), ``w_uk`` (r, H, dn), ``w_uv`` (r, H, dv),
+(W, inner), ``a_log`` (inner, N); mLSTM's ``up_proj`` (d, 2 inner),
+``wq``/``wk``/``wv`` (H, dh, dh), ``w_gates`` (inner, 2 H); sLSTM's
+``w_in`` (d, 4 d), ``r_rec`` (H, dh, 4 dh), ``ff_up`` (d, 2 f); MLA's
+``wq`` (d, H, dn + dr), ``w_dkv`` (d, r + dr), ``kv_norm`` (r,), ``w_uk``
+(r, H, dn), ``w_uv`` (r, H, dv),
 ``wo`` (H, dv, d); the shared experts' ``ws_gate``/``ws_up`` (d, f_s),
 ``ws_down`` (f_s, d)). Dtypes are kept; bfloat16 arrays are
 moved bit for bit. The bridge takes numpy only and imports no JAX.
@@ -78,11 +81,12 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
 def recurrent_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
                              device=None) -> Dict[str, Any]:
     """``repro.models.model.init_cache`` or a recurrent step's new cache
-    (``{"length", "groups": [[{"conv", "state"}]]}``, leaves with a leading
-    repeats axis when the group repeats), passed as numpy arrays -> the
-    port's ``{"layers": [{"conv", "state"}]}``. The shared ``length``
-    scalar is dropped: the port's per-request positions live in the
-    engine."""
+    (``{"length", "groups": [[...]]}``: ``{"conv", "state"}`` for an SSM
+    layer, ``{"conv", "state", "n", "m"}`` for an mLSTM one, ``{"state",
+    "c", "n", "m"}`` for an sLSTM one, leaves with a leading repeats axis
+    when the group repeats), passed as numpy arrays -> the port's
+    ``{"layers": [...]}`` of the same dicts. The shared ``length`` scalar
+    is dropped: the port's per-request positions live in the engine."""
     return {"layers": [_tree_to_torch(t, device)
                        for t in flatten_groups(np_cache["groups"], cfg)]}
 
@@ -91,9 +95,11 @@ def slot_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,
                         device=None) -> Dict[str, Any]:
     """``repro.models.model.init_cache`` or a contiguous forward's new cache
     (``{"length", "groups": [[{"k", "v"}]]}``, ``{"c_kv", "k_rope"}`` for an
-    MLA layer, leaves with a leading repeats axis when the group repeats),
-    passed as numpy arrays -> the port's ``{"length": int, "layers":
-    [{"k", "v"} or {"c_kv", "k_rope"}]}``."""
+    MLA layer, the state dicts of ``recurrent_cache_from_jax`` for a state
+    layer, ``{"k", "v", "conv", "state"}`` for a hybrid one, leaves with a
+    leading repeats axis when the group repeats), passed as numpy arrays
+    -> the port's ``{"length": int, "layers": [...]}`` of the same
+    dicts."""
     return {"length": int(np_cache["length"]),
             "layers": [_tree_to_torch(t, device)
                        for t in flatten_groups(np_cache["groups"], cfg)]}

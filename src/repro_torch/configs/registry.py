@@ -8,22 +8,20 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b, granite_20b, llama32_1b,
-                                 mamba_130m, olmoe_1b_7b, stablelm_3b)
+from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b, granite_20b, hymba_1p5b,
+                                 llama32_1b, mamba_130m, olmoe_1b_7b, stablelm_3b,
+                                 xlstm_1p3b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m, gemma3_4b, stablelm_3b, granite_20b,
-            deepseek_v2_lite_16b)
+            deepseek_v2_lite_16b, xlstm_1p3b, hymba_1p5b)
 
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.config for m in _MODULES}
 SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MODULES}
 
 # archs the JAX package has and the port does not serve yet -> the ROADMAP
 # queue-A item that ports them
-_LATER = {
-    "xlstm-1.3b": "A9", "hymba-1.5b": "A10",
-    "qwen2-vl-72b": "A10", "hubert-xlarge": "A10",
-}
+_LATER = {"qwen2-vl-72b": "A10", "hubert-xlarge": "A10"}
 
 
 def _check(arch: str) -> None:
@@ -39,24 +37,20 @@ def default_cache_backend(cfg: ModelConfig) -> str:
     """The serving Engine's sequence-state backend per model family, as the
     JAX package's ``default_cache_backend`` picks it.
 
-    Plain-GQA archs, MoE ones included, take the paged pool (the slots
-    backend serves them too, by ``cache="slots"``); pure-SSM stacks the
-    recurrent backend (constant-size state per slot); MLA stacks, whose
-    compressed latents the paged pool cannot hold, the slots backend. Of
-    the other archs the JAX package sends to slots, hybrid attention+SSM
-    stacks and mrope archs are not ported (ROADMAP item A10); nor are
-    xLSTM stacks (the rest of A9).
+    Recurrent stacks (xLSTM, pure SSM) take the recurrent backend
+    (constant-size state per slot; the slots backend serves them too, by
+    ``cache="slots"``); archs the paged pool cannot hold, MLA latents and
+    hybrid attention + SSM stacks, the slots backend; plain-GQA archs, MoE
+    ones included, the paged pool (the slots backend serves them too).
+    mrope archs, which the JAX package sends to slots, are not ported
+    (ROADMAP item A10).
     """
-    if cfg.xlstm is not None:
-        raise NotImplementedError("xLSTM blocks (mLSTM/sLSTM) are ROADMAP item A9")
-    if cfg.ssm is not None and cfg.attention is None:
+    if cfg.xlstm is not None or (cfg.ssm is not None and cfg.attention is None):
         return "recurrent"
-    if cfg.parallel_ssm_attn:
-        raise NotImplementedError("hybrid attention+SSM stacks are ROADMAP item A10")
     a = cfg.attention
     if a is not None and a.mrope:
         raise NotImplementedError("mrope archs are ROADMAP item A10")
-    if a is not None and a.kind == "mla":
+    if cfg.parallel_ssm_attn or (a is not None and a.kind == "mla"):
         return "slots"
     return "paged"
 

@@ -104,8 +104,8 @@ class Engine:
     ``block_size`` tokens), chunked prefill (``chunk`` tokens per tick)
     through the same step as decode, block-budget-gated admission,
     preempt-and-requeue (recompute) on pool exhaustion.
-    ``cache="recurrent"`` (pure-SSM stacks): constant-size conv history
-    and state per slot, chunked prefill likewise, admission on free slots
+    ``cache="recurrent"`` (SSM and xLSTM stacks): constant-size state
+    per slot, chunked prefill likewise, admission on free slots
     alone, preemption by snapshot and resume. ``cache="auto"`` takes
     ``registry.default_cache_backend``.
 
@@ -595,9 +595,10 @@ class Engine:
         """Engine telemetry snapshot (JSON-friendly), with the JAX engine's
         keys for what the port has, plus the resolved kernel kind
         (``kernel``), the launch count of each kernel the step can run
-        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}``,
-        ``{"ssm_scan": n}`` or ``{"flash_attention": n}``, prefills
-        included), the step count and the non-finite-logits counter, and
+        (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}`` on
+        the paged backend, else one key per kernel the stack's block types
+        can launch, e.g. ``{"ssm_scan": n}``, ``{"flash_attention": n,
+        "ssm_scan": m}``, or ``{}`` for an xLSTM stack; prefills included), the step count and the non-finite-logits counter, and
         the fabric block: ``fabric`` (the bundle fabric's ``metrics()`` with
         each step's resolved ``placements`` and ``lease_fallbacks``),
         ``transport_decisions`` and ``transport_telemetry``. Paged engines

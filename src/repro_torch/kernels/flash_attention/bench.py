@@ -13,9 +13,11 @@ The shapes: gemma3-4b's prefill of 4,096 tokens (8 query heads over 4 kv
 heads of 256), causal, on a global layer (no window) and on a local one
 (window 1,024); granite-20b's heads (48 over 1 of 128) at 2,304 tokens;
 an odd one, 32 heads of 80 (MHA) at 2,113 tokens, batch 2, queries
-starting at position 7 of 2,113 keys; and deepseek-v2-lite-16b's MLA
+starting at position 7 of 2,113 keys; deepseek-v2-lite-16b's MLA
 prefill of 4,096 tokens, 16 heads (MHA) with q and k of 192 and v of 128,
-causal.
+causal; and hymba-1.5b's prefill of 4,096 tokens (25 query heads over 5
+kv heads of 64), causal, on a global layer and on a local one (window
+1,024).
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ SHAPES = {
     "granite-20b": (1, 48, 1, 2304, 2304, 128, True, None, 0, 128),
     "odd": (2, 32, 32, 2113, 2113, 80, True, None, 7, 80),
     "deepseek-v2-lite mla": (1, 16, 16, 4096, 4096, 192, True, None, 0, 128),
+    "hymba-1.5b global": (1, 25, 5, 4096, 4096, 64, True, None, 0, 64),
+    "hymba-1.5b local": (1, 25, 5, 4096, 4096, 64, True, 1024, 0, 64),
 }
 
 

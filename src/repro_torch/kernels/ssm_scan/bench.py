@@ -38,13 +38,15 @@ def check_n_valid() -> np.ndarray:
     return rng.permutation(nv).astype(np.int32)
 
 
-def check_inputs(device, n_valid: np.ndarray, *, inner: int = INNER, state: int = STATE):
-    """(dt, b, c, x, a, h0, n_valid) at the engine's shape on ``device``,
-    from numpy seed 1: dt softplus of normals, x, b, c normal, all bf16;
-    a = -exp(bf16 of normal * 0.3) float32, as the model takes it from its
-    bf16 ``a_log``; h0 normal float32."""
+def check_inputs(device, n_valid: np.ndarray, *, inner: int = INNER, state: int = STATE,
+                 steps: int = CHUNK):
+    """(dt, b, c, x, a, h0, n_valid) at the engine's shape (``len(n_valid)``
+    rows of ``steps`` columns) on ``device``, from numpy seed 1: dt softplus
+    of normals, x, b, c normal, all bf16; a = -exp(bf16 of normal * 0.3)
+    float32, as the model takes it from its bf16 ``a_log``; h0 normal
+    float32."""
     rng = np.random.default_rng(1)
-    B, S = len(n_valid), CHUNK
+    B, S = len(n_valid), steps
 
     def bf16(a):
         return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)

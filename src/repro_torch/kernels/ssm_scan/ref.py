@@ -12,12 +12,27 @@ State and arithmetic in float32. ``h_last`` is the state after column
 ``x.dtype`` and zero at the columns ``t >= n_valid[b]``, which are garbage
 by contract and which the CUDA kernel writes as zeros. The CPU path uses
 this version, and ``chip_smoke.py`` holds the kernel against it on the card.
+
+Each column is the affine map ``h -> exp(dt_t a) h + (dt_t x_t) b_t`` (an
+invalid column the identity ``(1, 0)``). ``ssm_scan_ref`` takes the state
+after every column at once, as the composition of the maps up to it, by a
+Hillis-Steele prefix scan in ceil(log2 S) passes between two buffers, a
+block of channels at a time (at most ``BLOCK_ELEMS`` float32 elements a
+buffer), so a prefill of thousands of tokens launches a few hundred
+operations a layer, not several a column. ``ssm_scan_loop`` is the same
+recurrence a column at a time, as written above; the two round in other
+orders (relative differences of a few float32 ulps).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+
+# float32 elements in one of the prefix scan's four (B, S, channels, N)
+# buffers: 64 MB each
+BLOCK_ELEMS = 1 << 24
 
 
 def ssm_scan_ref(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -29,6 +44,53 @@ def ssm_scan_ref(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     (zeros); n_valid (B,) int or None (every column valid).
 
     Returns (y (B, S, I) in x.dtype, h_last (B, I, N) f32)."""
+    B, S, I = x.shape
+    N = b.shape[-1]
+    y = torch.empty((B, S, I), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((B, I, N), dtype=torch.float32, device=x.device)
+    invalid = None
+    if n_valid is not None:
+        invalid = (torch.arange(S, device=x.device)[None, :] >= n_valid[:, None])[..., None, None]
+    b_f, c_f = b.float()[:, :, None, :], c.float()
+    width = max(1, BLOCK_ELEMS // (B * S * N))
+    for i0 in range(0, I, width):
+        ch = slice(i0, i0 + width)
+        dt_f = dt[:, :, ch].float()
+        decay = torch.exp(dt_f[..., None] * a[ch].float())              # (B, S, w, N)
+        inp = (dt_f * x[:, :, ch].float())[..., None] * b_f
+        if invalid is not None:
+            decay.masked_fill_(invalid, 1.0)
+            inp.masked_fill_(invalid, 0.0)
+        # inclusive prefix composition: column t's map after the one ending
+        # at t - d, into the other buffer (the pass reads what it replaces)
+        inp2, decay2 = torch.empty_like(inp), torch.empty_like(decay)
+        d = 1
+        while d < S:
+            inp2[:, :d] = inp[:, :d]
+            torch.addcmul(inp[:, d:], decay[:, d:], inp[:, :-d], out=inp2[:, d:])
+            decay2[:, :d] = decay[:, :d]
+            torch.mul(decay[:, d:], decay[:, :-d], out=decay2[:, d:])
+            inp, inp2, decay, decay2 = inp2, inp, decay2, decay
+            d *= 2
+        del inp2, decay2
+        if h0 is not None:
+            inp.addcmul_(decay, h0[:, None, ch].float())
+        y[:, :, ch] = torch.einsum("bsin,bsn->bsi", inp, c_f)
+        h_last[:, ch] = inp[:, -1]
+        del inp, decay
+    if invalid is not None:
+        y.masked_fill_(invalid[..., 0], 0.0)
+    return y.to(x.dtype), h_last
+
+
+def ssm_scan_loop(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  x: torch.Tensor, a: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None,
+                  n_valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssm_scan_ref``'s function a column at a time, as the recurrence
+    is written above: a yardstick for the prefix scan's rounding and
+    time."""
     B, S, I = x.shape
     N = b.shape[-1]
     h = (torch.zeros((B, I, N), dtype=torch.float32, device=x.device)

@@ -12,7 +12,7 @@ schedulers.
       --prompt-len 256 --max-new 32
 
   # on the card, full-width mamba-130m on the recurrent backend (--cache
-  # auto picks it for a pure-SSM stack):
+  # auto picks it for an SSM stack):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba-130m \
       --slots 32 --chunk 32 --requests 48 --prompt-len 256 --max-new 32
 
@@ -29,6 +29,17 @@ schedulers.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
       --slots 8 --max-len 4224 --requests 8 --prompt-len 4000 --max-new 32
 
+  # on the card, full-width xlstm-1.3b (42 mLSTM + 6 sLSTM layers; --cache
+  # auto picks the recurrent backend; the recurrences run no kernel):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --slots 4 --chunk 16 --requests 8 --prompt-len 96 --max-new 16
+
+  # on the card, full-width hymba-1.5b (attention and an SSM in every block;
+  # --cache auto picks slots): prompts past 2,048 tokens prefill through
+  # flash attention, every block's SSM through the selective scan:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --slots 8 --max-len 4224 --requests 8 --prompt-len 4000 --max-new 32
+
   # on the CPU, a smoke config through the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --requests 4 --stream
@@ -39,6 +50,10 @@ schedulers.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
       --smoke --device cpu --cache slots --max-len 64 --prompt-len 20
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+      --smoke --device cpu --max-len 64 --prompt-len 20
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --smoke --device cpu --max-len 64 --prompt-len 20
 """
 from __future__ import annotations
@@ -63,9 +78,9 @@ def main() -> None:
     p.add_argument("--cache", choices=("auto", "paged", "recurrent", "slots"),
                    default="auto",
                    help="sequence-state backend; auto: paged for GQA stacks, "
-                        "slots for MLA ones, recurrent for pure-SSM ones; "
-                        "slots: one contiguous max_len row per slot (GQA and "
-                        "MLA stacks)")
+                        "slots for MLA and hybrid attention + SSM ones, "
+                        "recurrent for SSM and xLSTM ones; slots: one "
+                        "contiguous max_len row per slot (every ported stack)")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-len", type=int, default=256)
     p.add_argument("--blocks", type=int, default=0,

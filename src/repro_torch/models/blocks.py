@@ -4,9 +4,12 @@ The plain-GQA block types ``attn_full`` and ``attn_local`` (sliding
 window) and the GQA MoE block ``attn_moe`` run on the paged path and on
 the contiguous path (the slots backend's ``KVCache``, or no cache); the
 MLA blocks ``mla_dense`` and ``mla_moe`` (deepseek-v2) on the contiguous
-path, over an ``MLACache``. The recurrent path has the pure selective-SSM
-block ``ssm`` (mamba). xLSTM blocks come with ROADMAP item A9 and hybrid
-ones with A10.
+path, over an ``MLACache``. The state blocks ``ssm`` (mamba), ``mlstm``
+and ``slstm`` (xLSTM) run on the recurrent path, each row gated to its
+valid prefix, and on the contiguous path with no gate. The hybrid blocks
+``hybrid_local`` and ``hybrid_full`` (hymba: GQA attention and an SSM in
+parallel on the same normed input, mean-fused) run on the contiguous
+path. Encoder and mrope stacks come with ROADMAP item A10.
 """
 from __future__ import annotations
 
@@ -19,25 +22,26 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import ParamBuilder, rms_norm
 from repro_torch.models.kvcache import (KVCache, MLACache, PagedKVCache, PagedLayout,
                                         RecurrentLayout)
 
 # Block types whose cache is plain GQA k/v and whose paged path is ported.
 PAGED_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe")
-# Block types whose contiguous path (KVCache or MLACache rows, or no cache)
-# is ported.
-CONTIGUOUS_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe", "mla_dense", "mla_moe")
 # Block types whose per-request state is constant-size (conv history +
 # recurrent state) and whose recurrent path is ported.
-RECURRENT_BLOCK_TYPES = ("ssm",)
+RECURRENT_BLOCK_TYPES = ("mlstm", "slstm", "ssm")
+# Block types whose contiguous path (KVCache or MLACache rows, state rows,
+# or no cache) is ported.
+CONTIGUOUS_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe", "mla_dense", "mla_moe",
+                          "hybrid_local", "hybrid_full") + RECURRENT_BLOCK_TYPES
 
 
 def _check(bt: str) -> None:
-    ported = CONTIGUOUS_BLOCK_TYPES + RECURRENT_BLOCK_TYPES
-    if bt not in ported:
-        raise ValueError(f"block type {bt!r} is not ported: the port serves {ported} "
-                         "(ROADMAP items A9 and A10 bring the rest)")
+    if bt not in CONTIGUOUS_BLOCK_TYPES:
+        raise ValueError(f"block type {bt!r} is not ported: the port serves "
+                         f"{CONTIGUOUS_BLOCK_TYPES} (ROADMAP item A10 brings the rest)")
 
 
 def _check_paged(bt: str) -> None:
@@ -64,6 +68,12 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
     _check(bt)
     d = cfg.d_model
     b.param("ln1", (d,), init="zeros")
+    if bt == "mlstm":
+        xlstm_mod.init_mlstm(b.scope("mlstm"), d, cfg.xlstm)
+        return
+    if bt == "slstm":
+        xlstm_mod.init_slstm(b.scope("slstm"), d, cfg.xlstm)
+        return
     if bt == "ssm":
         # norm -> SSM residual, plus an MLP residual when the arch has one
         ssm_mod.init_ssm(b.scope("ssm"), d, cfg.ssm)
@@ -76,19 +86,36 @@ def init_block(b: ParamBuilder, bt: str, cfg: ModelConfig) -> None:
         attn.init_mla(b.scope("attn"), d, cfg.attention)
     else:
         attn.init_gqa(b.scope("attn"), d, cfg.attention)
+    if bt.startswith("hybrid"):
+        ssm_mod.init_ssm(b.scope("ssm"), d, cfg.ssm)
     if bt.endswith("_moe"):
         moe_mod.init_moe(b.scope("moe"), d, cfg.moe)
     else:
         mlp_mod.init_mlp(b.scope("mlp"), d, cfg.d_ff, cfg.mlp_gated)
 
 
+def _state_cache(bt: str, cfg: ModelConfig, batch: int, dtype, device) -> Dict[str, Any]:
+    """A state block's rows, the JAX package's dicts: ``{"conv", "state"}``
+    (ssm), ``{"conv", "state", "n", "m"}`` (mlstm) or ``{"state", "c", "n",
+    "m"}`` (slstm); conv history in ``dtype``, the rest float32."""
+    if bt == "mlstm":
+        return xlstm_mod.mlstm_init_cache(cfg.d_model, cfg.xlstm, batch, dtype, device)
+    if bt == "slstm":
+        return xlstm_mod.slstm_init_cache(cfg.d_model, cfg.xlstm, batch, device)
+    return ssm_mod.ssm_init_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
+
+
 def init_block_cache(bt: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """One layer's rows of the slots backend's contiguous cache, zeros:
-    ``{"k", "v"}`` of (batch, max_len, K, D), or for an MLA block
-    ``{"c_kv", "k_rope"}`` of (batch, max_len, r) and (batch, max_len,
-    dr)."""
+    """One layer's rows of the slots backend's contiguous cache, zeros
+    (``m`` and ``n`` of the xLSTM blocks at their initial values): ``{"k",
+    "v"}`` of (batch, max_len, K, D), or for an MLA block ``{"c_kv",
+    "k_rope"}`` of (batch, max_len, r) and (batch, max_len, dr); a state
+    block's rows as ``init_recurrent_block_cache`` gives them; a hybrid
+    block's ``{"k", "v", "conv", "state"}``."""
     _check_contiguous(bt)
+    if bt in RECURRENT_BLOCK_TYPES:
+        return _state_cache(bt, cfg, batch, dtype, device)
     a = cfg.attention
     if bt.startswith("mla"):
         return {"c_kv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=dtype,
@@ -96,8 +123,11 @@ def init_block_cache(bt: str, cfg: ModelConfig, batch: int, max_len: int,
                 "k_rope": torch.zeros((batch, max_len, a.qk_rope_head_dim), dtype=dtype,
                                       device=device)}
     shape = (batch, max_len, a.num_kv_heads, a.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if bt.startswith("hybrid"):
+        c.update(_state_cache("ssm", cfg, batch, dtype, device))
+    return c
 
 
 def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
@@ -112,23 +142,30 @@ def init_paged_block_cache(bt: str, cfg: ModelConfig, num_blocks: int,
 
 def init_recurrent_block_cache(bt: str, cfg: ModelConfig, batch: int,
                                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """``{"conv", "state"}`` rows for ``batch`` slots: the conv history in
-    ``dtype``, the state in float32."""
+    """A state block's rows for ``batch`` slots (``_state_cache``): the conv
+    history in ``dtype``, the state float32."""
     _check_recurrent(bt)
-    return ssm_mod.ssm_init_cache(cfg.d_model, cfg.ssm, batch, dtype, device)
+    return _state_cache(bt, cfg, batch, dtype, device)
 
 
-def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
-                          cache: Dict[str, Any], recurrent: RecurrentLayout,
-                          kernel: str = "auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Pre-norm residual SSM block over per-slot state: the SSM advances
-    each row over its valid prefix (``recurrent.n_valid``), then the MLP
-    residual when ``cfg.d_ff`` (mamba has none). ``kernel`` selects the
-    scan. Returns ``(x, cache)``, the cache a new ``{"conv", "state"}``."""
-    _check_recurrent(bt)
+def _apply_state_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
+                       cache: Optional[Dict[str, Any]], valid: Optional[torch.Tensor],
+                       kernel: str) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Pre-norm residual state block: mLSTM, sLSTM, or the SSM (then the
+    MLP residual when ``cfg.d_ff``; mamba has none), each advancing over
+    the valid prefix of each row (``valid`` (B, S), or None for every
+    column). ``kernel`` selects the SSM's scan; the xLSTM recurrences have
+    no kernel. Returns ``(x, cache)``, the cache new."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, cache = ssm_mod.ssm_forward(params["ssm"], h, cfg.ssm, cache=cache,
-                                   valid=recurrent.token_valid(x.shape[1]),
+    if bt == "mlstm":
+        y, cache = xlstm_mod.mlstm_forward(params["mlstm"], h, cfg.xlstm, cache=cache,
+                                           valid=valid)
+        return x + y, cache
+    if bt == "slstm":
+        y, cache = xlstm_mod.slstm_forward(params["slstm"], h, cfg.xlstm, cache=cache,
+                                           valid=valid)
+        return x + y, cache
+    y, cache = ssm_mod.ssm_forward(params["ssm"], h, cfg.ssm, cache=cache, valid=valid,
                                    kernel=kernel)
     x = x + y
     if cfg.d_ff:
@@ -137,22 +174,42 @@ def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
     return x, cache
 
 
+def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
+                          cache: Dict[str, Any], recurrent: RecurrentLayout,
+                          kernel: str = "auto") -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """A state block over per-slot state: each row advances over its valid
+    prefix (``recurrent.n_valid``). ``kernel`` selects the SSM's scan.
+    Returns ``(x, cache)``, the cache new."""
+    _check_recurrent(bt)
+    return _apply_state_block(bt, params, x, cfg, cache,
+                              recurrent.token_valid(x.shape[1]), kernel)
+
+
 def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Dict[str, Any]], length: int, kernel: str = "auto"
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Union[torch.Tensor, float]]:
     """Pre-norm residual block on the contiguous path: attention over the
     layer's rows holding ``length`` tokens (or over the tokens alone when
     ``cache`` is None), GQA over ``{"k", "v"}`` or MLA over ``{"c_kv",
-    "k_rope"}``, then the MLP, or the MoE FFN for ``*_moe``. ``attn_local``
-    attends within ``sliding_window``. ``kernel`` selects every kernel of
-    the block (flash attention for long prefills, the MoE expert FFN) or
-    their plain versions. Returns ``(x, cache, aux)``, ``aux`` as
-    ``apply_block_paged`` gives it; the rows are updated in place.
+    "k_rope"}``, then the MLP, or the MoE FFN for ``*_moe``. ``*_local``
+    attends within ``sliding_window``. A hybrid block runs the SSM on the
+    same normed input beside the attention, from its ``{"conv", "state"}``
+    rows, and adds the mean of the two; a state block (ssm, mlstm, slstm)
+    advances every row over every column (no valid gate, as the JAX
+    package's contiguous block runs it). ``kernel`` selects every kernel of
+    the block (flash attention for long prefills, the MoE expert FFN, the
+    selective scan) or their plain versions. Returns ``(x, cache, aux)``,
+    ``aux`` as ``apply_block_paged`` gives it; attention rows are updated in
+    place, state rows returned new.
 
     The MoE FFN routes every token with no token mask, as the JAX
     package's contiguous block does: on the slots backend an idle slot's
-    decode row routes and takes expert capacity too."""
+    decode row routes and takes expert capacity too, and an idle slot's
+    state advances over its decode column."""
     _check_contiguous(bt)
+    if bt in RECURRENT_BLOCK_TYPES:
+        x, cache = _apply_state_block(bt, params, x, cfg, cache, None, kernel)
+        return x, cache, 0.0
     a = cfg.attention
     causal = not cfg.is_encoder
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -167,6 +224,13 @@ def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
         y_attn, kv = attn.gqa_attention(params["attn"], h, a, causal=causal,
                                         window=window, cache=kv, kernel=kernel)
         new_cache = None if kv is None else {"k": kv.k, "v": kv.v}
+    if bt.startswith("hybrid"):
+        sc = None if cache is None else {"conv": cache["conv"], "state": cache["state"]}
+        y_ssm, sc = ssm_mod.ssm_forward(params["ssm"], h, cfg.ssm, cache=sc, kernel=kernel)
+        # hymba: the mean of the parallel attention and mamba heads
+        y_attn = 0.5 * (y_attn + y_ssm)
+        if sc is not None:
+            new_cache.update(sc)
     x = x + y_attn
     h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
     if bt.endswith("_moe"):

@@ -33,19 +33,23 @@ from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """[(pattern, repeats), ...] covering cfg.num_layers in order: the JAX
-    package's plan for plain attention, MoE (GQA or MLA) and pure-SSM
-    stacks (the bridge reads its group structure). xLSTM stacks are
-    ROADMAP item A9 and hybrid ones A10."""
+    package's plan for xLSTM stacks (``slstm_every - 1`` mLSTM blocks and
+    one sLSTM, then the remainder as mLSTM), pure-SSM stacks, MoE stacks
+    (GQA or MLA), hybrid attention + SSM stacks (``local_global_ratio``
+    ``hybrid_local`` blocks and one ``hybrid_full``, then the remainder as
+    local) and plain attention (the bridge reads its group structure)."""
     L = cfg.num_layers
     if cfg.xlstm is not None:
-        raise NotImplementedError(f"{cfg.name}: xLSTM blocks (mLSTM/sLSTM) are ROADMAP "
-                                  "item A9")
+        k = cfg.xlstm.slstm_every
+        if k and L >= k:
+            groups = [(("mlstm",) * (k - 1) + ("slstm",), L // k)]
+            if L % k:
+                groups.append((("mlstm",) * (L % k), 1))
+            return groups
+        return [(("mlstm",), L)]
     if cfg.ssm is not None and cfg.attention is None:
         return [(("ssm",), L)]
     a = cfg.attention
-    if a is None or cfg.ssm is not None or cfg.parallel_ssm_attn:
-        raise NotImplementedError(f"{cfg.name}: hybrid attention+SSM stacks are "
-                                  "ROADMAP item A10")
     if cfg.family == "moe":
         dense_bt, moe_bt = ("mla_dense", "mla_moe") if a.kind == "mla" else (
             "attn_full", "attn_moe")
@@ -53,14 +57,16 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
         groups = [((dense_bt,), first)] if first else []
         groups.append(((moe_bt,), L - first))
         return groups
+    local, full = (("hybrid_local", "hybrid_full") if cfg.parallel_ssm_attn
+                   else ("attn_local", "attn_full"))
     if a.local_global_ratio:
-        cyc = ("attn_local",) * a.local_global_ratio + ("attn_full",)
+        cyc = (local,) * a.local_global_ratio + (full,)
         n = L // len(cyc)
         groups = [(cyc, n)]
         if L - n * len(cyc):
-            groups.append((("attn_local",) * (L - n * len(cyc)), 1))
+            groups.append(((local,) * (L - n * len(cyc)), 1))
         return groups
-    return [(("attn_full",), L)]
+    return [((full,), L)]
 
 
 def flat_block_types(cfg: ModelConfig) -> List[str]:
@@ -97,8 +103,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Dict[str, Any]:
     """The contiguous cache: one ``{"k", "v"}`` of (batch, max_len, K, D)
-    per layer (``{"c_kv", "k_rope"}`` for an MLA layer), and one
-    ``length`` (a host int) shared by every row."""
+    per layer (``{"c_kv", "k_rope"}`` for an MLA layer, the state rows of
+    ``init_recurrent_cache`` for a state layer, ``{"k", "v", "conv",
+    "state"}`` for a hybrid one), and one ``length`` (a host int) shared by
+    every row."""
     return {"length": 0,
             "layers": [blocks_mod.init_block_cache(bt, cfg, batch, max_len, dtype, device)
                        for bt in flat_block_types(cfg)]}
@@ -116,9 +124,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 def init_recurrent_cache(cfg: ModelConfig, slots: int, dtype=torch.bfloat16,
                          device=None) -> Dict[str, Any]:
-    """One ``{"conv", "state"}`` per layer, ``slots`` rows each: the conv
-    history in ``dtype``, the state in float32. Constant-size in the
-    sequence length; per-request positions live in the engine."""
+    """One state dict per layer, ``slots`` rows each (``{"conv", "state"}``
+    for an SSM layer, ``{"conv", "state", "n", "m"}`` for an mLSTM one,
+    ``{"state", "c", "n", "m"}`` for an sLSTM one): the conv history in
+    ``dtype``, the rest float32. Constant-size in the sequence length;
+    per-request positions live in the engine."""
     return {"layers": [blocks_mod.init_recurrent_block_cache(bt, cfg, slots, dtype, device)
                        for bt in flat_block_types(cfg)]}
 
@@ -153,7 +163,8 @@ def forward(
     returned new. ``last_only`` applies the head to the last position
     alone (logits (B, 1, V)), all a prefill reads. ``paged_kernel``
     selects every kernel of the path: paged attention and the MoE expert
-    FFN, the selective scan, or flash attention and the MoE expert FFN."""
+    FFN, the selective scan, or flash attention, the MoE expert FFN and the
+    selective scan (the xLSTM recurrences have none)."""
     if paged is not None and recurrent is not None:
         raise ValueError("pass one of paged= and recurrent=")
     if (paged is not None or recurrent is not None) and cache is None:

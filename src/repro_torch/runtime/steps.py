@@ -1,9 +1,11 @@
 """The serve steps, on one device: the paged step (block-pool cache, dense
 and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
-pure-SSM stacks), each serving decode and chunked prefill in one fixed
-shape; and the slots backend's two steps over the contiguous cache (GQA
-or MLA, dense or MoE), the one-request prefill and the one-token decode
-of every slot. Every bundle
+SSM and xLSTM stacks), each serving decode and chunked prefill in one
+fixed shape; and the slots backend's two steps over the contiguous cache
+(GQA or MLA, dense or MoE, state and hybrid blocks), the one-request
+prefill and the one-token decode of every slot. Each bundle's
+``meta["kernels"]`` names the kernels its stack can launch, derived from
+its block types. Every bundle
 owns a ``Fabric`` (``meta["fabric"]``, as in the JAX package's
 ``_bundle_fabric``): the Engine registers its steps on it and invokes them
 through ``fabric.call``. Mesh lowering is ROADMAP A14."""
@@ -114,7 +116,9 @@ def make_recurrent_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
 
     ``kernel`` selects the selective scan; ``meta["kernel"]`` holds the
     resolved kind, ``meta["nonfinite_logits"]`` counts rows with
-    non-finite emitted logits, as in the paged step.
+    non-finite emitted logits, as in the paged step. ``meta["kernels"]``
+    is ``("ssm_scan",)`` for a stack with SSM blocks and empty for an xLSTM
+    one, whose recurrences launch no kernel.
     """
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
@@ -137,22 +141,32 @@ def make_recurrent_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,
 
     return StepBundle(fn=recurrent_step, meta=dict(
         kind="recurrent_decode", chunk=chunk, slots=slots, kernel=kind, device=dev,
-        nonfinite_logits=nonfinite, kernels=("ssm_scan",),
+        nonfinite_logits=nonfinite, kernels=_stack_kernels(cfg),
         fabric=Fabric(name="steps.recurrent_decode")))
 
 
+def _stack_kernels(cfg: ModelConfig) -> tuple:
+    """The kernels a stack's blocks can launch: flash attention where a
+    block attends (on the contiguous path, for a long prefill), the
+    selective scan where a block holds an SSM, the MoE expert FFN where a
+    block is MoE."""
+    types = set(model_lib.flat_block_types(cfg))
+    uses = {"flash_attention": any(bt.startswith(("attn", "mla", "hybrid")) for bt in types),
+            "ssm_scan": any(bt == "ssm" or bt.startswith("hybrid") for bt in types),
+            "moe_jam": any(bt.endswith("_moe") for bt in types)}
+    return tuple(name for name, used in uses.items() if used)
+
+
 def _contiguous_kernels(cfg: ModelConfig) -> tuple:
-    """The kernels a slots step can launch: flash attention, and the MoE
-    expert FFN where the stack has MoE blocks."""
+    """The kernels a slots step can launch (``_stack_kernels``), after
+    checking that every block type has a contiguous path."""
     if cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
-    types = set(model_lib.flat_block_types(cfg))
-    bad = sorted(types - set(blocks_mod.CONTIGUOUS_BLOCK_TYPES))
+    bad = sorted(set(model_lib.flat_block_types(cfg)) - set(blocks_mod.CONTIGUOUS_BLOCK_TYPES))
     if bad:
         raise ValueError(f"the slots backend supports block types "
                          f"{blocks_mod.CONTIGUOUS_BLOCK_TYPES}, got {bad}")
-    moe = any(bt.endswith("_moe") for bt in types)
-    return ("flash_attention", "moe_jam") if moe else ("flash_attention",)
+    return _stack_kernels(cfg)
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
@@ -165,7 +179,7 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
     position alone: it is all the JAX package's prefill step returns and
     all the Engine reads. ``kernel`` selects flash attention's kernel or
     its plain version for a prompt past ``models.attention.CHUNK_THRESHOLD``,
-    and the MoE expert FFN's.
+    the MoE expert FFN's and the selective scan's.
     """
     kernels = _contiguous_kernels(cfg)
     dev = resolve_device(device)
@@ -195,9 +209,9 @@ def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", devic
     position (the JAX package's lockstep: exact only for slots whose
     prompts end at the same position). The cache is updated in place.
     ``meta["nonfinite_logits"]`` counts rows whose logits held a NaN or an
-    infinity; ``kernel`` selects the MoE expert FFN's kernel or its plain
-    version (attention over one query runs no kernel: plain ``_sdpa``, or
-    MLA's absorbed scores)."""
+    infinity; ``kernel`` selects the MoE expert FFN's kernel and the
+    selective scan's, or their plain versions (attention over one query
+    runs no kernel: plain ``_sdpa``, or MLA's absorbed scores)."""
     kernels = _contiguous_kernels(cfg)
     dev = resolve_device(device)
     kind = resolve_kernel(kernel, dev)

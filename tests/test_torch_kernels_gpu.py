@@ -37,7 +37,9 @@ port's dependencies:
   rounded to bf16), zeros past n_valid, ``h_last`` within 1e-4 * (1 +
   |plain|), ``h0`` bit for bit on empty rows; a second launch from the
   first one's ``h_last`` equals one launch over both chunks, bit for bit,
-  on both routes;
+  on both routes; the slots backend's single-row prefill (1 x 2,113 and
+  4,096 tokens x 1,536 and 3,200 channels, N 16, no valid gate, h0 None);
+  mamba's and hymba's smokes on the slots engine through the kernels;
 * the ring put kernel against its plain version, exactly (integers): 1,
   2, 3 and 8 ranks, shifts 1, 2, n - 1 and n + 1, 1 frame to 20,000
   (53 chunks of 48 KiB, several to a cluster), WFE and poll, stashed (with
@@ -66,7 +68,9 @@ port's dependencies:
   bidirectional, strided (the model's layout) and contiguous; at D 256
   G 2, 127, 129 and 4,096 positions with a window of 1,024 at q_offset 7
   and without, strided and contiguous; each design at each head dim it
-  serves (v1 at D 16 and 80, v2 at 64, 128 and 256); each
+  serves (v1 at D 16 and 80, v2 at 64, 128 and 256); hymba-1.5b's heads
+  (25 over 5 of 64, G 5) at 2,113 and 4,096 positions, causal, with its
+  window of 1,024 and without; each
   element within 2e-2 * (rms of its (batch, head, position) row + |plain|)
   (bf16 outputs; the kernel rounds the unnormalized p to bf16 before P.V,
   the plain version the normalized probabilities);
@@ -80,7 +84,9 @@ port's dependencies:
 * the smoke engines through the kernels against the same engines through
   the plain versions: identical schedule, one launch of each kernel per
   layer per step (per layer per long prefill for the slots engine; for
-  the MLA engine also moe_jam per MoE layer per prefill and decode tick).
+  the MLA engine also moe_jam per MoE layer per prefill and decode tick;
+  for the mamba and hymba smokes on slots the scan per state layer per
+  prefill and decode tick).
 """
 import numpy as np
 import pytest
@@ -468,6 +474,32 @@ def test_ssm_scan_kernel_at_tile_and_stage_edges(cuda, i, n, s):
     valid = torch.arange(s, device=cuda)[None, :] < n_valid[:, None]
     assert (torch.where(valid[:, :, None], 0.0, y.float()) == 0).all()
     assert torch.equal(h[0], args[5][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [2113, 4096])
+@pytest.mark.parametrize("i", [1536, 3200])
+def test_ssm_scan_single_row_prefill_without_valid_gate(cuda, i, s):
+    """The slots backend's prefill shape: one row, a prompt of up to 4,096
+    tokens, mamba-130m's 1,536 and hymba-1.5b's 3,200 channels, N 16,
+    ``n_valid`` None (every column) and ``h0`` None (zeros) as the
+    contiguous path passes them, on the TMA route; then from the first
+    launch's state over a second chunk."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_route
+
+    dt, bb, cc, x, a, _ = _scan_case(np.random.default_rng(i + s), cuda, 1, s, i, 16)
+    assert scan_route(dt, bb, cc, x) == "tma"
+    full = torch.full((1,), s, dtype=torch.int32, device=cuda)
+    before = ssm_scan.LAUNCHES.count
+    y, h = ssm_scan.ssm_scan(dt, bb, cc, x, a)
+    yr, hr = ssm_scan.ssm_scan_ref(dt, bb, cc, x, a)
+    y2, h2 = ssm_scan.ssm_scan(dt[:, :9], bb[:, :9], cc[:, :9], x[:, :9], a, h)
+    yr2, hr2 = ssm_scan.ssm_scan_ref(dt[:, :9], bb[:, :9], cc[:, :9], x[:, :9], a, hr)
+    torch.cuda.synchronize()
+    assert ssm_scan.LAUNCHES.count == before + 2
+    for got, want, n in (((y, h), (yr, hr), full), ((y2, h2), (yr2, hr2), full.clamp(max=9))):
+        max_y, max_h, worst, bad = ssm_scan.compare(*got, *want, n)
+        assert bad == 0, (max_y, max_h, worst)
 
 
 @pytest.mark.gpu
@@ -990,6 +1022,27 @@ def test_flash_each_design_at_its_head_dims(cuda, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [2113, 4096])
+@pytest.mark.parametrize("window", [None, 1024])
+def test_flash_hymba_heads(cuda, window, S):
+    """hymba-1.5b's prefill: 25 query heads over 5 kv heads (G 5, not a
+    power of two) of 64, causal, with its window of 1,024 on the local
+    layers and none on the global ones, in the model's strided layout."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.design(64) == "tma-wgmma v2"
+    rng = np.random.default_rng(S + (window or 0))
+    q, k, v = _flash_case(cuda, rng, B=1, Hkv=5, G=5, S=S, T=S, D=64, strided=True)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.mha_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+    assert bad == 0, (err, worst)
+
+
+@pytest.mark.gpu
 def test_flash_tile_counts(cuda):
     """The kernel's own count of the kv tiles it visits and masks. v2,
     causal over 1,024 positions at G 2 and D 128: 16 CTAs of 64 positions
@@ -1055,6 +1108,39 @@ def test_slots_smoke_engine_through_flash_kernel(cuda, monkeypatch):
     long_prompts = sum(len(p) ** 2 > 64 for p in prompts)
     assert runs["cuda"][2]["kernel_launches"] == {"flash_attention": cfg.num_layers * long_prompts}
     assert runs["ref"][2]["kernel_launches"] == {"flash_attention": 0}
+    assert runs["cuda"][2]["nonfinite_logits"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba-130m", "hymba-1.5b"])
+def test_state_stack_smoke_on_slots_through_kernels(cuda, monkeypatch, arch):
+    """mamba's and hymba's smokes on the slots engine (``cache="slots"``;
+    hymba's default): the kernels and the plain versions give the same
+    schedule; the scan launches once a state layer a prefill and a decode
+    tick, flash (hymba, threshold lowered) once a layer a long prefill;
+    nothing through the plain versions."""
+    from repro_torch.models import attention
+
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 64)
+    cfg = get_smoke(arch)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 30, 5, 17)]
+    runs = {}
+    for kernel in ("cuda", "ref"):
+        e = Engine(cfg, device=cuda, cache="slots", kernel=kernel, slots=2, max_len=64)
+        e.load_params(seed=0)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=6))
+        e.run_until_drained()
+        runs[kernel] = (e.admission_log, e.ticks, e.metrics())
+    assert runs["cuda"][:2] == runs["ref"][:2]
+    steps = len(prompts) + runs["cuda"][1]
+    want = {"ssm_scan": cfg.num_layers * steps}
+    if arch == "hymba-1.5b":
+        want["flash_attention"] = cfg.num_layers * sum(len(p) ** 2 > 64 for p in prompts)
+    assert runs["cuda"][2]["kernel_launches"] == want
+    assert runs["ref"][2]["kernel_launches"] == {k: 0 for k in want}
     assert runs["cuda"][2]["nonfinite_logits"] == 0
 
 

@@ -60,8 +60,9 @@ def test_configs_match_jax():
     from repro.configs.registry import get_config as j_get_config
     assert get_config("llama3.2-1b").to_json() == j_get_config("llama3.2-1b").to_json()
     assert get_smoke("llama3.2-1b").to_json() == j_get_smoke("llama3.2-1b").to_json()
-    with pytest.raises(KeyError, match="ROADMAP item A9"):
-        get_config("xlstm-1.3b")
+    for arch in ("qwen2-vl-72b", "hubert-xlarge"):
+        with pytest.raises(KeyError, match="ROADMAP item A10"):
+            get_config(arch)
 
 
 def test_params_from_jax_round_trip(smoke):

@@ -29,13 +29,22 @@ window 8 and 1 global), ``stablelm-3b`` (MHA, 25% rotary) and
   order, ticks, completions and the final shared length match exactly.
   The tokens are held against the JAX float32 forward driven through the
   port's own admissions and decode inputs (prefill into a fresh row,
-  scatter, length rule, decode): each emitted token is that forward's
-  argmax, except where its top-2 margin is under the bf16 margin
-  (``MARGIN_TOL``) for the bf16 engine, under ``F32_MARGIN_TOL`` for the
-  port's engine built in float32 (at most one in ten tokens each).
+  scatter, length rule, decode): each emitted token is the argmax of the
+  logits its step computed (and a decode step's own output), and that
+  forward's argmax, except where its top-2 margin is under the bf16
+  margin (``MARGIN_TOL``) for the bf16 engine, under ``F32_MARGIN_TOL``
+  for the port's engine built in float32 (at most one in ten tokens
+  each). Each request's tokens are the JAX engine's up to a first
+  difference, which must fall on a near tie of the float32 forward.
 * The fabric: ``engine.decode`` at the engine's placement, ``engine.prefill``
   at local; the ``pick_victim`` warning; ``evict`` raises, migration
   raises naming ROADMAP A12; ``--cache slots`` on the serve CLI.
+* An SSM stack on slots (``mamba-130m``'s smoke, 2 slots of 32 rows,
+  prompts of 4, 7 and 5 tokens, 4 new each): the same schedule as the JAX
+  slots engine, the float32 engine's prefill and decode logits within
+  ``ATOL`` of the JAX float32 forward driven through its own admissions
+  and decode inputs, and the tokens as above (``slots_engine_parity``,
+  which the xLSTM and hybrid tests use too).
 
 The JAX prefill and decode are jitted here (a compile per shape, not per
 op); the JAX engine's own prefill forward is jitted the same way.
@@ -64,6 +73,7 @@ from repro_torch.engine import Engine, Request, SlotKVState
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+from test_torch_engine import same_tokens_but_at_ties
 
 ARCHS = ("gemma3-4b", "stablelm-3b", "granite-20b")
 ATOL = 1e-4
@@ -217,45 +227,61 @@ def test_bf16_unrolled_layers_within_margin_of_scanned(models, arch):
 @pytest.fixture(scope="module")
 def slots_env(models):
     m = models["gemma3-4b"]
-    jcfg = m["jcfg"]
-    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
-    run = RunConfig(model=jcfg, shape=SHAPES["decode_32k"],
-                    sharding=ShardingConfig(fsdp_params=False, seq_axis=None))
     rng = np.random.default_rng(10)
-    prompts = [rng.integers(0, jcfg.vocab_size, size=(n,)).astype(np.int32) for n in LENS]
+    prompts = [rng.integers(0, m["cfg"].vocab_size, size=(n,)).astype(np.int32) for n in LENS]
+    return slots_parity_env(m["jcfg"], m["cfg"], m["jparams"], prompts, **GEOM)
+
+
+def slots_parity_env(jcfg, cfg, jparams, prompts, *, slots, max_len):
+    """A slots engine comparison's inputs: a plain Mesh (all-Auto axes), the
+    run config, the JAX float32 oracle (prefill into a fresh ``max_len``
+    row, decode), the JAX engine's prefill forward jitted (the engine calls
+    it eagerly), and the port's weights (float32, from the same JAX ones).
+    The state and hybrid stacks' tests import it."""
     f32 = dict(compute_dtype=jnp.float32)
-    oracle = dict(
-        prefill=jax.jit(lambda p, t: jmodel.forward(
-            jcfg, p, t, cache=jmodel.init_cache(jcfg, 1, GEOM["max_len"], dtype=jnp.float32),
-            **f32)[:2]),
-        decode=jax.jit(lambda p, c, t: jmodel.decode_step(jcfg, p, c, t, **f32)))
-    # the JAX engine's prefill forward, jitted (the engine calls it eagerly)
     jitted = types.SimpleNamespace(**vars(jmodel))
     jitted.forward = jax.jit(jmodel.forward, static_argnums=(0,))
-    return dict(m, mesh=mesh, run=run, prompts=prompts, oracle=oracle, jitted=jitted)
+    return dict(
+        jcfg=jcfg, cfg=cfg, jparams=jparams, prompts=prompts, jitted=jitted,
+        geom=dict(slots=slots, max_len=max_len),
+        tparams=params_from_jax(jax.tree.map(np.asarray, jparams), cfg),
+        mesh=Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model")),
+        run=RunConfig(model=jcfg, shape=SHAPES["decode_32k"],
+                      sharding=ShardingConfig(fsdp_params=False, seq_axis=None)),
+        oracle=dict(
+            prefill=jax.jit(lambda p, t: jmodel.forward(
+                jcfg, p, t, cache=jmodel.init_cache(jcfg, 1, max_len, dtype=jnp.float32),
+                **f32)[:2]),
+            decode=jax.jit(lambda p, c, t: jmodel.decode_step(jcfg, p, c, t, **f32))))
 
 
-def _serve_jax(env, scheduler, monkeypatch, placement="local"):
+def _serve_jax(env, monkeypatch, scheduler="fifo", placement="local", max_new=MAX_NEW):
     monkeypatch.setattr(j_engine_mod, "model_lib", env["jitted"])
     with env["mesh"], warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         e = JEngine(env["jcfg"], env["run"], env["mesh"], cache="slots", scheduler=scheduler,
-                    placement=placement, **GEOM)
+                    placement=placement, **env["geom"])
         e.load_params(env["jparams"])
         for rid, p in enumerate(env["prompts"]):
-            e.submit(JRequest(rid, p, max_new_tokens=MAX_NEW, priority=PRIORITIES[rid]))
+            e.submit(JRequest(rid, p, max_new_tokens=max_new, priority=PRIORITIES[rid]))
         e.run_until_drained()
     return e
 
 
-def _serve_torch(env, scheduler, dtype=torch.bfloat16, placement="local"):
-    """The port's slots engine; returns it and its recorded prefills and
-    decode steps (``("prefill", slot, prompt, logits)`` and ``("decode",
-    active slots, tokens, next tokens)``)."""
+def _serve_torch(env, monkeypatch, scheduler="fifo", dtype=torch.bfloat16, placement="local",
+                 cache="slots", max_new=MAX_NEW):
+    """The port's slots engine (``cache`` "slots" or "auto") with its steps
+    built in ``dtype``; returns it and its recorded prefills and decode
+    steps: ``(kind, slots, (rid, position) of each slot's token, input
+    tokens, logits, the step's tokens)``, a prefill's for its one slot
+    (logits (1, V), no step tokens: the engine takes the argmax), a
+    decode's for the active slots (every row's logits (slots, V), its
+    tokens (slots, 1))."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        e = Engine(env["cfg"], device="cpu", cache="slots", kernel="ref", scheduler=scheduler,
-                   placement=placement, **GEOM)
+        e = Engine(env["cfg"], device="cpu", cache=cache, kernel="ref", scheduler=scheduler,
+                   placement=placement, **env["geom"])
+    assert e.cache_kind == "slots"
     e.load_params(env["tparams"])
     if dtype != torch.bfloat16:
         e.bundle = make_serve_step(env["cfg"], slots=e.slots, kernel="ref", device="cpu",
@@ -263,25 +289,37 @@ def _serve_torch(env, scheduler, dtype=torch.bfloat16, placement="local"):
         e.prefill_bundle = make_prefill_step(env["cfg"], max_len=e.max_len, kernel="ref",
                                              device="cpu", compute_dtype=dtype)
         e.cache = tmodel.init_cache(env["cfg"], e.slots, e.max_len, dtype=dtype, device="cpu")
-    events = []
+    events, decode_logits = [], []
+    inner = tmodel.decode_step
+
+    def rec_decode_step(*args, **kw):
+        logits, c = inner(*args, **kw)
+        decode_logits.append(logits[:, -1].numpy().copy())
+        return logits, c
+
+    monkeypatch.setattr(tmodel, "decode_step", rec_decode_step)
     prefill, decode = e.prefill_bundle.fn, e.bundle.fn
 
     def rec_prefill(params, tokens):
         out = prefill(params, tokens)
-        slot = e.slot_entry.index(None)
-        events.append(("prefill", slot, tokens.numpy().copy(), out[0].numpy().copy()))
+        # the admitted request was stamped just before its prefill
+        events.append(("prefill", [e.slot_entry.index(None)], [(e.admission_log[-1], 0)],
+                       tokens.numpy().copy(), out[0].numpy().copy(), None))
         return out
 
-    def rec_decode(params, cache, tokens):
-        out = decode(params, cache, tokens)
+    def rec_decode(params, c, tokens):
+        out = decode(params, c, tokens)
         active = [i for i, x in enumerate(e.slot_entry) if x is not None]
-        events.append(("decode", active, tokens.numpy().copy(), out[0].numpy().copy()))
+        at = [(e.slot_entry[i].req.rid, len(e.slot_entry[i].req.out_tokens)) for i in active]
+        events.append(("decode", active, at, tokens.numpy().copy(), decode_logits[-1],
+                       out[0].numpy().copy()))
         return out
 
     e.prefill_bundle.fn, e.bundle.fn = rec_prefill, rec_decode
     for rid, p in enumerate(env["prompts"]):
-        e.submit(Request(rid, p, max_new_tokens=MAX_NEW, priority=PRIORITIES[rid]))
+        e.submit(Request(rid, p, max_new_tokens=max_new, priority=PRIORITIES[rid]))
     e.run_until_drained()
+    monkeypatch.setattr(tmodel, "decode_step", inner)
     return e, events
 
 
@@ -301,59 +339,74 @@ def _scatter(live, one, slot, slots):
             "groups": jax.tree.map(put, live["groups"], one["groups"])}
 
 
-def _against_f32(env, events, margin):
-    """Drive the JAX float32 forward through the recorded admissions and
-    decode inputs; returns (tokens, tokens under the margin, faults)."""
-    jcache = jmodel.init_cache(env["jcfg"], GEOM["slots"], GEOM["max_len"], dtype=jnp.float32)
-    total, exceptions, faults = 0, 0, []
+def _drive_oracle(env, events, margin, emitted):
+    """The JAX float32 forward driven through recorded admissions and decode
+    inputs. Each token the engine emitted (``emitted``, ``{rid: tokens}``)
+    must be the argmax of the logits its step computed, and a decode
+    step's own output; it is held against the oracle's argmax under the
+    top-2 ``margin``. Returns (tokens compared, tokens that differ from the
+    oracle's argmax under the margin, tokens that differ past it, the
+    largest logit difference over the prefills and the active decode rows,
+    the oracle's top-2 margin at each (rid, position))."""
+    slots = env["geom"]["slots"]
+    jcache = jmodel.init_cache(env["jcfg"], slots, env["geom"]["max_len"], dtype=jnp.float32)
+    total, exceptions, faults, worst, gaps = 0, 0, [], 0.0, {}
 
-    def check(where, row, tok):
-        nonlocal total, exceptions
+    def check(at, row, got, stepped):
+        nonlocal total, exceptions, worst
+        tok = emitted[at[0]][at[1]]
+        assert tok == int(np.argmax(got)), (at, tok, int(np.argmax(got)))
+        assert stepped is None or tok == int(stepped), (at, tok, int(stepped))
         total += 1
+        worst = max(worst, float(np.abs(got - row).max()))
+        top2 = np.sort(row)[-2:]
+        gaps[at] = float(top2[1] - top2[0])
         if tok != int(np.argmax(row)):
-            top2 = np.sort(row)[-2:]
-            if top2[1] - top2[0] >= margin:
-                faults.append((where, tok, int(np.argmax(row)), float(top2[1] - top2[0])))
+            if gaps[at] >= margin:
+                faults.append((at, tok, int(np.argmax(row)), gaps[at]))
             else:
                 exceptions += 1
 
-    for i, (kind, slots, inp, out) in enumerate(events):
+    for kind, where, at, inp, out, stepped in events:
         if kind == "prefill":
             logits, filled = env["oracle"]["prefill"](env["jparams"], jnp.asarray(inp))
-            check((i, slots), np.asarray(logits)[0, -1], int(np.argmax(out[0])))
-            jcache = _scatter(jcache, filled, slots, GEOM["slots"])
+            check(at[0], np.asarray(logits)[0, -1], out[0], None)
+            jcache = _scatter(jcache, filled, where[0], slots)
         else:
             logits, jcache = env["oracle"]["decode"](env["jparams"], jcache, jnp.asarray(inp))
-            for r in slots:
-                check((i, r), np.asarray(logits)[r, -1], int(out[r, 0]))
-    return total, exceptions, faults
+            for r, a in zip(where, at):
+                check(a, np.asarray(logits)[r, -1], out[r], stepped[r, 0])
+    return total, exceptions, faults, worst, gaps
 
 
 @pytest.mark.parametrize("scheduler", ["fifo", "priority"])
 def test_slots_engine_schedule_and_tokens_match_jax(slots_env, monkeypatch, scheduler):
-    je = _serve_jax(slots_env, scheduler, monkeypatch)
+    je = _serve_jax(slots_env, monkeypatch, scheduler)
     want = _schedule(je)
     if scheduler == "priority":
         assert want["admission"] == [3, 1, 4, 2, 0]
     for dtype, margin in ((torch.bfloat16, MARGIN_TOL), (torch.float32, F32_MARGIN_TOL)):
-        e, events = _serve_torch(slots_env, scheduler, dtype)
+        e, events = _serve_torch(slots_env, monkeypatch, scheduler, dtype)
         assert _schedule(e) == want
         assert all(len(r.out_tokens) == MAX_NEW for r in e.completed)
         m = e.metrics()
         assert m["kernel"] == "ref" and m["kernel_launches"] == {"flash_attention": 0}
         assert m["nonfinite_logits"] == 0 and m["steps"] == e.ticks
         assert "chunk" not in m and m["engine"]["cache"] == "slots"
-        total, exceptions, faults = _against_f32(slots_env, events, margin)
+        ours = {r.rid: r.out_tokens for r in e.completed}
+        total, exceptions, faults, _, gaps = _drive_oracle(slots_env, events, margin, ours)
+        same = same_tokens_but_at_ties(ours, {r.rid: r.out_tokens for r in je.completed}, gaps)
         print(f"[slots {scheduler} {dtype}] {exceptions}/{total} tokens differ from the "
-              f"float32 argmax inside the margin {margin}")
+              f"float32 argmax inside the margin {margin}; {same}/{total} equal to the JAX "
+              f"engine's")
         assert not faults, faults
         assert exceptions <= total // 10
 
 
 @pytest.mark.parametrize("placement", ["local", "injected"])
 def test_slots_fabric_steps_and_placements_match_jax(slots_env, monkeypatch, placement):
-    je = _serve_jax(slots_env, "fifo", monkeypatch, placement=placement)
-    e, _ = _serve_torch(slots_env, "fifo", placement=placement)
+    je = _serve_jax(slots_env, monkeypatch, placement=placement)
+    e, _ = _serve_torch(slots_env, monkeypatch, placement=placement)
     tm, jm = e.metrics()["fabric"], je.metrics()["fabric"]
     for key in ("functions", "calls", "decisions", "leases", "placements", "lease_fallbacks"):
         assert tm[key] == jm[key], key
@@ -387,8 +440,59 @@ def test_slots_backend_cannot_preempt_and_warns(slots_env, monkeypatch):
         e.submit(Request(1, np.zeros(45, np.int32), max_new_tokens=4))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         Engine(slots_env["cfg"], device="cpu", cache="slots", kernel="cuda", **GEOM)
-    with pytest.raises(ValueError, match="slots backend supports"):
-        Engine(get_smoke("mamba-130m"), device="cpu", cache="slots", **GEOM)
+    # an SSM stack serves on slots (C1): the parity case is below
+    e = Engine(get_smoke("mamba-130m"), device="cpu", cache="slots", **GEOM)
+    assert e.cache_kind == "slots" and e.kernel_launches == {"ssm_scan": 0}
+
+
+# ---------------------------------------------------------------------------
+# any stack on the slots Engine against the JAX one (the state and hybrid
+# stacks' tests import ``slots_parity_env`` and ``slots_engine_parity``)
+# ---------------------------------------------------------------------------
+
+def slots_engine_parity(env, max_new, monkeypatch, cache="slots"):
+    """The port's slots Engine against the JAX ``Engine(cache="slots")`` on
+    ``env``'s prompts, FIFO: admission order, ticks, completions and the
+    shared length exactly, in bf16 and in float32; the float32 engine's
+    prefill and active decode logits within ``ATOL`` of the JAX float32
+    forward driven through its own admissions and decode inputs, and its
+    tokens that forward's argmax (but under ``F32_MARGIN_TOL``, at most one
+    in ten); the bf16 engine's tokens that argmax within ``MARGIN_TOL``
+    (at most one in ten under it); each engine's tokens the JAX engine's
+    (``same_tokens_but_at_ties``)."""
+    je = _serve_jax(env, monkeypatch, max_new=max_new)
+    want = _schedule(je)
+    theirs = {r.rid: r.out_tokens for r in je.completed}
+    for dtype, margin in ((torch.float32, F32_MARGIN_TOL), (torch.bfloat16, MARGIN_TOL)):
+        e, events = _serve_torch(env, monkeypatch, dtype=dtype, cache=cache, max_new=max_new)
+        assert _schedule(e) == want
+        assert all(len(r.out_tokens) == max_new for r in e.completed)
+        m = e.metrics()
+        assert m["kernel"] == "ref" and not any(m["kernel_launches"].values())
+        assert m["nonfinite_logits"] == 0 and m["steps"] == e.ticks
+        ours = {r.rid: r.out_tokens for r in e.completed}
+        total, exceptions, faults, worst, gaps = _drive_oracle(env, events, margin, ours)
+        same = same_tokens_but_at_ties(ours, theirs, gaps)
+        print(f"[{env['cfg'].name} slots {dtype}] {exceptions}/{total} tokens differ from the "
+              f"float32 argmax inside the margin {margin}; largest logit difference "
+              f"{worst:.2e}; {same}/{total} equal to the JAX engine's")
+        assert not faults, faults
+        assert exceptions <= total // 10
+        if dtype == torch.float32:
+            assert worst <= ATOL, worst
+
+
+def test_mamba_slots_engine_matches_jax(monkeypatch):
+    """C1: an SSM stack on slots. The state rows ``{"conv", "state"}``
+    scatter into the slot at admission and every slot's state advances at
+    every decode tick, as in the JAX package."""
+    jcfg = j_get_smoke("mamba-130m")
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(3))[0]
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, jcfg.vocab_size, size=(n,)).astype(np.int32) for n in (4, 7, 5)]
+    env = slots_parity_env(jcfg, get_smoke("mamba-130m"), jparams, prompts, slots=2,
+                           max_len=32)
+    slots_engine_parity(env, 4, monkeypatch)
 
 
 def test_serve_cli_slots_on_the_cpu(monkeypatch, capsys):

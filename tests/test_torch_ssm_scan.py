@@ -1,7 +1,9 @@
 """Port parity: the selective scan's plain version against the JAX package's.
 
 ``repro_torch.kernels.ssm_scan.ssm_scan_ref`` (what the CPU path runs, and
-what the CUDA kernel is held against on the card) against JAX's
+what the CUDA kernel is held against on the card; a prefix composition of
+the columns' maps) against the same recurrence a column at a time
+(``ssm_scan_loop``) and against JAX's
 ``selective_scan_ref`` and the Pallas kernel ``ssm_scan`` in interpret
 mode, at the sizes of the JAX package's own sweep
 (``tests/test_kernels.py::test_ssm_scan_sweep``), every column valid;
@@ -78,6 +80,34 @@ def test_gated_rows_match_jax_ref_on_their_prefix(b, s, i, n):
             np.testing.assert_allclose(y[r, :nv].numpy(), np.asarray(yr)[0], **TOL)
             np.testing.assert_allclose(h[r].numpy(), np.asarray(hr)[0], **TOL)
         assert (y[r, nv:] == 0).all()
+
+
+@pytest.mark.parametrize("b,s,i,n,block,with_h0", [
+    (4, 37, 24, 8, 1 << 24, True),       # one block of channels
+    (4, 37, 24, 8, 4 * 37 * 8 * 5, True),  # blocks of 5 channels, the last of 4
+    (1, 300, 16, 4, 1 << 24, False),     # one long row, no h0
+    (8, 1, 32, 16, 8 * 16 * 7, False),   # a decode tick, blocks of 7
+])
+def test_prefix_scan_matches_the_column_loop(monkeypatch, b, s, i, n, block, with_h0):
+    """``ssm_scan_ref`` (the prefix composition, a block of channels at a
+    time) against ``ssm_scan_loop`` (a column at a time) on the same
+    inputs, with mixed valid prefixes: float32 within 1e-5, the orders of
+    the same products only; y zero past the prefix in both; an empty row
+    returns h0 bit for bit."""
+    from repro_torch.kernels.ssm_scan import ref
+
+    monkeypatch.setattr(ref, "BLOCK_ELEMS", block)
+    dt, bb, cc, x, a, h0 = map(torch.from_numpy, _inputs(b, s, i, n, seed=s))
+    h0 = h0 if with_h0 else None
+    n_valid = torch.tensor([0, s, 1, s // 2, s, 3, 0, s][:b], dtype=torch.int32)
+    for nv in (None, n_valid):
+        y, h = ref.ssm_scan_ref(dt, bb, cc, x, a, h0, nv)
+        yl, hl = ref.ssm_scan_loop(dt, bb, cc, x, a, h0, nv)
+        np.testing.assert_allclose(y.numpy(), yl.numpy(), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(h.numpy(), hl.numpy(), atol=1e-5, rtol=1e-5)
+    assert (y[0] == 0).all()
+    if with_h0:
+        assert torch.equal(h[0], h0[0])
 
 
 def test_bf16_inputs_give_x_dtype_and_float32_state():
