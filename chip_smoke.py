@@ -31,10 +31,13 @@ phase prints the seconds it took):
    1408, top-6 routed uniformly) at a decode tick of 8 slots (capacity 8)
    and a 4,096-token prefill (capacity 480); flash attention at
    hymba-1.5b's prefill (25/5 heads of 64, 4,096 tokens, causal, window
-   None and 1,024); the selective scan as the slots backend runs it, with
-   no valid gate: one row of 3,800 columns and a decode tick of 8 rows, at
-   mamba-130m's 1,536 channels and hymba-1.5b's 3,200, N 16 (one check
-   function for every scan shape, ``SCAN_SHAPES``). Each is timed
+   None and 1,024), qwen2-vl-72b's (64/8 heads of 128, 4,096 tokens,
+   causal) and hubert-xlarge's encoder (2 clips x 16/16 heads of 80, 4,096
+   frames, no causal mask; v1); the selective scan as the slots backend
+   runs it, with no valid gate: one row of 3,800 columns and a decode
+   tick of 8 rows, at mamba-130m's 1,536 channels and hymba-1.5b's 3,200,
+   N 16 (one check function for every scan shape, ``SCAN_SHAPES``). Each
+   is timed
    (kernel, plain version, and one PyTorch library
    yardstick the port never calls, where there is one) with the L2 cache
    flushed before every launch, as the serving loop finds it (written,
@@ -113,7 +116,27 @@ phase prints the seconds it took):
    lengths) and ms; no kernel may launch; the 3,800-token prefill's logits
    in bf16 against float32, and through the stack cut to its first layer
    within ``XL_FIRST_LAYER_TOL``;
-13. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
+13. end to end, ``qwen2-vl-72b`` on slots at full width, its stack cut to
+   24 of 80 layers (80 are ~145 GB in bf16 and do not fit one card; 24
+   are 23.56 B random bf16 parameters, 47.1 GB): the slots traffic,
+   ``cache="auto"`` must resolve to slots (M-RoPE's three position
+   streams; every slot decodes at the shared length in all three); flash
+   (64/8 heads of 128) must launch 24 x the long prompts, nothing else;
+   the replay through ``kernel="ref"``, the float32 control and the
+   profiles as in 7; then one vision prefill through the prefill step
+   (256 patch embeddings from numpy seed 0 over the first positions of
+   the 3,800-token prompt, at 3-D positions over a 16 x 16 grid, text
+   positions after them), its kernel and plain paths held against
+   float32 by the same rule;
+14. ``hubert-xlarge``, an encoder, at full width and depth (48 layers, 16
+   heads of 80, 1.26 B random bf16 parameters) through the prefill step,
+   its entry point: 16 clips of 1,600 frames (plain ``_sdpa``) and 2 of
+   4,096 (flash without the causal mask on every layer), features from
+   numpy seed 0; flash must launch 48 times on the long batch and never
+   on the short one; frames/s, device busy and idle, flash's device ms;
+   every frame's logits through the kernel and the plain version held
+   against float32 (``SLOTS_VS_F32``);
+15. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
    key-value shard of 2^26 rows (table 512 MiB, heap 3.75 GiB, heap base
    12,345 in its GOT) and two jams, Server-Side Sum and Indirect Put; 8
    deliveries of 2^20 frames of 128 B (a full 64-bank x 16,384-slot
@@ -138,7 +161,7 @@ phase prints the seconds it took):
    frames, v2's lane groups for many) with the route it took, the
    Indirect Put (v3: a claim table in L2) with each of its three passes'
    device time (``torch.profiler``);
-14. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
+16. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
    the mailbox in the receiver's shared memory): the kernel against its
    plain version, bit for bit, over 1, 2, 4 and 8 ranks, shifts 1, 2,
    n - 1 and n + 1, 1, 3, 385 (one more than a 48 KiB chunk) and 131,072
@@ -156,7 +179,7 @@ phase prints the seconds it took):
    the drain's Server-Side Sum, on its wide route, is also held against
    its plain version on every rank, bit for bit), and the 16 MiB-a-rank
    ring;
-15. the last line: ``{"ok": true, "device": {...}}``.
+17. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -197,11 +220,30 @@ MLA_ARCH, MLA_FLASH_SHAPE = "deepseek-v2-lite-16b", "deepseek-v2-lite mla"
 # mamba-130m (``cache="slots"``; its default is recurrent) and hymba-1.5b
 # (its default)
 MAMBA_ARCH, HYMBA_ARCH = "mamba-130m", "hymba-1.5b"
+# qwen2-vl-72b on the same slots geometry and traffic, at full width with
+# its stack cut to 24 of 80 layers: 80 layers are ~145 GB in bf16 and do
+# not fit one 80 GB card; 24 are 23.56 B params (47.1 GB), leaving room
+# for the KV rows (3.3 GB), the plain path's float32 scores and the
+# float32 control (one layer cast at a time). Then one vision prefill:
+# ``num_patch_tokens`` patch embeddings spliced over the first positions
+# of the long prompt, at 3-D positions (t 0, h and w over a 16 x 16 grid),
+# text positions after them
+QWEN_ARCH, QWEN_LAYERS, QWEN_GRID = "qwen2-vl-72b", 24, (16, 16)
+# hubert-xlarge at full width and depth through the prefill step (an
+# encoder: no Engine, no decode), (clips, frames) batches of 512 features
+# from numpy seed 0: 16 clips of 1,600 frames (32 s at HuBERT's 20 ms
+# stride, about LibriSpeech's longest utterances; plain ``_sdpa``, 1,600^2
+# is under the threshold) and 2 clips of 4,096 (82 s of long-form audio;
+# flash without the causal mask on every layer)
+HUBERT_ARCH, HUBERT_BATCHES = "hubert-xlarge", ((16, 1600), (2, 4096))
 # the flash-attention check shapes (``flash_attention.bench.SHAPES``) of
-# each slots path; the first is the one its JSON entry is timed on
+# each slots (or encoder) path; the first is the one its JSON entry is
+# timed on
 FLASH_PATHS = {SLOTS_ARCH: ("gemma3-4b global", "gemma3-4b local", "granite-20b", "odd"),
                MLA_ARCH: (MLA_FLASH_SHAPE,),
-               HYMBA_ARCH: ("hymba-1.5b global", "hymba-1.5b local")}
+               HYMBA_ARCH: ("hymba-1.5b global", "hymba-1.5b local"),
+               QWEN_ARCH: ("qwen2-vl-72b",),
+               HUBERT_ARCH: ("hubert-xlarge",)}
 # the selective scan's checks, (path, arch, rows, columns, valid gate):
 # the recurrent engine's chunk step with its valid gate (``ssm_scan.bench``'s
 # mixed fill, rows with no valid column among them), then, with no valid
@@ -606,7 +648,9 @@ def check_flash(torch, dev, cfgs):
     (``FLASH_PATHS``: gemma3-4b's global and local layers, granite-20b's
     heads and an odd shape; deepseek-v2-lite-16b's MLA prefill, q and k of
     192, v of 128; hymba-1.5b's global and local layers, 25/5 heads of
-    64); ``cfgs`` maps each path to its config. Returns one JSON entry per
+    64; qwen2-vl-72b's 64/8 heads of 128) and hubert-xlarge's encoder
+    (16/16 heads of 80, without the causal mask); ``cfgs`` maps each path
+    to its config. Returns one JSON entry per
     path (without ``launches``), timed on its first shape, with the
     numbers of each of its shapes under ``shapes``."""
     from repro_torch.kernels import flash_attention as fa
@@ -624,7 +668,8 @@ def check_flash(torch, dev, cfgs):
             kv = a.num_heads if a.kind == "mla" else a.num_kv_heads
             if path != SLOTS_ARCH or name.startswith(path):
                 if (sh[1], sh[2], sh[5], sh[9]) != (a.num_heads, kv, *width) or (
-                        sh[7] not in (None, a.sliding_window)) or sh[3] != LONG_PROMPT[1]:
+                        sh[7] not in (None, a.sliding_window)) or sh[3] != LONG_PROMPT[1] or (
+                        sh[6] == cfgs[path].is_encoder):
                     raise AssertionError(f"the flash check's shape {name} is not {path}'s")
     flush = timing.l2_flush_buffer(dev)
     shapes = {}
@@ -1140,23 +1185,25 @@ def serve_slots(torch, dev, engine, prompts):
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def slots_path(torch, dev, card, arch):
-    """Phases 7-10: ``arch`` on the slots engine through the
-    kernels, again through the plain versions, and one long prefill's
-    logits against float32; returns each kernel's launches on the main
-    path. gemma3-4b and mamba-130m take ``cache="slots"`` (their default
-    backends are the paged pool and the recurrent one), deepseek-v2-lite-16b
-    and hymba-1.5b ``cache="auto"``, which must resolve to slots. Flash
-    attention must launch once per attention layer per long prompt, the
-    selective scan once per SSM (or hybrid) layer per prefill and per
-    decode tick, and for a MoE stack moe_jam once per MoE layer per prefill
-    and per decode tick; no other kernel."""
+def slots_path(torch, dev, card, arch, cfg=None):
+    """Phases 7-10 and 13: ``arch`` (its registered config, or ``cfg``) on
+    the slots engine through the kernels, again through the plain
+    versions, and one long prefill's logits against float32 (for a vision
+    arch also one prefill with an image spliced in); returns each kernel's
+    launches on the main path. gemma3-4b and mamba-130m take
+    ``cache="slots"`` (their default backends are the paged pool and the
+    recurrent one), deepseek-v2-lite-16b, hymba-1.5b and qwen2-vl-72b
+    ``cache="auto"``, which must resolve to slots. Flash attention must
+    launch once per attention layer per long prompt, the selective scan
+    once per SSM (or hybrid) layer per prefill and per decode tick, and for
+    a MoE stack moe_jam once per MoE layer per prefill and per decode tick;
+    no other kernel."""
     from repro_torch.configs.registry import default_cache_backend, get_config
     from repro_torch.engine import Engine
     from repro_torch.models import attention
     from repro_torch.models.model import flat_block_types
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     cache = "auto" if default_cache_backend(cfg) == "slots" else "slots"
     prompts = slots_requests(cfg)
     n_long = sum(attention._use_chunked(len(p), len(p)) for p in prompts)
@@ -1182,8 +1229,11 @@ def slots_path(torch, dev, card, arch):
                  f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + {cfg.moe.num_shared} "
                  f"shared of {cfg.moe.expert_ff}")
     else:
-        heads = (f"{n_local} with window {a.sliding_window}, {a.num_heads}/{a.num_kv_heads} "
-                 f"heads of {a.head_dim}")
+        heads = f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim}"
+        if n_local:
+            heads = f"{n_local} with window {a.sliding_window}, {heads}"
+        if a.mrope:
+            heads += f", M-RoPE sections {a.mrope_sections} (theta {a.rope_theta:g})"
         if n_ssm:
             heads += (f", beside an SSM of inner {cfg.ssm.expand * cfg.d_model}, state "
                       f"{cfg.ssm.state_dim} in every layer")
@@ -1257,7 +1307,13 @@ def slots_path(torch, dev, card, arch):
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     logits = _slots_logits(torch, dev, cfg, params, prompts[0], n_attn, n_ssm)
+    if cfg.frontend.kind == "vision_patches":
+        _vision_prefill(torch, dev, cfg, params, prompts[0], n_attn, n_ssm,
+                        logits["f32_last"])
+    log(f"[slots] {cfg.name} peak allocated over the float32 controls "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1350,6 +1406,105 @@ def xlstm_slots(torch, dev, card):
         f"{summary['peak_mem_gb']:.2f} GB on {card}")
 
 
+def encoder_path(torch, dev, card):
+    """Phase 14: hubert-xlarge at full width and depth through the prefill
+    step, its entry point (every Engine refuses an encoder, as the JAX one
+    does), random bf16 weights from seed ``SEED``. Each batch of
+    ``HUBERT_BATCHES`` (frame features (B, T, 512) float32 from numpy seed
+    ``SEED``) runs once to warm, then once with every launch count set to
+    0 just before and read just after: flash (without the causal mask)
+    must launch once a layer on a batch past the chunking threshold and
+    never on one under it, and no other kernel may launch; frames/s, one
+    more call profiled (device busy and idle, flash's device ms); every
+    frame's logits through the kernel and through the plain version, each
+    against the plain version in float32 on the same bf16 weights: the
+    kernel path's mean and rms |logit - logit_f32| over every frame within
+    ``SLOTS_VS_F32`` of the plain path's. Returns flash's launches on the
+    batches, by (clips, frames)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS, make_prefill_step
+
+    cfg = get_config(HUBERT_ARCH)
+    a = cfg.attention
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[encoder] {cfg.name}: {cfg.num_layers} layers, {a.num_heads}/{a.num_kv_heads} heads "
+        f"of {a.head_dim} (causal {not cfg.is_encoder}), d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff} ({cfg.act}), features {cfg.frontend.feature_dim}, vocab "
+        f"{cfg.vocab_size}; {sum(t.numel() for t in _leaves(params))} bf16 params drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(SEED)
+    launches = {}
+    for B, T in HUBERT_BATCHES:
+        feats = torch.from_numpy(rng.standard_normal((B, T, cfg.frontend.feature_dim),
+                                                     dtype=np.float32)).to(dev)
+        tokens = torch.zeros((B, T), dtype=torch.int32, device=dev)
+        steps = {name: make_prefill_step(cfg, max_len=T, kernel=kernel, device=dev,
+                                         compute_dtype=dtype)
+                 for name, kernel, dtype in (("cuda", "auto", torch.bfloat16),
+                                             ("ref", "ref", torch.bfloat16),
+                                             ("f32", "ref", torch.float32))}
+        if steps["cuda"].meta["kernel"] != "cuda":
+            raise AssertionError(f"auto resolved to {steps['cuda'].meta['kernel']!r} on the card")
+        run = lambda name: steps[name].fn(params, tokens, feats)     # noqa: E731
+        run("cuda")                                                # warm
+        torch.cuda.synchronize()
+        for counter in LAUNCH_COUNTERS.values():
+            counter.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        logits, cache = run("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        long = attention._use_chunked(T, T)
+        want = {"flash_attention": cfg.num_layers if long else 0}
+        if cache is not None or tuple(logits.shape) != (B, T, cfg.vocab_size) or any(
+                n != want.get(k, 0) for k, n in got.items()):
+            raise AssertionError(f"{B} x {T}: launches {got} (want {want}), cache "
+                                 f"{type(cache).__name__}, logits {tuple(logits.shape)}")
+        launches[(B, T)] = got["flash_attention"]
+        b = _busy(torch, lambda: run("cuda"), matches=("flash",))
+        outs = {"cuda": logits.float(), "ref": run("ref")[0].float(), "f32": run("f32")[0]}
+        if not all(torch.isfinite(o).all() for o in outs.values()):
+            raise AssertionError(f"non-finite logits on the {B} x {T} batch")
+        err = {k: (outs[k] - outs["f32"]).abs() for k in ("cuda", "ref")}
+        st = {k: dict(mean=e.mean().item(), rms=e.pow(2).mean().sqrt().item(), max=e.max().item())
+              for k, e in err.items()}
+        ok = all(st["cuda"][m] <= SLOTS_VS_F32 * st["ref"][m] for m in ("mean", "rms"))
+        agree = [int((outs[k].argmax(-1) == outs["f32"].argmax(-1)).sum()) for k in ("cuda", "ref")]
+        idle = (f"idle share {1 - b['busy_ms'] / b['wall_ms']:.3f}" if b["busy_ms"] is not None
+                else "device time not measured (the trace holds no device event)")
+        log(f"[encoder] {cfg.name} {B} clips x {T} frames ({'flash' if long else 'plain _sdpa'}"
+            f"): {wall * 1e3:.1f} ms = {B * T / wall:.0f} frames/s; launches {got}; peak "
+            f"{peak:.2f} GB; host wall {b['wall_ms']:.2f} ms (median of 3), device busy "
+            f"{b['busy_ms']} ms over {b['device_ops']} operations, {idle}; flash "
+            f"{b['match_ms']['flash']} ms over {b['match_ops']['flash']} launches; most device "
+            f"time (ms): {b['top']}")
+        log(f"[encoder] {cfg.name} {B} x {T}, every frame's logits (max |logit| "
+            f"{outs['f32'].abs().max().item():.3f}) against the float32 plain pass: kernel path "
+            f"mean {st['cuda']['mean']:.5f}, rms {st['cuda']['rms']:.5f}, max "
+            f"{st['cuda']['max']:.5f}; plain path mean {st['ref']['mean']:.5f}, rms "
+            f"{st['ref']['rms']:.5f}, max {st['ref']['max']:.5f} (kernel path within "
+            f"{SLOTS_VS_F32}x of it required); argmax equal to float32's in {agree[0]} / "
+            f"{agree[1]} of {B * T} frames; on {card}")
+        if not ok:
+            raise AssertionError(f"the kernel path is further from float32 than the plain "
+                                 f"path on the {B} x {T} batch: {st}")
+        del feats, tokens, steps, logits, outs, err
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _busy(torch, fn, repeats: int = 3, matches=()):
     """Host wall ms of one synchronized call of ``fn`` (the median of
     ``repeats``, no profiler) and the card's busy ms in one more call traced
@@ -1385,17 +1540,51 @@ def _busy(torch, fn, repeats: int = 3, matches=()):
                 match_ops={m: len(h) for m, h in hits.items()})
 
 
-def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm):
+def _vision_prefill(torch, dev, cfg, params, prompt, n_attn, n_ssm, text_f32):
+    """Phase 13's vision prefill: ``cfg.frontend.num_patch_tokens`` patch
+    embeddings (numpy seed ``SEED``, standard normals at the rms of the
+    scaled text embeddings, d_model**0.5 / vocab**0.5) over the first
+    positions of ``prompt``, the image at 3-D positions (t 0, h and w over
+    ``QWEN_GRID``), the text after it at one position in all three streams
+    counting on from the grid's side; held to ``_slots_logits``' rule, and
+    its float32 logits must differ from the text-only prefill's
+    (``text_f32``)."""
+    h, w = QWEN_GRID
+    n_img, seq = cfg.frontend.num_patch_tokens, len(prompt)
+    if h * w != n_img:
+        raise AssertionError(f"the grid {QWEN_GRID} does not hold {n_img} patches")
+    rng = np.random.default_rng(SEED)
+    feats = rng.standard_normal((1, n_img, cfg.d_model), dtype=np.float32)
+    feats *= (cfg.d_model / cfg.vocab_size) ** 0.5
+    pos = np.empty((3, 1, seq), np.int32)
+    pos[0, 0, :n_img] = 0
+    pos[1, 0, :n_img] = np.arange(n_img) // w
+    pos[2, 0, :n_img] = np.arange(n_img) % w
+    pos[:, 0, n_img:] = max(h, w) + np.arange(seq - n_img)
+    extra = (torch.from_numpy(feats).to(dev), torch.from_numpy(pos).to(dev))
+    out = _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm, extra=extra,
+                        what=f"vision prefill ({n_img} patches over a {h} x {w} grid)")
+    shift = (out["f32_last"] - text_f32).abs().max().item()
+    log(f"[slots] {cfg.name} vision prefill: the image moves the last-position float32 "
+        f"logits by up to {shift:.5f} against the text-only prefill")
+    if not shift > 0:
+        raise AssertionError("the image did not reach the logits")
+    return out
+
+
+def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm, extra=(),
+                  what="one long prefill"):
     """One long prefill's logits through the kernels (bf16), the plain
     versions (bf16) and the plain versions in float32 (the same bf16
     weights): the kernel path must be as close to float32 as the plain
     path (``SLOTS_VS_F32``), at the last position (the engine's prefill
-    step), or for a MoE stack over every position (the same forward with
-    the head on every position), where it also counts the (token, layer)
-    pairs whose top-k experts differ from float32's on each path, and its
-    rows with no such change must be as close too. Also times the flash
-    and scan launches inside the kernel path's prefill with CUDA events:
-    ``n_attn`` and ``n_ssm`` of them."""
+    step, given ``extra``: a vision arch's patch embeddings and 3-D
+    positions), or for a MoE stack over every position (the same forward
+    with the head on every position), where it also counts the (token,
+    layer) pairs whose top-k experts differ from float32's on each path,
+    and its rows with no such change must be as close too. Also times the
+    flash and scan launches inside the kernel path's prefill with CUDA
+    events: ``n_attn`` and ``n_ssm`` of them."""
     from repro_torch.models import attention, moe, ssm
     from repro_torch.models import model as model_lib
     from repro_torch.runtime.steps import make_prefill_step
@@ -1438,7 +1627,7 @@ def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm):
         else:
             step = make_prefill_step(cfg, max_len=len(prompt), kernel=kernel, device=dev,
                                      compute_dtype=dtype)
-            run = lambda p, t, step=step: step.fn(p, t)[0]     # (1, V): the last position
+            run = lambda p, t, step=step: step.fn(p, t, *extra)[0]   # (1, V): the last position
         if name == "cuda":
             attention.flash_attention = timed(inner, flash_events)
             ssm.ssm_scan = timed(scan, scan_events)
@@ -1466,7 +1655,8 @@ def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm):
             moe.route_topk = route
     f32 = outs["f32"][-1]
     err = {k: (outs[k][-1] - f32).abs() for k in ("cuda", "ref")}
-    out = dict(prompt=len(prompt), prefill_ms=prefill_ms, flash_ms=flash_ms, flash_calls=n_flash,
+    out = dict(prompt=len(prompt), f32_last=f32, prefill_ms=prefill_ms, flash_ms=flash_ms,
+               flash_calls=n_flash,
                scan_ms=scan_ms, scan_calls=n_scan,
                **{f"{s}_{k}": v for k in ("cuda", "ref") for s, v in (
                    ("mean", err[k].mean().item()), ("rms", err[k].pow(2).mean().sqrt().item()),
@@ -1508,7 +1698,7 @@ def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm):
                      and out["rms_cuda"] <= k * out["rms_ref"])
         rule, where = f" (kernel path within {k}x of it required)", "last-position logits"
     out["ok"] = out["ok"] and (n_flash, n_scan) == (n_attn, n_ssm)
-    log(f"[slots] one long prefill ({len(prompt)} tokens), {where} (max |logit| "
+    log(f"[slots] {what} ({len(prompt)} tokens), {where} (max |logit| "
         f"{f32.abs().max().item():.3f} at the last) against the float32 plain forward: at the "
         f"last position kernel path mean {out['mean_cuda']:.5f}, rms {out['rms_cuda']:.5f}, "
         f"max {out['max_cuda']:.5f}; plain path mean {out['mean_ref']:.5f}, rms "
@@ -1522,7 +1712,7 @@ def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm):
 
 
 def frame_path(torch, dev, card):
-    """Phase 13: the Two-Chains frame path at a key-value shard's size;
+    """Phase 15: the Two-Chains frame path at a key-value shard's size;
     returns the JSON entries of its two kernels (launches filled in)."""
     from repro_torch.core import mailbox as mbx
     from repro_torch.kernels import mailbox as mk
@@ -1682,7 +1872,7 @@ def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, wo
 
 
 def ring_path(torch, dev, card):
-    """Phase 14: the one-sided ring put (B7), ranks as the CTAs of a cluster;
+    """Phase 16: the one-sided ring put (B7), ranks as the CTAs of a cluster;
     returns its JSON entry (launches from the Two-Chains ring)."""
     from repro_torch.core.message import FrameSpec
     from repro_torch.kernels import mailbox as mk
@@ -1982,6 +2172,8 @@ def main() -> int:
     if not (src / "repro_torch").is_dir():
         return fail(f"{src / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(src))
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import loader, timing
@@ -2028,9 +2220,10 @@ def main() -> int:
                     head_dim=a.head_dim)
         entries[("moe_jam", "olmoe-1b-7b")] = check_moe_jam(torch, dev,
                                                             get_config("olmoe-1b-7b"))
-        for path, entry in check_flash(torch, dev,
-                                       {p: get_config(p) for p in FLASH_PATHS}).items():
-            entries[("flash_attention", f"{path} slots")] = entry
+        cfgs = {p: get_config(p) for p in FLASH_PATHS}
+        for path, entry in check_flash(torch, dev, cfgs).items():
+            where = "encoder" if cfgs[path].is_encoder else "slots"
+            entries[("flash_attention", f"{path} {where}")] = entry
         torch.cuda.empty_cache()
         for path, entry in check_ssm_scan(
                 torch, dev, {p: get_config(p) for p in (MAMBA_ARCH, HYMBA_ARCH)}).items():
@@ -2087,6 +2280,22 @@ def main() -> int:
         torch.cuda.empty_cache()
     with Phase(f"end to end {XL_ARCH} (slots)"):
         xlstm_slots(torch, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    full = get_config(QWEN_ARCH)
+    with Phase(f"end to end {QWEN_ARCH} (slots, {QWEN_LAYERS} of {full.num_layers} layers)"):
+        log(f"[slots] {QWEN_ARCH} at full width, its stack cut to {QWEN_LAYERS} of "
+            f"{full.num_layers} layers: the whole stack does not fit one card")
+        launches = slots_path(torch, dev, card, QWEN_ARCH,
+                              dataclasses.replace(full, num_layers=QWEN_LAYERS))
+        entries[("flash_attention", f"{QWEN_ARCH} slots")]["launches"] = launches[
+            "flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase(f"end to end {HUBERT_ARCH} (encoder)"):
+        launches = encoder_path(torch, dev, card)
+        entries[("flash_attention", f"{HUBERT_ARCH} encoder")]["launches"] = launches[
+            max(HUBERT_BATCHES, key=lambda bt: bt[1])]
         gc.collect()
         torch.cuda.empty_cache()
     unlaunched = [k for k, e in entries.items() if not e["launches"]]

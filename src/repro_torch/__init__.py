@@ -5,12 +5,14 @@ easy to find, but imports only ``torch``, ``numpy`` and the standard
 library. It ports:
 
 * greedy serving on one device: paged serving of GQA decoders, dense and
-  MoE; slots serving of GQA and MLA decoders, dense and MoE, of SSM and
-  xLSTM stacks and of hybrid attention + SSM stacks (one contiguous cache
-  row per slot, prompts past the JAX package's chunking threshold
-  prefilled through flash attention; MLA decode absorbed into the
-  compressed cache); and recurrent serving of SSM and xLSTM stacks
-  (constant-size state per slot, preemption by snapshot and resume)::
+  MoE; slots serving of GQA and MLA decoders, dense and MoE, of M-RoPE
+  vision-language backbones, of SSM and xLSTM stacks and of hybrid
+  attention + SSM stacks (one contiguous cache row per slot, prompts past
+  the JAX package's chunking threshold prefilled through flash attention;
+  MLA decode absorbed into the compressed cache); recurrent serving of SSM
+  and xLSTM stacks (constant-size state per slot, preemption by snapshot
+  and resume); and audio encoders through the prefill step (no causal
+  mask, no cache), all eleven of the JAX package's archs::
 
       configs -> models (common, rope, mlp, moe, ssm, xlstm, kvcache,
       attention, blocks, model) -> kernels.paged_attention, kernels.moe_jam,
@@ -30,7 +32,7 @@ Every kernel is hand-written CUDA beside its plain version;
 ``kernels.loader`` builds them at first use. Entry points (``Engine``,
 ``models.model.init_params``, the serve CLI) run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card they raise instead of quietly
-falling back. Not ported yet (ROADMAP queue A): the vision and audio
-archs (A10), migration, faults and graphs (A12), training (A13) and the
-transports between devices (A14).
+falling back. Not ported yet (ROADMAP queue A): migration, faults and
+graphs (A12), training (A13), the transports between devices (A14) and
+the cost tooling (A15).
 """

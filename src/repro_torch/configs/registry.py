@@ -1,27 +1,23 @@
-"""Architecture registry for the archs the port serves.
-
-The JAX package registers eleven archs; the port serves the ones whose
-whole path is ported. Asking for any other raises and names the ROADMAP
-item that brings it.
-"""
+"""Architecture registry: the JAX package's eleven archs, every one served
+by the port."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b, granite_20b, hymba_1p5b,
-                                 llama32_1b, mamba_130m, olmoe_1b_7b, stablelm_3b,
-                                 xlstm_1p3b)
+from repro_torch.configs import (deepseek_v2_lite_16b, gemma3_4b, granite_20b, hubert_xlarge,
+                                 hymba_1p5b, llama32_1b, mamba_130m, olmoe_1b_7b,
+                                 qwen2_vl_72b, stablelm_3b, xlstm_1p3b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = (llama32_1b, olmoe_1b_7b, mamba_130m, gemma3_4b, stablelm_3b, granite_20b,
-            deepseek_v2_lite_16b, xlstm_1p3b, hymba_1p5b)
+            deepseek_v2_lite_16b, xlstm_1p3b, hymba_1p5b, qwen2_vl_72b, hubert_xlarge)
 
 ARCHS: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.config for m in _MODULES}
 SMOKES: Dict[str, Callable[[], ModelConfig]] = {m.ARCH_ID: m.smoke for m in _MODULES}
 
 # archs the JAX package has and the port does not serve yet -> the ROADMAP
-# queue-A item that ports them
-_LATER = {"qwen2-vl-72b": "A10", "hubert-xlarge": "A10"}
+# queue-A item that ports them (none left)
+_LATER: Dict[str, str] = {}
 
 
 def _check(arch: str) -> None:
@@ -40,17 +36,15 @@ def default_cache_backend(cfg: ModelConfig) -> str:
     Recurrent stacks (xLSTM, pure SSM) take the recurrent backend
     (constant-size state per slot; the slots backend serves them too, by
     ``cache="slots"``); archs the paged pool cannot hold, MLA latents and
-    hybrid attention + SSM stacks, the slots backend; plain-GQA archs, MoE
-    ones included, the paged pool (the slots backend serves them too).
-    mrope archs, which the JAX package sends to slots, are not ported
-    (ROADMAP item A10).
+    hybrid attention + SSM stacks and mrope ones (three position streams),
+    the slots backend; plain-GQA archs, MoE ones included, the paged pool
+    (the slots backend serves them too). An encoder-only arch gets
+    "paged" as in the JAX package, and every Engine refuses it.
     """
     if cfg.xlstm is not None or (cfg.ssm is not None and cfg.attention is None):
         return "recurrent"
     a = cfg.attention
-    if a is not None and a.mrope:
-        raise NotImplementedError("mrope archs are ROADMAP item A10")
-    if cfg.parallel_ssm_attn or (a is not None and a.kind == "mla"):
+    if cfg.parallel_ssm_attn or (a is not None and (a.kind == "mla" or a.mrope)):
         return "slots"
     return "paged"
 

@@ -480,7 +480,9 @@ class Engine:
 
     def _tick_slots(self) -> int:
         """Admit (prefilling each admitted request), then one decode step
-        for every slot; a tick with no active slot does not count."""
+        for every slot; a tick with no active slot does not count. An mrope
+        stack's step rotates every slot at the cache's shared length in all
+        three streams, as the JAX engine's slots tick passes it."""
         self._admit_slots()
         active = [i for i, e in enumerate(self.slot_entry) if e is not None]
         if not active:

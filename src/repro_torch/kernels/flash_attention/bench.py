@@ -15,9 +15,11 @@ heads of 256), causal, on a global layer (no window) and on a local one
 an odd one, 32 heads of 80 (MHA) at 2,113 tokens, batch 2, queries
 starting at position 7 of 2,113 keys; deepseek-v2-lite-16b's MLA
 prefill of 4,096 tokens, 16 heads (MHA) with q and k of 192 and v of 128,
-causal; and hymba-1.5b's prefill of 4,096 tokens (25 query heads over 5
+causal; hymba-1.5b's prefill of 4,096 tokens (25 query heads over 5
 kv heads of 64), causal, on a global layer and on a local one (window
-1,024).
+1,024); qwen2-vl-72b's prefill of 4,096 tokens (64 query heads over 8 kv
+heads of 128), causal; and hubert-xlarge's encoder over two clips of
+4,096 frames (16 heads of 80, MHA), without the causal mask.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ SHAPES = {
     "deepseek-v2-lite mla": (1, 16, 16, 4096, 4096, 192, True, None, 0, 128),
     "hymba-1.5b global": (1, 25, 5, 4096, 4096, 64, True, None, 0, 64),
     "hymba-1.5b local": (1, 25, 5, 4096, 4096, 64, True, 1024, 0, 64),
+    "qwen2-vl-72b": (1, 64, 8, 4096, 4096, 128, True, None, 0, 128),
+    "hubert-xlarge": (2, 16, 16, 4096, 4096, 80, False, None, 0, 80),
 }
 
 
@@ -79,19 +83,26 @@ def needed_work(shape) -> dict:
     return dict(bytes=nbytes, flops=2 * (D + Dv) * pairs, pairs=pairs)
 
 
-def yardstick(q, k, v, shape):
-    """One ``scaled_dot_product_attention`` call on the same tensors: with
-    ``is_causal`` where the mask is the plain causal one, else with the
-    boolean (S, T) mask."""
+def _sdpa_mask(shape, device):
+    """``(attn_mask, is_causal)`` for ``yardstick``: no mask where every key
+    is visible, ``is_causal`` where the mask is the plain causal one, else
+    the boolean (S, T) mask."""
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
     B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
+    if window is None and (not causal or (q_offset == 0 and S == T)):
+        return None, causal
+    return visible_mask(S, T, causal=causal, window=window, q_offset=q_offset,
+                        device=device), False
+
+
+def yardstick(q, k, v, shape):
+    """One ``scaled_dot_product_attention`` call on the same tensors, with
+    the mask ``_sdpa_mask`` gives."""
+    mask, is_causal = _sdpa_mask(shape, q.device)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    gqa = dict(enable_gqa=Hq != Hkv)
-    if causal and window is None and q_offset == 0 and S == T:
-        return lambda: sdpa(q, k, v, is_causal=True, **gqa)
-    mask = visible_mask(S, T, causal=causal, window=window, q_offset=q_offset, device=q.device)
-    return lambda: sdpa(q, k, v, attn_mask=mask, **gqa)
+    return lambda: sdpa(q, k, v, attn_mask=mask, is_causal=is_causal,
+                        enable_gqa=shape[1] != shape[2])
 
 
 def yardstick_backend(q, k, v, shape) -> str:
@@ -100,14 +111,9 @@ def yardstick_backend(q, k, v, shape) -> str:
     ``CUDNN_ATTENTION`` or ``MATH``)."""
     from torch.nn.attention import SDPBackend
 
-    from repro_torch.kernels.flash_attention.ref import visible_mask
-
-    B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
-    plain = causal and window is None and q_offset == 0 and S == T
-    mask = None if plain else visible_mask(S, T, causal=causal, window=window,
-                                           q_offset=q_offset, device=q.device)
-    choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, is_causal=plain,
-                                     enable_gqa=Hq != Hkv)
+    mask, is_causal = _sdpa_mask(shape, q.device)
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask=mask, is_causal=is_causal,
+                                     enable_gqa=shape[1] != shape[2])
     return {b.value: name for name, b in SDPBackend.__members__.items()}[choice]
 
 

@@ -40,6 +40,14 @@ schedulers.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --slots 8 --max-len 4224 --requests 8 --prompt-len 4000 --max-new 32
 
+  # qwen2-vl-72b's 80 layers (145 GB in bf16) do not fit one card; its
+  # smoke on the CPU (--cache auto picks slots for an mrope stack):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-72b \
+      --smoke --device cpu --max-len 64 --prompt-len 20
+
+  # hubert-xlarge is an encoder: it has no decode path, and the CLI refuses
+  # it (its entry point is runtime.steps.make_prefill_step).
+
   # on the CPU, a smoke config through the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --requests 4 --stream
@@ -78,7 +86,7 @@ def main() -> None:
     p.add_argument("--cache", choices=("auto", "paged", "recurrent", "slots"),
                    default="auto",
                    help="sequence-state backend; auto: paged for GQA stacks, "
-                        "slots for MLA and hybrid attention + SSM ones, "
+                        "slots for MLA, mrope and hybrid attention + SSM ones, "
                         "recurrent for SSM and xLSTM ones; slots: one "
                         "contiguous max_len row per slot (every ported stack)")
     p.add_argument("--slots", type=int, default=4)
@@ -112,6 +120,8 @@ def main() -> None:
     args = p.parse_args()
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encoder:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
     max_blocks_per_seq = -(-args.max_len // args.block_size)
     num_blocks = args.blocks or max(
         max_blocks_per_seq, (args.slots * args.max_len // 2) // args.block_size)

@@ -24,7 +24,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  resolve_kernel)
 from repro_torch.models.common import ParamBuilder, rms_norm
 from repro_torch.models.kvcache import KVCache, MLACache, PagedKVCache, PagedLayout
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -85,9 +85,12 @@ def gqa_attention(
     window: Optional[int] = None,          # sliding window (None = full)
     cache: Optional[KVCache] = None,
     kernel: str = "auto",
+    mrope_positions: Optional[torch.Tensor] = None,   # (3, B, S)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """GQA attention at positions ``arange(S) + cache.length`` (0 without a
-    cache). Three branches, the JAX package's:
+    cache). An mrope arch rotates q and k by ``mrope_positions`` (3, B, S),
+    or, when it is None, by those positions in all three streams (text
+    positions). Three branches, the JAX package's:
 
     * prefill into a cache (S > 1): append k/v, attend over the new
       tokens alone;
@@ -98,9 +101,9 @@ def gqa_attention(
 
     A prefill or cacheless pass above ``CHUNK_THRESHOLD`` takes flash
     attention (``kernel``: ``"cuda"``, ``"ref"`` or ``"auto"``); the rest
-    is plain ``_sdpa``. The cache is updated in place."""
-    if a.mrope:
-        raise NotImplementedError("mrope archs are ROADMAP item A10")
+    is plain ``_sdpa``. The flash branch masks by ``i - j`` alone (the
+    JAX package's canonical positions), whatever the rotary positions.
+    The cache is updated in place."""
     B, S, d = x.shape
     H, K, D = a.num_heads, a.num_kv_heads, a.head_dim
     G = H // K
@@ -110,7 +113,12 @@ def gqa_attention(
     q = _project(x, params["wq"])                            # (B,S,H,D)
     k = _project(x, params["wk"])                            # (B,S,K,D)
     v = _project(x, params["wv"])
-    if a.rotary_pct > 0:
+    if a.mrope:
+        mpos = (positions[None].expand(3, B, S) if mrope_positions is None
+                else mrope_positions)
+        q = apply_mrope(q, mpos, a.rope_theta, a.mrope_sections)
+        k = apply_mrope(k, mpos, a.rope_theta, a.mrope_sections)
+    elif a.rotary_pct > 0:
         q = apply_rope(q, positions, a.rope_theta, a.rotary_pct)
         k = apply_rope(k, positions, a.rope_theta, a.rotary_pct)
     q, k, v = q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)

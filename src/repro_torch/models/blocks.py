@@ -9,7 +9,8 @@ and ``slstm`` (xLSTM) run on the recurrent path, each row gated to its
 valid prefix, and on the contiguous path with no gate. The hybrid blocks
 ``hybrid_local`` and ``hybrid_full`` (hymba: GQA attention and an SSM in
 parallel on the same normed input, mean-fused) run on the contiguous
-path. Encoder and mrope stacks come with ROADMAP item A10.
+path. On the contiguous path an encoder's blocks attend without the
+causal mask, and an mrope arch's rotate by three position streams.
 """
 from __future__ import annotations
 
@@ -40,8 +41,8 @@ CONTIGUOUS_BLOCK_TYPES = ("attn_full", "attn_local", "attn_moe", "mla_dense", "m
 
 def _check(bt: str) -> None:
     if bt not in CONTIGUOUS_BLOCK_TYPES:
-        raise ValueError(f"block type {bt!r} is not ported: the port serves "
-                         f"{CONTIGUOUS_BLOCK_TYPES} (ROADMAP item A10 brings the rest)")
+        raise ValueError(f"unknown block type {bt!r}: the port serves "
+                         f"{CONTIGUOUS_BLOCK_TYPES}")
 
 
 def _check_paged(bt: str) -> None:
@@ -186,7 +187,8 @@ def apply_block_recurrent(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
-                cache: Optional[Dict[str, Any]], length: int, kernel: str = "auto"
+                cache: Optional[Dict[str, Any]], length: int, kernel: str = "auto",
+                mrope_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Union[torch.Tensor, float]]:
     """Pre-norm residual block on the contiguous path: attention over the
     layer's rows holding ``length`` tokens (or over the tokens alone when
@@ -196,8 +198,10 @@ def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
     same normed input beside the attention, from its ``{"conv", "state"}``
     rows, and adds the mean of the two; a state block (ssm, mlstm, slstm)
     advances every row over every column (no valid gate, as the JAX
-    package's contiguous block runs it). ``kernel`` selects every kernel of
-    the block (flash attention for long prefills, the MoE expert FFN, the
+    package's contiguous block runs it). An encoder (``cfg.is_encoder``)
+    attends without the causal mask; an mrope arch's GQA attention rotates
+    by ``mrope_positions`` (3, B, S), text positions when None. ``kernel``
+    selects every kernel of the block (flash attention for long prefills, the MoE expert FFN, the
     selective scan) or their plain versions. Returns ``(x, cache, aux)``,
     ``aux`` as ``apply_block_paged`` gives it; attention rows are updated in
     place, state rows returned new.
@@ -222,7 +226,8 @@ def apply_block(bt: str, params, x: torch.Tensor, cfg: ModelConfig,
         window = a.sliding_window if bt.endswith("_local") else None
         kv = None if cache is None else KVCache(cache["k"], cache["v"], length)
         y_attn, kv = attn.gqa_attention(params["attn"], h, a, causal=causal,
-                                        window=window, cache=kv, kernel=kernel)
+                                        window=window, cache=kv, kernel=kernel,
+                                        mrope_positions=mrope_positions)
         new_cache = None if kv is None else {"k": kv.k, "v": kv.v}
     if bt.startswith("hybrid"):
         sc = None if cache is None else {"conv": cache["conv"], "state": cache["state"]}

@@ -13,6 +13,8 @@ Entry points:
   init_paged_cache(cfg, num_blocks, block_size)     -> cache
   init_recurrent_cache(cfg, slots)                  -> cache
   forward(cfg, params, tokens)                      -> (logits, None, aux)
+  forward(cfg, params, tokens, frontend_feats=, mrope_positions=)
+                                                    -> (logits, None, aux)
   forward(cfg, params, tokens, cache=)              -> (logits, cache, aux)
   forward(cfg, params, tokens, cache=, paged=)      -> (logits, cache, aux)
   forward(cfg, params, tokens, cache=, recurrent=)  -> (logits, cache, aux)
@@ -78,7 +80,9 @@ def flat_block_types(cfg: ModelConfig) -> List[str]:
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Random parameters with the JAX ``init_params`` shapes and stds.
+    """Random parameters with the JAX ``init_params`` shapes and stds
+    (``frontend_proj`` (feature_dim, d_model) for a frontend whose features
+    are not d_model wide).
 
     ``generator`` must live on ``device`` (default: a generator seeded with
     0). ``device`` defaults to ``cuda`` and raises without a card."""
@@ -88,6 +92,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(0)
     b = ParamBuilder(generator, dev, dtype)
     b.param("embed", (cfg.vocab_size, cfg.d_model))
+    if cfg.frontend.kind != "none" and cfg.frontend.feature_dim != cfg.d_model:
+        b.param("frontend_proj", (cfg.frontend.feature_dim, cfg.d_model))
     if not cfg.tie_embeddings:
         b.param("head", (cfg.d_model, cfg.vocab_size))
     b.param("final_norm", (cfg.d_model,), init="zeros")
@@ -152,6 +158,8 @@ def forward(
     paged_kernel: str = "auto",                 # "auto" | "cuda" | "ref"
     compute_dtype: torch.dtype = torch.bfloat16,
     last_only: bool = False,
+    frontend_feats: Optional[torch.Tensor] = None,   # audio (B, T, f) / vlm (B, P, d)
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Union[torch.Tensor, float]]:
     """Forward over a paged pool (``paged=``), over per-slot recurrent
     state (``recurrent=``), over a contiguous cache (``cache=`` from
@@ -164,15 +172,29 @@ def forward(
     alone (logits (B, 1, V)), all a prefill reads. ``paged_kernel``
     selects every kernel of the path: paged attention and the MoE expert
     FFN, the selective scan, or flash attention, the MoE expert FFN and the
-    selective scan (the xLSTM recurrences have none)."""
+    selective scan (the xLSTM recurrences have none).
+
+    Frontends, as in the JAX package: for ``audio_frames`` the input is
+    ``frontend_feats @ frontend_proj`` in the compute dtype and ``tokens``
+    is ignored; for ``vision_patches`` the scaled token embeddings are
+    overwritten by ``frontend_feats`` (B, P, d) at positions ``[0, P)``.
+    An mrope arch's attention rotates by ``mrope_positions`` (3, B, S), or
+    by text positions when it is None."""
     if paged is not None and recurrent is not None:
         raise ValueError("pass one of paged= and recurrent=")
     if (paged is not None or recurrent is not None) and cache is None:
         raise ValueError("the paged and recurrent paths need their cache")
     strict_fp32()
-    x = params["embed"].to(compute_dtype)[tokens.long()]
-    # the JAX package rounds sqrt(d_model) to the compute dtype first
-    x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype))
+    if cfg.frontend.kind == "audio_frames":
+        x = frontend_feats.to(compute_dtype) @ params["frontend_proj"].to(compute_dtype)
+    else:
+        x = params["embed"].to(compute_dtype)[tokens.long()]
+        # the JAX package rounds sqrt(d_model) to the compute dtype first
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype))
+        if cfg.frontend.kind == "vision_patches" and frontend_feats is not None:
+            # the image's patch embeddings over the first P positions
+            x[:, :frontend_feats.shape[1]] = frontend_feats.to(compute_dtype)
+    seq = x.shape[1]
     contiguous = paged is None and recurrent is None
     length = cache["length"] if contiguous and cache is not None else 0
     caches = cache["layers"] if cache is not None else [None] * cfg.num_layers
@@ -188,7 +210,8 @@ def forward(
                                                     paged_kernel)
             aux = aux + a
         else:
-            x, lc, a = blocks_mod.apply_block(bt, lp, x, cfg, lc, length, paged_kernel)
+            x, lc, a = blocks_mod.apply_block(bt, lp, x, cfg, lc, length, paged_kernel,
+                                              mrope_positions)
             aux = aux + a
         new_layers.append(lc)
     if last_only:
@@ -201,16 +224,17 @@ def forward(
         return logits, None, aux
     new_cache = {"layers": new_layers}
     if contiguous:
-        new_cache["length"] = length + tokens.shape[1]
+        new_cache["length"] = length + seq
     return logits, new_cache, aux
 
 
 def decode_step(cfg: ModelConfig, params: Dict[str, Any], cache: Dict[str, Any],
                 token: torch.Tensor, *, kernel: str = "auto",
-                compute_dtype: torch.dtype = torch.bfloat16
+                compute_dtype: torch.dtype = torch.bfloat16,
+                mrope_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One-token decode over a contiguous cache: token (B, 1) -> (logits
-    (B, 1, V), new cache)."""
+    """One-token decode over a contiguous cache: token (B, 1) (and an mrope
+    arch's positions (3, B, 1)) -> (logits (B, 1, V), new cache)."""
     logits, cache, _ = forward(cfg, params, token, cache=cache, paged_kernel=kernel,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, mrope_positions=mrope_positions)
     return logits, cache

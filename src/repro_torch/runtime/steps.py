@@ -2,8 +2,10 @@
 and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
 SSM and xLSTM stacks), each serving decode and chunked prefill in one
 fixed shape; and the slots backend's two steps over the contiguous cache
-(GQA or MLA, dense or MoE, state and hybrid blocks), the one-request
-prefill and the one-token decode of every slot. Each bundle's
+(GQA or MLA, dense or MoE, state and hybrid blocks, mrope stacks), the
+one-request prefill and the one-token decode of every slot. The prefill
+step is also an encoder's entry point: logits for every frame, no
+cache. Each bundle's
 ``meta["kernels"]`` names the kernels its stack can launch, derived from
 its block types. Every bundle
 owns a ``Fabric`` (``meta["fabric"]``, as in the JAX package's
@@ -157,10 +159,11 @@ def _stack_kernels(cfg: ModelConfig) -> tuple:
     return tuple(name for name, used in uses.items() if used)
 
 
-def _contiguous_kernels(cfg: ModelConfig) -> tuple:
+def _contiguous_kernels(cfg: ModelConfig, decode: bool = True) -> tuple:
     """The kernels a slots step can launch (``_stack_kernels``), after
-    checking that every block type has a contiguous path."""
-    if cfg.is_encoder:
+    checking that every block type has a contiguous path and, for a decode
+    step, that the arch has one."""
+    if decode and cfg.is_encoder:
         raise ValueError("encoder-only arch has no decode step")
     bad = sorted(set(model_lib.flat_block_types(cfg)) - set(blocks_mod.CONTIGUOUS_BLOCK_TYPES))
     if bad:
@@ -171,27 +174,39 @@ def _contiguous_kernels(cfg: ModelConfig) -> tuple:
 
 def make_prefill_step(cfg: ModelConfig, *, max_len: int, kernel: str = "auto",
                       device=None, compute_dtype: torch.dtype = torch.bfloat16) -> StepBundle:
-    """One request's prefill into a fresh contiguous cache of ``max_len``, in
-    the compute dtype.
+    """A batch's prefill into a fresh contiguous cache of ``max_len``, in the
+    compute dtype, as the JAX package's prefill step.
 
-    fn(params, tokens (1, L)) -> (logits (1, V) float32 at the last
-    position, filled cache holding L tokens). The head runs on the last
-    position alone: it is all the JAX package's prefill step returns and
-    all the Engine reads. ``kernel`` selects flash attention's kernel or
-    its plain version for a prompt past ``models.attention.CHUNK_THRESHOLD``,
-    the MoE expert FFN's and the selective scan's.
+    fn(params, tokens (B, L), frontend_feats=None, mrope_positions=None)
+    -> (logits (B, V) float32 at the last position, filled cache holding L
+    tokens). The head runs on the last position alone: it is all the JAX
+    package's prefill step returns and all the Engine reads.
+    ``frontend_feats`` are a vision arch's patch embeddings (B, P, d),
+    spliced over the first P positions, and ``mrope_positions`` (3, B, L)
+    its rotary positions (text positions when None). For an encoder
+    (``cfg.is_encoder``) ``frontend_feats`` are its frame features (B, L,
+    f), ``tokens`` only set the shape (as in the JAX package, which reads
+    none of them), no cache is built (``max_len`` is unused) and fn
+    returns (logits (B, L, V) float32 for every frame, None). ``kernel``
+    selects flash attention's kernel or its plain version for a prompt
+    past ``models.attention.CHUNK_THRESHOLD``, the MoE expert FFN's and
+    the selective scan's.
     """
-    kernels = _contiguous_kernels(cfg)
+    kernels = _contiguous_kernels(cfg, decode=False)
     dev = resolve_device(device)
     kind = resolve_kernel(kernel, dev)
 
     @torch.no_grad()
-    def prefill_step(params, tokens):
-        cache = model_lib.init_cache(cfg, tokens.shape[0], max_len, dtype=compute_dtype,
-                                     device=dev)
+    def prefill_step(params, tokens, frontend_feats=None, mrope_positions=None):
+        cache = None if cfg.is_encoder else model_lib.init_cache(
+            cfg, tokens.shape[0], max_len, dtype=compute_dtype, device=dev)
         logits, cache, _ = model_lib.forward(cfg, params, tokens, cache=cache,
                                              paged_kernel=kind, compute_dtype=compute_dtype,
-                                             last_only=True)
+                                             last_only=not cfg.is_encoder,
+                                             frontend_feats=frontend_feats,
+                                             mrope_positions=mrope_positions)
+        if cfg.is_encoder:
+            return logits, None
         return logits[:, -1], cache
 
     return StepBundle(fn=prefill_step, meta=dict(
@@ -207,7 +222,9 @@ def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", devic
     holding one token more). Every row decodes at the cache's one shared
     ``length`` and attends over all ``max_len`` rows, masked by that
     position (the JAX package's lockstep: exact only for slots whose
-    prompts end at the same position). The cache is updated in place.
+    prompts end at the same position); an mrope stack takes that position
+    in all three streams, (3, slots, 1), as the JAX engine's slots tick
+    builds it. The cache is updated in place.
     ``meta["nonfinite_logits"]`` counts rows whose logits held a NaN or an
     infinity; ``kernel`` selects the MoE expert FFN's kernel and the
     selective scan's, or their plain versions (attention over one query
@@ -217,10 +234,16 @@ def make_serve_step(cfg: ModelConfig, *, slots: int, kernel: str = "auto", devic
     kind = resolve_kernel(kernel, dev)
     nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
 
+    mrope = cfg.attention is not None and cfg.attention.mrope
+
     @torch.no_grad()
     def serve_step(params, cache, token):
+        mpos = None
+        if mrope:
+            mpos = torch.full((3, token.shape[0], 1), cache["length"], dtype=torch.int32,
+                              device=token.device)
         logits, cache = model_lib.decode_step(cfg, params, cache, token, kernel=kind,
-                                              compute_dtype=compute_dtype)
+                                              compute_dtype=compute_dtype, mrope_positions=mpos)
         last = logits[:, -1]
         nonfinite.add_((~torch.isfinite(last).all(-1)).sum())
         return torch.argmax(last, dim=-1).to(torch.int32)[:, None], cache

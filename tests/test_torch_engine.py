@@ -521,8 +521,8 @@ def test_default_cache_backend_per_family(mamba):
     assert default_cache_backend(get_smoke("deepseek-v2-lite-16b")) == "slots"
     assert default_cache_backend(get_smoke("xlstm-1.3b")) == "recurrent"
     assert default_cache_backend(get_smoke("hymba-1.5b")) == "slots"
-    with pytest.raises(NotImplementedError, match="A10"):
-        default_cache_backend(j_get_smoke("qwen2-vl-72b"))
+    assert default_cache_backend(get_smoke("qwen2-vl-72b")) == "slots"
+    assert default_cache_backend(j_get_smoke("qwen2-vl-72b")) == "slots"
     with pytest.raises(ValueError, match="recurrent serving supports"):
         Engine(get_smoke("llama3.2-1b"), device="cpu", cache="recurrent", **REC_GEOM)
     with pytest.raises(ValueError, match="paged serving supports"):

@@ -86,7 +86,13 @@ port's dependencies:
   layer per step (per layer per long prefill for the slots engine; for
   the MLA engine also moe_jam per MoE layer per prefill and decode tick;
   for the mamba and hymba smokes on slots the scan per state layer per
-  prefill and decode tick).
+  prefill and decode tick);
+* flash at qwen2-vl-72b's heads (64/8 of 128, G 8, causal; v2) and
+  hubert-xlarge's encoder (16 heads of 80, no causal mask; v1, every
+  tile visited) over 4,096 keys; qwen's smoke on ``Engine(cache="auto")``
+  and a vision prefill (patches spliced, 3-D positions), and hubert's
+  smoke through the prefill step, each through the kernel (threshold
+  lowered) and through the plain version.
 """
 import numpy as np
 import pytest
@@ -1142,6 +1148,104 @@ def test_state_stack_smoke_on_slots_through_kernels(cuda, monkeypatch, arch):
     assert runs["cuda"][2]["kernel_launches"] == want
     assert runs["ref"][2]["kernel_launches"] == {k: 0 for k in want}
     assert runs["cuda"][2]["nonfinite_logits"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hkv,G,D,causal", [(1, 8, 8, 128, True), (2, 16, 1, 80, False)])
+def test_flash_qwen2_vl_and_hubert_heads(cuda, B, Hkv, G, D, causal):
+    """qwen2-vl-72b's prefill (64 query heads over 8 kv heads of 128, G 8,
+    causal; v2) and hubert-xlarge's encoder (16 heads of 80, MHA, no causal
+    mask, batch 2; v1, every tile of every row visited) across 4,096 keys,
+    in the model's strided layout."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.design(D) == ("tma-wgmma v2" if D == 128 else "mma v1")
+    rng = np.random.default_rng(D + G)
+    q, k, v = _flash_case(cuda, rng, B=B, Hkv=Hkv, G=G, S=4096, T=4096, D=D, strided=True)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.mha_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+    assert bad == 0, (err, worst)
+    walk = fa.tile_counts(q, k, v, causal=causal)
+    if not causal:                 # 64-row CTAs, each over all 64 tiles of 64 keys
+        assert walk["visited"] == B * Hkv * (4096 * G // 64) * 64
+
+
+@pytest.mark.gpu
+def test_qwen2_vl_smoke_on_slots_through_flash_kernel(cuda, monkeypatch):
+    """qwen2-vl's smoke on ``Engine(cache="auto")`` (slots), prompts over a
+    lowered threshold: the kernel and the plain version give the same
+    schedule; one flash launch a layer a long prefill through the kernel,
+    none through the plain version; and a vision prefill (patches spliced,
+    3-D positions) through the prefill step on both paths agrees."""
+    from repro_torch.models import attention
+    from repro_torch.runtime.steps import make_prefill_step
+
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 64)
+    cfg = get_smoke("qwen2-vl-72b")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (9, 30, 5, 17)]
+    runs = {}
+    for kernel in ("cuda", "ref"):
+        e = Engine(cfg, device=cuda, cache="auto", kernel=kernel, slots=2, max_len=64)
+        assert e.cache_kind == "slots"
+        e.load_params(seed=0)
+        for rid, p in enumerate(prompts):
+            e.submit(Request(rid, p, max_new_tokens=6))
+        e.run_until_drained()
+        runs[kernel] = (e.admission_log, e.ticks, e.metrics())
+        params = e.params
+    assert runs["cuda"][:2] == runs["ref"][:2]
+    long_prompts = sum(len(p) ** 2 > 64 for p in prompts)
+    assert runs["cuda"][2]["kernel_launches"] == {"flash_attention": cfg.num_layers * long_prompts}
+    assert runs["ref"][2]["kernel_launches"] == {"flash_attention": 0}
+    assert runs["cuda"][2]["nonfinite_logits"] == 0
+    P, S = cfg.frontend.num_patch_tokens, 30
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, S)).astype(np.int32)).to(cuda)
+    feats = torch.from_numpy(rng.standard_normal((1, P, cfg.d_model)).astype(np.float32)).to(cuda)
+    pos = torch.arange(S, device=cuda, dtype=torch.int32).expand(3, 1, S).clone()
+    pos[1, 0, :P], pos[2, 0, :P] = torch.arange(P, device=cuda) // 4, torch.arange(P, device=cuda) % 4
+    pos[0, 0, :P] = 0
+    last = {}
+    for kernel in ("cuda", "ref"):
+        step = make_prefill_step(cfg, max_len=S, kernel=kernel, device=cuda)
+        last[kernel] = step.fn(params, tok, feats, pos)[0].float()
+    assert torch.isfinite(last["cuda"]).all()
+    assert (last["cuda"] - last["ref"]).abs().max() <= 0.05 * last["ref"].abs().max()
+
+
+@pytest.mark.gpu
+def test_hubert_smoke_encoder_through_flash_kernel(cuda, monkeypatch):
+    """hubert's smoke through the prefill step, frames over a lowered
+    threshold: one flash launch a layer (``causal=False``) through the
+    kernel, none through the plain version; every frame's logits agree."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.steps import make_prefill_step
+
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 64)
+    cfg = get_smoke("hubert-xlarge")
+    params = init_params(cfg, device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    feats = torch.from_numpy(rng.standard_normal((2, 40, cfg.frontend.feature_dim))
+                             .astype(np.float32)).to(cuda)
+    tok = torch.zeros((2, 40), dtype=torch.int32, device=cuda)
+    out = {}
+    for kernel in ("cuda", "ref"):
+        step = make_prefill_step(cfg, max_len=40, kernel=kernel, device=cuda)
+        before = fa.LAUNCHES.count
+        logits, cache = step.fn(params, tok, feats)
+        torch.cuda.synchronize()
+        assert cache is None and logits.shape == (2, 40, cfg.vocab_size)
+        assert fa.LAUNCHES.count - before == (cfg.num_layers if kernel == "cuda" else 0)
+        out[kernel] = logits
+    assert torch.isfinite(out["cuda"]).all()
+    assert (out["cuda"] - out["ref"]).abs().max() <= 0.05 * out["ref"].abs().max()
 
 
 # ---------------------------------------------------------------------------
