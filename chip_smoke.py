@@ -32,7 +32,8 @@ phase prints the seconds it took):
    and a 4,096-token prefill (capacity 480); flash attention at
    hymba-1.5b's prefill (25/5 heads of 64, 4,096 tokens, causal, window
    None and 1,024), qwen2-vl-72b's (64/8 heads of 128, 4,096 tokens,
-   causal) and hubert-xlarge's encoder (2 clips x 16/16 heads of 80, 4,096
+   causal), llama3.2-1b's (32/8 heads of 64, 4,096 tokens, causal: the
+   cluster phase's slots replicas) and hubert-xlarge's encoder (2 clips x 16/16 heads of 80, 4,096
    frames, no causal mask; v1); the selective scan as the slots backend
    runs it, with no valid gate: one row of 3,800 columns and a decode
    tick of 8 rows, at mamba-130m's 1,536 channels and hymba-1.5b's 3,200,
@@ -136,7 +137,24 @@ phase prints the seconds it took):
    on the short one; frames/s, device busy and idle, flash's device ms;
    every frame's logits through the kernel and the plain version held
    against float32 (``SLOTS_VS_F32``);
-15. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
+15. the cluster (request migration and failover; replicas side by side
+   on the card, one weight tree, every output held token for token
+   against a solo run of the same requests on one engine of the same
+   geometry): two full-width ``llama3.2-1b`` paged replicas behind the
+   ``Router`` serve phase 4's requests with one request migrated
+   mid-chunked-prefill (after router tick 2) and one mid-decode (after
+   12); two ``mamba-130m`` recurrent replicas serve phase 6's with one
+   migrated mid-decode; each pair replays its requests twice with the first
+   replica killed at tick 10: under the JAX package's frame fault rate of
+   0.3 with failover by recompute, then from snapshots (every 4 ticks)
+   under one fault per train of the clean run's largest handoff, with every
+   detected fault retransmitted, one failover and no request lost; two
+   ``llama3.2-1b`` slots replicas move a 4,096-token request (prefilled
+   through flash) after 3 ticks and a 300-token one after 1. Each
+   migration's state bytes, frames, export, encode + decode (frames/s,
+   GB/s), import and restore ms; each replica's launches (one a layer a
+   step);
+16. the frame path (Two-Chains proper): a ``Fabric`` on the card holds a
    key-value shard of 2^26 rows (table 512 MiB, heap 3.75 GiB, heap base
    12,345 in its GOT) and two jams, Server-Side Sum and Indirect Put; 8
    deliveries of 2^20 frames of 128 B (a full 64-bank x 16,384-slot
@@ -161,7 +179,7 @@ phase prints the seconds it took):
    frames, v2's lane groups for many) with the route it took, the
    Indirect Put (v3: a claim table in L2) with each of its three passes'
    device time (``torch.profiler``);
-16. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
+17. the ring put (kernel B7; ranks as the CTAs of a thread-block cluster,
    the mailbox in the receiver's shared memory): the kernel against its
    plain version, bit for bit, over 1, 2, 4 and 8 ranks, shifts 1, 2,
    n - 1 and n + 1, 1, 3, 385 (one more than a 48 KiB chunk) and 131,072
@@ -179,7 +197,7 @@ phase prints the seconds it took):
    the drain's Server-Side Sum, on its wide route, is also held against
    its plain version on every rank, bit for bit), and the 16 MiB-a-rank
    ring;
-17. the last line: ``{"ok": true, "device": {...}}``.
+18. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -243,7 +261,8 @@ FLASH_PATHS = {SLOTS_ARCH: ("gemma3-4b global", "gemma3-4b local", "granite-20b"
                MLA_ARCH: (MLA_FLASH_SHAPE,),
                HYMBA_ARCH: ("hymba-1.5b global", "hymba-1.5b local"),
                QWEN_ARCH: ("qwen2-vl-72b",),
-               HUBERT_ARCH: ("hubert-xlarge",)}
+               HUBERT_ARCH: ("hubert-xlarge",),
+               ARCHS[0]: ("llama3.2-1b",)}
 # the selective scan's checks, (path, arch, rows, columns, valid gate):
 # the recurrent engine's chunk step with its valid gate (``ssm_scan.bench``'s
 # mixed fill, rows with no valid column among them), then, with no valid
@@ -266,6 +285,24 @@ XL_SLOTS, XL_CHUNK, XL_REQUESTS, XL_PROMPT, XL_NEW = 4, 16, 8, (32, 128), 16
 XL_PREEMPT_AFTER = {3: "prefill", 8: "decode"}
 # xlstm-1.3b on slots: the first 8 of the slots traffic's requests
 XL_SLOTS_REQUESTS = 8
+# the cluster phase: replicas side by side on the one card. Paged (llama3.2-1b
+# at the paged geometry and traffic) and recurrent (mamba-130m at its
+# geometry and traffic): after these router ticks, migrate the first running
+# request in that phase to the other replica. Then the requests replayed
+# under two seeded fault plans, each killing the first replica at router
+# tick CLUSTER_KILL_TICK: the JAX package's frame fault rate (0.3) with
+# failover by recompute (every recovery ticket one frame), and failover from
+# snapshots taken every CLUSTER_SNAPSHOT_EVERY ticks with a rate of one
+# fault per train of the clean run's largest handoff: a train of N frames
+# arrives whole with probability (1 - rate)^N, so at 0.3 no state-carrying
+# train of this width (hundreds to thousands of 4 KiB frames) would ever
+# arrive, as in the JAX package, which retransmits whole trains. Slots
+# (llama3.2-1b, 2 slots of SLOTS_MAX_LEN): (prompt tokens, ticks before the
+# migration), each request alone (an aligned admission); the long one
+# prefills through flash
+CLUSTER_FORCED = {"paged": {2: "prefill", 12: "decode"}, "recurrent": {12: "decode"}}
+CLUSTER_KILL_TICK, CLUSTER_SNAPSHOT_EVERY, CHAOS_RATE, CHAOS_RETRIES = 10, 4, 0.3, 20
+CLUSTER_SLOTS_REQUESTS = ((LONG_PROMPT[1], 3), (300, 1))
 # flash attention vs plain, per element: |kernel - plain| <= 2e-2 * (rms of
 # the element's (batch, head, position) row + |plain|) (``flash_attention.
 # compare``): bf16 outputs, and the kernel rounds the unnormalized p to bf16
@@ -1712,7 +1749,7 @@ def _slots_logits(torch, dev, cfg, params, prompt, n_attn, n_ssm, extra=(),
 
 
 def frame_path(torch, dev, card):
-    """Phase 15: the Two-Chains frame path at a key-value shard's size;
+    """Phase 16: the Two-Chains frame path at a key-value shard's size;
     returns the JSON entries of its two kernels (launches filled in)."""
     from repro_torch.core import mailbox as mbx
     from repro_torch.kernels import mailbox as mk
@@ -1872,7 +1909,7 @@ def _entry(name, replaces, launches, n, max_err, *, ms, plain_ms, library_ms, wo
 
 
 def ring_path(torch, dev, card):
-    """Phase 16: the one-sided ring put (B7), ranks as the CTAs of a cluster;
+    """Phase 17: the one-sided ring put (B7), ranks as the CTAs of a cluster;
     returns its JSON entry (launches from the Two-Chains ring)."""
     from repro_torch.core.message import FrameSpec
     from repro_torch.kernels import mailbox as mk
@@ -2152,6 +2189,251 @@ def _check_expert_placements(torch, dev):
         raise AssertionError("local and injected expert calls differ")
 
 
+def cluster_path(torch, dev, card):
+    """Phase 15: the cluster half of the port (``repro_torch.cluster``):
+    replicas side by side on the one card, sharing one weight tree. Paged:
+    two full-width llama3.2-1b replicas at ``serve``'s geometry serve its
+    requests; recurrent: two mamba-130m replicas at its recurrent geometry;
+    each time one solo run of the same requests on one engine, a clean
+    cluster run with forced live migrations (paged: one mid-chunked-prefill
+    and one mid-decode; recurrent: one mid-decode), then the requests
+    replayed under two fault plans with one replica killed; slots: two
+    llama3.2-1b replicas, one long (flash) and one short request each
+    migrated at an aligned admission. Every output must equal the solo
+    run's, token for token; each replica's step launches its kernel once a
+    layer a step. Returns each kernel's launches over the phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import Engine, Request
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS
+
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    paged_geom = dict(cache="paged", slots=SLOTS, max_len=MAX_LEN, num_blocks=NUM_BLOCKS,
+                      block_size=BLOCK, chunk=CHUNK)
+    rec_geom = dict(cache="recurrent", slots=REC_SLOTS, max_len=MAX_LEN, chunk=CHUNK)
+    for arch, geom, n_requests, forced in (
+            (ARCHS[0], paged_geom, N_REQUESTS, CLUSTER_FORCED["paged"]),
+            (MAMBA_ARCH, rec_geom, REC_REQUESTS, CLUSTER_FORCED["recurrent"])):
+        cfg = get_config(arch)
+        engines = _replicas(torch, dev, cfg, geom, 3)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, size=(int(rng.integers(PROMPT_LO,
+                                                                           PROMPT_HI + 1)),))
+                   .astype(np.int32) for _ in range(n_requests)]
+        solo, pair = engines[0], engines[1:]
+        for rid, p in enumerate(prompts):
+            solo.submit(Request(rid, p, max_new_tokens=MAX_NEW))
+        solo.run_until_drained()
+        want = {r.rid: list(r.out_tokens) for r in solo.completed}
+        log(f"[cluster] {arch} solo run: {len(want)} requests on one engine, "
+            f"{solo.steps} steps, {solo.preempt_count} preemptions")
+        before = [dict(e.kernel_launches) for e in pair]
+        steps_before = [e.steps for e in pair]
+        router, out, restores = _cluster_run(torch, pair, prompts, forced=forced)
+        _same_as_solo(f"{arch} clean", out, want)
+        per_layer = cfg.num_layers
+        kname = "paged_attention" if geom["cache"] == "paged" else "ssm_scan"
+        for e, b, s in zip(pair, before, steps_before):
+            n = e.kernel_launches[kname] - b[kname]
+            log(f"[cluster] {arch} replica {e.engine_id}: {n} {kname} launches over "
+                f"{e.steps - s} steps ({e.metrics()['migrations']})")
+            if n == 0 or n != per_layer * (e.steps - s):
+                raise AssertionError(f"replica {e.engine_id}: {n} {kname} launches for "
+                                     f"{e.steps - s} steps of {per_layer} layers")
+        _log_migrations(arch, router, restores, card)
+        decode_frames = max(m["frames"] for m in router.migrations)
+        # the JAX package's chaos rate, with failover by recompute: every
+        # recovery ticket is one frame (prompt + delivered tokens); the
+        # state-carrying trains would not survive it (below)
+        _chaos_run(torch, pair, prompts, want, arch=arch, rate=CHAOS_RATE, snapshot_every=0)
+        # failover from snapshots: a per-frame rate of one fault per train
+        # of the size the clean run's largest migration shipped
+        _chaos_run(torch, pair, prompts, want, arch=arch, rate=1.0 / decode_frames,
+                   snapshot_every=CLUSTER_SNAPSHOT_EVERY)
+        del engines, solo, pair, router
+        gc.collect()
+        torch.cuda.empty_cache()
+    _slots_cluster(torch, dev, card)
+    return {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+
+
+def _replicas(torch, dev, cfg, geom, n, max_len=None):
+    """``n`` engines of one geometry on the card, sharing one weight tree
+    drawn from ``SEED`` (the first draws it, the others take it through
+    ``inject_params``, as the cluster launcher does)."""
+    from repro_torch.engine import Engine
+
+    engines = []
+    for i in range(n):
+        e = Engine(cfg, device=dev, kernel="auto", engine_id=f"{cfg.name}:{geom['cache']}#{i}",
+                   **geom)
+        e.inject_params(engines[0].params if engines else None, seed=SEED)
+        if e.kernel != "cuda":
+            raise AssertionError(f"auto resolved to {e.kernel!r} on the card")
+        engines.append(e)
+    torch.cuda.synchronize()
+    return engines
+
+
+def _cluster_run(torch, pair, prompts, *, forced=(), faults=None, snapshot_every=0,
+                 max_retries=6):
+    """Serve ``prompts`` through a Router over ``pair`` (restarted); after
+    the router ticks in ``forced`` ({tick: "prefill" | "decode"}) migrate
+    the first running request in that phase to the other replica. Returns
+    the router and each request's tokens."""
+    from repro_torch.cluster import Replica, Router
+    from repro_torch.engine import Request
+
+    for e in pair:
+        e.restart()
+    restores = _time_restores(torch, pair)
+    router = Router([Replica(e) for e in pair], snapshot_every=snapshot_every,
+                    max_retries=max_retries, retry_backoff_s=0.0)
+    if faults is not None:
+        faults.install(router)
+    handles = [router.submit(Request(rid, p, max_new_tokens=MAX_NEW))
+               for rid, p in enumerate(prompts)]
+    while router.pending():
+        router.tick()
+        phase = dict(forced).get(router.tick_no)
+        if phase is not None:
+            _force_migration(router, phase)
+        if router.tick_no > 4000:
+            raise AssertionError("the cluster did not drain in 4000 ticks")
+    for e in pair:
+        del e._restore_inbound
+    return router, {h.rid: list(h.req.out_tokens) for h in handles}, restores
+
+
+def _time_restores(torch, engines):
+    """Time each engine's restores of migrated-in state (device synced),
+    appending (engine_id, rid, ms); ``del e._restore_inbound`` undoes it."""
+    restores = []
+    for e in engines:
+        def timed(entry, slot, inner=e._restore_inbound, e=e):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            inner(entry, slot)
+            torch.cuda.synchronize()
+            restores.append((e.engine_id, entry.req.rid, (time.perf_counter() - t) * 1e3))
+        e._restore_inbound = timed
+    return restores
+
+
+def _force_migration(router, phase):
+    """Migrate the first running request (by replica, then slot) that is
+    mid-prefill or in decode to the other replica."""
+    for rep in router.replicas:
+        for entry in rep.engine.slot_entry:
+            if entry is None or entry.req.done:
+                continue
+            prefill = 0 < entry.pos < len(entry.prompt_tokens)
+            if prefill == (phase == "prefill") and (prefill or entry.req.out_tokens):
+                dst = next(r for r in router.replicas if r is not rep)
+                router.migrate(entry.req.rid, dst.engine_id, reason=f"forced ({phase})")
+                return
+    raise AssertionError(f"no running request in {phase} after tick {router.tick_no}")
+
+
+def _same_as_solo(label, out, want):
+    bad = {rid: next(i for i, (x, y) in enumerate(zip(out[rid], want[rid])) if x != y)
+           for rid in want if out.get(rid) != want[rid] and len(out.get(rid, [])) ==
+           len(want[rid])}
+    missing = [rid for rid in want if len(out.get(rid, [])) != len(want[rid])]
+    if bad or missing:
+        raise AssertionError(f"{label}: outputs differ from the solo run (rid: first "
+                             f"differing position) {bad}; incomplete {missing}")
+    log(f"[cluster] {label}: {len(want)}/{len(want)} requests identical to the solo run, "
+        f"token for token")
+
+
+def _log_migrations(arch, router, restores, card):
+    restore = {rid: ms for _, rid, ms in restores}
+    for m in router.migrations:
+        wire_s = (m["encode_ms"] + m["decode_ms"]) / 1e3
+        nbytes = m["frames"] * 4096
+        log(f"[cluster] {arch} migration of rid {m['rid']} ({m['reason']}) {m['src']} -> "
+            f"{m['dst']} at position {m['pos']}: {m['state_bytes']} state bytes in "
+            f"{m['frames']} frames; export {m['export_ms']:.2f} ms, encode {m['encode_ms']:.2f}"
+            f" + decode {m['decode_ms']:.2f} ms ({m['frames'] / wire_s:.0f} frames/s, "
+            f"{nbytes / wire_s / 1e9:.3f} GB/s), import {m['import_ms']:.2f} ms, restore "
+            f"{restore.get(m['rid'], float('nan')):.2f} ms (host clocks, device synced) on "
+            f"{card}")
+
+
+def _chaos_run(torch, pair, prompts, want, *, arch, rate, snapshot_every):
+    """Replay ``prompts`` under a seeded plan (frame faults at ``rate``, the
+    first replica killed at ``CLUSTER_KILL_TICK``): outputs identical to
+    the solo run, every detected fault retransmitted, one failover, no
+    request failed."""
+    from repro_torch.faults import FaultInjector, FaultPlan
+
+    plan = FaultPlan(seed=SEED, frame_fault_rate=rate,
+                     kill_at={pair[0].engine_id: CLUSTER_KILL_TICK})
+    router, out, _ = _cluster_run(torch, pair, prompts, faults=FaultInjector(plan),
+                                  snapshot_every=snapshot_every, max_retries=CHAOS_RETRIES)
+    f = router.metrics()["faults"]
+    label = f"{arch} chaos (frame fault rate {rate:.3g}, snapshot every {snapshot_every})"
+    _same_as_solo(label, out, want)
+    restored = [m for m in router.migrations if m["reason"].startswith("failover")]
+    log(f"[cluster] {label}: injected {f['injected']}, detected {f['detected']}, "
+        f"retransmits {f['retransmits']}, failovers {f['failovers']}, recovered "
+        f"{f['requests_recovered']} ({sum(m['pos'] > 0 for m in restored)} from a snapshot, "
+        f"{sum(m['frames'] for m in restored)} frames), snapshots {f['snapshots_taken']}")
+    if (f["detected"] != f["retransmits"] or f["failovers"] != 1 or f["requests_failed"]
+            or not f["requests_recovered"]):
+        raise AssertionError(f"{label}: {f}")
+    if snapshot_every and not any(m["pos"] > 0 for m in restored):
+        raise AssertionError(f"{label}: no request was restored from a snapshot")
+
+
+def _slots_cluster(torch, dev, card):
+    """Two llama3.2-1b slots replicas: a long prompt (past the flash
+    threshold) migrated after 3 ticks and a short one after 1, each alone,
+    so the target's shared length is the request's (an aligned admission);
+    each held against its solo run. The replica that prefills the long
+    prompt launches flash once a layer."""
+    from repro_torch.cluster import Replica, Router
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import Request
+    from repro_torch.models import attention
+
+    cfg = get_config(ARCHS[0])
+    geom = dict(cache="slots", slots=2, max_len=SLOTS_MAX_LEN)
+    solo, a, b = _replicas(torch, dev, cfg, geom, 3)
+    rng = np.random.default_rng(SEED)
+    for rid, (n, ticks) in enumerate(CLUSTER_SLOTS_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+        for e in (solo, a, b):
+            e.restart()
+        h = solo.submit(Request(rid, prompt, max_new_tokens=MAX_NEW))
+        solo.run_until_drained()
+        want = {rid: list(h.req.out_tokens)}
+        flash_before = a.kernel_launches["flash_attention"]
+        restores = _time_restores(torch, (b,))
+        router = Router([Replica(a), Replica(b)])
+        h = router.submit(Request(rid, prompt, max_new_tokens=MAX_NEW))
+        for _ in range(ticks):
+            router.tick()
+        t = time.perf_counter()
+        router.migrate(rid, b.engine_id, reason=f"forced after tick {ticks}")
+        router.run_until_drained()
+        torch.cuda.synchronize()
+        del b._restore_inbound
+        _same_as_solo(f"{cfg.name} slots, {n}-token prompt migrated after tick {ticks}",
+                      {rid: list(h.req.out_tokens)}, want)
+        _log_migrations(f"{cfg.name} slots", router, restores, card)
+        flash = a.kernel_launches["flash_attention"] - flash_before
+        long = attention._use_chunked(n, n)
+        log(f"[cluster] {cfg.name} slots replica {a.engine_id}: {flash} flash_attention "
+            f"launches ({'past' if long else 'under'} the threshold); {b.engine_id} decodes "
+            f"only (no kernel on the decode step); {time.perf_counter() - t:.2f}s after the "
+            f"migration")
+        if flash != (cfg.num_layers if long else 0):
+            raise AssertionError(f"{flash} flash launches for a {n}-token prefill of "
+                                 f"{cfg.num_layers} layers")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2296,6 +2578,18 @@ def main() -> int:
         launches = encoder_path(torch, dev, card)
         entries[("flash_attention", f"{HUBERT_ARCH} encoder")]["launches"] = launches[
             max(HUBERT_BATCHES, key=lambda bt: bt[1])]
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase("cluster (replicas side by side)"):
+        launches = cluster_path(torch, dev, card)
+        log(f"[cluster] launches over the phase (every count set to 0 just before it): "
+            f"{launches} on {card}")
+        for kname, src in (("paged_attention", ARCHS[0]), ("ssm_scan", MAMBA_ARCH)):
+            entries[(kname, "cluster")] = dict(entries[(kname, src)], path=f"{src} cluster",
+                                               launches=launches[kname])
+        entries[("flash_attention", f"{ARCHS[0]} slots")]["path"] = f"{ARCHS[0]} cluster"
+        entries[("flash_attention", f"{ARCHS[0]} slots")]["launches"] = launches[
+            "flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
     unlaunched = [k for k, e in entries.items() if not e["launches"]]

@@ -26,13 +26,19 @@ library. It ports:
   ``Fabric`` invocation surface (``fabric``), and the paper's two handlers,
   Server-Side Sum and Indirect Put (``kernels.mailbox``). The Engine's
   serve step runs through its bundle's ``Fabric`` at ``placement="local"``,
-  ``"injected"`` or ``"auto"``.
+  ``"injected"`` or ``"auto"``;
+
+* the cluster: a ``Router`` over engine replicas (``cluster``) with live
+  request migration (a request's state in the ``RST1`` format, shipped as
+  a train of 4 KiB active-message frames and checked frame by frame),
+  rebalance, drain, failover from snapshots or by recompute, the seeded
+  fault injector (``faults``) and ``launch.serve_cluster``.
 
 Every kernel is hand-written CUDA beside its plain version;
 ``kernels.loader`` builds them at first use. Entry points (``Engine``,
 ``models.model.init_params``, the serve CLI) run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card they raise instead of quietly
-falling back. Not ported yet (ROADMAP queue A): migration, faults and
-graphs (A12), training (A13), the transports between devices (A14) and
-the cost tooling (A15).
+falling back. Not ported yet (ROADMAP queue A): graphs (A12's graph
+half), training (A13), the transports between devices (A14) and the
+tooling (A15).
 """

@@ -23,7 +23,9 @@ moved bit for bit. The bridge takes numpy only and imports no JAX.
 recurrent and a contiguous cache, so that both packages can start from one
 mid-sequence state and their caches can be compared. ``got_from_jax`` and
 ``mailbox_from_jax`` carry a GOT and a mailbox across; frames themselves
-cross as plain int32 arrays.
+cross as plain int32 arrays. ``state_from_jax`` turns a request's state
+buffer exported by the JAX engine (``RST1``) into the port's, so a JAX
+``MigrationTicket``'s state imports into the port's engine.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.got import GotTable
+from repro_torch.models import blocks as blocks_mod
+from repro_torch.models.kvcache import state_leaves, state_to_bytes
 from repro_torch.models.model import layer_plan
 
 
@@ -120,3 +124,44 @@ def mailbox_from_jax(np_mb: Dict[str, Any], device=None) -> Dict[str, torch.Tens
     """``repro.core.mailbox.init_mailbox``-shaped ``{"frames", "credits",
     "head"}`` as numpy -> the port's mailbox on ``device``."""
     return {k: to_tensor(v, device) for k, v in np_mb.items()}
+
+
+def _layer_keys(bt: str, cfg: ModelConfig, cache_kind: str) -> List[str]:
+    """A layer's cache keys in the port's order, for one backend (read off
+    shapeless ``meta`` tensors)."""
+    if cache_kind == "paged":
+        one = blocks_mod.init_paged_block_cache(bt, cfg, 1, 1, device="meta")
+    elif cache_kind == "recurrent":
+        one = blocks_mod.init_recurrent_block_cache(bt, cfg, 1, device="meta")
+    else:
+        one = blocks_mod.init_block_cache(bt, cfg, 1, 1, device="meta")
+    return list(one)
+
+
+def state_from_jax(cfg: ModelConfig, cache_kind: str, buf: bytes) -> bytes:
+    """A state buffer written by the JAX engine (``SequenceState.serialize``
+    of its ``cache_kind`` backend) -> the same state in the port's buffer
+    format. The JAX tree flattens as ``{"groups": [[{key: leaf}]],
+    "length"}`` with dict keys sorted and a leading repeats axis on each
+    leaf of a repeated group (the paged buffer has no ``length``); the
+    port's is one dict a layer, in ``flat_block_types`` order, then (slots
+    only) ``length`` first. The bytes of each leaf move as they are."""
+    leaves = state_leaves(buf)
+    plan = layer_plan(cfg)
+    n_leaves = sum(len(_layer_keys(bt, cfg, cache_kind)) for pattern, _ in plan
+                   for bt in pattern) + (cache_kind != "paged")
+    if len(leaves) != n_leaves:
+        raise ValueError(f"a JAX {cache_kind} state of {cfg.name} has {n_leaves} leaves, "
+                         f"the buffer {len(leaves)}")
+    it = iter(leaves)
+    groups = [[{k: next(it) for k in sorted(_layer_keys(bt, cfg, cache_kind))}
+               for bt in pattern] for pattern, _ in plan]
+    layers = []
+    for (pattern, repeats), group in zip(plan, groups):
+        for r in range(repeats):
+            for bt, tree in zip(pattern, group):
+                layers.append({k: tree[k][r] if repeats > 1 else tree[k]
+                               for k in _layer_keys(bt, cfg, cache_kind)})
+    if cache_kind == "slots":
+        return state_to_bytes({"length": next(it), "layers": layers})
+    return state_to_bytes({"layers": layers})

@@ -23,9 +23,16 @@ the first acquire is the injection, a miss; later ticks hit warm) or
 each resolution is recorded as a ``TransportEstimate``). Placement never
 changes the math: every branch runs the same step on the same device.
 
-Not ported yet: graphs, the ``fault_hook`` chaos seam, request migration
-(``export_request``/``import_request``/``snapshot_request``) and the
-``fail``/``restart`` lifecycle (ROADMAP A12).
+Live migration and the failure lifecycle, the replica side of
+``repro_torch.cluster``: ``export_request`` detaches a queued or running
+request into a position-independent ``MigrationTicket`` (its state in the
+``RST1`` format), ``import_request`` queues one and restores its state at
+admission instead of a prefill, ``snapshot_request`` serializes without
+releasing anything; ``fail`` refuses every verb until ``restart``, which
+abandons all request state and keeps the params and the built steps;
+``fault_hook`` fires between placement resolution and step execution.
+Graph runs (``submit_graph``, ``ensure_verify_step``) are the part of the
+JAX engine still to port (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import dataclasses
 import itertools
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +54,14 @@ from repro_torch.engine.scheduler import (SchedulerPolicy, SchedulerState, _Poli
                                           resolve_policy)
 from repro_torch.engine.state import PagedKVState, RecurrentState, SlotKVState
 from repro_torch.engine.stream import RequestHandle
+from repro_torch.faults.errors import EngineFailedError
 from repro_torch.models import model as model_lib
+from repro_torch.models.kvcache import state_to_bytes
 from repro_torch.runtime.steps import (LAUNCH_COUNTERS, make_paged_serve_step,
                                        make_prefill_step, make_recurrent_serve_step,
                                        make_serve_step)
 
-__all__ = ["Request", "Engine"]
+__all__ = ["Request", "Engine", "MigrationTicket"]
 
 PLACEMENTS = ("local", "injected", "auto")
 
@@ -75,6 +84,29 @@ class Request:
 
 
 @dataclasses.dataclass
+class MigrationTicket:
+    """Position-independent snapshot of one in-flight request, the unit of
+    live migration (``Engine.export_request`` -> wire ->
+    ``Engine.import_request``).
+
+    ``state`` is the ``SequenceState.serialize`` buffer covering the first
+    ``pos`` tokens of prompt ++ out_tokens (None when nothing is resident:
+    the target recomputes). It holds logical token order only, no block
+    ids or slot indices, so source and target may differ in pool geometry;
+    only the model and ``cache_kind`` must match.
+    """
+
+    rid: int
+    cache_kind: str
+    priority: int
+    max_new_tokens: int
+    prompt: List[int]
+    out_tokens: List[int]
+    pos: int = 0                        # tokens the state buffer covers
+    state: Optional[bytes] = None
+
+
+@dataclasses.dataclass
 class _Entry:
     """Scheduler state for one request (queued -> running -> finished, with
     running -> queued on preemption)."""
@@ -91,6 +123,7 @@ class _Entry:
     preemptions: int = 0
     prompt_tokens: List[int] = dataclasses.field(default_factory=list)
     snapshot: Optional[Any] = None      # recurrent backend: evicted state rows
+    inbound: Optional[bytes] = None     # migrated-in state, restored at admission
 
     def seq(self) -> List[int]:
         """prompt ++ generated — what must be resident before decoding."""
@@ -116,7 +149,9 @@ class Engine:
     recurrent backend too. ``device`` defaults to ``cuda`` and raises when
     there is no card; tests pass ``device="cpu"``. ``placement`` routes
     each tick's step through the bundle's fabric (see the module
-    docstring).
+    docstring). ``compute_dtype`` is the steps' compute dtype and the
+    cache's (tests run float32 engines against the JAX package's float32
+    forward).
     """
 
     _ids = itertools.count()
@@ -126,7 +161,7 @@ class Engine:
                  kernel: str = "auto", num_blocks: Optional[int] = None,
                  block_size: int = 16, chunk: int = 8,
                  eos_id: Optional[int] = None, engine_id: Optional[str] = None,
-                 placement: str = "local"):
+                 placement: str = "local", compute_dtype: torch.dtype = torch.bfloat16):
         if cfg.is_encoder:
             raise ValueError("encoder-only arch has no decode path")
         if placement not in PLACEMENTS:
@@ -159,11 +194,20 @@ class Engine:
         self.admission_log: List[int] = []     # rids in first-admission order
         self.peak_active = 0
         self.preempt_count = 0
+        self.migrations_in = 0
+        self.migrations_out = 0
         self._pending_pump: List[_Entry] = []
         self._placements: Dict[str, str] = {}
-        # auto resolutions of injected demoted to local because the params
-        # lease went cold before the step ran; that window opens with the
-        # fault_hook seam (ROADMAP A12), so it stays 0 in this slice
+        self.compute_dtype = compute_dtype
+        self._params_nbytes_memo: Optional[int] = None
+        # the chaos and recovery surface (repro_torch.faults): a failed
+        # engine refuses tick/submit/export/import/snapshot until restart();
+        # fault_hook fires between placement resolution and step execution
+        # (the lease-expiry window); lease_fallbacks counts auto resolutions
+        # of injected demoted to local because the params lease went cold
+        # in that window
+        self.failed_reason: Optional[str] = None
+        self.fault_hook: Optional[Callable[[str], None]] = None
         self.lease_fallbacks = 0
 
         self.chunk = chunk
@@ -178,24 +222,23 @@ class Engine:
             self.bundle = make_paged_serve_step(
                 cfg, slots=slots, chunk=chunk, num_blocks=num_blocks,
                 block_size=block_size, max_blocks_per_seq=self.max_blocks_per_seq,
-                kernel=kernel, device=self.device)
+                kernel=kernel, device=self.device, compute_dtype=compute_dtype)
             # per-step live-token fraction: resident tokens / pool token capacity
             self._live_frac_last = 0.0
             self._live_frac_sum = 0.0
             self._live_frac_ticks = 0
             self.peak_blocks_used = 0
-            self.state = PagedKVState(num_blocks, block_size)
-            self.pool = self.state.pool
         elif cache == "recurrent":
             self.bundle = make_recurrent_serve_step(
-                cfg, slots=slots, chunk=chunk, kernel=kernel, device=self.device)
-            self.state = RecurrentState(slots, lambda: model_lib.init_recurrent_cache(
-                cfg, 1, device=self.device))
+                cfg, slots=slots, chunk=chunk, kernel=kernel, device=self.device,
+                compute_dtype=compute_dtype)
         else:
-            self.bundle = make_serve_step(cfg, slots=slots, kernel=kernel, device=self.device)
+            self.bundle = make_serve_step(cfg, slots=slots, kernel=kernel, device=self.device,
+                                          compute_dtype=compute_dtype)
             self.prefill_bundle = make_prefill_step(cfg, max_len=max_len, kernel=kernel,
-                                                    device=self.device)
-            self.state = SlotKVState(slots)
+                                                    device=self.device,
+                                                    compute_dtype=compute_dtype)
+        self._make_state()
         if not self.state.supports_preemption:
             pv = getattr(type(self.policy), "pick_victim", None)
             if pv is not None and pv is not _PolicyBase.pick_victim:
@@ -216,6 +259,27 @@ class Engine:
         self.kernel: str = self.bundle.meta["kernel"]
         self.kernel_launches = {name: 0 for name in self.bundle.meta["kernels"]}
 
+    def _make_state(self) -> None:
+        """(Re)build the sequence-state backend empty: shared by
+        ``__init__`` and ``restart()`` (a restarted replica rejoins with a
+        fresh pool and no request state)."""
+        if self.cache_kind == "paged":
+            self.state = PagedKVState(self.num_blocks, self.block_size)
+            self.pool = self.state.pool
+        elif self.cache_kind == "recurrent":
+            self.state = RecurrentState(self.slots, lambda: model_lib.init_recurrent_cache(
+                self.cfg, 1, dtype=self.compute_dtype, device=self.device))
+        else:
+            self.state = SlotKVState(self.slots)
+
+    def _fresh_cache(self) -> Dict[str, Any]:
+        kw = dict(dtype=self.compute_dtype, device=self.device)
+        if self.cache_kind == "paged":
+            return model_lib.init_paged_cache(self.cfg, self.num_blocks, self.block_size, **kw)
+        if self.cache_kind == "recurrent":
+            return model_lib.init_recurrent_cache(self.cfg, self.slots, **kw)
+        return model_lib.init_cache(self.cfg, self.slots, self.max_len, **kw)
+
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
@@ -229,15 +293,8 @@ class Engine:
             params = model_lib.init_params(self.cfg, gen, self.device,
                                            dtype=torch.bfloat16)
         self.params = _to_device(params, self.device)
-        if self.cache_kind == "paged":
-            self.cache = model_lib.init_paged_cache(
-                self.cfg, self.num_blocks, self.block_size, device=self.device)
-        elif self.cache_kind == "recurrent":
-            self.cache = model_lib.init_recurrent_cache(self.cfg, self.slots,
-                                                        device=self.device)
-        else:
-            self.cache = model_lib.init_cache(self.cfg, self.slots, self.max_len,
-                                              device=self.device)
+        self._params_nbytes_memo = None
+        self.cache = self._fresh_cache()
 
     def inject_params(self, params: Optional[Dict[str, Any]] = None,
                       seed: int = 0) -> None:
@@ -247,6 +304,47 @@ class Engine:
         and the injection itself is the lease's one miss."""
         self.load_params(params, seed)
         self.fabric.lease(self._params_lease, list(_leaves(self.params)))
+
+    # -- failure lifecycle (the replica side of cluster failover) ----------
+
+    @property
+    def alive(self) -> bool:
+        return self.failed_reason is None
+
+    def fail(self, reason: str = "injected failure") -> None:
+        """Enter the failed state: every later tick, submit, export,
+        import and snapshot raises ``EngineFailedError`` until
+        ``restart()``. Host-side bookkeeping (metrics, completed requests)
+        stays readable."""
+        self.failed_reason = reason
+
+    def restart(self) -> None:
+        """Simulate a process restart: clear the failure and abandon ALL
+        request state (queue, slots, pool blocks, stream handles), so the
+        replica rejoins empty; the router has recovered its requests
+        elsewhere. The params and the built steps survive."""
+        self.failed_reason = None
+        for entry in self._entries_everywhere():
+            entry.handle = None
+        self.queue.clear()
+        self.slot_entry = [None] * self.slots
+        self._pending_pump.clear()
+        self._make_state()
+        if self.params is not None:
+            self.cache = self._fresh_cache()
+
+    def _check_alive(self, what: str) -> None:
+        if self.failed_reason is not None:
+            raise EngineFailedError(self.engine_id,
+                                    f"{self.failed_reason} (refusing {what})")
+
+    def submit_graph(self, *args: Any, **kw: Any):
+        raise NotImplementedError("graph runs on the Engine are the graph half of "
+                                  "ROADMAP item A12")
+
+    def ensure_verify_step(self) -> None:
+        raise NotImplementedError("the multi-token verify step is the graph half of "
+                                  "ROADMAP item A12")
 
     def pending(self) -> bool:
         """True while any request is queued or occupying a slot."""
@@ -264,6 +362,7 @@ class Engine:
 
     def submit(self, req: Request) -> RequestHandle:
         """Queue a request; returns its streaming ``RequestHandle``."""
+        self._check_alive("submit")
         msg = self.state.validate(len(req.prompt), req.max_new_tokens, self.max_len)
         if msg:
             raise ValueError(f"request {req.rid}: {msg}")
@@ -348,6 +447,20 @@ class Engine:
             slot = free_slots[0]
             self.slot_entry[slot] = entry
             self.cache = self.state.init(entry, self.cache, slot)
+            if entry.inbound is not None:
+                self._restore_inbound(entry, slot)
+
+    def _restore_inbound(self, entry: _Entry, slot: int) -> None:
+        """Absorb a migrated-in request's state into ``slot``, the admission
+        side of ``import_request``. A paged entry first grows blocks over
+        its resident prefix (which may preempt a victim, as a native
+        request's growth would). Afterwards the entry is one that prefilled
+        here: chunked backends resume at ``entry.pos``, slots decode from
+        ``out_tokens[-1]``."""
+        if self.cache_kind == "paged":
+            self._ensure_capacity(entry, max(entry.pos, 1))
+        self.cache = self.state.restore(entry, self.cache, slot, entry.inbound)
+        entry.inbound = None
 
     def _preempt(self, victim: _Entry) -> None:
         """Evict the victim through the backend (paged: its blocks return
@@ -393,6 +506,7 @@ class Engine:
     def tick(self) -> int:
         """Admit + advance every active request one step. Returns the number
         of rows advanced."""
+        self._check_alive("tick")
         if self.cache_kind == "slots":
             return self._tick_slots()
         self._admit_chunked()
@@ -465,16 +579,28 @@ class Engine:
                 return
             entry = self.queue.pop(idx)
             self._stamp_admitted(entry)
-            self._prefill_slot(slot, entry)
+            if entry.inbound is not None:
+                # migrated in: the row replaces the prefill; the next decode
+                # tick feeds out_tokens[-1] like any resident row's
+                self.slot_entry[slot] = entry
+                self._restore_inbound(entry, slot)
+            else:
+                self._prefill_slot(slot, entry)
 
     def _prefill_slot(self, slot: int, entry: _Entry) -> None:
         """Run the prompt through the ``engine.prefill`` step (a (1, L)
         forward into a fresh ``max_len`` row, through the fabric at
         ``placement="local"``), emit its greedy token, and scatter the row
-        into ``slot`` of the live cache."""
-        prompt = torch.tensor([entry.prompt_tokens], dtype=torch.int32, device=self.device)
+        into ``slot`` of the live cache. A request rebuilt by failover from
+        its prompt and delivered tokens (no state) prefills everything but
+        its newest token, which the next decode tick feeds, and emits
+        nothing: every known token was delivered already."""
+        known = entry.seq()
+        tokens = known[:-1] if entry.req.out_tokens else known
+        prompt = torch.tensor([tokens], dtype=torch.int32, device=self.device)
         logits, filled = self._call("engine.prefill", prompt, "local")
-        self._emit(entry, int(torch.argmax(logits[0])))
+        if not entry.req.out_tokens:
+            self._emit(entry, int(torch.argmax(logits[0])))
         self.cache = self.state.scatter(self.cache, filled, slot)
         self.slot_entry[slot] = entry
 
@@ -523,8 +649,8 @@ class Engine:
 
     def _register(self, name: str, run, payload_bytes) -> None:
         def invoke(payload, state, placement):
-            if placement == "auto":
-                placement = self._resolve_auto(name, payload_bytes(payload), state)
+            placement = self._guarded_placement(name, payload_bytes(payload), state,
+                                                placement)
             if placement == "injected":
                 self.fabric.lease(self._params_lease, list(_leaves(state)))
             self._placements[name] = placement
@@ -541,18 +667,44 @@ class Engine:
         return bool(lease is not None and lease.live and len(lease.key) == len(leaves)
                     and all(a is b for a, b in zip(lease.key, leaves)))
 
+    def _params_nbytes(self) -> int:
+        """Bytes of the weight tree: what injecting it ships."""
+        if self._params_nbytes_memo is None and self.params is not None:
+            self._params_nbytes_memo = sum(t.nbytes for t in _leaves(self.params))
+        return self._params_nbytes_memo or 0
+
     def _resolve_auto(self, name: str, payload_bytes: int, state) -> str:
         """``placement="auto"`` for one tick: injected while the params
         lease is warm (the weights already live with the executor: reuse
         ships nothing), local while it is cold (a first injection would
         ship the whole weight tree for one tick's payload). The estimate is
         recorded on the fabric's decision log either way."""
-        injected_bytes = 0 if self._lease_warm(state) else sum(t.nbytes for t in _leaves(state))
+        injected_bytes = 0 if self._lease_warm(state) else self._params_nbytes()
         est = TransportEstimate(
             local_bytes=payload_bytes, injected_bytes=injected_bytes, common_bytes=0,
             chosen="injected" if injected_bytes <= payload_bytes else "local")
         self.fabric.record_decision(name, est)
         return est.chosen
+
+    def _guarded_placement(self, name: str, payload_bytes: int, state,
+                           placement: str) -> str:
+        """Resolve ``"auto"`` and close the lease-expiry race: the params
+        lease can expire (TTL, eviction, an injected storm) between
+        placement resolution and step execution, the window ``fault_hook``
+        fires in. An auto resolution of injected was premised on warm reuse
+        shipping nothing, so if the lease went cold underneath it the call
+        falls back to local (``lease_fallbacks``) instead of re-shipping
+        the weights. An explicit ``"injected"`` is left alone: re-acquiring
+        on a cold lease is the injection."""
+        requested = placement
+        if placement == "auto":
+            placement = self._resolve_auto(name, payload_bytes, state)
+        if self.fault_hook is not None:
+            self.fault_hook(name)
+        if requested == "auto" and placement == "injected" and not self._lease_warm(state):
+            self.lease_fallbacks += 1
+            placement = "local"
+        return placement
 
     def _call(self, name: str, payload, placement: str):
         """``fabric.call`` of a registered step on the params, counting the
@@ -570,6 +722,120 @@ class Engine:
         next_tok, self.cache = self._call(self._step_name, (self.cache, *args), self.placement)
         self.steps += 1
         return next_tok.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # live migration: export/import of in-flight entries
+    # ------------------------------------------------------------------
+
+    def export_request(self, rid: int) -> MigrationTicket:
+        """Detach request ``rid``, queued or running, into a
+        ``MigrationTicket`` and release everything it held here (slot,
+        blocks, snapshot, stream handle). Called between ticks; the ticket
+        restores on any engine with the same model and ``cache_kind``
+        (``import_request``) and resumes with the greedy output it would
+        have had here. Raises ``KeyError`` for unknown or finished rids."""
+        self._check_alive("export_request")
+        for slot, entry in enumerate(self.slot_entry):
+            if entry is not None and entry.req.rid == rid:
+                return self._export_entry(entry, slot)
+        for i, entry in enumerate(self.queue):
+            if entry.req.rid == rid:
+                self.queue.pop(i)
+                return self._export_entry(entry, None)
+        raise KeyError(f"request {rid} is not queued or running on {self.engine_id} "
+                       f"(finished requests cannot migrate)")
+
+    def _resident(self, entry: _Entry, slot: int) -> Tuple[Optional[bytes], int]:
+        """A running entry's state buffer and the tokens it covers: slots
+        cover the prompt and every generated token but the newest (not fed
+        back through the step yet); chunked backends ``entry.pos``, none
+        before the first chunk."""
+        if self.cache_kind == "slots":
+            return (self.state.serialize(entry, self.cache, slot),
+                    len(entry.prompt_tokens) + max(0, len(entry.req.out_tokens) - 1))
+        if entry.pos > 0:
+            return self.state.serialize(entry, self.cache, slot), entry.pos
+        return None, 0
+
+    def _parked(self, entry: _Entry) -> Tuple[Optional[bytes], int]:
+        """A queued entry's state: a migrated-in buffer not yet absorbed is
+        forwarded verbatim (dropping it would demote a warm handoff to a
+        recompute); a preempted recurrent entry's snapshot is its state."""
+        if entry.inbound is not None:
+            return entry.inbound, entry.pos
+        if self.cache_kind == "recurrent" and entry.snapshot is not None:
+            return state_to_bytes(entry.snapshot), entry.pos
+        return None, 0
+
+    def _export_entry(self, entry: _Entry, slot: Optional[int]) -> MigrationTicket:
+        if slot is not None:
+            buf, pos = self._resident(entry, slot)
+            self.slot_entry[slot] = None
+        else:
+            buf, pos = self._parked(entry)
+        self.state.release(entry)
+        ticket = self._ticket_for(entry, buf, pos)
+        # detach the local stream: the source's handle must not see tokens
+        # the target produces (the router rebinds its own handle)
+        entry.handle = None
+        self._pending_pump = [e for e in self._pending_pump if e is not entry]
+        self.migrations_out += 1
+        return ticket
+
+    def _ticket_for(self, entry: _Entry, buf: Optional[bytes], pos: int) -> MigrationTicket:
+        req = entry.req
+        return MigrationTicket(rid=req.rid, cache_kind=self.cache_kind,
+                               priority=req.priority, max_new_tokens=req.max_new_tokens,
+                               prompt=list(entry.prompt_tokens),
+                               out_tokens=list(req.out_tokens), pos=pos, state=buf)
+
+    def snapshot_request(self, rid: int) -> MigrationTicket:
+        """The non-destructive twin of ``export_request``: ``rid``'s state
+        as a ``MigrationTicket`` while the request keeps running here. A
+        router takes these at its snapshot cadence, so that when this
+        replica dies the request restores on a peer from the last snapshot
+        instead of a recompute. Raises ``KeyError`` for unknown or finished
+        rids."""
+        self._check_alive("snapshot_request")
+        for slot, entry in enumerate(self.slot_entry):
+            if entry is not None and entry.req.rid == rid:
+                return self._ticket_for(entry, *self._resident(entry, slot))
+        for entry in self.queue:
+            if entry.req.rid == rid:
+                return self._ticket_for(entry, *self._parked(entry))
+        raise KeyError(f"request {rid} is not queued or running on {self.engine_id} "
+                       f"(finished requests have no state to snapshot)")
+
+    def import_request(self, ticket: MigrationTicket) -> RequestHandle:
+        """Queue a migrated request like a fresh submit (policies see its
+        priority); its state, when the ticket carries one, is restored at
+        admission instead of a prefill, so decoding resumes at token
+        ``pos`` (paged resumes mid-chunked-prefill too: ``pos`` is a chunk
+        boundary). A ticket of another ``cache_kind`` is refused: state
+        bytes do not convert across backends."""
+        self._check_alive("import_request")
+        if ticket.cache_kind != self.cache_kind:
+            raise ValueError(
+                f"cannot import a cache_kind={ticket.cache_kind!r} ticket into "
+                f"{self.engine_id} (cache_kind={self.cache_kind!r}): sequence-state "
+                f"bytes do not convert across backends")
+        msg = self.state.validate(len(ticket.prompt), ticket.max_new_tokens, self.max_len)
+        if msg:
+            raise ValueError(f"request {ticket.rid}: {msg}")
+        req = Request(rid=ticket.rid, prompt=np.asarray(ticket.prompt, np.int32),
+                      max_new_tokens=ticket.max_new_tokens, priority=ticket.priority,
+                      out_tokens=list(ticket.out_tokens), arrival_tick=self.ticks)
+        entry = _Entry(req=req, submit_time=time.perf_counter(),
+                       arrival_seq=self._submit_counter,
+                       prompt_tokens=list(ticket.prompt))
+        self._submit_counter += 1
+        if ticket.state is not None:
+            entry.inbound = ticket.state
+            entry.pos = ticket.pos
+        entry.handle = RequestHandle(self, req)
+        self.queue.append(entry)
+        self.migrations_in += 1
+        return entry.handle
 
     # ------------------------------------------------------------------
     # metrics
@@ -600,7 +866,8 @@ class Engine:
         (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}`` on
         the paged backend, else one key per kernel the stack's block types
         can launch, e.g. ``{"ssm_scan": n}``, ``{"flash_attention": n,
-        "ssm_scan": m}``, or ``{}`` for an xLSTM stack; prefills included), the step count and the non-finite-logits counter, and
+        "ssm_scan": m}``, or ``{}`` for an xLSTM stack; prefills included), the step count, the non-finite-logits counter,
+        ``migrations`` (``{"in", "out"}``) and ``engine.failed_reason``, and
         the fabric block: ``fabric`` (the bundle fabric's ``metrics()`` with
         each step's resolved ``placements`` and ``lease_fallbacks``),
         ``transport_decisions`` and ``transport_telemetry``. Paged engines
@@ -617,6 +884,7 @@ class Engine:
                 "slots": self.slots,
                 "max_len": self.max_len,
                 "placement": self.placement,
+                "failed_reason": self.failed_reason,
                 "device": str(self.device),
             },
             "ticks": self.ticks,
@@ -626,6 +894,7 @@ class Engine:
             "queued": len(self.queue),
             "completed": len(self.completed),
             "preemptions": self.preempt_count,
+            "migrations": {"in": self.migrations_in, "out": self.migrations_out},
             "ttft_s": ttfts,
             "requests": self._request_records(),
             "kernel": self.kernel,

@@ -3,9 +3,9 @@
 ``PagedKVState`` runs over the shared per-layer block pool, with the
 host-side ``BlockPool`` free list; ``RecurrentState`` over constant-size
 per-slot recurrent state; ``SlotKVState`` over one contiguous ``max_len``
-cache row per slot. The migration half of the protocol (``gather``/
-``serialize``/``restore``, and the recurrent backend's ``state_to_bytes``
-format) is ROADMAP item A12.
+cache row per slot. Each also moves a request's state between engines
+(``gather``/``serialize``/``restore``), in the ``RST1`` format of
+``models.kvcache.state_to_bytes``.
 """
 from __future__ import annotations
 
@@ -13,8 +13,9 @@ from typing import Any, Callable, Dict, List, Optional, Set
 
 import torch
 
-from repro_torch.models.kvcache import (SequenceCapacity, SequenceState,
-                                        gather_slot_rows, scatter_slot_rows)
+from repro_torch.models.kvcache import (LeafSpec, SequenceCapacity, SequenceState,
+                                        gather_slot_rows, map_pair, scatter_slot_rows,
+                                        state_from_bytes, state_to_bytes)
 
 __all__ = ["BlockPool", "PagedKVState", "RecurrentState", "SequenceCapacity",
            "SequenceState", "SlotKVState"]
@@ -121,6 +122,87 @@ class PagedKVState:
             self.pool.release(entry.blocks)
             entry.blocks = []
 
+    def _block_axis(self, shape) -> Optional[int]:
+        """The pool-block axis of a cache leaf, found structurally (shape
+        ``[..., num_blocks, block_size, ...]``). A leaf where more than one
+        adjacent pair of dims matches ``(num_blocks, block_size)`` is
+        ambiguous, and picking the wrong axis would serialize garbage, so
+        it raises. None for leaves with no block axis (they copy
+        through)."""
+        axes = [ax for ax in range(len(shape) - 1)
+                if shape[ax] == self.num_blocks and shape[ax + 1] == self.block_size]
+        if not axes:
+            return None
+        if len(axes) > 1:
+            raise ValueError(
+                f"ambiguous block axis in paged-cache leaf of shape {tuple(shape)}: dims "
+                f"{axes} all match (num_blocks={self.num_blocks}, block_size="
+                f"{self.block_size}); resize the pool (num_blocks/block_size) so the pair "
+                f"is unique, or reshape the colliding leaf dims")
+        return axes[0]
+
+    def gather(self, entry: Any, cache: Any, slot: int) -> Any:
+        """The request's resident tokens as a contiguous tree on the cache's
+        device: its blocks taken out of every pool leaf, the (blocks,
+        block_size) axes merged and trimmed to ``entry.pos`` tokens. Logical
+        token order and no block ids, so any pool geometry can restore
+        it."""
+        def take(leaf):
+            ax = self._block_axis(leaf.shape)
+            if ax is None:
+                return leaf.clone()
+            blocks = torch.tensor(entry.blocks, dtype=torch.long, device=leaf.device)
+            got = leaf.index_select(ax, blocks)
+            merged = got.reshape(leaf.shape[:ax] + (len(entry.blocks) * self.block_size,)
+                                 + leaf.shape[ax + 2:])
+            return merged.narrow(ax, 0, entry.pos)
+        return _map(take, cache)
+
+    def serialize(self, entry: Any, cache: Any, slot: int) -> bytes:
+        return state_to_bytes(self.gather(entry, cache, slot))
+
+    def gather_like(self, entry: Any, cache: Any) -> Any:
+        """``LeafSpec`` tree of ``gather``'s output for ``entry``: the
+        template ``state_from_bytes`` reads a buffer against (its shapes
+        depend on ``entry.pos``, not on the pool)."""
+        def like(leaf):
+            shape = tuple(leaf.shape)
+            ax = self._block_axis(shape)
+            if ax is not None:
+                shape = shape[:ax] + (entry.pos,) + shape[ax + 2:]
+            return LeafSpec(shape, leaf.dtype)
+        return _map(like, cache)
+
+    def restore(self, entry: Any, cache: Any, slot: int, buf: bytes) -> Any:
+        """Inverse of ``serialize``, **in place**: cut the contiguous token
+        rows by *this* pool's block size and write them to ``entry.blocks``,
+        which the engine has already grown to cover ``entry.pos`` tokens.
+        The rest of the last block is zero-padded: attention masks
+        positions past the row's end, and later appends overwrite them."""
+        n_blocks = self.blocks_for(entry.pos)
+        if len(entry.blocks) < n_blocks:
+            raise RuntimeError(
+                f"restore of {entry.pos} tokens needs {n_blocks} blocks, entry owns "
+                f"{len(entry.blocks)} (grow before restoring)")
+        row = state_from_bytes(buf, self.gather_like(entry, cache), _device(cache))
+
+        def put(leaf, got):
+            ax = self._block_axis(leaf.shape)
+            if ax is None:
+                return leaf
+            pad = n_blocks * self.block_size - entry.pos
+            if pad:
+                zeros = got.new_zeros(got.shape[:ax] + (pad,) + got.shape[ax + 1:])
+                got = torch.cat([got, zeros], dim=ax)
+            got = got.reshape(leaf.shape[:ax] + (n_blocks, self.block_size)
+                              + leaf.shape[ax + 2:])
+            blocks = torch.tensor(entry.blocks[:n_blocks], dtype=torch.long,
+                                  device=leaf.device)
+            leaf.index_copy_(ax, blocks, got.to(leaf.dtype))
+            return leaf
+        map_pair(put, cache, row)
+        return cache
+
     def capacity(self) -> SequenceCapacity:
         return SequenceCapacity(kind="paged", unit="blocks",
                                 total_units=self.num_blocks,
@@ -200,12 +282,26 @@ class RecurrentState:
     def evict(self, entry: Any, cache: Any, slot: int) -> Any:
         # the snapshot covers seq[:entry.pos]; pos is kept so re-admission
         # feeds the next unseen token instead of re-prefilling
-        entry.snapshot = gather_slot_rows(cache, self.template, slot, self.slots)
+        entry.snapshot = self.gather(entry, cache, slot)
         self.snapshots_taken += 1
         return cache
 
     def release(self, entry: Any) -> None:
         entry.snapshot = None
+
+    def gather(self, entry: Any, cache: Any, slot: int) -> Any:
+        return gather_slot_rows(cache, self.template, slot, self.slots)
+
+    def serialize(self, entry: Any, cache: Any, slot: int) -> bytes:
+        return state_to_bytes(self.gather(entry, cache, slot))
+
+    def restore(self, entry: Any, cache: Any, slot: int, buf: bytes) -> Any:
+        """Scatter a migrated request's state rows into ``slot``, the
+        byte-level twin of the snapshot-resume path: it resumes at
+        ``entry.pos``, never a recompute. The state is a few KB to a few
+        hundred MB a slot whatever the sequence length."""
+        row = state_from_bytes(buf, self.template, _device(cache))
+        return scatter_slot_rows(cache, row, slot, self.slots)
 
     def capacity(self) -> SequenceCapacity:
         return SequenceCapacity(kind="recurrent", unit="slots",
@@ -230,8 +326,9 @@ class SlotKVState:
     slot row has no snapshot or recompute seam, so ``evict`` raises
     instead of silently corrupting the row. ``SchedulerPolicy.pick_victim``
     is never consulted on this backend (the engine warns at construction
-    when a policy overrides it). Moving a row between engines
-    (``gather``/``serialize``/``restore``) is ROADMAP item A12.
+    when a policy overrides it). ``gather``/``serialize`` take a slot's
+    whole row with the cache's shared ``length``; ``restore`` writes it
+    into a slot of another engine.
     """
 
     kind = "slots"
@@ -273,10 +370,28 @@ class SlotKVState:
     def release(self, entry: Any) -> None:
         return None
 
-    def gather(self, *args: Any) -> Any:
-        raise NotImplementedError("moving a slot row between engines is ROADMAP item A12")
+    def gather(self, entry: Any, cache: Any, slot: int) -> Any:
+        """A copy of ``slot``'s row of every layer, and the cache's shared
+        ``length`` as an int32 scalar (the JAX package's row carries it)."""
+        return {"length": torch.tensor(cache["length"], dtype=torch.int32,
+                                       device=_device(cache["layers"])),
+                "layers": [{k: t[slot:slot + 1].clone() for k, t in layer.items()}
+                           for layer in cache["layers"]]}
 
-    serialize = restore = gather
+    def serialize(self, entry: Any, cache: Any, slot: int) -> bytes:
+        return state_to_bytes(self.gather(entry, cache, slot))
+
+    def restore(self, entry: Any, cache: Any, slot: int, buf: bytes) -> Any:
+        """Write a migrated request's row into ``slot``, **in place**. The
+        row carries its source's ``length``; the cache keeps one for every
+        row, so it rises to cover the restored row (``max``, the rule of
+        the prefill's ``scatter``), or the row's tail would be masked
+        off."""
+        like = {"length": LeafSpec((), torch.int32),
+                "layers": [{k: LeafSpec((1,) + tuple(t.shape[1:]), t.dtype)
+                            for k, t in layer.items()} for layer in cache["layers"]]}
+        row = state_from_bytes(buf, like, _device(cache))
+        return self.scatter(cache, dict(row, length=int(row["length"])), slot)
 
     def capacity(self) -> SequenceCapacity:
         return SequenceCapacity(kind="slots", unit="slots",
@@ -288,6 +403,18 @@ class SlotKVState:
     def validate(self, prompt_len: int, max_new: int,
                  max_len: int) -> Optional[str]:
         return _over_length(prompt_len, max_new, max_len)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _device(tree) -> torch.device:
+    return next(iter(_leaves(tree))).device
 
 
 def _leaves(tree):

@@ -11,8 +11,11 @@ per-lease counters (``Fabric.metrics()["leases"]``).
 * Entries hold strong references to their key tensors, so ids cannot be
   recycled while an entry is live.
 
-(The JAX pool's rules for tracers have no counterpart: PyTorch is eager.
-Its ``fault_hook`` chaos seam waits for ROADMAP A12.)
+* ``fault_hook``, when set, is called with the lease name at the top of
+  every ``acquire``: the chaos seam through which ``repro_torch.faults``
+  forces expiry storms without touching a call site.
+
+(The JAX pool's rules for tracers have no counterpart: PyTorch is eager.)
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ class LeasePool:
         self._leases: Dict[str, Lease] = {}
         self._on_hit = on_hit or (lambda: None)
         self._on_miss = on_miss or (lambda: None)
+        self.fault_hook: Optional[Callable[[str], None]] = None
 
     def acquire(self, name: str, state: Sequence[Any], *,
                 ttl_calls: Optional[int] = None,
@@ -68,6 +72,8 @@ class LeasePool:
         if ttl_calls is not None and ttl_calls < 1:
             raise ValueError(f"lease {name!r}: ttl_calls must be >= 1 or "
                              f"None, got {ttl_calls}")
+        if self.fault_hook is not None:
+            self.fault_hook(name)
         key = tuple(state)
         lease = self._leases.get(name)
         if lease is None:

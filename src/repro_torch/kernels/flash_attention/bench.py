@@ -18,8 +18,10 @@ prefill of 4,096 tokens, 16 heads (MHA) with q and k of 192 and v of 128,
 causal; hymba-1.5b's prefill of 4,096 tokens (25 query heads over 5
 kv heads of 64), causal, on a global layer and on a local one (window
 1,024); qwen2-vl-72b's prefill of 4,096 tokens (64 query heads over 8 kv
-heads of 128), causal; and hubert-xlarge's encoder over two clips of
-4,096 frames (16 heads of 80, MHA), without the causal mask.
+heads of 128), causal; hubert-xlarge's encoder over two clips of
+4,096 frames (16 heads of 80, MHA), without the causal mask; and
+llama3.2-1b's prefill of 4,096 tokens (32 query heads over 8 kv heads of
+64), causal, as the cluster phase's slots replicas run it.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ SHAPES = {
     "hymba-1.5b local": (1, 25, 5, 4096, 4096, 64, True, 1024, 0, 64),
     "qwen2-vl-72b": (1, 64, 8, 4096, 4096, 128, True, None, 0, 128),
     "hubert-xlarge": (2, 16, 16, 4096, 4096, 80, False, None, 0, 80),
+    "llama3.2-1b": (1, 32, 8, 4096, 4096, 64, True, None, 0, 64),
 }
 
 

@@ -17,12 +17,21 @@ memory is allocated at sequence-length granularity instead of
 ``RecurrentLayout`` is the per-step view of the recurrent backend, whose
 state is constant-size per slot; ``slot_axis``/``gather_slot_rows``/
 ``scatter_slot_rows`` move one slot's rows of such a cache.
+
+``state_to_bytes``/``state_from_bytes`` are the migration seam's wire
+format, the JAX package's ``RST1`` buffer: a request's state tree as one
+buffer that crosses engines (``ssm_cache_to_bytes``/``ssm_cache_from_bytes``
+name it for one recurrent cache).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
+import json
+import struct
+import warnings
+from typing import Any, Dict, List, NamedTuple, Optional, Protocol, Tuple, runtime_checkable
 
+import numpy as np
 import torch
 
 
@@ -209,12 +218,12 @@ class RecurrentLayout:
         return cols[None, :] < self.n_valid[:, None]
 
 
-def _map(fn, tree, other):
+def map_pair(fn, tree, other):
     """``fn(leaf, other_leaf)`` over two dict/list trees of one structure."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v, other[k]) for k, v in tree.items()}
+        return {k: map_pair(fn, v, other[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v, o) for v, o in zip(tree, other)]
+        return [map_pair(fn, v, o) for v, o in zip(tree, other)]
     return fn(tree, other)
 
 
@@ -240,7 +249,7 @@ def gather_slot_rows(cache: Any, template: Any, slot: int, slots: int) -> Any:
     def take(live, one):
         ax = slot_axis(tuple(live.shape), tuple(one.shape), slots)
         return live.clone() if ax is None else live.narrow(ax, slot, 1).clone()
-    return _map(take, cache, template)
+    return map_pair(take, cache, template)
 
 
 def scatter_slot_rows(cache: Any, row: Any, slot: int, slots: int) -> Any:
@@ -251,7 +260,129 @@ def scatter_slot_rows(cache: Any, row: Any, slot: int, slots: int) -> Any:
         if ax is not None:
             live.narrow(ax, slot, 1).copy_(one)
         return live
-    return _map(put, cache, row)
+    return map_pair(put, cache, row)
+
+
+# ---------------------------------------------------------------------------
+# state serialization (the migration seam)
+# ---------------------------------------------------------------------------
+
+_STATE_MAGIC = b"RST1"
+
+# torch dtype <-> the numpy dtype name the JAX package writes in the header
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.float32: "float32", torch.float64: "float64",
+                torch.int8: "int8", torch.int16: "int16", torch.int32: "int32",
+                torch.int64: "int64", torch.uint8: "uint8", torch.bool: "bool"}
+_NAMED_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
+
+
+class LeafSpec(NamedTuple):
+    """Shape and dtype of one state leaf: the ``like=`` template of
+    ``state_from_bytes`` where no tensor of that shape exists yet."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a port state tree (dicts in insertion order, lists in
+    order): the order ``state_to_bytes`` writes them in."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, LeafSpec):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def _unflatten(like: Any, leaves) -> Any:
+    if isinstance(like, dict):
+        return {k: _unflatten(v, leaves) for k, v in like.items()}
+    if isinstance(like, (list, tuple)) and not isinstance(like, LeafSpec):
+        return [_unflatten(v, leaves) for v in like]
+    return next(leaves)
+
+
+def state_to_bytes(tree: Any) -> bytes:
+    """Pack a state tree of tensors into one ``RST1`` buffer: the magic, a
+    little-endian header length, a JSON header (each leaf's dtype name and
+    shape, in ``tree_leaves`` order) and the leaves' raw bytes. The tree's
+    structure does not travel: sender and receiver agree on it (same model
+    config). bf16 goes as its raw bytes. The leaves are copied to the host
+    in one transfer (one ``cat`` of their bytes on their device), and
+    joined to the header with no further copy of them."""
+    leaves = tree_leaves(tree)
+    header = json.dumps([{"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape)}
+                         for t in leaves]).encode("utf-8")
+    parts = [_STATE_MAGIC, struct.pack("<I", len(header)), header]
+    if leaves:
+        flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                          for t in leaves])
+        parts.append(memoryview(flat.cpu().numpy()))
+    return b"".join(parts)
+
+
+def state_header(buf: bytes) -> List[LeafSpec]:
+    """The leaves an ``RST1`` buffer declares (its header), in order."""
+    if buf[:4] != _STATE_MAGIC:
+        raise ValueError("state buffer does not start with the RST1 magic")
+    (hlen,) = struct.unpack("<I", buf[4:8])
+    return [LeafSpec(tuple(meta["shape"]), _NAMED_DTYPES[meta["dtype"]])
+            for meta in json.loads(buf[8:8 + hlen].decode("utf-8"))]
+
+
+def state_leaves(buf: bytes, device=None) -> List[torch.Tensor]:
+    """The leaves of an ``RST1`` buffer as its header declares them, on
+    ``device`` (default the CPU), moved there in one transfer. Trailing
+    bytes raise."""
+    specs = state_header(buf)
+    off = 8 + struct.unpack("<I", buf[4:8])[0]
+    sizes = [int(np.prod(sp.shape, dtype=np.int64)) * sp.dtype.itemsize for sp in specs]
+    if off + sum(sizes) != len(buf):
+        raise ValueError(f"state buffer has {len(buf) - off - sum(sizes)} trailing bytes")
+    data = torch.zeros(0, dtype=torch.uint8)    # torch.frombuffer refuses 0 bytes
+    if len(buf) > off:
+        with warnings.catch_warnings():         # read-only bytes: only read, then copied
+            warnings.simplefilter("ignore", UserWarning)
+            data = torch.frombuffer(buf, dtype=torch.uint8, offset=off)
+    data = data.to(device or "cpu", copy=True)
+    out, start = [], 0
+    for sp, n in zip(specs, sizes):
+        raw = data[start:start + n]
+        if start % sp.dtype.itemsize:
+            raw = raw.clone()           # a view of another width needs an aligned start
+        out.append(raw.view(sp.dtype).reshape(sp.shape))
+        start += n
+    return out
+
+
+def state_from_bytes(buf: bytes, like: Any, device=None) -> Any:
+    """Inverse of ``state_to_bytes``: a tree shaped as ``like`` (tensors or
+    ``LeafSpec`` leaves) on ``device`` (default the CPU). A leaf count,
+    dtype or shape that differs from ``like``, and trailing bytes, raise
+    rather than reinterpret the bytes."""
+    specs, refs = state_header(buf), tree_leaves(like)
+    if len(specs) != len(refs):
+        raise ValueError(f"state buffer holds {len(specs)} leaves, template has "
+                         f"{len(refs)}")
+    for sp, ref in zip(specs, refs):
+        if (tuple(ref.shape), ref.dtype) != (sp.shape, sp.dtype):
+            raise ValueError(f"state leaf mismatch: buffer has {_DTYPE_NAMES[sp.dtype]}"
+                             f"{sp.shape}, template expects "
+                             f"{_DTYPE_NAMES.get(ref.dtype, ref.dtype)}{tuple(ref.shape)}")
+    return _unflatten(like, iter(state_leaves(buf, device)))
+
+
+def ssm_cache_to_bytes(cache: Any) -> bytes:
+    """Serialize one recurrent cache (the port's ``{"layers": [...]}`` of
+    per-layer state dicts)."""
+    return state_to_bytes(cache)
+
+
+def ssm_cache_from_bytes(buf: bytes, like: Any, device=None) -> Any:
+    """Rebuild a recurrent cache from ``ssm_cache_to_bytes`` output; ``like``
+    gives the structure (an init-shaped cache works)."""
+    return state_from_bytes(buf, like, device)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +396,7 @@ class SequenceCapacity:
     ``free_units is None`` means the resource is not consumable and
     admission is gated on free slots alone."""
 
-    kind: str                        # backend name ("paged" | "recurrent")
+    kind: str                        # backend name ("paged"/"slots"/"recurrent")
     unit: str                        # "blocks" | "slots"
     total_units: Optional[int]
     free_units: Optional[int]
@@ -277,8 +408,8 @@ class SequenceState(Protocol):
 
     The engine owns requests and the tick loop; the backend owns what a
     request's state costs. Entries are duck-typed scheduler records
-    (``pos``/``blocks``/``seq()``). The migration half of the JAX protocol
-    (``gather``/``serialize``/``restore``) is ROADMAP item A12.
+    (``pos``/``blocks``/``snapshot``/``seq()``); ``cache`` is the live
+    device tree, threaded through because several backends rebuild it.
     """
 
     kind: str
@@ -301,6 +432,21 @@ class SequenceState(Protocol):
 
     def release(self, entry: Any) -> None:
         """Drop all state owned by a finished entry."""
+
+    def gather(self, entry: Any, cache: Any, slot: int) -> Any:
+        """The request's state as a tree of tensors (a copy)."""
+
+    def serialize(self, entry: Any, cache: Any, slot: int) -> bytes:
+        """The migration seam: the request's state as one buffer."""
+
+    def restore(self, entry: Any, cache: Any, slot: int, buf: bytes) -> Any:
+        """Inverse of ``serialize``: write a migrated request's state into
+        ``slot``. The buffer is position-independent (logical token order,
+        no block ids or slot indices), so source and target may differ in
+        pool geometry, block allocation and slot; only the model config and
+        the backend's kind must match. Returns the cache; the entry already
+        owns the capacity its resident prefix needs (the engine grows it
+        first)."""
 
     def capacity(self) -> SequenceCapacity: ...
 

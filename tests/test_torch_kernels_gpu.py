@@ -92,7 +92,10 @@ port's dependencies:
   tile visited) over 4,096 keys; qwen's smoke on ``Engine(cache="auto")``
   and a vision prefill (patches spliced, 3-D positions), and hubert's
   smoke through the prefill step, each through the kernel (threshold
-  lowered) and through the plain version.
+  lowered) and through the plain version;
+* live migration on the card: two paged llama smoke replicas and two
+  recurrent mamba ones behind the ``Router``, a request moved mid-prefill
+  and one in decode, tokens identical to a solo run.
 """
 import numpy as np
 import pytest
@@ -294,6 +297,46 @@ def test_smoke_engine_through_kernel(cuda):
                                       "moe_jam": 0}
     assert m_r["kernel_launches"] == {"paged_attention": 0, "moe_jam": 0}
     assert m_c["nonfinite_logits"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,geom,plen", [
+    ("llama3.2-1b", dict(cache="paged", slots=2, max_len=32, num_blocks=16, block_size=4,
+                         chunk=4), 11),
+    ("mamba-130m", dict(cache="recurrent", slots=2, max_len=48, chunk=4), 7)])
+def test_migration_on_the_card_matches_solo(cuda, arch, geom, plen):
+    """Two replicas on the card (one weight tree) behind the Router: a
+    request migrated mid-prefill (after 1 tick) and one in decode (after 4)
+    emit the tokens of their solo run on a third engine, and both
+    replicas' steps launch their kernel once a layer a step."""
+    from repro_torch.cluster import Replica, Router
+
+    cfg = get_smoke(arch)
+    kname = "paged_attention" if geom["cache"] == "paged" else "ssm_scan"
+    engines = []
+    for i in range(3):
+        e = Engine(cfg, device=cuda, kernel="cuda", engine_id=f"gpu-{i}", **geom)
+        e.inject_params(engines[0].params if engines else None, seed=0)
+        engines.append(e)
+    solo, a, b = engines
+    rng = np.random.default_rng(7)
+    for rid, ticks in enumerate((1, 4)):
+        prompt = rng.integers(0, cfg.vocab_size, size=(plen,)).astype(np.int32)
+        for e in engines:
+            e.restart()
+        want = solo.submit(Request(rid, prompt, max_new_tokens=6)).result().out_tokens
+        router = Router([Replica(a), Replica(b)])
+        h = router.submit(Request(rid, prompt, max_new_tokens=6))
+        for _ in range(ticks):
+            router.tick()
+        router.migrate(rid, b.engine_id)
+        router.run_until_drained()
+        assert h.req.out_tokens == want
+        mig = router.migrations[0]
+        assert mig["state_bytes"] > 0 and (mig["pos"] < plen) == (ticks == 1)
+    for e in (a, b):
+        m = e.metrics()
+        assert m["kernel_launches"][kname] == cfg.num_layers * m["steps"] > 0
 
 
 def _moe_case(rng, e, c, d, f, fill):

@@ -37,8 +37,9 @@ window 8 and 1 global), ``stablelm-3b`` (MHA, 25% rotary) and
   each). Each request's tokens are the JAX engine's up to a first
   difference, which must fall on a near tie of the float32 forward.
 * The fabric: ``engine.decode`` at the engine's placement, ``engine.prefill``
-  at local; the ``pick_victim`` warning; ``evict`` raises, migration
-  raises naming ROADMAP A12; ``--cache slots`` on the serve CLI.
+  at local; the ``pick_victim`` warning; ``evict`` raises; a slot's row
+  moves into another cache's slot (``serialize``/``restore``);
+  ``--cache slots`` on the serve CLI.
 * An SSM stack on slots (``mamba-130m``'s smoke, 2 slots of 32 rows,
   prompts of 4, 7 and 5 tokens, 4 new each): the same schedule as the JAX
   slots engine, the float32 engine's prefill and decode logits within
@@ -433,9 +434,14 @@ def test_slots_backend_cannot_preempt_and_warns(slots_env, monkeypatch):
     state = SlotKVState(2)
     assert (state.kind, state.supports_preemption) == ("slots", False)
     assert state.capacity().free_units is None and state.grow(None, 10**6)
-    for fn in (state.gather, state.serialize, state.restore):
-        with pytest.raises(NotImplementedError, match="A12"):
-            fn(None, e.cache, 0)
+    # moving a slot row between engines (the cluster half of A12): slot 0's
+    # row and the shared length restore into slot 1 of a fresh cache
+    other = tmodel.init_cache(slots_env["cfg"], 2, GEOM["max_len"], device="cpu")
+    state.restore(None, other, 1, state.serialize(None, e.cache, 0))
+    assert other["length"] == e.cache["length"] > 0
+    for live, moved in zip(e.cache["layers"], other["layers"]):
+        for key in live:
+            assert torch.equal(moved[key][1], live[key][0]) and not moved[key][0].any()
     with pytest.raises(ValueError, match="exceeds max_len"):
         e.submit(Request(1, np.zeros(45, np.int32), max_new_tokens=4))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
