@@ -197,7 +197,28 @@ phase prints the seconds it took):
    the drain's Server-Side Sum, on its wide route, is also held against
    its plain version on every rank, bit for bit), and the 16 MiB-a-rank
    ring;
-18. the last line: ``{"ok": true, "device": {...}}``.
+18. the graph tier (draft -> verify speculative decoding through
+   ``repro_torch.fabric.graph``), ``llama3.2-1b`` at full width and depth
+   on phase 4's paged geometry: the first 4 of its requests, 32 new
+   tokens each, one at a time, served target-only (the baseline), then as
+   speculation graphs on the paged Engine (``Engine.submit_graph``): an
+   ngram draft at k 2 and 4, a model draft at k 4 sharing the target's
+   weights (acceptance near 1) and one with weights from another seed
+   (near 0); then through the Router (two target replicas and a draft
+   replica, every draft -> verify edge a frame train) with the replica
+   holding the verify node killed at router tick 4, and with every edge
+   train under the frame fault rate 0.3; and a float32 control (ngram, k
+   4, the plain path) on the first request. Every speculated output must
+   equal its target-only baseline token for token; each bf16 target
+   engine's paged-attention launches must be 16 x (its steps + its verify
+   steps), ``engine.paged_verify`` must be on its fabric and no emitted
+   row non-finite; the router's edge bytes must be its frames x 4 KiB, the
+   kill must rebuild the verify session on the other replica, and the
+   chaos run must retransmit. Per run: target steps per emitted token,
+   acceptance, rounds and wall tokens/s (host clock; every step reads its
+   tokens back) against the baseline's; the verify step's p50 against a
+   decode step's;
+19. the last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -303,6 +324,18 @@ XL_SLOTS_REQUESTS = 8
 CLUSTER_FORCED = {"paged": {2: "prefill", 12: "decode"}, "recurrent": {12: "decode"}}
 CLUSTER_KILL_TICK, CLUSTER_SNAPSHOT_EVERY, CHAOS_RATE, CHAOS_RETRIES = 10, 4, 0.3, 20
 CLUSTER_SLOTS_REQUESTS = ((LONG_PROMPT[1], 3), (300, 1))
+# the graph phase: draft -> verify speculation on llama3.2-1b at full width
+# and depth on the paged geometry; the first GRAPH_REQUESTS of the paged
+# traffic, MAX_NEW new tokens each, served one at a time. Engine mode: an
+# ngram draft at each of GRAPH_NGRAM_K, a model draft at GRAPH_MODEL_K
+# sharing the target's weights and one drawn from GRAPH_OTHER_SEED. Router
+# tier (k GRAPH_MODEL_K): two target replicas and a draft replica on one
+# weight tree, the replica holding the verify node killed at router tick
+# GRAPH_KILL_TICK, then every edge train under the JAX package's frame fault
+# rate (CHAOS_RATE). A float32 control (ngram, k GRAPH_MODEL_K, the plain
+# path: B1 takes bf16 alone) on the first request
+GRAPH_REQUESTS, GRAPH_NGRAM_K, GRAPH_MODEL_K, GRAPH_OTHER_SEED = 4, (2, 4), 4, SEED + 1
+GRAPH_KILL_TICK = 4
 # flash attention vs plain, per element: |kernel - plain| <= 2e-2 * (rms of
 # the element's (batch, head, position) row + |plain|) (``flash_attention.
 # compare``): bf16 outputs, and the kernel rounds the unnormalized p to bf16
@@ -2434,6 +2467,267 @@ def _slots_cluster(torch, dev, card):
                                  f"{cfg.num_layers} layers")
 
 
+def graph_path(torch, dev, card):
+    """Phase 18: draft -> verify speculation (``repro_torch.fabric.graph``)
+    on full-width llama3.2-1b paged engines (the constants at
+    ``GRAPH_REQUESTS``): every speculated output equal to its target-only
+    baseline; each bf16 target's paged-attention launches one a layer per
+    step and per verify step. Returns each kernel's launches over the
+    phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import Engine, Request
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS
+
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    cfg = get_config(ARCHS[0])
+    geom = dict(cache="paged", slots=SLOTS, max_len=MAX_LEN, num_blocks=NUM_BLOCKS,
+                block_size=BLOCK, chunk=CHUNK)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(rng.integers(PROMPT_LO,
+                                                                       PROMPT_HI + 1)),))
+               .astype(np.int32) for _ in range(GRAPH_REQUESTS)]
+
+    def engine(eid, params=None, seed=SEED, dtype=torch.bfloat16):
+        e = Engine(cfg, device=dev, kernel="auto" if dtype == torch.bfloat16 else "ref",
+                   engine_id=f"graph-{eid}", compute_dtype=dtype, **geom)
+        e.load_params(params, seed=seed)
+        return e
+
+    base = engine("base")
+    weights = base.params
+    t0, t1, d_same = (engine(eid, weights) for eid in ("t0", "t1", "d-same"))
+    d_other = engine("d-other", seed=GRAPH_OTHER_SEED)
+    if {e.kernel for e in (base, t0, t1, d_same, d_other)} != {"cuda"}:
+        raise AssertionError("auto did not resolve to cuda on the card")
+    torch.cuda.synchronize()
+    want, base_run = _graph_baseline(torch, base, prompts)
+    log(f"[graph] {cfg.name} target-only baseline: {base_run['tokens']} tokens of "
+        f"{len(prompts)} requests ({[len(p) for p in prompts]} prompt tokens) in "
+        f"{base_run['wall_s']:.3f}s = {base_run['tokens_per_s']:.1f} tokens/s, 1 target step "
+        f"a token, decode step p50 {base_run['decode_p50_ms']:.2f} ms on {card}")
+    verify_ms = []
+    for e in (t0, t1):
+        e._verify_call = _timed(torch, e._verify_call, verify_ms)
+    runs = [_graph_engine_run(torch, cfg, f"ngram k {k}", t0, None, k, prompts, want,
+                              base_run, card) for k in GRAPH_NGRAM_K]
+    for label, draft in (("model draft sharing the target's weights", d_same),
+                         (f"model draft from seed {GRAPH_OTHER_SEED}", d_other)):
+        runs.append(_graph_engine_run(torch, cfg, f"{label} k {GRAPH_MODEL_K}", t0, draft,
+                                      GRAPH_MODEL_K, prompts, want, base_run, card))
+    if runs[2]["acceptance_rate"] <= runs[3]["acceptance_rate"]:
+        raise AssertionError("the draft sharing the target's weights was accepted no more "
+                             "often than the one from another seed")
+    _graph_router_run(torch, cfg, "router, verify replica killed", (t0, t1, d_same), prompts,
+                      want, base_run, card, kill=True)
+    _graph_router_run(torch, cfg, f"router, edge frame fault rate {CHAOS_RATE}",
+                      (t0, t1, d_same), prompts, want, base_run, card, rate=CHAOS_RATE)
+    log(f"[graph] verify step (emit all, {CHUNK} columns a row) p50 "
+        f"{float(np.median(verify_ms)) * 1e3:.2f} ms over {len(verify_ms)} steps against a "
+        f"decode step's {base_run['decode_p50_ms']:.2f} ms (host clock, tokens read back) on "
+        f"{card}")
+    del base, t0, t1, d_same, d_other, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    _graph_float32_control(torch, dev, cfg, geom, prompts[0], card)
+    return launches
+
+
+def _timed(torch, fn, into):
+    """``fn`` timed on the host clock with the device synced at both ends
+    (seconds appended to ``into``)."""
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        into.append(time.perf_counter() - t)
+        return out
+    return timed
+
+
+def _graph_baseline(torch, engine, prompts):
+    """Target-only greedy decode of ``prompts``, one at a time on ``engine``
+    (device synced every tick): each request's tokens, and the run's wall
+    time and decode-tick p50."""
+    from repro_torch.engine import Request
+
+    out, decode_s = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, prompt in enumerate(prompts):
+        h = engine.submit(Request(rid, prompt, max_new_tokens=MAX_NEW))
+        while engine.pending():
+            entry = engine.slot_entry[0]
+            decode = entry is not None and entry.pos >= len(entry.prompt_tokens)
+            t = time.perf_counter()
+            engine.tick()
+            torch.cuda.synchronize()
+            if decode:
+                decode_s.append(time.perf_counter() - t)
+        out.append(list(h.req.out_tokens))
+    wall = time.perf_counter() - t0
+    tokens = sum(len(o) for o in out)
+    return out, dict(tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                     decode_p50_ms=float(np.median(decode_s)) * 1e3)
+
+
+def _graph_stats(dec):
+    """The decoder's requests' ``SpecStats`` summed, with the rates."""
+    keys = ("rounds", "emitted", "proposed", "accepted", "target_verify_steps",
+            "target_prefill_steps", "draft_steps", "verify_rebuilds", "failovers")
+    reqs = dec.metrics()["requests"]
+    tot = {k: sum(r[k] for r in reqs) for k in keys}
+    tot["acceptance_rate"] = tot["accepted"] / max(1, tot["proposed"])
+    tot["target_steps_per_token"] = tot["target_verify_steps"] / max(1, tot["emitted"])
+    return tot
+
+
+def _graph_check(label, outs, want):
+    bad = {i: next((j for j, (x, y) in enumerate(zip(o, w)) if x != y), min(len(o), len(w)))
+           for i, (o, w) in enumerate(zip(outs, want)) if o != w}
+    if bad or len(outs) != len(want):
+        raise AssertionError(f"{label}: speculated outputs differ from the target-only "
+                             f"baseline (request: first differing position) {bad}")
+
+
+def _graph_launches(cfg, label, engine, before):
+    """The engine's paged-attention launches since ``before`` (launches,
+    steps, verify steps) must be one a layer per step and per verify step,
+    its verify step on its fabric and no emitted row non-finite."""
+    m = engine.metrics()
+    n = m["kernel_launches"]["paged_attention"] - before[0]
+    steps, verify = m["steps"] - before[1], m["verify_steps"] - before[2]
+    if n != cfg.num_layers * (steps + verify) or (verify and n == 0):
+        raise AssertionError(f"{label}: {engine.engine_id} launched paged attention {n} "
+                             f"times for {steps} steps + {verify} verify steps of "
+                             f"{cfg.num_layers} layers")
+    if verify and "engine.paged_verify" not in m["fabric"]["functions"]:
+        raise AssertionError(f"{label}: engine.paged_verify is not on the engine's fabric: "
+                             f"{m['fabric']['functions']}")
+    if m["nonfinite_logits"]:
+        raise AssertionError(f"{label}: {m['nonfinite_logits']} non-finite emitted rows")
+    return f"{engine.engine_id} {n} launches = {cfg.num_layers} x ({steps} + {verify})"
+
+
+def _counts(engine):
+    m = engine.metrics()
+    return m["kernel_launches"]["paged_attention"], m["steps"], m["verify_steps"]
+
+
+def _graph_log(label, stats, outs, wall, base_run, card, extra=""):
+    tokens = sum(len(o) for o in outs)
+    log(f"[graph] {label}: {len(outs)}/{len(outs)} requests identical to the baseline; "
+        f"target steps a token {stats['target_steps_per_token']:.3f} (prefill excluded), "
+        f"acceptance {stats['acceptance_rate']:.3f}, {stats['rounds']} rounds, "
+        f"{stats['draft_steps']} draft steps; {tokens / wall:.1f} tokens/s against "
+        f"{base_run['tokens_per_s']:.1f} target-only ({wall:.3f}s){extra} on {card}")
+
+
+def _graph_engine_run(torch, cfg, label, target, draft, k, prompts, want, base_run, card):
+    """Engine mode: ``prompts`` one at a time through a SpeculativeDecoder
+    on ``target`` (ngram when ``draft`` is None)."""
+    from repro_torch.fabric.graph import SpeculativeDecoder
+
+    engines = (target,) if draft is None else (target, draft)
+    for e in engines:
+        e.restart()
+    before = [_counts(e) for e in engines]
+    dec = SpeculativeDecoder(target=target, draft=draft, k=k)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = [list(dec.submit(p, MAX_NEW).tokens()) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    _graph_check(label, outs, want)
+    stats = _graph_stats(dec)
+    counts = "; ".join(_graph_launches(cfg, label, e, b) for e, b in zip(engines, before))
+    _graph_log(label, stats, outs, wall, base_run, card, f"; {counts}")
+    return stats
+
+
+def _graph_router_run(torch, cfg, label, engines, prompts, want, base_run, card, *,
+                      kill=False, rate=0.0):
+    """Router mode: two target replicas and a draft replica (model tags
+    ``target`` and ``draft``), so every draft -> verify edge is a frame
+    train; ``kill`` fails the replica holding the verify node at router
+    tick ``GRAPH_KILL_TICK``, ``rate`` damages edge frames."""
+    from repro_torch.cluster import FaultInjector, FaultPlan, Replica, Router
+    from repro_torch.fabric.graph import EDGE_SPEC, SpeculativeDecoder
+
+    t0, t1, draft = engines
+    for e in engines:
+        e.restart()
+    before = [_counts(e) for e in engines]
+    router = Router([Replica(t0, model="target"), Replica(t1, model="target"),
+                     Replica(draft, model="draft")], max_retries=CHAOS_RETRIES,
+                    retry_backoff_s=0.0)
+    # the first verify placement breaks the tie between empty replicas by
+    # engine id: t0 holds the verify node when the plan kills it
+    plan = FaultPlan(seed=SEED, frame_fault_rate=rate,
+                     kill_at={t0.engine_id: GRAPH_KILL_TICK} if kill else {})
+    injector = FaultInjector(plan).install(router)
+    dec = SpeculativeDecoder(router=router, target_model="target", draft_model="draft",
+                             k=GRAPH_MODEL_K)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = [list(dec.submit(p, MAX_NEW).tokens()) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    _graph_check(label, outs, want)
+    stats = _graph_stats(dec)
+    m = router.metrics()
+    r, f = m["router"], m["faults"]
+    verify_at = [p["engine_id"] for p in r["node_placements"] if p["node"] == "verify"]
+    if r["edge_frames"] == 0 or r["edge_bytes"] != r["edge_frames"] * EDGE_SPEC.total_bytes:
+        raise AssertionError(f"{label}: edge frames {r['edge_frames']}, bytes "
+                             f"{r['edge_bytes']}")
+    if kill and (verify_at[0] != t0.engine_id or set(verify_at) != {t0.engine_id,
+                                                                     t1.engine_id}
+                 or not stats["verify_rebuilds"] or injector.counters["kills"] != 1):
+        raise AssertionError(f"{label}: verify placed on {verify_at}, stats {stats}, "
+                             f"faults {f}")
+    if rate and (not r["edge_retransmits"] or f["detected"] != r["edge_retransmits"]):
+        raise AssertionError(f"{label}: no retransmitted edge: {r} {f}")
+    counts = "; ".join(_graph_launches(cfg, label, e, b) for e, b in zip(engines, before))
+    _graph_log(label, stats, outs, wall, base_run, card,
+               f"; edge frames {r['edge_frames']} ({r['edge_bytes']} bytes), retransmits "
+               f"{r['edge_retransmits']}, warm edge hits {r['edge_local_hits']}; failovers "
+               f"{stats['failovers']} (router {f['failovers']}), session rebuilds "
+               f"{stats['verify_rebuilds']}; verify placements {verify_at.count(t0.engine_id)} "
+               f"on {t0.engine_id}, {verify_at.count(t1.engine_id)} on {t1.engine_id}; "
+               f"injected {injector.counters}; {counts}")
+    for e in engines:
+        e.restart()
+
+
+def _graph_float32_control(torch, dev, cfg, geom, prompt, card):
+    """One request, target-only and at ngram k ``GRAPH_MODEL_K``, on two
+    float32 engines (the plain path) sharing one weight tree."""
+    from repro_torch.engine import Engine
+    from repro_torch.fabric.graph import SpeculativeDecoder
+
+    base, target = (Engine(cfg, device=dev, kernel="ref", engine_id=f"graph-f32-{eid}",
+                           compute_dtype=torch.float32, **geom) for eid in ("base", "t"))
+    base.load_params(seed=SEED)
+    target.load_params(base.params)
+    want, base_run = _graph_baseline(torch, base, [prompt])
+    dec = SpeculativeDecoder(target=target, k=GRAPH_MODEL_K)
+    t = time.perf_counter()
+    outs = [list(dec.submit(prompt, MAX_NEW).tokens())]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    label = f"float32 control, ngram k {GRAPH_MODEL_K}, plain path"
+    _graph_check(label, outs, want)
+    if target.metrics()["nonfinite_logits"]:
+        raise AssertionError(f"{label}: non-finite emitted rows")
+    _graph_log(label, _graph_stats(dec), outs, wall, base_run, card)
+    del base, target
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2590,6 +2884,18 @@ def main() -> int:
         entries[("flash_attention", f"{ARCHS[0]} slots")]["path"] = f"{ARCHS[0]} cluster"
         entries[("flash_attention", f"{ARCHS[0]} slots")]["launches"] = launches[
             "flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase("graph (draft -> verify speculation)"):
+        launches = graph_path(torch, dev, card)
+        log(f"[graph] launches over the phase (every count set to 0 just before it): "
+            f"{launches} on {card}")
+        if set(k for k, n in launches.items() if n) != {"paged_attention"}:
+            raise AssertionError(f"the graph phase launched {launches}: paged attention "
+                                 "alone expected")
+        entries[("paged_attention", "graph")] = dict(
+            entries[("paged_attention", ARCHS[0])], path=f"{ARCHS[0]} graph",
+            launches=launches["paged_attention"])
         gc.collect()
         torch.cuda.empty_cache()
     unlaunched = [k for k, e in entries.items() if not e["launches"]]

@@ -32,13 +32,21 @@ library. It ports:
   request migration (a request's state in the ``RST1`` format, shipped as
   a train of 4 KiB active-message frames and checked frame by frame),
   rebalance, drain, failover from snapshots or by recompute, the seeded
-  fault injector (``faults``) and ``launch.serve_cluster``.
+  fault injector (``faults``) and ``launch.serve_cluster``;
+
+* served graphs (``fabric.graph``): validated DAGs of fabric functions
+  (``GraphSpec``, ``GraphRun``, ``GraphHandle``), their edges as fabric
+  leases or, across replicas, as 4 KiB frame trains, ``DecodeSession`` on
+  the paged Engine's block pool and draft -> verify speculative decoding
+  (``SpeculativeDecoder``: an ngram or model draft, engine or router mode,
+  every emitted token the target's greedy token), through
+  ``Engine.submit_graph``, ``Router.place_node``/``ship_edge``/
+  ``submit_graph`` and ``launch.serve_graph``.
 
 Every kernel is hand-written CUDA beside its plain version;
 ``kernels.loader`` builds them at first use. Entry points (``Engine``,
 ``models.model.init_params``, the serve CLI) run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card they raise instead of quietly
-falling back. Not ported yet (ROADMAP queue A): graphs (A12's graph
-half), training (A13), the transports between devices (A14) and the
-tooling (A15).
+falling back. Not ported yet (ROADMAP queue A): training (A13), the
+transports between devices (A14) and the tooling (A15).
 """

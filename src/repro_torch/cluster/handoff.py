@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.core.message import (FLAG_INJECTED, HDR_ELEM_ID, HDR_FLAGS, HDR_FUNC_ID,
                                       HDR_PAYLOAD_WORDS, HDR_SEQ_NO, HDR_SRC_RANK,
-                                      HDR_STATE_WORDS, FrameSpec, frame_valid, pack_frames)
+                                      HDR_STATE_WORDS, FrameSpec, frame_valid, pack_frames,
+                                      raise_first_bad_frame)
 from repro_torch.engine.engine import MigrationTicket
 
 __all__ = ["MIGRATE_FUNC_ID", "HANDOFF_SPEC", "encode_handoff", "decode_handoff"]
@@ -134,13 +135,7 @@ def _check_train(train: np.ndarray) -> None:
         ((train[:, offs["sig"] + 2:] != 0).any(axis=1),
          lambda i: "non-zero alignment padding (corrupt frame)"),
     )
-    bad = np.zeros(n, dtype=bool)
-    for failed, _ in checks:
-        bad |= failed
-    if bad.any():
-        i = int(np.argmax(bad))
-        msg = next(describe(i) for failed, describe in checks if failed[i])
-        raise ValueError(f"handoff frame {i}: {msg}")
+    raise_first_bad_frame("handoff", checks)
 
 
 def decode_handoff(frames: Train) -> MigrationTicket:

@@ -1,11 +1,8 @@
 """``Router``: one submit surface over N engine replicas, with live
 request migration.
 
-The port of ``repro/cluster/router.py`` (its graph verbs, ``place_node``,
-``ship_edge`` and ``submit_graph``, are the graph half of ROADMAP item A12
-and raise).
-
-The router owns a table ``rid -> engine_id`` and four verbs:
+The port of ``repro/cluster/router.py``. The router owns a table
+``rid -> engine_id`` and four verbs:
 
 * ``submit(req)`` places the request on one replica via the fabric cost
   model (warm-params-lease bytes first — a replica whose rFaaS lease
@@ -28,6 +25,18 @@ The router owns a table ``rid -> engine_id`` and four verbs:
   delivered-tokens recompute. The per-tick health probe calls it
   automatically; migrations retransmit damaged trains with bounded
   retries and roll back on failure (``repro_torch.faults``).
+
+and the graph tier's three (``repro_torch.fabric.graph``):
+
+* ``place_node`` places one graph-node invocation: ``_place``'s key with
+  a locality axis (``TransportEstimate.affinity_bytes``, the upstream edge
+  bytes not leased on the candidate) between cold-start bytes and load;
+* ``ship_edge`` delivers an edge value to a replica: a warm lease there is
+  consumed in place, anything else rides a validated mailbox frame train
+  (``fabric.graph.edges``) through the installed fault injector, with the
+  handoff's bounded retries;
+* ``submit_graph`` queues a graph run that every router tick advances one
+  round.
 
 Replicas are heterogeneous: each brings its own device, cache backend and
 model tag (replicas may share one card); routing and migration stay within matching (model,
@@ -249,9 +258,12 @@ class Router:
         self.rebalance_events = 0
         self.handoff_frames = 0
         self.handoff_bytes = 0
-        # the graph tier's counters (ROADMAP A12's graph half), kept at zero
-        # so metrics() has the JAX router's keys
+        # the graph tier: cross-replica node placement and frame-shipped edges
+        self._graphs: List[Any] = []
+        self._graphs_done: List[Any] = []
+        self.graph_invocations = 0
         self.node_placements: List[Dict[str, Any]] = []
+        self._edge_anchors: Dict[Any, Any] = {}     # (engine_id, name) -> lease key
         self.edge_frames = 0
         self.edge_bytes = 0
         self.edge_retransmits = 0
@@ -330,17 +342,126 @@ class Router:
             "load": best.load()})
         return best
 
-    # -- the graph tier: the graph half of ROADMAP item A12 ----------------
+    # -- graph-node placement (locality first, then load) ------------------
 
-    def place_node(self, *args: Any, **kw: Any) -> Replica:
-        raise NotImplementedError("graph-node placement is the graph half of ROADMAP "
-                                  "item A12")
+    @staticmethod
+    def _lease_live(engine: Engine, name: str) -> bool:
+        lease = engine.fabric.leases.get(name)
+        return bool(lease is not None and lease.live)
 
-    def ship_edge(self, *args: Any, **kw: Any):
-        raise NotImplementedError("graph edges are the graph half of ROADMAP item A12")
+    def place_node(self, *, gid: int, node: str, model: str = "default",
+                   edges: Sequence = (), exclude=()) -> Replica:
+        """Place one graph-node invocation on a replica.
 
-    def submit_graph(self, *args: Any, **kw: Any):
-        raise NotImplementedError("graph runs are the graph half of ROADMAP item A12")
+        ``_place``'s lexicographic key with the locality axis between
+        cold-start bytes and load: ``affinity_bytes`` sums the wire bytes of
+        every upstream edge (``edges`` is a sequence of ``(lease_name,
+        nbytes)``) whose lease is *not* live on the candidate's fabric. A
+        replica that already holds the node's upstream outputs (the draft
+        edge, the verify session's KV) scores 0 and wins before load does,
+        which keeps a graph's verify node where its draft output lease
+        lives instead of bouncing to the emptiest replica every round.
+        Every decision is logged with its ``TransportEstimate`` in
+        ``metrics()["router"]["node_placements"]``."""
+        cands = [r for r in self.replicas
+                 if not r.draining and not r.failed and r.model == model
+                 and r.engine_id not in exclude]
+        if not cands:
+            raise ValueError(
+                f"no live replica serves model={model!r} for graph node "
+                f"{node!r} (gid={gid}; replicas: "
+                f"{[(r.engine_id, r.model) for r in self.replicas]})")
+        edges = list(edges)
+        payload = sum(int(nb) for _, nb in edges)
+        best = best_key = best_est = None
+        for r in cands:
+            eng = r.engine
+            aff = sum(int(nb) for name, nb in edges if not self._lease_live(eng, name))
+            warm = eng.params is not None and eng._lease_warm(eng.params)
+            est = TransportEstimate(
+                local_bytes=payload, injected_bytes=0 if warm else eng._params_nbytes(),
+                common_bytes=0, chosen="injected" if warm else "local",
+                affinity_bytes=aff)
+            load = r.load()
+            key = (est.injected_bytes, aff, load["queue_depth"] + load["active"],
+                   load["occupancy"], r.engine_id)
+            if best is None or key < best_key:
+                best, best_key, best_est = r, key, est
+        self.node_placements.append({
+            "gid": gid, "node": node, "engine_id": best.engine_id,
+            "model": best.model, "estimate": best_est.describe(),
+            "affinity_bytes": best_est.affinity_bytes, "load": best.load()})
+        return best
+
+    def ship_edge(self, replica: Replica, name: str, value):
+        """Deliver one graph-edge value to ``replica`` and lease it there.
+        A co-resident value (the lease already holds this very array) is
+        consumed warm: residency, zero wire bytes. Anything else rides a
+        validated mailbox frame train (``fabric.graph.edges``) through the
+        installed fault injector, retransmitted like a migration handoff up
+        to ``max_retries`` times. Returns the replica-resident value (the
+        decoded copy when it shipped)."""
+        from repro_torch.fabric.graph.edges import EDGE_SPEC, decode_edge, encode_edge
+        fab = replica.engine.fabric
+        lease = fab.leases.get(name)
+        if (lease is not None and lease.live and len(lease.key) == 1
+                and lease.key[0] is value):
+            self.edge_local_hits += 1
+            return fab.lease(name, lease.key)[0]
+        delay = self.retry_backoff_s
+        last: Optional[Exception] = None
+        for attempt in range(self.max_retries + 1):
+            frames = encode_edge(name, value)
+            if self.faults is not None:
+                frames = self.faults.perturb_train(frames, rid=-(1 + hash(name) % 1000),
+                                                   attempt=attempt)
+            self.edge_frames += len(frames)
+            self.edge_bytes += len(frames) * EDGE_SPEC.total_bytes
+            try:
+                got_name, decoded = decode_edge(frames)
+                if got_name != name:
+                    raise ValueError(f"edge train decoded as {got_name!r}, expected {name!r}")
+                break
+            except ValueError as err:
+                self.faults_detected += 1
+                last = err
+                if attempt < self.max_retries:
+                    self.edge_retransmits += 1
+                    if delay > 0:
+                        time.sleep(delay)
+                        delay *= 2
+        else:
+            raise ValueError(f"edge {name!r} still damaged after {self.max_retries} "
+                             f"retransmits: {last}")
+        state = (decoded,)
+        self._edge_anchors[(replica.engine_id, name)] = state
+        fab.lease(name, state)
+        return decoded
+
+    def submit_graph(self, spec, inputs, *, loop_until=None, max_rounds: int = 256,
+                     resolve=None, on_node_error=None):
+        """Queue a ``fabric.graph`` run at the cluster tier; returns its
+        streaming ``GraphHandle`` (owner: this router). Each router tick
+        advances every active graph one round; the run's node callables
+        place themselves each round through ``place_node`` and move edge
+        values with ``ship_edge`` (``SpeculativeDecoder`` in router mode is
+        the canonical client)."""
+        from repro_torch.fabric.graph.executor import GraphRun
+        run = GraphRun(spec, inputs, fabric=None, loop_until=loop_until,
+                       max_rounds=max_rounds, resolve=resolve, on_node_error=on_node_error)
+        self._graphs.append(run)
+        return run.handle._bind(self)
+
+    def _tick_graphs(self) -> int:
+        fired = 0
+        for run in list(self._graphs):
+            if not run.done:
+                fired += run.advance()
+            if run.done:
+                self._graphs.remove(run)
+                self._graphs_done.append(run)
+        self.graph_invocations += fired
+        return fired
 
     def submit(self, req: Request, *,
                model: Optional[str] = None) -> ClusterHandle:
@@ -364,6 +485,8 @@ class Router:
     # ------------------------------------------------------------------
 
     def pending(self) -> bool:
+        if any(not run.done for run in self._graphs):
+            return True
         return any(r.engine.pending() for r in self.replicas
                    if not r.failed)
 
@@ -388,6 +511,8 @@ class Router:
                                  or "died mid-tick")
         self._take_snapshots()
         self._apply_rebalance()
+        if self._graphs:
+            advanced += self._tick_graphs()
         return advanced
 
     def _probe_health(self) -> None:
@@ -757,8 +882,8 @@ class Router:
     def metrics(self) -> Dict[str, Any]:
         """Cluster + router + per-replica telemetry, one JSON-friendly
         dict. Replica blocks are the engines' own ``metrics()`` keyed by
-        their stable ``engine_id``; totals aggregate across them. The graph
-        tier's keys (``node_placements``, ``edge_*``) stay empty."""
+        their stable ``engine_id``; totals aggregate across them. A router
+        that ran graphs adds ``graphs`` first, with the engine's schema."""
         replicas = {r.engine_id: r.engine.metrics() for r in self.replicas}
         totals = {
             "completed": sum(m["completed"] for m in replicas.values()),
@@ -768,7 +893,15 @@ class Router:
                                 for m in replicas.values()),
             "migrations": len(self.migrations),
         }
-        return {
+        out: Dict[str, Any] = {}
+        if self._graphs or self._graphs_done:
+            out["graphs"] = {
+                "active": sum(1 for g in self._graphs if not g.done),
+                "completed": len(self._graphs_done),
+                "node_invocations": self.graph_invocations,
+                "runs": [g.metrics() for g in (*self._graphs, *self._graphs_done)],
+            }
+        out.update({
             "cluster": {
                 "name": self.name,
                 "replicas": [
@@ -808,4 +941,5 @@ class Router:
             },
             "replicas": replicas,
             "totals": totals,
-        }
+        })
+        return out

@@ -194,6 +194,22 @@ def unpack_frame(spec: FrameSpec, frame: torch.Tensor) -> Dict[str, torch.Tensor
     }
 
 
+def raise_first_bad_frame(what: str, checks) -> None:
+    """Validate a train frame by frame in one pass over the whole train.
+    ``checks`` is a sequence of ``(failed, describe)`` in the order a
+    frame-by-frame loop would run them: ``failed`` a bool mask over the
+    frames, ``describe(i)`` the message for frame ``i``. The first frame
+    that fails any check raises ``ValueError(f"{what} frame {i}: ...")``
+    with its first failing check's message, as that loop would."""
+    bad = None
+    for failed, _ in checks:
+        bad = failed.copy() if bad is None else bad | failed
+    if bad is not None and bad.any():
+        i = int(np.argmax(bad))
+        msg = next(describe(i) for failed, describe in checks if failed[i])
+        raise ValueError(f"{what} frame {i}: {msg}")
+
+
 def frame_valid(spec: FrameSpec, frame: torch.Tensor) -> torch.Tensor:
     """Signal + integrity check of ``(..., W)`` frames -> bool ``(...)``."""
     f = unpack_frame(spec, frame)

@@ -31,8 +31,15 @@ admission instead of a prefill, ``snapshot_request`` serializes without
 releasing anything; ``fail`` refuses every verb until ``restart``, which
 abandons all request state and keeps the params and the built steps;
 ``fault_hook`` fires between placement resolution and step execution.
-Graph runs (``submit_graph``, ``ensure_verify_step``) are the part of the
-JAX engine still to port (ROADMAP A12).
+
+Graph runs (``repro_torch.fabric.graph``): ``submit_graph`` queues a
+``GraphRun`` whose node invocations every tick advances one round beside
+the request rows, its node outputs leased on the engine's fabric. A
+``DecodeSession`` steps through the same ``engine.paged_step`` as the
+ticks, and a speculation round through ``engine.paged_verify``, the paged
+step built with ``emit="all"`` (``ensure_verify_step``), registered on the
+same fabric and counted in ``steps``/``verify_steps`` and
+``kernel_launches``.
 """
 from __future__ import annotations
 
@@ -184,7 +191,7 @@ class Engine:
         self.params: Optional[Dict[str, Any]] = None
         self.cache: Optional[Dict[str, Any]] = None
         self.ticks = 0
-        self.steps = 0                         # ticks that ran the step
+        self.steps = 0                         # step runs: ticks, graph sessions
         self.completed: List[Request] = []
         self.queue: List[_Entry] = []
         self.slot_entry: List[Optional[_Entry]] = [None] * slots
@@ -209,6 +216,13 @@ class Engine:
         self.failed_reason: Optional[str] = None
         self.fault_hook: Optional[Callable[[str], None]] = None
         self.lease_fallbacks = 0
+        # the graph tier (fabric.graph): active runs advanced one round per
+        # tick, and the multi-token verify step, built at first use
+        self._graphs: List[Any] = []
+        self._graphs_done: List[Any] = []
+        self.graph_invocations = 0
+        self.verify_steps = 0                  # verify-step invocations
+        self.verify_bundle = None
 
         self.chunk = chunk
         if cache == "paged":
@@ -329,6 +343,7 @@ class Engine:
         self.queue.clear()
         self.slot_entry = [None] * self.slots
         self._pending_pump.clear()
+        self._graphs.clear()                    # sessions die with the pool
         self._make_state()
         if self.params is not None:
             self.cache = self._fresh_cache()
@@ -338,17 +353,11 @@ class Engine:
             raise EngineFailedError(self.engine_id,
                                     f"{self.failed_reason} (refusing {what})")
 
-    def submit_graph(self, *args: Any, **kw: Any):
-        raise NotImplementedError("graph runs on the Engine are the graph half of "
-                                  "ROADMAP item A12")
-
-    def ensure_verify_step(self) -> None:
-        raise NotImplementedError("the multi-token verify step is the graph half of "
-                                  "ROADMAP item A12")
-
     def pending(self) -> bool:
-        """True while any request is queued or occupying a slot."""
-        return bool(self.queue or any(e is not None for e in self.slot_entry))
+        """True while any request is queued or occupying a slot, or any
+        graph run is still looping."""
+        return bool(self.queue or any(e is not None for e in self.slot_entry)
+                    or any(not run.done for run in self._graphs))
 
     def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:
         """Serve until queue + slots drain; returns completed requests."""
@@ -374,6 +383,37 @@ class Engine:
         entry.handle = RequestHandle(self, req)
         self.queue.append(entry)
         return entry.handle
+
+    def submit_graph(self, spec, inputs, *, loop_until=None, max_rounds: int = 256,
+                     resolve=None, on_node_error=None):
+        """Queue a ``fabric.graph`` run; returns its streaming
+        ``GraphHandle``. Each ``tick`` advances every active graph one
+        round (all nodes once, in topological order) after the request
+        rows; node outputs land as warm leases on this engine's fabric
+        (``graph/<gid>/<node>``), and ``handle.tokens()`` drives ``tick()``
+        as ``RequestHandle.tokens()`` does. Graphs that loop
+        (``loop_until``) keep their round cadence: one speculation round a
+        tick for the draft/verify graph."""
+        self._check_alive("submit_graph")
+        from repro_torch.fabric.graph.executor import GraphRun
+        run = GraphRun(spec, inputs, fabric=self.fabric, loop_until=loop_until,
+                       max_rounds=max_rounds, resolve=resolve,
+                       on_node_error=on_node_error)
+        self._graphs.append(run)
+        return run.handle._bind(self)
+
+    def _tick_graphs(self) -> int:
+        """Advance every active graph run one round; returns the number of
+        node invocations fired."""
+        fired = 0
+        for run in list(self._graphs):
+            if not run.done:
+                fired += run.advance()
+            if run.done:
+                self._graphs.remove(run)
+                self._graphs_done.append(run)
+        self.graph_invocations += fired
+        return fired
 
     def _sched_state(self, block_budget: Optional[int]) -> SchedulerState:
         return SchedulerState(
@@ -504,11 +544,21 @@ class Engine:
             self._preempt(victim)
 
     def tick(self) -> int:
-        """Admit + advance every active request one step. Returns the number
-        of rows advanced."""
+        """Admit + advance every active request one step, then every active
+        graph run one round. Returns the rows advanced plus the node
+        invocations fired."""
         self._check_alive("tick")
         if self.cache_kind == "slots":
-            return self._tick_slots()
+            advanced = self._tick_slots()
+        else:
+            advanced = self._tick_chunked()
+        if self._graphs:
+            advanced += self._tick_graphs()
+        return advanced
+
+    def _tick_chunked(self) -> int:
+        """One step of the paged or recurrent backend over every active
+        request row."""
         self._admit_chunked()
         paged = self.cache_kind == "paged"
 
@@ -552,6 +602,7 @@ class Engine:
             n_valid[slot] = n
         args = (tokens, tables, starts, n_valid) if paged else (tokens, starts, n_valid)
         next_np = self._step_call(*args)
+        self.steps += 1
 
         for slot, entry, n, seq in sched:
             known = len(seq)
@@ -619,6 +670,7 @@ class Engine:
         for i in active:
             tokens[i, 0] = self.slot_entry[i].req.out_tokens[-1]
         next_np = self._step_call(tokens)
+        self.steps += 1
         for i in active:
             e = self.slot_entry[i]
             tok = int(next_np[i, 0])
@@ -715,13 +767,59 @@ class Engine:
             self.kernel_launches[k] += LAUNCH_COUNTERS[k].count - before[k]
         return out
 
-    def _step_call(self, *arrays: np.ndarray) -> np.ndarray:
-        """Run the serve step on host-built inputs, through the fabric at
-        this engine's placement; returns next tokens."""
+    def _step_call(self, *arrays: np.ndarray, name: Optional[str] = None,
+                   placement: Optional[str] = None) -> np.ndarray:
+        """Run the serve step (or the registered step ``name``) on host-built
+        inputs, through the fabric at ``placement`` (default: this
+        engine's); returns the step's tokens."""
         args = [torch.from_numpy(a).to(self.device) for a in arrays]
-        next_tok, self.cache = self._call(self._step_name, (self.cache, *args), self.placement)
+        out, self.cache = self._call(name or self._step_name, (self.cache, *args),
+                                     placement or self.placement)
+        return out.cpu().numpy()
+
+    def _session_step_call(self, *arrays: np.ndarray,
+                           placement: Optional[str] = None) -> np.ndarray:
+        """A graph session's step: the tick's fabric-registered step at the
+        session's own placement; returns next tokens ``(slots,)``."""
+        self._check_alive("session step")
+        out = self._step_call(*arrays, placement=placement)
         self.steps += 1
-        return next_tok.cpu().numpy()
+        return out
+
+    def ensure_verify_step(self) -> None:
+        """Build and register the multi-token verify step (paged only): the
+        paged step built with ``emit="all"``, the greedy token at *every*
+        fed position, which a speculation round reads to accept or reject
+        k candidates in one invocation. The same geometry, kernels, cache
+        and compute dtype as the decode step; it is registered on the
+        engine's fabric as ``engine.paged_verify``, so it shares the
+        decode step's params lease, placement guard and ``fault_hook``,
+        and its launches count in ``kernel_launches``. A kernel that
+        cannot build or launch raises: nothing falls back to the plain
+        path."""
+        if self.cache_kind != "paged":
+            raise ValueError(
+                f"the verify step rides the paged chunked-prefill shape; engine "
+                f"{self.engine_id} has cache={self.cache_kind!r}")
+        if self.verify_bundle is not None:
+            return
+        self.verify_bundle = make_paged_serve_step(
+            self.cfg, slots=self.slots, chunk=self.chunk, num_blocks=self.num_blocks,
+            block_size=self.block_size, max_blocks_per_seq=self.max_blocks_per_seq,
+            kernel=self.kernel, emit="all", device=self.device,
+            compute_dtype=self.compute_dtype)
+        self._register("engine.paged_verify",
+                       lambda state, payload: self.verify_bundle.fn(state, *payload),
+                       lambda payload: sum(a.nbytes for a in payload[1:]))
+
+    def _verify_call(self, *arrays: np.ndarray, placement: Optional[str] = None) -> np.ndarray:
+        """One verify-step invocation through the fabric (building the step
+        at first use); returns the greedy tokens ``(slots, chunk)``."""
+        self._check_alive("verify step")
+        self.ensure_verify_step()
+        out = self._step_call(*arrays, name="engine.paged_verify", placement=placement)
+        self.verify_steps += 1
+        return out
 
     # ------------------------------------------------------------------
     # live migration: export/import of in-flight entries
@@ -866,13 +964,18 @@ class Engine:
         (``kernel_launches``: ``{"paged_attention": n, "moe_jam": m}`` on
         the paged backend, else one key per kernel the stack's block types
         can launch, e.g. ``{"ssm_scan": n}``, ``{"flash_attention": n,
-        "ssm_scan": m}``, or ``{}`` for an xLSTM stack; prefills included), the step count, the non-finite-logits counter,
+        "ssm_scan": m}``, or ``{}`` for an xLSTM stack; prefills, graph sessions and
+        verify steps included), the step count (``steps``: ticks that ran
+        the step and graph sessions' steps) and ``verify_steps``, the
+        non-finite-logits counter (both steps),
         ``migrations`` (``{"in", "out"}``) and ``engine.failed_reason``, and
         the fabric block: ``fabric`` (the bundle fabric's ``metrics()`` with
         each step's resolved ``placements`` and ``lease_fallbacks``),
         ``transport_decisions`` and ``transport_telemetry``. Paged engines
         add the pool's keys and ``chunk``, recurrent ones ``chunk``, the
-        snapshot counters and the state bytes per slot."""
+        snapshot counters and the state bytes per slot. Graph runs add
+        ``graphs`` (``active``, ``completed``, ``node_invocations``,
+        ``runs``), with the JAX engine's schema."""
         done = [e for e in self._entries_everywhere() if e.req.done]
         ttfts = sorted(e.first_token_time - e.submit_time
                        for e in done if e.first_token_time is not None)
@@ -889,6 +992,7 @@ class Engine:
             },
             "ticks": self.ticks,
             "steps": self.steps,
+            "verify_steps": self.verify_steps,
             "active_slots": sum(e is not None for e in self.slot_entry),
             "peak_active_slots": self.peak_active,
             "queued": len(self.queue),
@@ -899,12 +1003,20 @@ class Engine:
             "requests": self._request_records(),
             "kernel": self.kernel,
             "kernel_launches": dict(self.kernel_launches),
-            "nonfinite_logits": int(self.bundle.meta["nonfinite_logits"]),
+            "nonfinite_logits": int(self.bundle.meta["nonfinite_logits"]) + (
+                int(self.verify_bundle.meta["nonfinite_logits"]) if self.verify_bundle else 0),
             "transport_decisions": [est.describe() for _, est in self.fabric.decisions],
             "transport_telemetry": transport_telemetry().summary(),
             "fabric": dict(self.fabric.metrics(), placements=dict(self._placements),
                            lease_fallbacks=self.lease_fallbacks),
         }
+        if self._graphs or self._graphs_done:
+            out["graphs"] = {
+                "active": len(self._graphs),
+                "completed": len(self._graphs_done),
+                "node_invocations": self.graph_invocations,
+                "runs": [run.metrics() for run in self._graphs + self._graphs_done],
+            }
         if self.cache_kind != "slots":
             out["chunk"] = self.chunk
         if self.cache_kind == "paged":

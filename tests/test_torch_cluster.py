@@ -67,6 +67,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.kvcache import (ssm_cache_from_bytes, ssm_cache_to_bytes,
                                         state_to_bytes, tree_leaves)
 from test_torch_engine import MARGIN_TOL, same_tokens_but_at_ties
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 # float32 logits of the two packages agree to ~1e-4 (test_torch_model)
 ATOL = 1e-4
@@ -583,10 +584,13 @@ def test_migrate_validation_errors(paged_pair, slots_pair):
     assert router.compatible_targets(router.replica(a.engine_id)) == []
     with pytest.raises(KeyError, match="finished"):
         a.export_request(800)
-    for verb in (router.place_node, router.ship_edge, router.submit_graph,
-                 a.submit_graph, a.ensure_verify_step):
-        with pytest.raises(NotImplementedError, match="A12"):
-            verb()
+    # the graph verbs refuse what the JAX ones refuse
+    with pytest.raises(ValueError, match="no live replica serves model='ghost' for graph node"):
+        router.place_node(gid=0, node="verify", model="ghost")
+    with pytest.raises(ValueError, match="the verify step rides the paged"):
+        sa.ensure_verify_step()
+    a.ensure_verify_step()
+    assert "engine.paged_verify" in a.metrics()["fabric"]["functions"]
 
 
 def test_cluster_metrics_keys_equal_jax(paged_pair):

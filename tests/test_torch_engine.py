@@ -53,6 +53,8 @@ chunk 4) and on a smaller pool that forces preemption.
   top-2 margin is under ``F32_MARGIN_TOL``; within ``MARGIN_TOL`` for the
   bf16 engine (at most one in ten tokens under the margin each).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +73,24 @@ from repro_torch.configs.registry import default_cache_backend, get_smoke
 from repro_torch.engine import Engine, RecurrentState, Request
 from repro_torch.models import model as tmodel
 from repro_torch.runtime.steps import make_paged_serve_step, make_recurrent_serve_step
+
+@pytest.fixture(scope="module", autouse=True)
+def share_cores_among_workers():
+    """Under pytest-xdist, run this module's torch ops on the worker's share
+    of the host's cores (at least one intra-op thread), then restore the
+    default. Every xdist worker otherwise starts a thread per core, and six
+    workers oversubscribe the host: on an 8-core CPU host one port test
+    took 194 s in six concurrent processes at the default against 12 s at
+    one thread each. The port's other test files import this fixture."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers <= 1:
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(before)
+
 
 # bf16 logits of the smoke model deviate from float32 by up to ~2.5e-2
 # (random 16-token prompts, logits up to ~3 in magnitude); two such errors

@@ -27,6 +27,7 @@ from repro_torch.core.message import HDR_FUNC_ID, FrameSpec, checksum, pack_fram
 from repro_torch.core.registry import RiedPackage
 from repro_torch.fabric import Fabric, LeasePool
 from repro_torch.kernels.mailbox import bench
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 SLOTS, BASE = 64, 3
 I32 = np.iinfo(np.int32)

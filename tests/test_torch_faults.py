@@ -33,6 +33,7 @@ from repro_torch.faults import (FAULT_KINDS, EngineFailedError, FaultInjector, F
                                 MigrationFailedError, RequestFailedError)
 from repro_torch.launch import serve_cluster
 from test_torch_cluster import PAGED, RECURRENT, SLOTS, port_engines, prompt_of, solo
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

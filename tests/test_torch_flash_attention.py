@@ -33,6 +33,7 @@ from repro_torch.bridge import to_tensor
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import bench
 from repro_torch.kernels.flash_attention.ref import visible_mask
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 # the oracle jitted: one compile per shape instead of one per op
 j_ref = jax.jit(flash_attention_ref, static_argnames=("causal", "window", "q_offset", "scale"))

@@ -18,6 +18,7 @@ from repro.engine import MigrationTicket as JTicket
 from repro_torch.cluster import decode_handoff, encode_handoff
 from repro_torch.engine.engine import MigrationTicket
 from repro_torch.faults import FaultInjector, FaultPlan
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 
 def _random_ticket(seed, state_len, cls=MigrationTicket):

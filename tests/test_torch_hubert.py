@@ -37,6 +37,7 @@ from repro_torch.engine import Engine
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.runtime import steps as tsteps
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ARCH = "hubert-xlarge"
 ATOL = 1e-4

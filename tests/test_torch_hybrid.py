@@ -40,6 +40,7 @@ from repro_torch.engine import Engine
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from test_torch_slots import slots_engine_parity, slots_parity_env
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ARCH = "hymba-1.5b"
 ATOL = 1e-4

@@ -95,7 +95,10 @@ port's dependencies:
   lowered) and through the plain version;
 * live migration on the card: two paged llama smoke replicas and two
   recurrent mamba ones behind the ``Router``, a request moved mid-prefill
-  and one in decode, tokens identical to a solo run.
+  and one in decode, tokens identical to a solo run;
+* draft -> verify speculation (ngram, k 2 and 4) on a paged llama smoke
+  engine through the kernel, tokens identical to target-only decode, the
+  kernel launched once a layer per step and per verify step.
 """
 import numpy as np
 import pytest
@@ -337,6 +340,35 @@ def test_migration_on_the_card_matches_solo(cuda, arch, geom, plen):
     for e in (a, b):
         m = e.metrics()
         assert m["kernel_launches"][kname] == cfg.num_layers * m["steps"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_speculation_on_the_card_matches_target_only(cuda, k):
+    """Draft -> verify speculation (ngram) on a paged llama smoke engine
+    through the CUDA paged-attention kernel emits the tokens of target-only
+    greedy decode on a second engine with the same weights; the target's
+    kernel launches once a layer per step and per verify step."""
+    from repro_torch.fabric.graph import SpeculativeDecoder
+
+    cfg = get_smoke("llama3.2-1b")
+    geom = dict(cache="paged", slots=3, max_len=64, num_blocks=32, block_size=4, chunk=6)
+    base = Engine(cfg, device=cuda, kernel="cuda", engine_id="gpu-base", **geom)
+    base.load_params(seed=0)
+    target = Engine(cfg, device=cuda, kernel="cuda", engine_id="gpu-target", **geom)
+    target.load_params(base.params)
+    rng = np.random.default_rng(11)
+    for rid in range(3):
+        prompt = rng.integers(0, cfg.vocab_size, size=(5 + 4 * rid,)).astype(np.int32)
+        want = base.submit(Request(rid, prompt, max_new_tokens=12)).result().out_tokens
+        dec = SpeculativeDecoder(target=target, k=k)
+        assert list(dec.submit(prompt, 12).tokens()) == want
+        assert dec.tasks[0].stats.target_verify_steps <= 12
+    m = target.metrics()
+    assert m["verify_steps"] > 0 and "engine.paged_verify" in m["fabric"]["functions"]
+    assert m["kernel_launches"]["paged_attention"] == cfg.num_layers * (
+        m["steps"] + m["verify_steps"])
+    assert m["nonfinite_logits"] == 0
 
 
 def _moe_case(rng, e, c, d, f, fill):

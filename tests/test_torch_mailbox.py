@@ -29,6 +29,7 @@ from repro.kernels.mailbox.ref import server_sum_ref as j_server_sum_ref
 from repro_torch.core.message import FrameSpec, pack_frames
 from repro_torch.kernels import mailbox as mb
 from repro_torch.kernels.mailbox import bench
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 SPEC, J_SPEC = FrameSpec(4, 0, 16), JSpec(4, 0, 16)
 USR_OFF, PW = SPEC.offsets()["usr"], SPEC.payload_words

@@ -14,6 +14,7 @@ from repro.core import injection as j_inj
 from repro.core import message as jm
 from repro_torch.core import injection as t_inj
 from repro_torch.core import message as tm
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 SPECS = [(4, 0, 16), (4, 8, 12), (2, 3, 5), (0, 0, 1), (8, 33, 64)]
 I32 = np.iinfo(np.int32)

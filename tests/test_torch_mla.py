@@ -58,6 +58,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.models.kvcache import MLACache
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ARCH = "deepseek-v2-lite-16b"
 ARCHS = (ARCH, "olmoe-1b-7b")

@@ -41,6 +41,7 @@ from repro_torch.bridge import flatten_groups, params_from_jax, recurrent_cache_
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.models import model as tmodel
 from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 MAMBA_ATOL = 1e-5

@@ -32,6 +32,7 @@ from repro.configs.registry import get_smoke as j_get_smoke
 from repro.models import moe as jmoe
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.models import moe as tmoe
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 TIE_TOL = 1e-6
 F32_ATOL = 2e-5          # outputs ~0.3 rms; f32 sums of 64-96 terms in other orders

@@ -32,6 +32,7 @@ from repro.kernels.moe_jam import moe_jam_ffn as j_moe_jam_ffn
 from repro.kernels.moe_jam.ref import expert_ffn_ref as j_ref
 from repro_torch.kernels.moe_jam import (LAUNCHES, moe_jam_ffn, moe_jam_ffn_cuda,
                                          moe_jam_ffn_ref)
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 TOL = {"float32": dict(atol=1e-5, rtol=0), "bfloat16": dict(atol=1e-2, rtol=1e-2)}
 SHAPES = [(3, 24, 64, 96), (4, 40, 64, 32)]

@@ -45,6 +45,7 @@ from repro_torch.kernels.paged_attention import (LAUNCHES, compare_valid,
                                                  paged_attention_split_ref,
                                                  resolve_kernel, split_plan)
 from repro_torch.models.kvcache import PagedKVCache, PagedLayout
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 F32_TOL = dict(atol=1e-5, rtol=0)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)

@@ -15,6 +15,7 @@ from repro.models import rope as jrope
 from repro_torch.models import common as tcommon
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import rope as trope
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 

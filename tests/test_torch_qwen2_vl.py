@@ -47,6 +47,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import rope as trope
 from repro_torch.runtime.steps import make_prefill_step
 from test_torch_slots import slots_engine_parity, slots_parity_env
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ARCH = "qwen2-vl-72b"
 ATOL = 1e-4

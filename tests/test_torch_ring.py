@@ -24,6 +24,7 @@ from helpers import run_multidev
 from repro_torch.core import mailbox as t_mb
 from repro_torch.core.message import FrameSpec, pack_frames
 from repro_torch.kernels import mailbox as mb
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 SPEC = FrameSpec(got_slots=4, state_words=0, payload_words=16)
 RANKS, FRAME_COUNTS, SHIFTS = 4, (1, 3), (1, 2, 5)

@@ -75,6 +75,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 from test_torch_engine import same_tokens_but_at_ties
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ARCHS = ("gemma3-4b", "stablelm-3b", "granite-20b")
 ATOL = 1e-4

@@ -27,6 +27,7 @@ from repro.models.kvcache import SSMCache
 from repro_torch.bridge import to_tensor
 from repro_torch.configs.registry import get_smoke
 from repro_torch.models import ssm as tssm
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, S = 4, 6

@@ -26,6 +26,7 @@ import torch
 from repro.kernels.ssm_scan import ssm_scan as j_ssm_scan
 from repro.kernels.ssm_scan.ref import selective_scan_ref as j_ref
 from repro_torch.kernels.ssm_scan import LAUNCHES, ssm_scan, ssm_scan_ref
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 # the JAX sweep's (b, s, i, n, chunk)

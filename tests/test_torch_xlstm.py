@@ -60,6 +60,7 @@ from test_torch_engine import (F32_MARGIN_TOL, MARGIN_TOL, REC_GEOM, REC_NEW,
                                _drive_recurrent, _oracle_exceptions, same_tokens_but_at_ties)
 from test_torch_engine import _schedule as _engine_schedule
 from test_torch_slots import slots_engine_parity, slots_parity_env
+from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 ARCH = "xlstm-1.3b"
 ATOL = 1e-4
@@ -324,7 +325,7 @@ def test_contiguous_forward_and_decode_match_jax(xl):
                                     compute_dtype=torch.float32)
         _close(tl, jl, f"decode {step}")
     _compare_caches(tc, slot_cache_from_jax(jax.tree.map(np.asarray, jc), cfg), "decode")
-    jl = jax.jit(lambda p, t: jmodel.forward(jcfg, p, t, **f32)[0])(jp, jnp.asarray(tok))
+    jl = xl["oracle"](jp, jnp.asarray(tok))         # the module's float32 forward, no cache
     tl, none, _ = tmodel.forward(cfg, tp, torch.from_numpy(tok), paged_kernel="ref",
                                  compute_dtype=torch.float32)
     assert none is None
