@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch/CUDA port's training and serving paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -10,6 +11,25 @@ phase prints the seconds it took):
 2. build: compile every kernel of the paths from ``src/`` (one
    ``nvcc`` per source, all started together) and print ptxas's register /
    shared-memory / spill report;
+3a. flash attention's backward (training): the kernel's dq, dk, dv at
+   llama3.2-1b's training micro-batch (2 x 32/8 heads of 64, 4,096
+   tokens, causal) and at a windowed D 128 case (32/8 heads, window
+   1,024) against autograd through the plain version in float32 (no worse
+   than 1.5x the plain bf16 path's error, within 2e-2 of max |grad|), two
+   launches bit for bit equal; timed against its bound (2.5x the causal
+   forward's flops), the plain backward and SDPA's backward;
+3b. train: llama3.2-1b at full width and depth through the ``Trainer``
+   (float32 masters from seed 0, train_4k at 4,096 tokens, a global batch
+   of 8 in 4 micro-batches, remat full, lr 3e-4, 6 steps, a checkpoint
+   every 3 under ``build/train_ckpt``, a fault injected before step 4):
+   finite, falling loss; one restart, resumed at step 3 with the restored
+   state bit for bit the saved one and the replayed step's loss equal;
+   flash forward launches 16 x 2 x 4 and backward 16 x 4 a step run,
+   nothing else; step p50/p90, tokens/s, the model-FLOPs share of the
+   dense bf16 peak, one step profiled, peak memory, checkpoint bytes and
+   save/restore seconds; then a float32 control on the stack cut to 2
+   layers (each leaf's gradient through the kernels within 1.5x the plain
+   bf16 path's error);
 3. kernel vs plain: call each kernel's wrapper at its path's shapes on the
    card and hold it against its plain PyTorch version (stated tolerance):
    paged attention (split-K v5) at llama3.2-1b's heads (32/8 of 64) and
@@ -341,6 +361,24 @@ GRAPH_KILL_TICK = 4
 # compare``): bf16 outputs, and the kernel rounds the unnormalized p to bf16
 # before P.V where the plain version rounds the normalized probabilities
 FLASH_TOL = 2e-2
+# flash attention's backward: dq, dk and dv from bf16 inputs against
+# autograd through the plain version in float32 (``mha_ref``). The
+# kernel's max error may be at most BWD_VS_PLAIN x the plain bf16 path's
+# (autograd through ``mha_ref`` on bf16 inputs) and at most BWD_TOL of max
+# |grad|: both round p (and the kernel dS) to bf16 for their products
+BWD_VS_PLAIN, BWD_TOL = 1.5, 2e-2
+# the train phase: llama3.2-1b at full width and depth, the JAX package's
+# train_4k sequence length, a global batch of 8 in 4 micro-batches of 2,
+# remat="full", lr 3e-4 (warmup 1 step, as the launcher sets it for 6),
+# 6 steps with a checkpoint every 3 and a fault injected before step 4,
+# so the trainer restarts once, from the checkpoint of step 3
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_LR = "llama3.2-1b", 8, 4, 3e-4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_STEP = 6, 3, 4
+# the float32 control: the stack cut to its first TRAIN_CONTROL_LAYERS at
+# full width, one 1 x 4,096 micro-batch; each leaf's relative L2 gradient
+# error (||g - g_f32|| / ||g_f32||) through the kernels in bf16 within
+# TRAIN_VS_PLAIN x the plain bf16 path's (only attention's rounding differs)
+TRAIN_CONTROL_LAYERS, TRAIN_VS_PLAIN = 2, 1.5
 # paged attention vs plain, per element: |kernel - plain| <= 2e-2 * (min(1,
 # rms of the element's (request, column, head) row) + |plain|). bf16
 # output, and p rounded to bf16 before P.V at different points
@@ -789,6 +827,457 @@ def check_flash(torch, dev, cfgs):
             "shapes": {n: shapes[n] for n in names},
         }
     return entries
+
+
+def check_flash_bwd(torch, dev):
+    """Phase 3 for flash attention's backward kernel at each of
+    ``fbench.BWD_SHAPES`` (llama3.2-1b's training micro-batch, a windowed D
+    128 case): dq, dk, dv from bf16 inputs (numpy seed 0; the output's
+    gradient from seed ``SEED + 1``, bf16) against autograd through the
+    plain version in float32 (``BWD_VS_PLAIN``, ``BWD_TOL``); a second
+    launch must give the same bits. The forward the train path launches
+    (``flash_attention_lse_cuda``) is held at the same shapes: its output
+    against the plain version in float32 (``FLASH_TOL``), its lse against
+    ``logsumexp`` of the plain float32 scores. Timed with the L2 flushed:
+    the backward kernel (from the forward's out and lse), the plain
+    version's backward (autograd through ``mha_ref``'s bf16 graph), and
+    SDPA forward + backward by autograd less its forward; the forward with
+    lse, ``mha_ref`` in bf16, and SDPA's forward. Returns ``{"fwd": entry,
+    "bwd": entry}``, the JSON entries of the forward with lse and of the
+    backward (without ``launches``), timed on the first shape, the numbers
+    of each shape under ``shapes``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.flash_attention import bench as fbench
+
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    flush = timing.l2_flush_buffer(dev)
+    shapes, fwd_shapes = {}, {}
+    for name, shape in fbench.BWD_SHAPES.items():
+        q, k, v = fbench.check_inputs(dev, shape)
+        kw = dict(causal=shape[6], window=shape[7], q_offset=shape[8])
+        rng = np.random.default_rng(SEED + 1)
+        dout = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(
+            dev, torch.bfloat16)
+
+        def grads(fn, *inputs):
+            ins = [t.detach().requires_grad_(True) for t in inputs]
+            out = fn(*ins, **kw)
+            return torch.autograd.grad(out, ins, dout.to(out.dtype))
+
+        errs = {}
+        got = grads(fa.flash_attention, q, k, v)
+        plain = grads(fa.mha_ref, q, k, v)
+        torch.cuda.empty_cache()
+        f32 = grads(fa.mha_ref, q.float(), k.float(), v.float())
+        for g, a, b, c in zip(("dq", "dk", "dv"), got, plain, f32):
+            errs[g] = ((a.float() - c).abs().max().item(), (b.float() - c).abs().max().item(),
+                       c.abs().max().item())
+        del got, plain, f32
+        torch.cuda.empty_cache()
+        log(f"[kernel] flash_attention_bwd {name} {tuple(q.shape)} x {tuple(k.shape)} {kw}: "
+            + ", ".join(f"{g} max |kernel - f32| {e[0]:.3e} (plain bf16 {e[1]:.3e}, max |g| "
+                        f"{e[2]:.3e})" for g, e in errs.items()))
+        bad = [g for g, (e_k, e_p, top) in errs.items()
+               if not (e_k <= BWD_VS_PLAIN * e_p and e_k <= BWD_TOL * top)]
+        if bad:
+            raise AssertionError(f"flash backward past {BWD_VS_PLAIN}x the plain bf16 "
+                                 f"error or {BWD_TOL} of max |grad| in {bad} ({name})")
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, **kw)
+        one = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        two = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(one, two)):
+            raise AssertionError(f"two backward launches gave different bits ({name})")
+        del one, two
+        fwd_shapes[name] = _flash_lse_forward(torch, fa, fbench, timing, flush, visible_mask,
+                                              name, shape, q, k, v, out, lse, kw)
+        work = fbench.needed_bwd_work(shape)
+        bound, bound_by = timing.bound_ms(work)
+        ms = timing.timed_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw),
+                             20, flush)
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out_p = fa.mha_ref(*ins, **kw)
+        plain_ms = timing.timed_ms(
+            lambda: torch.autograd.grad(out_p, ins, dout, retain_graph=True), 3, flush)
+        del out_p, ins
+        torch.cuda.empty_cache()
+        fwd, both = fbench.bwd_yardstick(q, k, v, shape, dout)
+        library_ms = timing.timed_ms(both, 20, flush) - timing.timed_ms(fwd, 20, flush)
+        max_err = max(e[0] for e in errs.values())
+        shapes[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
+                            errors=errs, deterministic=True,
+                            library_backend=fbench.yardstick_backend(q, k, v, shape))
+        log(f"[kernel] flash_attention_bwd {name} timing (L2 flushed per launch): kernel "
+            f"{ms:.4f} ms, plain (autograd through mha_ref, bf16) {plain_ms:.4f} ms, SDPA "
+            f"forward + backward less forward {library_ms:.4f} ms "
+            f"({shapes[name]['library_backend']}); {work['pairs']} visible pairs -> "
+            f"{work['flops']} flops (2.5x the forward's) -> "
+            f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
+            f"{work['bytes']} bytes -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"at 3.35 TB/s; bound {bound:.5f} ms ({bound_by}), kernel at {bound / ms:.3f} of "
+            f"it; two launches bit for bit equal")
+        del q, k, v, out, lse, dout, fwd, both
+        torch.cuda.empty_cache()
+    del flush
+    first, fwd = shapes[next(iter(shapes))], fwd_shapes[next(iter(fwd_shapes))]
+    return {
+        "bwd": {"name": "flash_attention_bwd", "route": "cuda", "path": f"{TRAIN_ARCH} train",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+                "replaces": "src/repro/models/attention.py:154 (no TPU kernel: the JAX "
+                            "package differentiates _sdpa_chunked by recompute)",
+                "launches": None,
+                "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+                "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+                "shapes": shapes},
+        "fwd": {"name": "flash_attention", "route": "cuda", "path": f"{TRAIN_ARCH} train",
+                "design": fwd["design"] + ", with lse",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+                "launches": None,
+                "max_abs_err": max(r["max_abs_err"] for r in fwd_shapes.values()),
+                "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+                "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+                "shapes": fwd_shapes},
+    }
+
+
+def _flash_lse_forward(torch, fa, fbench, timing, flush, visible_mask, name, shape,
+                       q, k, v, out, lse, kw):
+    """``check_flash_bwd``'s hold and timing of the forward with lse at one
+    shape: ``out`` (from ``flash_attention_lse_cuda``) against
+    ``mha_ref`` in float32 at ``FLASH_TOL``, ``lse`` against ``logsumexp``
+    of the plain float32 scores within 1e-3 of (1 + max |lse|); timed as
+    ``check_flash`` times the serving forward, its bound counting the lse
+    written. Returns the shape's numbers."""
+    B, Hq, Hkv, S, T, D = shape[:6]
+    ref = fa.mha_ref(q.float(), k.float(), v.float(), **kw)
+    err, worst, bad = fa.compare(out, ref, tol=FLASH_TOL)
+    del ref
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(),
+                          k.float().repeat_interleave(Hq // Hkv, dim=1)) * D ** -0.5
+    mask = visible_mask(S, T, causal=kw["causal"], window=kw["window"],
+                        q_offset=kw["q_offset"], device=q.device)
+    want = torch.logsumexp(scores.masked_fill_(~mask, float("-inf")), dim=-1)
+    del scores, mask
+    lse_err = (lse - want).abs().max().item()
+    lse_tol = 1e-3 * (1 + want.abs().max().item())
+    del want
+    torch.cuda.empty_cache()
+    log(f"[kernel] flash_attention (with lse) {name} {tuple(q.shape)} x {tuple(k.shape)} "
+        f"{kw}: max |kernel - plain f32| = {err:.3e}, largest share of the allowed error "
+        f"{worst:.3f} ({bad} elements over {FLASH_TOL} x (row rms + |plain|)); max |lse - "
+        f"logsumexp| = {lse_err:.3e} (allowed {lse_tol:.3e})")
+    if bad or not torch.isfinite(out.float()).all() or not lse_err <= lse_tol:
+        raise AssertionError(f"flash attention with lse disagrees with the plain version "
+                             f"({name})")
+    work = fbench.needed_work(shape)
+    work["bytes"] += 4 * B * Hq * S                   # the lse written
+    bound, bound_by = timing.bound_ms(work)
+    walk = fa.tile_counts(q, k, v, **kw)
+    r = dict(design=f"{walk['design']}, {fa.key_tile(shape[5], shape[9])}-key tiles",
+             max_abs_err=err, lse_err=lse_err, bound_ms=bound, bound_by=bound_by,
+             ms=timing.timed_ms(lambda: fa.flash_attention_lse_cuda(q, k, v, **kw), 50, flush),
+             plain_ms=timing.timed_ms(lambda: fa.mha_ref(q, k, v, **kw), 5, flush),
+             library_ms=timing.timed_ms(fbench.yardstick(q, k, v, shape), 50, flush),
+             library_backend=fbench.yardstick_backend(q, k, v, shape))
+    torch.cuda.empty_cache()
+    log(f"[kernel] flash_attention (with lse) {name} timing (L2 flushed per launch): kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA forward {r['library_ms']:.4f} "
+        f"ms ({r['library_backend']}); {work['pairs']} visible pairs -> {work['flops']} flops "
+        f"-> {work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
+        f"{work['bytes']} bytes (lse included) -> "
+        f"{work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; bound "
+        f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.3f} of it")
+    return r
+
+
+def _n_params(cfg) -> int:
+    from repro_torch import tree
+    from repro_torch.models import model as model_lib
+
+    return sum(t.numel() for t in tree.leaves(model_lib.abstract_params(cfg)))
+
+
+class _FirstBatch:
+    """A data pipeline that records its start step and first batch."""
+
+    def __init__(self, pipe, start, into):
+        self.pipe, self.start, self.into = pipe, start, into
+
+    def __next__(self):
+        batch = next(self.pipe)
+        if self.start is not None:
+            self.into.append((self.start, batch["tokens"].clone()))
+            self.start = None
+        return batch
+
+    def close(self):
+        self.pipe.close()
+
+
+def _train_cfg(cfg, ckpt_dir):
+    """``cfg`` with its stack cut where the disk under ``ckpt_dir`` cannot
+    take two checkpoints at once (the new one is written before retention
+    removes the old), and the reason, or ``cfg`` and None."""
+    import dataclasses
+    import shutil
+
+    free = shutil.disk_usage(ckpt_dir).free
+    per_ckpt = lambda c: 12 * _n_params(c)         # noqa: E731  f32 params, m, v
+    if 2.2 * per_ckpt(cfg) <= free:
+        return cfg, None
+    layers = cfg.num_layers
+    while layers > 1 and 2.2 * per_ckpt(dataclasses.replace(cfg, num_layers=layers)) > free:
+        layers -= 1
+    return (dataclasses.replace(cfg, num_layers=layers),
+            f"the disk has {free / 1e9:.1f} GB free, under two checkpoints of "
+            f"{per_ckpt(cfg) / 1e9:.1f} GB: the drill's stack is cut to {layers} of "
+            f"{cfg.num_layers} layers")
+
+
+def train_path(torch, dev, card):
+    """The train phase: ``Trainer`` on ``TRAIN_ARCH`` at full width and
+    depth (float32 masters from seed 0, ``train_4k`` at 4,096 tokens, a
+    global batch of ``TRAIN_BATCH`` in ``TRAIN_ACCUM`` micro-batches,
+    remat="full", AdamW at ``TRAIN_LR``), ``TRAIN_STEPS`` steps with a
+    checkpoint every ``TRAIN_CKPT_EVERY`` (under ``build/train_ckpt``, one
+    kept) and ``FaultInjector(fail_steps=(TRAIN_FAIL_STEP,))``. Every
+    launch count is set to 0 just before ``train()`` and read just after.
+    Checks: every loss finite and the last step's below the first's; one
+    restart, the pipeline resumed at the checkpoint's step with its batch
+    equal to ``synthetic_batch`` of that step; the restored params and
+    optimizer state equal, bit for bit, to a copy taken on the card when
+    that checkpoint was saved; flash forward launches 2 x 16 x accum a step
+    run (remat recomputes each layer's forward) and backward 16 x accum,
+    replays included, nothing else; the float32 control
+    (``TRAIN_CONTROL_LAYERS``, ``TRAIN_VS_PLAIN``). Prints step p50/p90,
+    tokens/s, the model-FLOPs share of the card's dense bf16 peak, one
+    step's device busy and idle share and top device ops, flash's forward
+    and backward shares of it, peak allocated memory, checkpoint bytes and
+    save and restore seconds. Returns ``{"flash_attention": n,
+    "flash_attention_bwd": n}``, the launches of the drill."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs.base import TRAIN_4K, OptimizerConfig, RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import timing
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    full = dataclasses.replace(get_config(TRAIN_ARCH), remat="full")
+    cfg, cut = _train_cfg(full, ckpt_dir)
+    if cut:
+        log(f"[train] {cut}")
+    shape = dataclasses.replace(TRAIN_4K, global_batch=TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, checkpoint_dir=str(ckpt_dir),
+                    optimizer=OptimizerConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                                              warmup_steps=max(1, TRAIN_STEPS // 10),
+                                              accum_steps=TRAIN_ACCUM))
+    record = dict(starts=[], runs=[], saved=None, restored=None, restore_s=None)
+
+    class Drill(Trainer):
+        def _pipeline(self, start_step):
+            return _FirstBatch(super()._pipeline(start_step), start_step, record["starts"])
+
+        def init_state(self):
+            t = time.perf_counter()
+            step, params, opt = super().init_state()
+            torch.cuda.synchronize()
+            if step:
+                record["restore_s"] = time.perf_counter() - t
+                saved = record["saved"]
+                record["restored"] = step == saved[0] and all(
+                    a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                    for a, b in zip(tree.leaves({"params": params, "opt": opt}),
+                                    tree.leaves(saved[1])))
+                record["saved"] = saved = None    # the steps after run without the copy
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            return step, params, opt
+
+    log_lines = []
+    trainer = Drill(cfg, run, tcfg=TrainerConfig(steps=TRAIN_STEPS, log_every=1,
+                                                 checkpoint_every=TRAIN_CKPT_EVERY,
+                                                 keep_checkpoints=1),
+                    injector=FaultInjector(fail_steps=(TRAIN_FAIL_STEP,)),
+                    log_fn=lambda m: (log_lines.append(m), log(m)), device=dev)
+    save = trainer.ckpt.save
+
+    def saving(step, state, **kw):
+        if step == TRAIN_CKPT_EVERY:               # the checkpoint the restart reads
+            record["saved"] = (step, tree.map_(lambda t: t.detach().clone(), state))
+        save(step, state, **kw)
+
+    trainer.ckpt.save = saving
+    step_fn = trainer.bundle.fn
+
+    def timed_step(params, opt, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, opt, batch)
+        loss = float(out[2]["loss"])
+        record["runs"].append((time.perf_counter() - t, loss,
+                               {k: float(v) for k, v in out[2].items()}))
+        return out
+
+    trainer.bundle.fn = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    stats = trainer.train()
+    launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9    # the steps after the restore
+    trainer.bundle.fn = step_fn
+    npz = ckpt_dir / f"step_{TRAIN_STEPS}" / "arrays.npz"
+    ckpt_bytes = npz.stat().st_size if npz.exists() else 0
+
+    runs = record["runs"]
+    losses = [r[1] for r in runs]
+    n_runs = len(runs)
+    want = {"flash_attention": 2 * cfg.num_layers * TRAIN_ACCUM * n_runs,
+            "flash_attention_bwd": cfg.num_layers * TRAIN_ACCUM * n_runs}
+    first_loss = losses[0]
+    last_loss = losses[-1]
+    replay = record["starts"][1][0] if len(record["starts"]) > 1 else None
+    resumed = (replay is not None and torch.equal(
+        record["starts"][1][1].cpu(),
+        torch.from_numpy(synthetic_batch(cfg, shape, replay, run.seed)["tokens"])))
+    problems = []
+    if not all(np.isfinite(losses)) or not last_loss < first_loss:
+        problems.append(f"losses {losses}: not all finite, or the last not below the first")
+    if stats.restarts != 1 or stats.steps != TRAIN_STEPS:
+        problems.append(f"{stats.restarts} restarts, {stats.steps} steps")
+    if [s for s, _ in record["starts"]] != [0, TRAIN_CKPT_EVERY] or not resumed:
+        problems.append(f"pipelines started at {[s for s, _ in record['starts']]}, first "
+                        f"batch after the restart equal to synthetic_batch: {resumed}")
+    if not record["restored"]:
+        problems.append("the restored params and opt state differ from the saved ones")
+    # the step from the checkpoint runs twice, from the same bits on the same
+    # batch: a deterministic forward gives the same loss
+    first_run, replayed = runs[TRAIN_CKPT_EVERY][2], runs[TRAIN_FAIL_STEP][2]
+    if first_run["loss"] != replayed["loss"]:
+        problems.append(f"the replayed step's loss {replayed['loss']!r} is not the first "
+                        f"run's {first_run['loss']!r}")
+    if any(n != want.get(k, 0) for k, n in launches.items()):
+        problems.append(f"launches {launches}, want {want} over {n_runs} step runs")
+    if n_runs != TRAIN_FAIL_STEP + TRAIN_STEPS - TRAIN_CKPT_EVERY:
+        problems.append(f"{n_runs} step runs")
+    if problems:
+        raise AssertionError("train phase: " + "; ".join(problems))
+
+    tokens = TRAIN_BATCH * shape.seq_len
+    times = sorted(r[0] for i, r in enumerate(runs) if i not in (0, TRAIN_FAIL_STEP))
+    p50, p90 = float(np.percentile(times, 50)), float(np.percentile(times, 90))
+    a = cfg.attention
+    n_params = _n_params(cfg)
+    # model FLOPs a step: 6 x params x tokens (forward + backward of every
+    # matrix product; the tied embedding counted once, as the head) + 3 x the
+    # causal attention's forward, 4 x Hq x D x S/2 a token a layer
+    attn = 3 * 4 * a.num_heads * a.head_dim * (shape.seq_len / 2) * cfg.num_layers * tokens
+    flops = 6 * n_params * tokens + attn
+    mfu = flops / p50 / timing.BF16_FLOPS_PER_S
+    log(f"[train] {TRAIN_ARCH} at full width, {cfg.num_layers} layers, {n_params / 1e6:.1f} M "
+        f"float32 params; {TRAIN_BATCH} x {shape.seq_len} tokens a step in {TRAIN_ACCUM} "
+        f"micro-batches, remat full; losses by step run {[round(x, 4) for x in losses]}; "
+        f"{stats.restarts} restart, resumed at step {replay} (batch = synthetic_batch, "
+        f"restored state bit for bit equal; the replayed step's loss equal, its grad norm "
+        f"{'equal' if first_run['grad_norm'] == replayed['grad_norm'] else 'not equal'}); "
+        f"{n_runs} step runs, launches {launches}")
+    log(f"[train] step p50 {p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms ({len(times)} steady "
+        f"runs), {tokens / p50:.0f} tokens/s; model FLOPs 6 x {n_params} params x {tokens} "
+        f"tokens + 3 x 4 x {a.num_heads} x {a.head_dim} x {shape.seq_len // 2} x "
+        f"{cfg.num_layers} x {tokens} (causal attention) = {flops:.4e} a step -> "
+        f"{mfu:.3f} of 989 TFLOP/s dense bf16; peak allocated {peak:.2f} GB over the steps "
+        f"after the restore (before it chip_smoke keeps a copy of the saved state on the "
+        f"card); checkpoint "
+        f"{ckpt_bytes} bytes, save {trainer.ckpt.last_save_s:.2f} s (call to commit, async), "
+        f"restore {record['restore_s']:.2f} s, on {card}")
+
+    # one step profiled, then the float32 control
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(cfg, shape, TRAIN_STEPS, run.seed).items()}
+    params, opt = trainer.params, trainer.opt
+    prof = _busy(torch, lambda: step_fn(params, opt, batch), repeats=1,
+                 matches=("flash_wgmma", "bwd_"))
+    busy = prof["busy_ms"] or 0.0
+    log(f"[train] one step profiled: wall {prof['wall_ms']:.1f} ms, device busy {busy:.1f} ms "
+        f"(idle share {1 - busy / prof['wall_ms']:.3f}), flash forward "
+        f"{prof['match_ms']['flash_wgmma']:.1f} ms ({prof['match_ops']['flash_wgmma']} "
+        f"launches, {prof['match_ms']['flash_wgmma'] / max(busy, 1e-9):.3f} of busy), "
+        f"backward {prof['match_ms']['bwd_']:.1f} ms ({prof['match_ops']['bwd_']} kernels, "
+        f"{prof['match_ms']['bwd_'] / max(busy, 1e-9):.3f} of busy); top device ops "
+        f"{prof['top']}")
+    del batch, params, opt, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_control(torch, dev, cfg, shape, card)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] for k in want}
+
+
+def _train_control(torch, dev, full, shape, card):
+    """The float32 control of the train phase: ``full`` cut to its first
+    ``TRAIN_CONTROL_LAYERS`` at full width, one 1 x 4,096 micro-batch
+    (``synthetic_batch`` step 0): every leaf's gradient of ``loss_fn``
+    through the kernels in bf16, through the plain version in bf16 and in
+    float32, on the same float32 params from seed 0."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CONTROL_LAYERS)
+    one = dataclasses.replace(shape, global_batch=1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(cfg, one, 0).items()}
+    params = model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = tree.leaves(params)
+
+    def grads(kernel, dtype):
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, _ = model_lib.loss_fn(cfg, params, batch, kernel=kernel, compute_dtype=dtype)
+        out = torch.autograd.grad(loss, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        return float(loss.detach()), out
+
+    l_k, g_k = grads("cuda", torch.bfloat16)
+    l_p, g_p = grads("ref", torch.bfloat16)
+    l_f, g_f = grads("ref", torch.float32)
+    rows, bad = [], []
+    for (path, _), a, b, c in zip(tree.flatten_with_paths(params), g_k, g_p, g_f):
+        ref = c.norm().item()
+        e_k, e_p = (a - c).norm().item() / ref, (b - c).norm().item() / ref
+        rows.append((path, e_k, e_p))
+        if not (np.isfinite(e_k) and e_k <= TRAIN_VS_PLAIN * e_p):
+            bad.append((path, e_k, e_p))
+    worst = max(rows, key=lambda r: r[1] / max(r[2], 1e-30))
+    log(f"[train] float32 control ({TRAIN_CONTROL_LAYERS} layers, 1 x {shape.seq_len}): loss "
+        f"kernel bf16 {l_k:.5f}, plain bf16 {l_p:.5f}, plain float32 {l_f:.5f}; "
+        f"{len(rows)} leaves, relative L2 gradient error kernel / plain: median "
+        f"{np.median([r[1] for r in rows]):.3e} / {np.median([r[2] for r in rows]):.3e}, "
+        f"largest ratio {worst[1] / max(worst[2], 1e-30):.3f} at {worst[0]} "
+        f"({worst[1]:.3e} / {worst[2]:.3e}); limit {TRAIN_VS_PLAIN}x, on {card}")
+    if bad:
+        raise AssertionError(f"kernel-path gradients past {TRAIN_VS_PLAIN}x the plain bf16 "
+                             f"path's error against float32: {bad}")
 
 
 def serve(torch, dev, arch, *, forced_preemption=True, placement="local"):
@@ -2742,6 +3231,7 @@ def _leaves(tree):
 def main() -> int:
     import torch
 
+
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     src = Path(__file__).resolve().parent / "src"
@@ -2770,7 +3260,8 @@ def main() -> int:
 
     with Phase("build"):
         libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE,
-                                 mb_kernel.SOURCE, mb_kernel.RING_SOURCE, fa_kernel.SOURCE])
+                                 mb_kernel.SOURCE, mb_kernel.RING_SOURCE, fa_kernel.SOURCE,
+                                 fa_kernel.BWD_SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -2788,6 +3279,17 @@ def main() -> int:
             f"{timing.floor_ms(flush):.4f} ms (L2 flushed clean), "
             f"{timing.floor_ms(None):.4f} ms (warm)")
         del flush
+        train_entries = check_flash_bwd(torch, dev)
+        entries[("flash_attention_bwd", "train")] = train_entries["bwd"]
+        entries[("flash_attention", "train")] = train_entries["fwd"]
+        torch.cuda.empty_cache()
+    with Phase("train"):
+        launches = train_path(torch, dev, card)
+        entries[("flash_attention_bwd", "train")]["launches"] = launches["flash_attention_bwd"]
+        entries[("flash_attention", "train")]["launches"] = launches["flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase("kernel vs plain (serving)"):
         for arch in ARCHS:
             a = get_config(arch).attention
             if a is not None:

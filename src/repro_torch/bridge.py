@@ -19,6 +19,7 @@ No transposition is made anywhere: every weight keeps its JAX layout
 ``ws_down`` (f_s, d)). Dtypes are kept; bfloat16 arrays are
 moved bit for bit. The bridge takes numpy only and imports no JAX.
 
+``opt_state_from_jax`` does the same for an AdamW state.
 ``recurrent_cache_from_jax`` and ``slot_cache_from_jax`` do the same for a
 recurrent and a contiguous cache, so that both packages can start from one
 mid-sequence state and their caches can be compared. ``got_from_jax`` and
@@ -80,6 +81,17 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     out["layers"] = [_tree_to_torch(t, device)
                      for t in flatten_groups(np_tree["groups"], cfg)]
     return out
+
+
+def opt_state_from_jax(np_opt: Any, cfg: ModelConfig, device=None):
+    """A JAX ``AdamWState`` (``step``, ``m``, ``v``; the moments in the JAX
+    parameter tree), passed as numpy arrays -> the port's ``AdamWState``
+    on ``device`` (default: the CPU), the moments in the port's tree."""
+    from repro_torch.optim.adamw import AdamWState
+
+    step, m, v = np_opt
+    return AdamWState(step=to_tensor(np.asarray(step, np.int32), device),
+                      m=params_from_jax(m, cfg, device), v=params_from_jax(v, cfg, device))
 
 
 def recurrent_cache_from_jax(np_cache: Dict[str, Any], cfg: ModelConfig,

@@ -2,8 +2,11 @@
 
 Every architecture is expressed as a ``ModelConfig``. Configs are plain
 frozen dataclasses so they hash, compare, and round-trip to JSON. The
-shape/optimizer/sharding/run dataclasses of the JAX package belong to the
-training and mesh slices and are not copied yet.
+shapes, the optimizer and the run configuration are copied too; the JAX
+package's ``ShardingConfig`` (and ``RunConfig.sharding``) maps tensor axes
+onto a mesh, which the port does not have yet (ROADMAP A14). The port's
+``RunConfig`` has no default ``checkpoint_dir`` and leaves checkpoint
+frequency and retention to ``TrainerConfig``, the fields the Trainer reads.
 """
 from __future__ import annotations
 
@@ -121,3 +124,56 @@ class ModelConfig:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str)
 
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+# ---------------------------------------------------------------------------
+# Training / runtime config
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # int8 gradient compression with error feedback, for the data-parallel
+    # reduce (which the port does not have yet: ROADMAP A14)
+    compress_grads: bool = False
+    accum_steps: int = 1
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    shape: ShapeConfig = field(default_factory=lambda: TRAIN_4K)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+    # where the Trainer keeps its checkpoints; no default, so that two runs
+    # never share one by accident (the Trainer requires it). How often and
+    # how many: TrainerConfig.
+    checkpoint_dir: Optional[str] = None

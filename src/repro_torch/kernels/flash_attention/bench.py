@@ -21,7 +21,8 @@ kv heads of 64), causal, on a global layer and on a local one (window
 heads of 128), causal; hubert-xlarge's encoder over two clips of
 4,096 frames (16 heads of 80, MHA), without the causal mask; and
 llama3.2-1b's prefill of 4,096 tokens (32 query heads over 8 kv heads of
-64), causal, as the cluster phase's slots replicas run it.
+64), causal, as the cluster phase's slots replicas run it. ``BWD_SHAPES``
+are the backward's, which ``chip_smoke.py`` checks and times.
 """
 from __future__ import annotations
 
@@ -46,6 +47,15 @@ SHAPES = {
     "qwen2-vl-72b": (1, 64, 8, 4096, 4096, 128, True, None, 0, 128),
     "hubert-xlarge": (2, 16, 16, 4096, 4096, 80, False, None, 0, 80),
     "llama3.2-1b": (1, 32, 8, 4096, 4096, 64, True, None, 0, 64),
+}
+
+
+# the backward's check shapes (the same fields): llama3.2-1b's training
+# micro-batch (2 x 4,096 tokens, 32 query heads over 8 kv heads of 64,
+# causal) and a windowed D 128 case
+BWD_SHAPES = {
+    "llama3.2-1b train": (2, 32, 8, 4096, 4096, 64, True, None, 0, 64),
+    "windowed D 128": (1, 32, 8, 4096, 4096, 128, True, 1024, 0, 128),
 }
 
 
@@ -84,6 +94,30 @@ def needed_work(shape) -> dict:
     pairs = B * Hq * visible_pairs(S, T, causal=causal, window=window, q_offset=q_offset)
     nbytes = 2 * (B * Hq * S * (D + Dv) + B * Hkv * T * (D + Dv))
     return dict(bytes=nbytes, flops=2 * (D + Dv) * pairs, pairs=pairs)
+
+
+def needed_bwd_work(shape) -> dict:
+    """The bytes and operations the backward needs, for its bound: q, k, v,
+    out, dout (bf16) and lse (float32) read once, dq, dk, dv (bf16)
+    written once; 2.5x the forward's flops (dV, dP, dK and dQ products, and
+    the score product once)."""
+    B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
+    fwd = needed_work(shape)
+    nbytes = 2 * (B * Hq * S * (2 * D + 2 * Dv) + 2 * B * Hkv * T * (D + Dv)) + 4 * B * Hq * S
+    return dict(bytes=nbytes, flops=int(2.5 * fwd["flops"]), pairs=fwd["pairs"])
+
+
+def bwd_yardstick(q, k, v, shape, dout):
+    """(forward, forward + backward) of one ``scaled_dot_product_attention``
+    call on leaf copies of the same tensors: its backward's time is the
+    second's less the first's."""
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    fwd = yardstick(qs, ks, vs, shape)
+
+    def both():
+        return torch.autograd.grad(fwd(), (qs, ks, vs), dout)
+
+    return fwd, both
 
 
 def _sdpa_mask(shape, device):

@@ -11,6 +11,8 @@
 //   l   = l * exp(m_old - m) + sum(p)             f32
 //   acc = acc * exp(m_old - m) + bf16(p) . v      f32 accumulation
 //   out = acc / max(l, 1e-30), rounded to bf16
+// and, for training, writes each row's log-sum-exp m + log(l) when asked
+// (the backward kernel, flash_attention_bwd.cu, recomputes p from it),
 // and skips every kv tile in which no (query, key) pair of the CTA is
 // visible, as the TPU kernel skips its fully masked blocks. Keys past T
 // score -inf, so they add nothing even to a row that has seen no visible
@@ -116,7 +118,15 @@ struct Params {
   // when not null: [0] += kv tiles visited, [1] += those that took the
   // per-element mask, per CTA (v1) or per consumer warpgroup (v2)
   unsigned long long* tiles;
+  // when not null: each row's log-sum-exp of its scaled scores, m + log(l)
+  // (natural log), float32 (B, Hq, S) contiguous, for the backward kernel
+  float* lse;
 };
+
+// the index of row fr (position fr / G of head kvh * G + fr % G) in lse
+__device__ __forceinline__ long long lse_index(const Params& p, int b, int kvh, int fr) {
+  return (static_cast<long long>(b * gridDim.y + kvh) * p.G + fr % p.G) * p.S + fr / p.G;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -352,6 +362,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const Params p) {
     const float denom = fmaxf(l, 1e-30f);
     const int fr = h ? fr1 : fr0;
     if (fr >= rows) continue;
+    if (p.lse != nullptr && t4 == 0) p.lse[lse_index(p, b, kvh, fr)] = m_r[h] + logf(denom);
     __nv_bfloat16* dst = p.o + b * p.o_b
                          + static_cast<long long>(kvh * p.G + fr % p.G) * p.o_h
                          + static_cast<long long>(fr / p.G) * p.o_s + 2 * t4;
@@ -872,6 +883,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       const float denom = fmaxf(l, 1e-30f);
       const int fr = h ? fr1 : fr0;
       if (fr >= rows) continue;
+      if (p.lse != nullptr && t4 == 0) {       // m is in log2 units
+        p.lse[lse_index(p, b, kvh, fr)] = (sm.m[h] + log2f(denom)) * 0.6931471805599453f;
+      }
       __nv_bfloat16* dst = p.o + b * p.o_b
                            + static_cast<long long>(kvh * p.G + fr % p.G) * p.o_h
                            + static_cast<long long>(fr / p.G) * p.o_s + 2 * t4;
@@ -1008,13 +1022,14 @@ extern "C" int flash_key_tile(int D, int Dv) {
 // q, k, v, out bf16 with the element stride along D equal to 1;
 // strides[12] = (q, k, v, out) x (batch, head, position), in elements,
 // each a multiple of 8, and every base pointer 16-byte aligned. window <= 0
-// means no window. tiles: null, or two zeroed counters that the launch
-// adds its visited and masked kv tiles to. Returns a cudaError_t
-// (0 = launched).
+// means no window. lse: null (serving), or float32 (B, Hq, S) that
+// receives each row's log-sum-exp (training: the backward kernel reads
+// it). tiles: null, or two zeroed counters that the launch adds its
+// visited and masked kv tiles to. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    const long long* strides, int B, int Hkv, int S, int T,
-                                    int G, int D, int Dv, int causal, int window, int q_offset,
-                                    float scale, void* tiles, void* stream) {
+                                    void* lse, const long long* strides, int B, int Hkv, int S,
+                                    int T, int G, int D, int Dv, int causal, int window,
+                                    int q_offset, float scale, void* tiles, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || S <= 0 || T <= 0 || G <= 0
       || static_cast<long long>(S) * G > 2147483647LL - kM) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1033,6 +1048,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.n_tiles = (S * G + kM - 1) / kM;
   p.tiles = static_cast<unsigned long long*>(tiles);
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 192 && Dv == 128) return static_cast<int>(launch<192, 128>(p, B, Hkv, s));
   if (D != Dv) return static_cast<int>(cudaErrorInvalidValue);

@@ -40,6 +40,24 @@ def resolve_kernel(kind: str, device: Union[str, torch.device]) -> str:
     return kind
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record an op on these inputs: grad mode is
+    on and a floating-point input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.is_floating_point() and t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when autograd would need the gradient
+    of a kernel that has no backward: its output, written through a raw
+    pointer, would otherwise come back detached, and a loss would silently
+    train around it."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel ({why}); run it under torch.no_grad() "
+            "or with inputs that do not require grad")
+
+
 class LaunchCounter:
     """Counts one kernel's launches; ``chip_smoke.py`` and the engine read
     it to show that the main path went through the kernel."""

@@ -73,7 +73,10 @@ def moe_jam_ffn_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel on the current stream. Returns (E, C, D) bf16, with
     zeros in the rows at or past ``counts``. Raises on inputs the kernel
-    does not take and on a refused launch."""
+    does not take and on a refused launch, and under grad (its backward is
+    A13's MoE half)."""
+    loader.refuse_grad("moe_jam", "MoE training on the card is A13's MoE half",
+                       x, w_gate, w_up, w_down)
     _check(x, w_gate, w_up, w_down, counts, act)
     E, C, D = x.shape
     F = w_gate.shape[-1]

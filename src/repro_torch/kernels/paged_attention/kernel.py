@@ -95,6 +95,8 @@ def _launch(q, k_pool, v_pool, block_tables, starts, n_valid, block_size, window
     """``paged_attention_cuda`` with ``split_plan``'s cut overridden by
     ``keys_per_split`` when it is not None (the bench's sweep and the card
     tests of every split count)."""
+    loader.refuse_grad("paged_attention", "the paged path serves only; training runs "
+                       "the contiguous forward", q, k_pool, v_pool)
     _check(q, k_pool, v_pool, block_tables, starts, n_valid, block_size, window)
     B, C, H, D = q.shape
     N, _, K, _ = k_pool.shape

@@ -86,7 +86,10 @@ def ssm_scan_cuda(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """Launch the kernel on the current stream. Returns (y (B, S, I) bf16,
     zero at columns ``>= n_valid``; h_last (B, I, N) f32). ``h0`` None is
     zeros, ``n_valid`` None every column. Raises on inputs the kernel does
-    not take and on a refused launch."""
+    not take and on a refused launch, and under grad (its backward is
+    A13's third half)."""
+    loader.refuse_grad("ssm_scan", "SSM and hybrid training on the card is A13's "
+                       "third half", dt, b, c, x, a, h0)
     B, S, I = x.shape
     N = b.shape[-1]
     if h0 is None:

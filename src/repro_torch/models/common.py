@@ -61,7 +61,9 @@ class ParamBuilder:
 
     def param(self, name: str, shape: Tuple[int, ...], init: str = "normal",
               fan_in: Optional[int] = None) -> torch.Tensor:
-        if init == "zeros":
+        if self.device.type == "meta":       # shapes and dtypes alone
+            val = torch.empty(shape, dtype=self.dtype, device=self.device)
+        elif init == "zeros":
             val = torch.zeros(shape, dtype=self.dtype, device=self.device)
         elif init == "ones":
             val = torch.ones(shape, dtype=self.dtype, device=self.device)

@@ -9,6 +9,7 @@ measure the margin).
 
 Entry points:
   init_params(cfg, generator, device)               -> params
+  abstract_params(cfg)                              -> params on ``meta``
   init_cache(cfg, batch, max_len)                   -> cache (contiguous)
   init_paged_cache(cfg, num_blocks, block_size)     -> cache
   init_recurrent_cache(cfg, slots)                  -> cache
@@ -19,13 +20,23 @@ Entry points:
   forward(cfg, params, tokens, cache=, paged=)      -> (logits, cache, aux)
   forward(cfg, params, tokens, cache=, recurrent=)  -> (logits, cache, aux)
   decode_step(cfg, params, cache, token)            -> (logits, cache)
+  loss_fn(cfg, params, batch)                       -> (loss, metrics)
+
+With grad enabled, a parameter that requires grad and ``cfg.remat ==
+"full"``, each block of the cacheless forward runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of the
+scanned layer body): its activations are recomputed in the backward pass
+instead of kept.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.models import blocks as blocks_mod
@@ -90,6 +101,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    return _build_params(cfg, generator, dev, dtype)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_params``'s tree as float32 ``meta`` tensors (shapes, no
+    values): the template a checkpoint restores into."""
+    return _build_params(cfg, None, torch.device("meta"), torch.float32)
+
+
+def _build_params(cfg, generator, dev, dtype) -> Dict[str, Any]:
     b = ParamBuilder(generator, dev, dtype)
     b.param("embed", (cfg.vocab_size, cfg.d_model))
     if cfg.frontend.kind != "none" and cfg.frontend.feature_dim != cfg.d_model:
@@ -200,6 +221,8 @@ def forward(
     caches = cache["layers"] if cache is not None else [None] * cfg.num_layers
     new_layers = []
     aux = 0.0
+    remat = (cfg.remat == "full" and cache is None and contiguous and torch.is_grad_enabled()
+             and any(t.requires_grad for t in tree.leaves(params)))
     for bt, lp, lc in zip(flat_block_types(cfg), params["layers"], caches):
         lp = _cast(lp, compute_dtype)
         if recurrent is not None:
@@ -208,6 +231,10 @@ def forward(
         elif paged is not None:
             x, lc, a = blocks_mod.apply_block_paged(bt, lp, x, cfg, lc, paged,
                                                     paged_kernel)
+            aux = aux + a
+        elif remat:
+            x, lc, a = checkpoint(_remat_block, bt, lp, x, cfg, paged_kernel,
+                                  mrope_positions, use_reentrant=False)
             aux = aux + a
         else:
             x, lc, a = blocks_mod.apply_block(bt, lp, x, cfg, lc, length, paged_kernel,
@@ -228,6 +255,10 @@ def forward(
     return logits, new_cache, aux
 
 
+def _remat_block(bt, lp, x, cfg, kernel, mrope_positions):
+    return blocks_mod.apply_block(bt, lp, x, cfg, None, 0, kernel, mrope_positions)
+
+
 def decode_step(cfg: ModelConfig, params: Dict[str, Any], cache: Dict[str, Any],
                 token: torch.Tensor, *, kernel: str = "auto",
                 compute_dtype: torch.dtype = torch.bfloat16,
@@ -238,3 +269,32 @@ def decode_step(cfg: ModelConfig, params: Dict[str, Any], cache: Dict[str, Any],
     logits, cache, _ = forward(cfg, params, token, cache=cache, paged_kernel=kernel,
                                compute_dtype=compute_dtype, mrope_positions=mrope_positions)
     return logits, cache
+
+
+def loss_fn(cfg: ModelConfig, params: Dict[str, Any], batch: Dict[str, torch.Tensor], *,
+            kernel: str = "auto", compute_dtype: torch.dtype = torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (decoder) or masked-frame cross-entropy
+    (encoder, no shift), plus the MoE router losses, as the JAX package's
+    ``loss_fn``. batch: {tokens (B, S), labels (B, S), [features],
+    [mrope_positions]}. Labels outside ``[0, V)`` are masked out. Returns
+    ``(loss, {"ce", "aux", "tokens"})``, 0-d float32 tensors. ``kernel``
+    selects flash attention's kernel (and its backward) or the plain
+    version past ``models.attention.CHUNK_THRESHOLD``."""
+    logits, _, aux = forward(cfg, params, batch["tokens"], paged_kernel=kernel,
+                             compute_dtype=compute_dtype,
+                             frontend_feats=batch.get("features"),
+                             mrope_positions=batch.get("mrope_positions"))
+    labels = batch["labels"].long()
+    if not cfg.is_encoder:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    logp = F.log_softmax(logits, dim=-1)
+    n_cls = logits.shape[-1]
+    mask = (labels >= 0) & (labels < n_cls)
+    ce = -torch.gather(logp, -1, labels.clamp(0, n_cls - 1)[..., None])[..., 0]
+    ce = torch.where(mask, ce, 0.0)
+    denom = mask.sum().clamp(min=1)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    ce_mean = ce.sum() / denom
+    return ce_mean + aux, {"ce": ce_mean, "aux": aux, "tokens": denom.to(torch.float32)}

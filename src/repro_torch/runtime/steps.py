@@ -1,4 +1,10 @@
-"""The serve steps, on one device: the paged step (block-pool cache, dense
+"""The train step and the serve steps, on one device.
+
+``make_train_step`` is the JAX package's: gradient accumulation over
+micro-batches, the global-norm clip, the warmup-cosine schedule and AdamW,
+with ``remat="full"`` recomputing each block in the backward pass.
+
+The serve steps: the paged step (block-pool cache, dense
 and MoE GQA stacks) and the recurrent step (per-slot constant-size state,
 SSM and xLSTM stacks), each serving decode and chunked prefill in one
 fixed shape; and the slots backend's two steps over the contiguous cache
@@ -14,31 +20,159 @@ through ``fabric.call``. Mesh lowering is ROADMAP A14."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch import tree
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.fabric import Fabric
 from repro_torch.kernels import flash_attention, moe_jam, paged_attention, ssm_scan
 from repro_torch.kernels.loader import resolve_kernel
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.kvcache import PagedLayout, RecurrentLayout
+from repro_torch.optim import (AdamWState, adamw_update, clip_by_global_norm,
+                               warmup_cosine)
 
 
 # the launch counter of every kernel a step can run
 LAUNCH_COUNTERS = {"paged_attention": paged_attention.LAUNCHES,
                    "moe_jam": moe_jam.LAUNCHES,
                    "ssm_scan": ssm_scan.LAUNCHES,
-                   "flash_attention": flash_attention.LAUNCHES}
+                   "flash_attention": flash_attention.LAUNCHES,
+                   "flash_attention_bwd": flash_attention.BWD_LAUNCHES}
 
 
 @dataclasses.dataclass
 class StepBundle:
     fn: Callable
     meta: Dict[str, Any]
+
+
+def train_refusal(cfg: ModelConfig, seq_len: int) -> Optional[str]:
+    """Why the card cannot train ``cfg`` at ``seq_len`` yet (None: it can).
+    A kernel with no backward would return an output autograd does not
+    see; its wrapper raises at the first step, and this names the reason
+    before it."""
+    for bt in sorted(set(model_lib.flat_block_types(cfg))):
+        if bt.endswith("_moe"):
+            return (f"block {bt!r} runs moe_jam, which has no backward kernel yet: MoE "
+                    "training on the card is A13's MoE half")
+        if bt == "ssm" or bt.startswith("hybrid"):
+            return (f"block {bt!r} runs ssm_scan, which has no backward kernel yet: SSM "
+                    "and hybrid training on the card is A13's third half")
+        if bt in ("mlstm", "slstm"):
+            return f"block {bt!r}: xLSTM training on the card is one of A13's later halves"
+    a = cfg.attention
+    if a is not None and attn_mod._use_chunked(seq_len, seq_len):
+        d, dv = ((a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim) if a.kind == "mla"
+                 else (a.head_dim, a.head_dim))
+        if d != dv or d not in flash_attention.BWD_HEAD_DIMS:
+            return (f"flash attention's backward kernel has no instance at q/k {d}, v {dv} "
+                    f"(it has {flash_attention.BWD_HEAD_DIMS}): A13's later halves")
+    return None
+
+
+def make_train_step(cfg: ModelConfig, run: RunConfig, *, kernel: str = "auto", device=None,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> StepBundle:
+    """One optimizer step, as the JAX package's train step.
+
+    fn(params, opt, batch) -> (params, opt, metrics). ``params``: float32
+    masters (``models.model.init_params``); ``opt``: ``AdamWState``; both
+    updated in place and returned. ``batch``: the global batch
+    (``data.synthetic_batch``'s fields as tensors on the device), split into
+    ``run.optimizer.accum_steps`` micro-batches of consecutive rows (the
+    batch dim of ``mrope_positions`` is 1). Each micro-batch's gradients
+    (float32, ``torch.autograd.grad`` of ``models.model.loss_fn``) are
+    summed and divided by the count; then ``clip_by_global_norm``,
+    ``warmup_cosine`` at the step before the update and ``adamw_update``.
+    ``metrics``: 0-d tensors ``ce`` and ``aux`` (micro-batch means),
+    ``tokens`` (summed), ``loss`` (the mean of the micro-batch losses),
+    ``grad_norm`` (before the clip) and ``lr``.
+
+    ``kernel`` selects flash attention's kernels (forward and backward) or
+    the plain version past ``models.attention.CHUNK_THRESHOLD``; on a card
+    a stack that would reach a kernel with no backward is refused here
+    (``train_refusal``). ``meta["kernels"]`` names the kernels a step can
+    launch."""
+    dev = resolve_device(device)
+    kind = resolve_kernel(kernel, dev)
+    if kind == "cuda":
+        why = train_refusal(cfg, run.shape.seq_len)
+        if why is not None:
+            raise NotImplementedError(f"cannot train {cfg.name} on the card: {why}")
+    ocfg = run.optimizer
+    accum = max(1, ocfg.accum_steps)
+    kernels = tuple(k for k in _stack_kernels(cfg) if k == "flash_attention")
+    if kernels:
+        kernels += ("flash_attention_bwd",)
+
+    def split(batch):
+        rows = batch["tokens"].shape[0]
+        if rows % accum:
+            raise ValueError(f"a batch of {rows} rows does not split into {accum} micro-batches")
+        mb = rows // accum
+        return [{k: (v[:, i * mb:(i + 1) * mb] if k == "mrope_positions"
+                     else v[i * mb:(i + 1) * mb]) for k, v in batch.items()}
+                for i in range(accum)]
+
+    def train_step(params, opt: AdamWState, batch):
+        strict_fp32()
+        leaves = tree.leaves(params)
+        gsum, loss_sum, msum = None, None, None
+        try:
+            with torch.enable_grad():
+                for leaf in leaves:
+                    leaf.requires_grad_(True)
+                for mb in split(batch):
+                    loss, metrics = model_lib.loss_fn(cfg, params, mb, kernel=kind,
+                                                      compute_dtype=compute_dtype)
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                    grads = [torch.zeros_like(p) if g is None else g.to(torch.float32)
+                             for p, g in zip(leaves, grads)]
+                    metrics = {k: v.detach() for k, v in metrics.items()}
+                    if gsum is None:
+                        gsum, loss_sum, msum = grads, loss.detach(), metrics
+                    else:
+                        torch._foreach_add_(gsum, grads)
+                        loss_sum = loss_sum + loss.detach()
+                        msum = {k: msum[k] + metrics[k] for k in msum}
+                    del grads, loss
+        finally:
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+        if accum > 1:
+            torch._foreach_div_(gsum, float(accum))
+            loss_sum = loss_sum / accum
+            msum = dict(msum, ce=msum["ce"] / accum, aux=msum["aux"] / accum)
+        grads, gnorm = clip_by_global_norm(tree.unflatten(params, gsum), ocfg.grad_clip)
+        lr = warmup_cosine(opt.step, ocfg)
+        params, opt = adamw_update(grads, opt, params, lr, ocfg)
+        return params, opt, dict(msum, loss=loss_sum, grad_norm=gnorm, lr=lr)
+
+    return StepBundle(fn=train_step, meta=dict(
+        kind="train", kernel=kind, device=dev, accum=accum, kernels=kernels,
+        fabric=Fabric(name="steps.train")))
+
+
+def make_step(cfg: ModelConfig, run: RunConfig, batch_override: Optional[int] = None, *,
+              kernel: str = "auto", device=None,
+              compute_dtype: torch.dtype = torch.bfloat16) -> StepBundle:
+    """The step of ``run.shape.kind``: ``train`` (``make_train_step``),
+    ``prefill`` (``make_prefill_step`` into a cache of the shape's length)
+    or ``decode`` (``make_serve_step`` over the batch's slots)."""
+    kind = run.shape.kind
+    kw = dict(kernel=kernel, device=device, compute_dtype=compute_dtype)
+    if kind == "train":
+        return make_train_step(cfg, run, **kw)
+    if kind == "prefill":
+        return make_prefill_step(cfg, max_len=run.shape.seq_len, **kw)
+    if kind == "decode":
+        return make_serve_step(cfg, slots=batch_override or run.shape.global_batch, **kw)
+    raise ValueError(kind)
 
 
 def make_paged_serve_step(cfg: ModelConfig, *, slots: int, chunk: int,

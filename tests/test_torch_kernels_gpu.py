@@ -98,7 +98,18 @@ port's dependencies:
   and one in decode, tokens identical to a solo run;
 * draft -> verify speculation (ngram, k 2 and 4) on a paged llama smoke
   engine through the kernel, tokens identical to target-only decode, the
-  kernel launched once a layer per step and per verify step.
+  kernel launched once a layer per step and per verify step;
+* flash attention's backward kernel against autograd through the plain
+  version in float32 at D 64 and 128, G 1, 4 and 8, 77 and 1,111
+  positions, causal, windowed, from q_offset 7 and bidirectional (rms
+  error within 1.5x the plain bf16 path's, max within 2e-2 of max |grad|);
+  two launches bit for bit equal; the forward's log-sum-exp against
+  ``logsumexp`` of the plain scores (both designs) with the output
+  unchanged; widths with no backward instance refused; the wrappers of
+  paged attention, moe_jam and the scan (and ``flash_attention_cuda``
+  itself) refusing grad, ``make_train_step`` refusing olmoe, mamba and
+  xlstm on the card; two train steps of a 2-layer D 64 config on the card
+  (bf16, flash kernels) against the same steps on the CPU in float32.
 """
 import numpy as np
 import pytest
@@ -1437,3 +1448,227 @@ def test_mla_smoke_engine_through_kernels(cuda, monkeypatch):
         "moe_jam": (cfg.num_layers - 1) * (len(prompts) + ticks)}
     assert runs["ref"][2]["kernel_launches"] == {"flash_attention": 0, "moe_jam": 0}
     assert runs["cuda"][2]["nonfinite_logits"] == 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention's gradient (training) and the grad guards
+# ---------------------------------------------------------------------------
+
+# the kernel's root-mean-square error against the float32 gradient may be
+# at most this many times the plain bf16 path's (autograd through mha_ref
+# on bf16 inputs). The rms, not the max: at these small shapes the largest
+# error is one element's rounding, and the kernel rounds dS to bf16 for
+# dq and dk where the plain path keeps it in float32 (one such case: dq
+# max 0.0155 against 0.0101, max |g| 3.1)
+BWD_VS_PLAIN = 1.5
+# ... and its largest error within this share of the largest |float32
+# gradient|
+BWD_TOL = 2e-2
+
+
+def _grads(fn, q, k, v, w, **kw):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v, **kw)
+    (out.float() * w).sum().backward()
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def _bwd_errors(q, k, v, w, kw):
+    """For dq, dk, dv: (max |kernel - f32|, rms of it, rms of the plain
+    bf16 path's error, max |f32|)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kern = _grads(fa.flash_attention, q, k, v, w, **kw)[1:]
+    plain = _grads(fa.mha_ref, q, k, v, w, **kw)[1:]
+    f32 = _grads(fa.mha_ref, q.float(), k.float(), v.float(), w, **kw)[1:]
+    out = []
+    for a, b, c in zip(kern, plain, f32):
+        assert a.dtype == torch.bfloat16 and a.shape == c.shape
+        ek, ep = a.float() - c, b.float() - c
+        out.append((ek.abs().max().item(), ek.pow(2).mean().sqrt().item(),
+                    ep.pow(2).mean().sqrt().item(), c.abs().max().item()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [77, 1111])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_matches_plain_version(cuda, D, G, S):
+    """dq, dk, dv from bf16 inputs against autograd through the plain
+    version in float32: within ``BWD_VS_PLAIN`` x the plain bf16 path's
+    error and ``BWD_TOL`` of max |grad|; S not a multiple of any tile;
+    causal, windowed (17) from q_offset 0 and 7, bidirectional; strided
+    (the model's layout) and contiguous."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(D + G * 10 + S)
+    cases = [dict(causal=True, window=None, q_offset=0, T=S),
+             dict(causal=True, window=17, q_offset=0, T=S),
+             dict(causal=True, window=None, q_offset=7, T=S + 7),
+             dict(causal=False, window=None, q_offset=0, T=S + 5)]
+    bad = []
+    for i, c in enumerate(cases):
+        q, k, v = _flash_case(cuda, rng, B=2, Hkv=2, G=G, S=S, T=c["T"], D=D,
+                              strided=i % 2 == 0)
+        w = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(cuda)
+        kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_offset"])
+        before = (fa.LAUNCHES.count, fa.BWD_LAUNCHES.count)
+        errs = _bwd_errors(q, k, v, w, kw)
+        assert (fa.LAUNCHES.count, fa.BWD_LAUNCHES.count) == (before[0] + 1, before[1] + 1)
+        for name, (e_max, e_k, e_p, top) in zip(("dq", "dk", "dv"), errs):
+            if not (e_k <= BWD_VS_PLAIN * e_p and e_max <= BWD_TOL * top):
+                bad.append((c, name, e_max, e_k, e_p, top))
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_flash_bwd_is_deterministic(cuda):
+    """Two backward launches on the same inputs give the same bits (no
+    atomics), at llama3.2-1b's heads (32/8 of 64) over 1,000 positions."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    q, k, v = _flash_case(cuda, rng, B=1, Hkv=8, G=4, S=1000, T=1000, D=64, strided=True)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v)
+    dout = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(cuda,
+                                                                               torch.bfloat16)
+    one = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    two = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(16, 16), (64, 64), (80, 80), (128, 128), (256, 256),
+                                  (192, 128)])
+def test_flash_lse_matches_logsumexp(cuda, D, Dv):
+    """The forward's log-sum-exp (both designs) against ``logsumexp`` of
+    the plain version's float32 scaled, masked scores; the output with
+    ``lse`` on is the serving output, bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    rng = np.random.default_rng(D)
+    for c in (dict(causal=True, window=None, q_offset=0),
+              dict(causal=True, window=33, q_offset=5)):
+        S, T = 300, 300 + c["q_offset"]
+        q, k, _ = _flash_case(cuda, rng, B=2, Hkv=2, G=2, S=S, T=T, D=D, strided=True)
+        v = _flash_case(cuda, rng, B=2, Hkv=2, G=1, S=1, T=T, D=Dv, strided=True)[1]
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, **c)
+        serving = fa.flash_attention_cuda(q, k, v, **c)
+        assert torch.equal(out.view(torch.int16), serving.view(torch.int16))
+        kx = k.float().repeat_interleave(2, dim=1)
+        s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) * D ** -0.5
+        mask = visible_mask(S, T, causal=True, window=c["window"], q_offset=c["q_offset"],
+                            device=cuda)
+        want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+        assert lse.shape == (2, 4, S) and lse.dtype == torch.float32
+        assert (lse - want).abs().max().item() <= 1e-3 * (1 + want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refuses_widths_without_instance(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(0)
+    q, k, v = _flash_case(cuda, rng, B=1, Hkv=1, G=1, S=40, T=40, D=80, strided=False)
+    with pytest.raises(ValueError, match="later halves"):
+        fa.flash_attention(q.requires_grad_(True), k, v)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_grad(cuda):
+    """Under grad no floating-point kernel returns an output autograd does
+    not see: flash attention differentiates through FlashAttentionFn, the
+    wrappers with no backward raise (and run under no_grad)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(1)
+    q, k, v = _flash_case(cuda, rng, B=1, Hkv=2, G=2, S=64, T=64, D=64, strided=False)
+    q.requires_grad_(True)
+    assert fa.flash_attention(q, k, v).grad_fn is not None
+    with pytest.raises(NotImplementedError, match="FlashAttentionFn"):
+        fa.flash_attention_cuda(q, k, v)
+    with torch.no_grad():
+        fa.flash_attention_cuda(q, k, v)
+
+    c = _case(rng, bs=16, B=2, C=4, K=2, G=2, D=64, M=4)
+    pq, pk, pv, tables, starts, n_valid = _on(cuda, c[:6])
+    pq = pq.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="serves only"):
+        paged_attention_cuda(pq, pk, pv, tables, starts, n_valid, block_size=16)
+
+    x = torch.randn(4, 8, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    w = [torch.randn(4, 64, 64, device=cuda, dtype=torch.bfloat16) for _ in range(2)]
+    wd = torch.randn(4, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="MoE half"):
+        moe_jam.moe_jam_ffn_cuda(x, w[0], w[1], wd)
+
+    dt, b_, c_, xs, a = _scan_case(rng, cuda, 2, 8, 64, 16)[:5]
+    with pytest.raises(NotImplementedError, match="third half"):
+        ssm_scan.ssm_scan_cuda(dt, b_, c_, xs.requires_grad_(True), a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba-130m", "xlstm-1.3b"])
+def test_make_train_step_refuses_on_the_card(cuda, arch):
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_smoke(arch)
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_train_step(cfg, RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train")),
+                        device=cuda)
+
+
+@pytest.mark.gpu
+def test_two_train_steps_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """A 2-layer GQA config at head dim 64 (llama's smoke widened), 2 x 256
+    tokens through flash (the chunking threshold lowered): two steps on
+    the card in bf16 (flash forward and backward kernels) against the same
+    steps on the CPU in float32 (the plain version): each step's loss
+    within 1e-2 and its grad norm within 5e-2 (relative), and the two
+    steps' parameter change within 0.25 of the CPU's in L2 norm (the
+    first step's lr is 0; bf16 moves the Adam direction of small
+    gradients)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+
+    monkeypatch.setattr(tattn, "CHUNK_THRESHOLD", 1024)
+    base = get_smoke("llama3.2-1b")
+    cfg = dataclasses.replace(base, num_layers=2, remat="full",
+                              attention=dataclasses.replace(base.attention, head_dim=64))
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 256, 2, "train"),
+                    optimizer=OptimizerConfig(total_steps=10, warmup_steps=1, lr=1e-3))
+    p0 = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev, dtype in ((cuda, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        params = tree.map_(lambda t: t.clone().to(dev), p0)
+        opt = adamw_init(params)
+        bundle = make_train_step(cfg, run, device=dev, compute_dtype=dtype)
+        before = (fa.LAUNCHES.count, fa.BWD_LAUNCHES.count)
+        metrics = []
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in synthetic_batch(cfg, run.shape, s).items()}
+            params, opt, m = bundle.fn(params, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = (fa.LAUNCHES.count - before[0], fa.BWD_LAUNCHES.count - before[1])
+        out[dev.type] = (metrics, tree.map_(lambda t: t.cpu(), params), launches)
+    (mc, pc, lc), (mf, pf, lf) = out["cuda"], out["cpu"]
+    assert lc == (2 * 2 * 2, 2 * 2) and lf == (0, 0)     # remat: two forwards a layer
+    for a, b in zip(mc, mf):
+        assert abs(a["loss"] - b["loss"]) <= 1e-2 * b["loss"], (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"], (a, b)
+    du = torch.cat([(a - p).flatten() for a, p in zip(tree.leaves(pc), tree.leaves(p0))])
+    dw = torch.cat([(a - p).flatten() for a, p in zip(tree.leaves(pf), tree.leaves(p0))])
+    assert (du - dw).norm() <= 0.25 * dw.norm()
