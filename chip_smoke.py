@@ -367,6 +367,8 @@ FLASH_TOL = 2e-2
 # (autograd through ``mha_ref`` on bf16 inputs) and at most BWD_TOL of max
 # |grad|: both round p (and the kernel dS) to bf16 for their products
 BWD_VS_PLAIN, BWD_TOL = 1.5, 2e-2
+# the backward's three launches, by the names of their kernels
+BWD_PASSES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 # the train phase: llama3.2-1b at full width and depth, the JAX package's
 # train_4k sequence length, a global batch of 8 in 4 micro-batches of 2,
 # remat="full", lr 3e-4 (warmup 1 step, as the launcher sets it for 6),
@@ -842,13 +844,16 @@ def check_flash_bwd(torch, dev):
     the backward kernel (from the forward's out and lse), the plain
     version's backward (autograd through ``mha_ref``'s bf16 graph), and
     SDPA forward + backward by autograd less its forward; the forward with
-    lse, ``mha_ref`` in bf16, and SDPA's forward. Returns ``{"fwd": entry,
-    "bwd": entry}``, the JSON entries of the forward with lse and of the
-    backward (without ``launches``), timed on the first shape, the numbers
-    of each shape under ``shapes``."""
+    lse, ``mha_ref`` in bf16, and SDPA's forward. The backward's three
+    launches (the delta pre-pass, the dk/dv pass, the dq pass) are also
+    timed one by one by ``torch.profiler`` over one launch after a flush.
+    Returns ``{"fwd": entry, "bwd": entry}``, the JSON entries of the
+    forward with lse and of the backward (without ``launches``), timed on
+    the first shape, the numbers of each shape under ``shapes``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import timing
     from repro_torch.kernels.flash_attention import bench as fbench
+    from repro_torch.kernels.flash_attention.kernel import BWD_DESIGN
 
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
@@ -876,7 +881,8 @@ def check_flash_bwd(torch, dev):
                        c.abs().max().item())
         del got, plain, f32
         torch.cuda.empty_cache()
-        log(f"[kernel] flash_attention_bwd {name} {tuple(q.shape)} x {tuple(k.shape)} {kw}: "
+        log(f"[kernel] flash_attention_bwd ({BWD_DESIGN}) {name} {tuple(q.shape)} x "
+            f"{tuple(k.shape)} {kw}: "
             + ", ".join(f"{g} max |kernel - f32| {e[0]:.3e} (plain bf16 {e[1]:.3e}, max |g| "
                         f"{e[2]:.3e})" for g, e in errs.items()))
         bad = [g for g, (e_k, e_p, top) in errs.items()
@@ -906,13 +912,19 @@ def check_flash_bwd(torch, dev):
         torch.cuda.empty_cache()
         fwd, both = fbench.bwd_yardstick(q, k, v, shape, dout)
         library_ms = timing.timed_ms(both, 20, flush) - timing.timed_ms(fwd, 20, flush)
+        passes = _busy(torch, lambda: (timing.flush_l2(flush), fa.flash_attention_bwd_cuda(
+            q, k, v, out, dout, lse, **kw)), repeats=1, matches=BWD_PASSES)["match_ms"]
         max_err = max(e[0] for e in errs.values())
         shapes[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, bound_ms=bound, bound_by=bound_by,
-                            errors=errs, deterministic=True,
+                            errors=errs, deterministic=True, design=BWD_DESIGN,
+                            passes_ms=passes,
                             library_backend=fbench.yardstick_backend(q, k, v, shape))
-        log(f"[kernel] flash_attention_bwd {name} timing (L2 flushed per launch): kernel "
-            f"{ms:.4f} ms, plain (autograd through mha_ref, bf16) {plain_ms:.4f} ms, SDPA "
+        log(f"[kernel] flash_attention_bwd ({BWD_DESIGN}) {name} timing (L2 flushed per "
+            f"launch): kernel {ms:.4f} ms (device ms by launch, profiled: "
+            + ", ".join(f"{k_} {v_:.4f}" if v_ is not None else f"{k_} none"
+                        for k_, v_ in passes.items())
+            + f"), plain (autograd through mha_ref, bf16) {plain_ms:.4f} ms, SDPA "
             f"forward + backward less forward {library_ms:.4f} ms "
             f"({shapes[name]['library_backend']}); {work['pairs']} visible pairs -> "
             f"{work['flops']} flops (2.5x the forward's) -> "
@@ -926,6 +938,7 @@ def check_flash_bwd(torch, dev):
     first, fwd = shapes[next(iter(shapes))], fwd_shapes[next(iter(fwd_shapes))]
     return {
         "bwd": {"name": "flash_attention_bwd", "route": "cuda", "path": f"{TRAIN_ARCH} train",
+                "design": BWD_DESIGN,
                 "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
                 "replaces": "src/repro/models/attention.py:154 (no TPU kernel: the JAX "
                             "package differentiates _sdpa_chunked by recompute)",
@@ -1213,15 +1226,16 @@ def train_path(torch, dev, card):
              for k, v in synthetic_batch(cfg, shape, TRAIN_STEPS, run.seed).items()}
     params, opt = trainer.params, trainer.opt
     prof = _busy(torch, lambda: step_fn(params, opt, batch), repeats=1,
-                 matches=("flash_wgmma", "bwd_"))
+                 matches=("flash_wgmma", "bwd_") + BWD_PASSES)
     busy = prof["busy_ms"] or 0.0
     log(f"[train] one step profiled: wall {prof['wall_ms']:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {1 - busy / prof['wall_ms']:.3f}), flash forward "
         f"{prof['match_ms']['flash_wgmma']:.1f} ms ({prof['match_ops']['flash_wgmma']} "
         f"launches, {prof['match_ms']['flash_wgmma'] / max(busy, 1e-9):.3f} of busy), "
         f"backward {prof['match_ms']['bwd_']:.1f} ms ({prof['match_ops']['bwd_']} kernels, "
-        f"{prof['match_ms']['bwd_'] / max(busy, 1e-9):.3f} of busy); top device ops "
-        f"{prof['top']}")
+        f"{prof['match_ms']['bwd_'] / max(busy, 1e-9):.3f} of busy; "
+        + ", ".join(f"{m} {prof['match_ms'][m]:.1f} ms" for m in BWD_PASSES)
+        + f"); top device ops {prof['top']}")
     del batch, params, opt, trainer
     gc.collect()
     torch.cuda.empty_cache()

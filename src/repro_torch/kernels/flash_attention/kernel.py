@@ -26,8 +26,10 @@ LAUNCHES = loader.LaunchCounter()
 BWD_LAUNCHES = loader.LaunchCounter()
 # the C interface's design codes (flash_design)
 DESIGN_NAMES = {1: "mma v1", 2: "tma-wgmma v2"}
-# the head widths (q, k and v of one width) the backward has instances for
+# the head widths (q, k and v of one width) the backward has instances for,
+# and its design (both widths)
 BWD_HEAD_DIMS = (64, 128)
+BWD_DESIGN = "tma-wgmma v2"
 _lib = None
 _bwd_lib = None
 

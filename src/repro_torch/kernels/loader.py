@@ -2,8 +2,9 @@
 
 Every kernel source (``kernels/*/csrc/*.cu``) has a plain C interface. At
 first use it is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/``
-at the root of the checkout, named by a hash of the source and the flags,
-and loaded with ``ctypes``; later uses find the library already built.
+at the root of the checkout, named by a hash of the source, the headers
+beside it (``csrc/*.cuh``) and the flags, and loaded with ``ctypes``;
+later uses find the library already built.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside each library as ``<name>.log``. Nothing is built or loaded when a
 module is imported.
@@ -84,7 +85,8 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -22,6 +22,10 @@ buffer), so a prefill of thousands of tokens launches a few hundred
 operations a layer, not several a column. ``ssm_scan_loop`` is the same
 recurrence a column at a time, as written above; the two round in other
 orders (relative differences of a few float32 ulps).
+
+Under grad (grad mode on and an input that requires it) the passes build
+new tensors, which autograd can differentiate; serving, under
+``no_grad``, keeps the two buffers and their in-place updates.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.loader import needs_grad
 
 # float32 elements in one of the prefix scan's four (B, S, channels, N)
 # buffers: 64 MB each
@@ -46,6 +51,7 @@ def ssm_scan_ref(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     Returns (y (B, S, I) in x.dtype, h_last (B, I, N) f32)."""
     B, S, I = x.shape
     N = b.shape[-1]
+    grad = needs_grad(dt, b, c, x, a, h0)
     y = torch.empty((B, S, I), dtype=torch.float32, device=x.device)
     h_last = torch.empty((B, I, N), dtype=torch.float32, device=x.device)
     invalid = None
@@ -58,23 +64,38 @@ def ssm_scan_ref(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         dt_f = dt[:, :, ch].float()
         decay = torch.exp(dt_f[..., None] * a[ch].float())              # (B, S, w, N)
         inp = (dt_f * x[:, :, ch].float())[..., None] * b_f
-        if invalid is not None:
-            decay.masked_fill_(invalid, 1.0)
-            inp.masked_fill_(invalid, 0.0)
-        # inclusive prefix composition: column t's map after the one ending
-        # at t - d, into the other buffer (the pass reads what it replaces)
-        inp2, decay2 = torch.empty_like(inp), torch.empty_like(decay)
-        d = 1
-        while d < S:
-            inp2[:, :d] = inp[:, :d]
-            torch.addcmul(inp[:, d:], decay[:, d:], inp[:, :-d], out=inp2[:, d:])
-            decay2[:, :d] = decay[:, :d]
-            torch.mul(decay[:, d:], decay[:, :-d], out=decay2[:, d:])
-            inp, inp2, decay, decay2 = inp2, inp, decay2, decay
-            d *= 2
-        del inp2, decay2
-        if h0 is not None:
-            inp.addcmul_(decay, h0[:, None, ch].float())
+        if grad:
+            if invalid is not None:
+                decay = decay.masked_fill(invalid, 1.0)
+                inp = inp.masked_fill(invalid, 0.0)
+            # inclusive prefix composition: column t's map after the one
+            # ending at t - d
+            d = 1
+            while d < S:
+                step = torch.addcmul(inp[:, d:], decay[:, d:], inp[:, :-d])
+                inp = torch.cat([inp[:, :d], step], 1)
+                decay = torch.cat([decay[:, :d], decay[:, d:] * decay[:, :-d]], 1)
+                d *= 2
+            if h0 is not None:
+                inp = torch.addcmul(inp, decay, h0[:, None, ch].float())
+        else:
+            if invalid is not None:
+                decay.masked_fill_(invalid, 1.0)
+                inp.masked_fill_(invalid, 0.0)
+            # the same passes between two buffers (a pass reads what it
+            # replaces)
+            inp2, decay2 = torch.empty_like(inp), torch.empty_like(decay)
+            d = 1
+            while d < S:
+                inp2[:, :d] = inp[:, :d]
+                torch.addcmul(inp[:, d:], decay[:, d:], inp[:, :-d], out=inp2[:, d:])
+                decay2[:, :d] = decay[:, :d]
+                torch.mul(decay[:, d:], decay[:, :-d], out=decay2[:, d:])
+                inp, inp2, decay, decay2 = inp2, inp, decay2, decay
+                d *= 2
+            del inp2, decay2
+            if h0 is not None:
+                inp.addcmul_(decay, h0[:, None, ch].float())
         y[:, :, ch] = torch.einsum("bsin,bsn->bsi", inp, c_f)
         h_last[:, ch] = inp[:, -1]
         del inp, decay

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
+from repro_torch.kernels.loader import needs_grad
 from repro_torch.models.common import ParamBuilder, act_fn
 from repro_torch.models.ssm import _causal_conv
 
@@ -95,22 +96,34 @@ def _mlstm_scan(q, k, v, i_raw, f_raw, state: Optional[State] = None,
     a (B, H, dh, dh) select). The stabiliser and gate weights depend on the
     gates alone and are taken for every column first (``_gates``); then C
     (copied once, then updated in place) and n advance column by column,
-    four operations a column; the outputs' denominators are taken after."""
+    four operations a column; the outputs' denominators are taken after.
+    Under grad each column makes new tensors instead, which autograd can
+    differentiate."""
     B, S, H, dh = q.shape
     c, n, m0 = _zero_state(B, H, dh, q.device) if state is None else state
-    c = c.clone()
+    grad = needs_grad(q, k, v, i_raw, f_raw, c, n, m0)
     m, f_p, i_p = _gates(F.logsigmoid(f_raw.float()), i_raw.float(), m0, valid)
     col = lambda t: t.transpose(0, 1).contiguous()                # column-major copies
     qf = q.float()
     ik, vf = col(i_p[..., None] * (k.float() * (dh ** -0.5))), col(v.float())
     q_rows, f_col = col(qf).view(S, B * H, 1, dh), col(f_p)
-    c_rows = c.view(B * H, dh, dh)
-    num = torch.empty((S, B * H, 1, dh), dtype=torch.float32, device=q.device)
-    ns = torch.empty((S, B, H, dh), dtype=torch.float32, device=q.device)
-    for t in range(S):
-        c.mul_(f_col[t][..., None, None]).addcmul_(ik[t][..., :, None], vf[t][..., None, :])
-        torch.bmm(q_rows[t], c_rows, out=num[t])
-        n = torch.addcmul(ik[t], f_col[t][..., None], n, out=ns[t])
+    if grad:
+        nums, n_list = [], []
+        for t in range(S):
+            c = c * f_col[t][..., None, None] + ik[t][..., :, None] * vf[t][..., None, :]
+            nums.append(torch.bmm(q_rows[t], c.view(B * H, dh, dh)))
+            n = torch.addcmul(ik[t], f_col[t][..., None], n)
+            n_list.append(n)
+        num, ns = torch.stack(nums), torch.stack(n_list)
+    else:
+        c = c.clone()
+        c_rows = c.view(B * H, dh, dh)
+        num = torch.empty((S, B * H, 1, dh), dtype=torch.float32, device=q.device)
+        ns = torch.empty((S, B, H, dh), dtype=torch.float32, device=q.device)
+        for t in range(S):
+            c.mul_(f_col[t][..., None, None]).addcmul_(ik[t][..., :, None], vf[t][..., None, :])
+            torch.bmm(q_rows[t], c_rows, out=num[t])
+            n = torch.addcmul(ik[t], f_col[t][..., None], n, out=ns[t])
     den = torch.maximum((ns * qf.transpose(0, 1)).sum(-1).abs(), torch.exp(-col(m)))
     y = num.view(S, B, H, dh) / den[..., None]
     return y.transpose(0, 1), (c, n, m[:, -1])

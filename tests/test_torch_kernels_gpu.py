@@ -1490,23 +1490,29 @@ def _bwd_errors(q, k, v, w, kw):
     return out
 
 
+# (D, G, S): every width and grouping at S off any tile (77, 1,111),
+# exactly one 128-position tile (128) and one past it by a position (129);
+# granite-20b's grouping (G 48) at D 128
+BWD_CASES = ([(D, G, S) for D in (64, 128) for G in (1, 4, 8) for S in (77, 128, 129, 1111)]
+             + [(128, 48, S) for S in (77, 129, 1111)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [77, 1111])
-@pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D,G,S", BWD_CASES)
 def test_flash_bwd_matches_plain_version(cuda, D, G, S):
     """dq, dk, dv from bf16 inputs against autograd through the plain
     version in float32: within ``BWD_VS_PLAIN`` x the plain bf16 path's
-    error and ``BWD_TOL`` of max |grad|; S not a multiple of any tile;
-    causal, windowed (17) from q_offset 0 and 7, bidirectional; strided
-    (the model's layout) and contiguous."""
+    error and ``BWD_TOL`` of max |grad|; causal, windowed (17, and 100,
+    whose edge ends inside a tile, from q_offset 3) from q_offset 0 and 7,
+    bidirectional; strided (the model's layout) and contiguous."""
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(D + G * 10 + S)
     cases = [dict(causal=True, window=None, q_offset=0, T=S),
              dict(causal=True, window=17, q_offset=0, T=S),
              dict(causal=True, window=None, q_offset=7, T=S + 7),
-             dict(causal=False, window=None, q_offset=0, T=S + 5)]
+             dict(causal=False, window=None, q_offset=0, T=S + 5),
+             dict(causal=True, window=100, q_offset=3, T=S + 3)]
     bad = []
     for i, c in enumerate(cases):
         q, k, v = _flash_case(cuda, rng, B=2, Hkv=2, G=G, S=S, T=c["T"], D=D,

@@ -253,8 +253,15 @@ def _port_grads(cfg, tp, nb):
     return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
 
 
-@pytest.mark.parametrize("path", ["sdpa", "flash"])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-4b"])
+# the recurrent and hybrid stacks (mamba's SSM scan, xLSTM's mLSTM scan and
+# sLSTM) through their plain paths' out-of-place form under grad; "sdpa"
+# names the default path, which for mamba and xlstm has no attention
+GRAD_CASES = [("llama3.2-1b", "sdpa"), ("llama3.2-1b", "flash"), ("gemma3-4b", "sdpa"),
+              ("gemma3-4b", "flash"), ("mamba-130m", "sdpa"), ("hymba-1.5b", "sdpa"),
+              ("hymba-1.5b", "flash"), ("xlstm-1.3b", "sdpa")]
+
+
+@pytest.mark.parametrize("arch,path", GRAD_CASES, ids=[f"{a}-{p}" for a, p in GRAD_CASES])
 def test_gradients_match_jax(arch, path, monkeypatch):
     if path == "flash":
         _flash(monkeypatch)
@@ -324,6 +331,90 @@ def test_mha_ref_gradient_matches_jax(hq, hkv, window):
         _close_rel(a.numpy(), np.asarray(b), GRAD_TOL, name)
 
 
+def _mlstm_grad_inputs(rng, B, S, H, dh, with_state):
+    f = lambda *s: (rng.standard_normal(s) * 0.4).astype(np.float32)
+    ins = (f(B, S, H, dh), f(B, S, H, dh), f(B, S, H, dh),
+           rng.standard_normal((B, S, H)).astype(np.float32),
+           (rng.standard_normal((B, S, H)) + 1.0).astype(np.float32))
+    state = None
+    if with_state:                             # a finite stabiliser: -inf has no gradient
+        state = (f(B, H, dh, dh), f(B, H, dh), rng.standard_normal((B, H)).astype(np.float32))
+    # weights of y (B, S, H, dh), C, n and m in the loss
+    weights = (f(B, S, H, dh), f(B, H, dh, dh), f(B, H, dh), f(B, H))
+    return ins, state, weights
+
+
+def _mlstm_grads_close(jfn, tfn, ins, state, weights, what):
+    """jax.grad of sum(y * w) + the weighted final state through ``jfn``
+    against autograd through ``tfn``, for every input and state leaf."""
+    def jloss(ins, state):
+        y, st = jfn(*ins, state)
+        return sum(jnp.sum(a * w) for a, w in zip((y, *st), weights))
+
+    jg = jax.grad(jloss, argnums=(0, 1))(tuple(map(jnp.asarray, ins)),
+                                          None if state is None
+                                          else tuple(map(jnp.asarray, state)))
+    t_ins = [torch.from_numpy(a).requires_grad_(True) for a in ins]
+    t_st = None if state is None else [torch.from_numpy(a).requires_grad_(True) for a in state]
+    y, st = tfn(*t_ins, None if t_st is None else tuple(t_st))
+    loss = sum((a * torch.from_numpy(w)).sum() for a, w in zip((y, *st), weights))
+    leaves = t_ins + ([] if t_st is None else t_st)
+    got = torch.autograd.grad(loss, leaves)
+    want = list(jg[0]) + ([] if state is None else list(jg[1]))
+    for name, g, w in zip(["q", "k", "v", "i", "f", "C0", "n0", "m0"], got, want):
+        _close_rel(g.numpy(), np.asarray(w), GRAD_TOL, f"{what} d{name}")
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_chunked_gradient_matches_jax(with_state):
+    """The chunk-parallel mLSTM, which a 16-token smoke does not reach: two
+    chunks of 4 (S = 2 x chunk, the least that takes it)."""
+    from repro.models import xlstm as jx
+    from repro_torch.models import xlstm as tx
+    ins, state, weights = _mlstm_grad_inputs(np.random.default_rng(41 + with_state),
+                                             2, 8, 2, 8, with_state)
+    _mlstm_grads_close(functools.partial(jx._mlstm_chunked, chunk=4),
+                       functools.partial(tx._mlstm_chunked, chunk=4), ins, state, weights,
+                       "chunked")
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_scan_gradient_matches_jax(with_state):
+    """The column-by-column mLSTM under grad (its out-of-place form), with a
+    valid gate that leaves one row idle and stops one part-way."""
+    from repro.models import xlstm as jx
+    from repro_torch.models import xlstm as tx
+    ins, state, weights = _mlstm_grad_inputs(np.random.default_rng(43 + with_state),
+                                             3, 6, 2, 8, with_state)
+    valid = np.arange(6)[None, :] < np.array([0, 4, 6])[:, None]
+    weights = (weights[0] * valid[:, :, None, None],) + weights[1:]    # y is garbage off valid
+    _mlstm_grads_close(lambda *a: jx._mlstm_scan(*a, jnp.asarray(valid)),
+                       lambda *a: tx._mlstm_scan(*a, torch.from_numpy(valid)),
+                       ins, state, weights, "scan")
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_ssm_scan_ref_gradient_matches_loop(gated):
+    """The prefix scan's out-of-place form under grad against autograd
+    through the column loop, with a carried state and (gated) a valid
+    prefix per row."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_loop, ssm_scan_ref
+    rng = np.random.default_rng(7 + gated)
+    B, S, I, N = 3, 11, 6, 4
+    f = lambda *s: torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))
+    dt, x, b, c = f(B, S, I).abs(), f(B, S, I), f(B, S, N), f(B, S, N)
+    a, h0 = -f(I, N).abs() - 0.1, f(B, I, N)
+    n_valid = torch.tensor([0, 5, S]) if gated else None
+    wy, wh = f(B, S, I), f(B, I, N)
+    grads = []
+    for fn in (ssm_scan_ref, ssm_scan_loop):
+        leaves = [t.clone().requires_grad_(True) for t in (dt, b, c, x, a, h0)]
+        y, h = fn(*leaves, n_valid=n_valid)
+        grads.append(torch.autograd.grad((y * wy).sum() + (h * wh).sum(), leaves))
+    for name, g, w in zip(["dt", "b", "c", "x", "a", "h0"], *grads):
+        _close_rel(g.numpy(), w.numpy(), GRAD_TOL, f"d{name}")
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
@@ -385,6 +476,27 @@ def test_train_step_matches_jax(accum, jax_steps):
     assert int(ported.step) == int(opt.step) == 2
     for a, b in zip(tree.leaves(opt.m), tree.leaves(ported.m)):
         _close_rel(a.numpy(), b.numpy(), GRAD_TOL, "m")
+
+
+@pytest.mark.parametrize("arch", ["mamba-130m", "hymba-1.5b", "xlstm-1.3b"])
+def test_train_step_runs_recurrent_smokes(arch):
+    """Two ``make_train_step`` steps of each recurrent or hybrid smoke on
+    the CPU (the first at the warmup's lr of 0): finite losses and
+    gradients, and every leaf moved by the second."""
+    cfg = get_smoke(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", SEQ, BATCH, "train"),
+                    optimizer=OptimizerConfig(total_steps=10, warmup_steps=1))
+    _, tp0 = _weights(arch)
+    params = tree.map_(torch.clone, tp0)
+    opt = adamw_init(params)
+    bundle = make_train_step(cfg, run, device="cpu", compute_dtype=torch.float32)
+    for s in range(2):
+        params, opt, m = bundle.fn(params, opt, _tbatch(synthetic_batch(cfg, run.shape, s)))
+        assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), s
+        assert float(m["grad_norm"]) > 0, s
+    assert float(m["lr"]) > 0
+    moved = [not torch.equal(a, b) for a, b in zip(tree.leaves(params), tree.leaves(tp0))]
+    assert all(moved), f"{arch}: {moved.count(False)} leaves did not move"
 
 
 def test_make_step_dispatches():
