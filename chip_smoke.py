@@ -44,17 +44,20 @@ phase prints the seconds it took):
    prefill (8/4 heads of 256, 4,096 tokens, causal, window None and
    1,024), granite-20b's heads (48/1 of 128, 2,304 tokens), deepseek-v2-
    lite-16b's MLA prefill (16 heads, q and k of 192, v of 128, 4,096
-   tokens) (TMA + wgmma v2) and an odd shape (2 x 32 heads of 80, 2,113
-   tokens from position 7; mma.sync v1), with the share of visited key
-   tiles that take the mask, the key tile and the backend that took the
-   library call; moe_jam again at deepseek's buckets (64 experts of 2048 x
-   1408, top-6 routed uniformly) at a decode tick of 8 slots (capacity 8)
+   tokens) and an odd shape (2 x 32 heads of 80, 2,113 tokens from
+   position 7), every one TMA + wgmma v2, with the share of visited key
+   tiles that take the mask, the key tile, the backend that took the
+   library call and the SFUs' floor for the exponentials beside the
+   bound; the forward with lse at D 80 (the odd and hubert shapes) and
+   D 16 (``LSE_D16_SHAPE``) against ``logsumexp``; moe_jam again at
+   deepseek's buckets (64 experts of 2048 x 1408, top-6 routed uniformly)
+   at a decode tick of 8 slots (capacity 8)
    and a 4,096-token prefill (capacity 480); flash attention at
    hymba-1.5b's prefill (25/5 heads of 64, 4,096 tokens, causal, window
    None and 1,024), qwen2-vl-72b's (64/8 heads of 128, 4,096 tokens,
    causal), llama3.2-1b's (32/8 heads of 64, 4,096 tokens, causal: the
    cluster phase's slots replicas) and hubert-xlarge's encoder (2 clips x 16/16 heads of 80, 4,096
-   frames, no causal mask; v1); the selective scan as the slots backend
+   frames, no causal mask: no tile takes the mask); the selective scan as the slots backend
    runs it, with no valid gate: one row of 3,800 columns and a decode
    tick of 8 rows, at mamba-130m's 1,536 channels and hymba-1.5b's 3,200,
    N 16 (one check function for every scan shape, ``SCAN_SHAPES``). Each
@@ -361,6 +364,12 @@ GRAPH_KILL_TICK = 4
 # compare``): bf16 outputs, and the kernel rounds the unnormalized p to bf16
 # before P.V where the plain version rounds the normalized probabilities
 FLASH_TOL = 2e-2
+# the forward's lse is held at the train shapes (D 64, 128) and at the
+# other widths the forward serves: D 80 (the odd and hubert-xlarge check
+# shapes) and D 16, the smokes' heads (4 over 2), causal from position 5
+# with a window of 9 over 2,113 tokens (the same fields as
+# ``flash_attention.bench.SHAPES``)
+LSE_D16_SHAPE = (2, 4, 2, 2113, 2118, 16, True, 9, 5, 16)
 # flash attention's backward: dq, dk and dv from bf16 inputs against
 # autograd through the plain version in float32 (``mha_ref``). The
 # kernel's max error may be at most BWD_VS_PLAIN x the plain bf16 path's
@@ -717,7 +726,7 @@ def check_ssm_scan(torch, dev, cfgs):
         work = sbench.needed_work(nv_np, inner=inner, state=state)
         bound, bound_by = timing.bound_ms(work)
         r = dict(design=design, max_abs_err=max(max_y, max_h), bound_ms=bound,
-                 bound_by=bound_by, sfu_ms=work["exps"] / sbench.SFU_EXP_PER_S * 1e3,
+                 bound_by=bound_by,
                  ms=timing.timed_ms(lambda: ss.ssm_scan_cuda(*args), 100, flush),
                  plain_ms=timing.timed_ms(lambda: ss.ssm_scan_ref(*args), 5, flush),
                  loop_ms=timing.timed_ms(lambda: ssm_scan_loop(*args), 2, flush),
@@ -735,7 +744,7 @@ def check_ssm_scan(torch, dev, cfgs):
             f"{work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; "
             f"{work['f32_flops']} float32 operations -> "
             f"{work['f32_flops'] / timing.F32_FLOPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; "
-            f"{work['exps']} exponentials -> {r['sfu_ms']:.5f} ms on the SFUs; bound "
+            f"{work['exps']} exponentials -> {timing.sfu_ms(work):.5f} ms on the SFUs; bound "
             f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.3f} of it")
         del args
     del flush
@@ -812,7 +821,8 @@ def check_flash(torch, dev, cfgs):
             f"-> {work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
             f"{work['bytes']} bytes -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms "
             f"at 3.35 TB/s; bound {bound:.5f} ms ({bound_by}), kernel at "
-            f"{bound / r['ms']:.3f} of it; {design}, the mask on {walk['masked']} of "
+            f"{bound / r['ms']:.3f} of it; SFU floor {timing.sfu_ms(work):.5f} ms ({work['exps']} "
+            f"exponentials); {design}, the mask on {walk['masked']} of "
             f"{walk['visited']} visited tiles (counted by the kernel)")
         del q, k, v
     del flush
@@ -959,14 +969,12 @@ def check_flash_bwd(torch, dev):
     }
 
 
-def _flash_lse_forward(torch, fa, fbench, timing, flush, visible_mask, name, shape,
-                       q, k, v, out, lse, kw):
-    """``check_flash_bwd``'s hold and timing of the forward with lse at one
-    shape: ``out`` (from ``flash_attention_lse_cuda``) against
-    ``mha_ref`` in float32 at ``FLASH_TOL``, ``lse`` against ``logsumexp``
-    of the plain float32 scores within 1e-3 of (1 + max |lse|); timed as
-    ``check_flash`` times the serving forward, its bound counting the lse
-    written. Returns the shape's numbers."""
+def _hold_lse(torch, fa, visible_mask, name, shape, q, k, v, out, lse, kw):
+    """The forward with lse at one shape: ``out`` (from
+    ``flash_attention_lse_cuda``) against ``mha_ref`` in float32 at
+    ``FLASH_TOL``, ``lse`` against ``logsumexp`` of the plain float32
+    scores within 1e-3 of (1 + max |lse|). Returns ``(max |out - plain|,
+    max |lse - logsumexp|)``."""
     B, Hq, Hkv, S, T, D = shape[:6]
     ref = fa.mha_ref(q.float(), k.float(), v.float(), **kw)
     err, worst, bad = fa.compare(out, ref, tol=FLASH_TOL)
@@ -988,6 +996,17 @@ def _flash_lse_forward(torch, fa, fbench, timing, flush, visible_mask, name, sha
     if bad or not torch.isfinite(out.float()).all() or not lse_err <= lse_tol:
         raise AssertionError(f"flash attention with lse disagrees with the plain version "
                              f"({name})")
+    return err, lse_err
+
+
+def _flash_lse_forward(torch, fa, fbench, timing, flush, visible_mask, name, shape,
+                       q, k, v, out, lse, kw):
+    """``check_flash_bwd``'s hold (``_hold_lse``) and timing of the forward
+    with lse at one shape, timed as ``check_flash`` times the serving
+    forward, its bound counting the lse written. Returns the shape's
+    numbers."""
+    B, Hq, Hkv, S, T, D = shape[:6]
+    err, lse_err = _hold_lse(torch, fa, visible_mask, name, shape, q, k, v, out, lse, kw)
     work = fbench.needed_work(shape)
     work["bytes"] += 4 * B * Hq * S                   # the lse written
     bound, bound_by = timing.bound_ms(work)
@@ -1005,8 +1024,33 @@ def _flash_lse_forward(torch, fa, fbench, timing, flush, visible_mask, name, sha
         f"-> {work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
         f"{work['bytes']} bytes (lse included) -> "
         f"{work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; bound "
-        f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.3f} of it")
+        f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.3f} of it; SFU floor "
+        f"{timing.sfu_ms(work):.5f} ms ({work['exps']} exponentials)")
     return r
+
+
+def check_flash_lse_widths(torch, dev):
+    """Phase 3 for the forward with lse at the widths the train shapes do
+    not cover: D 80 (the odd and hubert-xlarge check shapes) and D 16
+    (``LSE_D16_SHAPE``), each held by ``_hold_lse``, its output bit for
+    bit the serving forward's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import bench as fbench
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    for name, shape in (("odd", fbench.SHAPES["odd"]),
+                        ("hubert-xlarge", fbench.SHAPES["hubert-xlarge"]),
+                        ("D 16", LSE_D16_SHAPE)):
+        q, k, v = fbench.check_inputs(dev, shape)
+        kw = dict(causal=shape[6], window=shape[7], q_offset=shape[8])
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, **kw)
+        serving = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int16), serving.view(torch.int16)):
+            raise AssertionError(f"the forward with lse changed the output ({name})")
+        _hold_lse(torch, fa, visible_mask, name, shape, q, k, v, out, lse, kw)
+        del q, k, v, out, lse, serving
+        torch.cuda.empty_cache()
 
 
 def _n_params(cfg) -> int:
@@ -3317,6 +3361,7 @@ def main() -> int:
             where = "encoder" if cfgs[path].is_encoder else "slots"
             entries[("flash_attention", f"{path} {where}")] = entry
         torch.cuda.empty_cache()
+        check_flash_lse_widths(torch, dev)
         for path, entry in check_ssm_scan(
                 torch, dev, {p: get_config(p) for p in (MAMBA_ARCH, HYMBA_ARCH)}).items():
             entries[("ssm_scan", path)] = entry

@@ -3,9 +3,10 @@
 ``chip_smoke.py`` takes its flash-attention checks from here. Run as a
 module on a machine with a CUDA card, it times the kernel, its plain
 version and ``scaled_dot_product_attention`` (the L2 cache flushed before
-every launch) against the bound at each check shape, and prints the share
-of the key tiles the kernel visits that take the per-element mask, as the
-kernel counts them on the device (``kernel.tile_counts``):
+every launch) against the bound at each check shape, with the SFUs' floor
+for the softmax's exponentials beside it (``sfu_ms``), and prints the
+share of the key tiles the kernel visits that take the per-element mask,
+as the kernel counts them on the device (``kernel.tile_counts``):
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.bench
 
@@ -32,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, timed_ms
+from repro_torch.kernels.timing import bound_ms, card_name, l2_flush_buffer, sfu_ms, timed_ms
 
 # name -> (B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv): q and k of
 # width D, v and the output of width Dv
@@ -89,11 +90,13 @@ def needed_work(shape) -> dict:
     """The bytes and operations one call needs, for its bound: q, k, v read
     once and the output written once (bf16; q and k of width D, v and the
     output of width Dv); 2 (D + Dv) flops per visible pair and query head
-    (2 D for q . k, 2 Dv for p . v), on the tensor cores."""
+    (2 D for q . k, 2 Dv for p . v), on the tensor cores; and one
+    exponential per visible pair and query head (``exps``, on the SFUs:
+    ``timing.sfu_ms``)."""
     B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = shape
     pairs = B * Hq * visible_pairs(S, T, causal=causal, window=window, q_offset=q_offset)
     nbytes = 2 * (B * Hq * S * (D + Dv) + B * Hkv * T * (D + Dv))
-    return dict(bytes=nbytes, flops=2 * (D + Dv) * pairs, pairs=pairs)
+    return dict(bytes=nbytes, flops=2 * (D + Dv) * pairs, pairs=pairs, exps=pairs)
 
 
 def needed_bwd_work(shape) -> dict:
@@ -173,7 +176,8 @@ def main() -> int:
         walk["masked_share"] = walk["masked"] / max(walk["visited"], 1)
         rows.append(dict(
             shape=name, **walk, pairs=work["pairs"], flops=work["flops"], bytes=work["bytes"],
-            bound_ms=bound, bound_by=by, max_abs_err=err, over_tolerance=bad,
+            bound_ms=bound, bound_by=by, sfu_ms=sfu_ms(work), max_abs_err=err,
+            over_tolerance=bad,
             ms=timed_ms(lambda: flash_attention_cuda(q, k, v, **kw), 50, flush),
             plain_ms=timed_ms(lambda: mha_ref(q, k, v, **kw), 5, flush),
             library_ms=timed_ms(yardstick(q, k, v, shape), 50, flush),
@@ -182,7 +186,8 @@ def main() -> int:
         print(f"[bench] flash_attention {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
               f"({r['library_backend']}), bound {bound:.4f} ms "
-              f"({by}; {work['pairs']} visible pairs); max |kernel - plain| {err:.3e}; "
+              f"({by}; {work['pairs']} visible pairs), SFU floor {r['sfu_ms']:.4f} ms; "
+              f"max |kernel - plain| {err:.3e}; "
               f"{walk['design']}: the mask on {walk['masked']} of {walk['visited']} visited "
               f"tiles ({walk['masked_share']:.3f})", flush=True)
         del q, k, v

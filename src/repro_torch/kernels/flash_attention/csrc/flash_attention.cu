@@ -22,25 +22,22 @@
 // full-rank prefill (deepseek-v2-lite-16b) attends with q and k of
 // qk_nope + qk_rope = 128 + 64 = 192 and v of 128.
 //
-// Two designs, chosen by the widths (D, Dv) alone (design_of, which the C
-// interface also exports as flash_design):
-//   D = Dv 64, 128, 256 (llama-width, granite-20b, gemma3-4b) and (D 192,
-//     Dv 128) (deepseek's MLA): v2, TMA and wgmma, below;
-//   D = Dv 16, 80 (the smoke heads, stablelm-3b): v1, mma.sync and
-//     cp.async, the first design, kept for the head dims v2 does not
-//     cover yet.
+// One design, v2 (TMA + wgmma), serves every instance: D = Dv 16 (the
+// smoke heads), 64 (llama-width, hymba), 80 (hubert-xlarge, stablelm-3b),
+// 128 (granite-20b, qwen2-vl), 256 (gemma3-4b) and (D 192, Dv 128)
+// (deepseek's MLA). design_of names it; the C interface exports it as
+// flash_design.
 //
-// Both keep the rows of a kv head in position-major order, row r = s * G +
+// The rows of a kv head are kept in position-major order, row r = s * G +
 // g, so a CTA's tile holds every group head of its positions and each K/V
 // tile loaded feeds all of them: the G heads that share it are never
 // loaded apart (at G = 48 a tile spans a few positions; its position range
-// still bounds its visible keys). Both walk the heaviest tiles first:
-// under a causal mask the last query tiles see the most keys, so
-// blockIdx.x counts the tiles from the end. Both take strided q, k, v and
-// out (element stride 1 along D): the model passes its (B, S, H, D)
-// projections as (B, H, S, D) views, with no transposing copy.
+// still bounds its visible keys). The heaviest tiles go first: under a
+// causal mask the last query tiles see the most keys, so blockIdx.x counts
+// the tiles from the end. q, k, v and out may be strided (element stride
+// 1 along D): the model passes its (B, S, H, D) projections as (B, H, S,
+// D) views, with no transposing copy.
 //
-// v2 (TMA + wgmma):
 //   * A CTA is 128 query rows and three warpgroups: two consumers of 64
 //     rows each and a producer. setmaxnreg moves the registers to the
 //     consumers (240 a thread: at D 256 a thread holds 128 float32 of the
@@ -52,38 +49,72 @@
 //     refilled once Q . K^T has read it, its V once P . V has. The tensor
 //     maps read the strided (B, Hkv, T, D) views as they are (4-D, the
 //     model's strides, 128-byte swizzle, D in 64-element boxes); keys past
-//     T arrive as zeros. Q is loaded once per CTA by the consumers with
-//     16-byte cp.async in the same swizzled layout: a tile's rows are
-//     (position, group head) pairs, which a tensor map box covers only
-//     where G divides 128, and granite-20b has G = 48.
+//     T arrive as zeros, and so do the columns of a box past D: at D 80 the
+//     second box holds columns 64-79 and 48 zero columns, at D 16 the one
+//     box 16 columns and 48 zeros (the fill costs no read, only shared
+//     memory; the barriers expect whole boxes, as TMA counts the fill). Q
+//     is loaded once per CTA by the consumers with 16-byte cp.async in the
+//     same chunked, swizzled layout: a tile's rows are (position, group
+//     head) pairs, which a tensor map box covers only where G divides 128,
+//     and granite-20b has G = 48.
 //   * Per tile and warpgroup: S = Q . K^T by wgmma.mma_async m64nBKk16,
-//     both operands K-major from shared memory; the softmax; P . V by
-//     wgmma with P from registers (rounded to bf16, as the Pallas kernel
-//     casts p to v's dtype) and V from shared memory, transposed by its
-//     descriptor (MN-major). The two warpgroups share the tensor cores.
-//     Key tiles: BK = 128 at D <= 192, 64 at D 256. Shared memory at
-//     D 256: Q 64 KB plus two stages of K and V, 128 KB; at (192, 128):
-//     Q 48 KB, two stages of K 96 KB and of V 64 KB, 209 KB in all. Q . K^T
-//     takes D / 16 k-steps (12 at 192, three 128-byte swizzle chunks); the
-//     registers a thread holds are those of D 128 (O 64, S 64 float32).
-//   * Softmax in exp2 with scale * log2(e) folded into one multiply. The
-//     per-element mask runs only on the tiles that cross the causal
-//     diagonal, a window edge or the tail T for some row of the
-//     warpgroup; every pair of the other visited tiles is visible.
+//     both operands K-major from shared memory, D / 16 k-steps (5 at D 80,
+//     1 at D 16: no padded products, the zero columns are never read);
+//     the softmax; P . V by wgmma m64nDvk16 with P from registers (rounded
+//     to bf16, as the Pallas kernel casts p to v's dtype) and V from shared
+//     memory, transposed by its descriptor (MN-major). At Dv 80 one n80
+//     product reads columns 64-79 from the second chunk (a leading byte
+//     offset of BK x 128 on): the hardware walks an MN-major operand in
+//     8-column core matrices, so the 128-byte swizzle pattern needs no
+//     whole 64-column repeat (checked on the card against the plain
+//     version at every D 80 shape). Key tiles: BK = 128, 64 at D 256.
+//     Shared memory at D 256: Q 64 KB plus two stages of K and V, 128 KB;
+//     at (192, 128): Q 48 KB, two stages of K 96 KB and of V 64 KB, 209 KB
+//     in all; at D 80: Q 32 KB, K and V 64 KB each, 161 KB.
+//   * Softmax in exp2 (ex2.approx) with scale * log2(e) folded in: the row
+//     max is taken over the raw scores and p = exp2(s * sl - m) is one
+//     fused multiply-add before the exponential. The per-element mask (one
+//     unsigned compare) runs only on the tiles that cross the causal
+//     diagonal, a window edge or the tail T for some row of the warpgroup;
+//     every pair of the other visited tiles is visible. hubert's encoder
+//     (T 4,096, no causal mask) takes no masked tile.
+//   * At Dv <= 80 (kPipe: D 16, 64, 80) the softmax runs under a product:
+//     each step issues tile i's Q . K^T, rescales the output to tile
+//     i - 1's max while it runs, issues tile i - 1's P . V, waits for
+//     Q . K^T, computes tile i's softmax while P . V runs, then waits for
+//     it and packs P. The registers allow it there (O 40, S 64 float32 and
+//     P 32 packed words a thread at D 80; 168 at launch, no spills), and
+//     the two warpgroups take turns issuing their products (named
+//     barriers), so one's softmax also runs under the other's products. A
+//     product never stays pending across a branch ptxas cannot prove
+//     uniform (its note C7518 serializes every wgmma of the kernel):
+//     whether a tile needs the mask is decided before its products are
+//     issued, and each ring wait comes with no product pending. At D 128
+//     and (192, 128) kPipe does not fit: ptxas serialized the products for
+//     want of registers (note C7512) and spilled 400 bytes.
+//   * Tried at D 80 on the card and not kept (no faster, or slower): a
+//     3-stage ring, the warpgroups issuing without turns, and 64-key tiles
+//     (slower by a fifth: twice the per-tile overhead). 128-key tiles are
+//     whole tiles of hubert's 4,096 frames; 192 are not, and 256 leave no
+//     registers for the scores beside P.
 //
 // What bounds it on an H100: operations. At gemma3-4b's prefill of 4,096
 // tokens a global layer has 67 M visible (query, key) pairs over 8 heads,
 // 4 D = 1,024 flops each: 6.9e10 flops against ~50 MB of q, k, v and out,
 // ~1,400 flops a byte, far above the ~295 where the tensor cores and not
-// HBM become the limit. v2 runs wgmma, the only way to the tensor
-// cores' full rate on Hopper, from two warpgroups while the producer
-// keeps the next tile in flight.
+// HBM become the limit. v2 runs wgmma, the only way to the tensor cores'
+// full rate on Hopper, from two warpgroups while the producer keeps the
+// next tile in flight. At D 80 a pair costs 320 flops but still one
+// exponential: hubert's 5.37e8 pairs need 0.1737 ms on the tensor cores
+// and ~0.128 ms on the SFUs (16 exponentials per SM per clock), so the
+// exponentials have to run under the products, not after them.
 //
-// What a later design changes: the softmax under a product inside a
-// warpgroup (issuing tile i - 1's P . V with tile i's Q . K^T, as
-// FlashAttention-3 does, needed more than 240 registers here and ptxas
-// serialized the products), 80-key tiles at D 256, a persistent grid, TMA
-// for Q where G divides 128, and v2 for D 16 and 80.
+// What a later design changes: the softmax under a product at D 128 and
+// 256 (fewer registers a thread: a third consumer warpgroup, or O split
+// over two), 80-key tiles at D 256, a persistent grid, TMA for Q where G
+// divides 128, P packed into a second register buffer while P . V runs,
+// and some exponentials on the FMA units by a polynomial, which D 80 would
+// need to get past the SFU floor.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -95,30 +126,27 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// v1: mma.sync (D 16, 80)
-// ---------------------------------------------------------------------------
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kM = 16 * kWarps;              // query rows per CTA
-constexpr float kMasked = -1073741824.0f;    // -2^30, the TPU kernel's NEG_INF
-constexpr float kMInit = -1e30f;             // the running max's start
+constexpr float kMasked = -1073741824.0f;      // -2^30, the TPU kernel's NEG_INF
+constexpr float kMInit = -1e30f;               // the running max's start
+constexpr int kConsumers = 2;                  // warpgroups of 64 query rows
+constexpr int kWgThreads = 128 * (kConsumers + 1);   // + one producer warpgroup
+constexpr int kWgRows = 64 * kConsumers;       // query rows per CTA
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  long long q_b, q_h, q_s;                   // strides, in elements
+  long long q_b, q_h, q_s;                     // strides, in elements
   long long k_b, k_h, k_s;
   long long v_b, v_h, v_s;
   long long o_b, o_h, o_s;
-  int S, T, G;                               // positions, keys, heads per kv head
-  int causal, window, q_offset;              // window <= 0: no window
+  int S, T, G;                                 // positions, keys, heads per kv head
+  int causal, window, q_offset;                // window <= 0: no window
   float scale;
-  int n_tiles;                               // ceil(S * G / kM)
+  int n_tiles;                                 // ceil(S * G / kWgRows)
   // when not null: [0] += kv tiles visited, [1] += those that took the
-  // per-element mask, per CTA (v1) or per consumer warpgroup (v2)
+  // per-element mask, per consumer warpgroup
   unsigned long long* tiles;
   // when not null: each row's log-sum-exp of its scaled scores, m + log(l)
   // (natural log), float32 (B, Hq, S) contiguous, for the backward kernel
@@ -130,350 +158,82 @@ __device__ __forceinline__ long long lse_index(const Params& p, int b, int kvh, 
   return (static_cast<long long>(b * gridDim.y + kvh) * p.G + fr % p.G) * p.S + fr / p.G;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int D, int BK>
-__global__ void __launch_bounds__(kThreads) flash_mma_kernel(const Params p) {
-  constexpr int kLd = D + 8;                 // bf16 per shared row (+16 bytes)
-  constexpr int kChunks = D / 8;             // 16-byte chunks per row
-  constexpr int kNT = BK / 8;                // n8 score tiles per warp
-  constexpr int kDT = D / 8;                 // n8 output tiles per warp
-  static_assert(D % 16 == 0 && BK % 16 == 0, "mma.sync k16 steps");
-  static_assert((kM * kChunks) % kThreads == 0 && (BK * kChunks) % kThreads == 0,
-                "whole chunks per thread");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // kM x kLd
-  __nv_bfloat16* kvs = qs + kM * kLd;        // 2 stages of K (BK x kLd), V (BK x kLd)
-
-  const int tile = p.n_tiles - 1 - static_cast<int>(blockIdx.x);
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int rows = p.S * p.G;
-  const int r0 = tile * kM;
-  const int q_lo = r0 / p.G + p.q_offset;
-  const int q_hi = (min(r0 + kM, rows) - 1) / p.G + p.q_offset;
-
-  // the kv tiles holding a key visible to some row of this tile
-  int j_lo = 0;
-  int j_hi = (p.T + BK - 1) / BK - 1;
-  if (p.causal) j_hi = min(j_hi, floor_div(q_hi, BK));
-  if (p.window > 0) j_lo = max(0, floor_div(q_lo - p.window + 1, BK));
-
-  const __nv_bfloat16* qb = p.q + b * p.q_b + static_cast<long long>(kvh) * p.G * p.q_h;
-  const __nv_bfloat16* kb = p.k + b * p.k_b + kvh * p.k_h;
-  const __nv_bfloat16* vb = p.v + b * p.v_b + kvh * p.v_h;
-
-  // this thread's two rows of its warp's 16: g and g + 8
-  const int g = lane >> 2, t4 = lane & 3;
-  const int fr0 = r0 + warp * 16 + g;
-  const int fr1 = fr0 + 8;
-  const int qp0 = fr0 / p.G + p.q_offset;
-  const int qp1 = fr1 / p.G + p.q_offset;
-
-  float acc[kDT][4];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-  float m_r[2] = {kMInit, kMInit};
-  float l_r[2] = {0.0f, 0.0f};               // this lane's part of the row sums
-
-  auto load_kv = [&](int stage, int j) {
-    __nv_bfloat16* ks = kvs + stage * 2 * BK * kLd;
-    __nv_bfloat16* vs = ks + BK * kLd;
-#pragma unroll
-    for (int i = 0; i < BK * kChunks / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      const int t = j * BK + r;
-      const bool live = t < p.T;
-      const long long tk = live ? t : 0;
-      cp_async16(ks + r * kLd + col, kb + tk * p.k_s + col, live ? 16 : 0);
-      cp_async16(vs + r * kLd + col, vb + tk * p.v_s + col, live ? 16 : 0);
-    }
-  };
-
-  if (j_lo <= j_hi) {
-#pragma unroll
-    for (int i = 0; i < kM * kChunks / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c / kChunks, col = (c % kChunks) * 8;
-      const int fr = r0 + r;
-      const bool live = fr < rows;
-      const long long off = live ? (fr % p.G) * p.q_h + static_cast<long long>(fr / p.G) * p.q_s
-                                 : 0;
-      cp_async16(qs + r * kLd + col, qb + off + col, live ? 16 : 0);
-    }
-    load_kv(0, j_lo);
-    cp_async_commit();
-
-    for (int j = j_lo; j <= j_hi; ++j) {
-      const int stage = (j - j_lo) & 1;
-      cp_async_wait_all();                   // tile j (and Q) landed for this thread
-      __syncthreads();                       // ... for all; tile j - 1's buffer is free
-      if (j < j_hi) load_kv(stage ^ 1, j + 1);
-      cp_async_commit();
-
-      const __nv_bfloat16* ks = kvs + stage * 2 * BK * kLd;
-      const __nv_bfloat16* vs = ks + BK * kLd;
-
-      // S = Q . K^T for this warp's 16 rows x BK keys
-      float s[kNT][4];
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, qs + (warp * 16 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int n = 0; n < kNT; n += 2) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, ks + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16
-                              + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[n], a, bk[0], bk[1]);
-          mma_bf16(s[n + 1], a, bk[2], bk[3]);
-        }
-      }
-
-      // scale and mask; the new running max of each row (m included)
-      const int k0 = j * BK;
-      float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int half = e >> 1;
-          const int kp = k0 + n * 8 + 2 * t4 + (e & 1);
-          const int qp = half ? qp1 : qp0;
-          float x = s[n][e] * p.scale;
-          if (kp >= p.T) {
-            x = -INFINITY;
-          } else if ((p.causal && kp > qp) || (p.window > 0 && qp - kp >= p.window)) {
-            x = kMasked;
-          }
-          s[n][e] = x;
-          mx[half] = fmaxf(mx[half], x);
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        alpha[h] = __expf(m_r[h] - mx[h]);
-        m_r[h] = mx[h];
-      }
-      float ps[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pv = __expf(s[n][e] - m_r[e >> 1]);
-          s[n][e] = pv;
-          ps[e >> 1] += pv;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l_r[h] = l_r[h] * alpha[h] + ps[h];
-#pragma unroll
-      for (int i = 0; i < kDT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
-
-      // acc += bf16(P) . V: score tiles 2kk, 2kk + 1 are the A fragment of
-      // the kk-th k16 step
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = f2_to_bf2(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = f2_to_bf2(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = f2_to_bf2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = f2_to_bf2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < kDT; dt += 2) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd
-                                    + dt * 8 + (lane >> 4) * 8);
-          mma_bf16(acc[dt], a, bv[0], bv[1]);
-          mma_bf16(acc[dt + 1], a, bv[2], bv[3]);
-        }
-      }
-    }
-    cp_async_wait_all();                     // no copy outlives the CTA
-    if (p.tiles != nullptr && tid == 0) {    // every tile visited takes the mask
-      atomicAdd(p.tiles, static_cast<unsigned long long>(j_hi - j_lo + 1));
-      atomicAdd(p.tiles + 1, static_cast<unsigned long long>(j_hi - j_lo + 1));
-    }
-  }
-
-  // out = acc / max(l, 1e-30): lane holds columns 2 t4, 2 t4 + 1 of each
-  // n8 output tile, for rows fr0 and fr1
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_r[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float denom = fmaxf(l, 1e-30f);
-    const int fr = h ? fr1 : fr0;
-    if (fr >= rows) continue;
-    if (p.lse != nullptr && t4 == 0) p.lse[lse_index(p, b, kvh, fr)] = m_r[h] + logf(denom);
-    __nv_bfloat16* dst = p.o + b * p.o_b
-                         + static_cast<long long>(kvh * p.G + fr % p.G) * p.o_h
-                         + static_cast<long long>(fr / p.G) * p.o_s + 2 * t4;
-#pragma unroll
-    for (int i = 0; i < kDT; ++i) {
-      *reinterpret_cast<uint32_t*>(dst + i * 8) =
-          f2_to_bf2(acc[i][2 * h] / denom, acc[i][2 * h + 1] / denom);
-    }
-  }
-}
-
-template <int D, int BK>
-cudaError_t launch_mma(const Params& p, int B, int Hkv, cudaStream_t stream) {
-  // Q tile and two stages of K and V: 99 KB at D = 256, 85 KB at 128
-  constexpr int smem = static_cast<int>(sizeof(__nv_bfloat16)) * (kM + 4 * BK) * (D + 8);
-  cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<D, BK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.n_tiles, Hkv, B);
-  flash_mma_kernel<D, BK><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// v2: TMA + wgmma (D 64, 128, 256)
-// ---------------------------------------------------------------------------
-
-constexpr int kConsumers = 2;                  // warpgroups of 64 query rows
-constexpr int kWgThreads = 128 * (kConsumers + 1);   // + one producer warpgroup
-constexpr int kWgRows = 64 * kConsumers;       // query rows per CTA
+// keys per tile: 128 (hubert's 4,096 frames are whole tiles), 64 at D 256
+// (the scores beside 128 float32 of output a thread)
+constexpr int key_tile_of(int DQK) { return DQK == 256 ? 64 : 128; }
 
 // DQK: the width of q and k; DV: the width of v and out (DQK == DV but
 // for MLA's full-rank prefill, 192 and 128)
 template <int DQK, int DV>
 struct Wg {
-  static constexpr int BK = DQK == 256 ? 64 : 128;         // keys per tile
+  static constexpr int BK = key_tile_of(DQK);              // keys per tile
+  static constexpr bool kPipe = DV <= 80;                  // softmax under P . V
   static constexpr int kRingK = 2;                         // K stages
   static constexpr int kRingV = 2;                         // V stages
-  static constexpr int kChunksK = DQK / 64;                // 128-byte column chunks
-  static constexpr int kChunksV = DV / 64;
-  static constexpr int kQBytes = kWgRows * DQK * 2;
-  static constexpr int kKTileBytes = BK * DQK * 2;         // one K tile
-  static constexpr int kVTileBytes = BK * DV * 2;          // one V tile
+  static constexpr int kChunksK = (DQK + 63) / 64;         // 128-byte column chunks
+  static constexpr int kChunksV = (DV + 63) / 64;
+  static constexpr int kQBytes = kWgRows * kChunksK * 128;
+  static constexpr int kKTileBytes = BK * kChunksK * 128;  // one K tile, whole boxes
+  static constexpr int kVTileBytes = BK * kChunksV * 128;  // one V tile
   static constexpr int kVOff = kQBytes + kRingK * kKTileBytes;
   static constexpr int kBarOff = kVOff + kRingV * kVTileBytes;
   static constexpr int kSmem = 1024 + kBarOff + 16 * (kRingK + kRingV);   // + 1 KB to align
-  static_assert(DQK % 64 == 0 && DV % 64 == 0, "whole 128-byte column chunks");
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "k16 steps of Q . K^T, n16 steps of P . V");
   static_assert(kSmem <= 232448, "over the shared memory a block can use");
 };
 
 // The per-tile softmax of a warpgroup's 64 rows x BK keys (log2 units):
-// scale, mask where the tile needs it, the new running max, alpha, p and
-// l; p goes to bf16 A fragments for P . V.
+// scale, mask where the tile needs it, the new running max, alpha and l;
+// the raw scores in `sc` become p.
 template <int BK>
 struct Softmax {
   float m[2] = {kMInit, kMInit};
   float l[2] = {0.0f, 0.0f};                   // this lane's part of the row sums
 
-  __device__ __forceinline__ void tile(float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4],
-                                       float (&alpha)[2], const Params& p, int k0,
-                                       bool need_mask, const int (&qp)[2], int t4, float sl) {
+  template <bool kMask>
+  __device__ __forceinline__ void tile(float (&sc)[BK / 2], float (&alpha)[2], const Params& p,
+                                       const Mask& mask, int k0, const int (&qp)[2], int t4,
+                                       float sl) {
     constexpr float kMasked2 = kMasked * kLog2e;          // -2^30 in log2 units
-    float mx[2] = {m[0], m[1]};
-    if (need_mask) {
+    float mx[2];
+    if constexpr (kMask) {
+      mx[0] = m[0];
+      mx[1] = m[1];
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + n * 8 + 2 * t4 + (e & 1);
-          const int q = qp[e >> 1];
-          float x = sc[4 * n + e] * sl;
-          if (kp >= p.T) {
-            x = -INFINITY;
-          } else if ((p.causal && kp > q) || (p.window > 0 && q - kp >= p.window)) {
-            x = kMasked2;
-          }
-          sc[4 * n + e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[4 * n + e] *= sl;
+          const float x = sc[4 * n + e] * sl;
+          sc[4 * n + e] = kp >= p.T ? -INFINITY
+                          : mask.visible(qp[e >> 1] - kp) ? x : kMasked2;
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
         }
       }
+    } else {                                   // sl > 0: the max commutes with it
+      float r[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) r[(i >> 1) & 1] = fmaxf(r[(i >> 1) & 1], sc[i]);
+      mx[0] = fmaxf(m[0], r[0] * sl);
+      mx[1] = fmaxf(m[1], r[1] * sl);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m[h] - mx[h]);
+      alpha[h] = fast_exp2(m[h] - mx[h]);
       m[h] = mx[h];
     }
     float ps[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(sc[4 * n + e] - m[e >> 1]);
-        sc[4 * n + e] = pv;
-        ps[e >> 1] += pv;
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      const float mh = m[(i >> 1) & 1];
+      const float pv = kMask ? fast_exp2(sc[i] - mh) : fast_exp2(fmaf(sc[i], sl, -mh));
+      sc[i] = pv;
+      ps[(i >> 1) & 1] += pv;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + ps[h];
-    // score tiles 2kk, 2kk + 1 are the A fragment of P . V's kk-th k16 step
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = f2_to_bf2(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = f2_to_bf2(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = f2_to_bf2(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = f2_to_bf2(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
   }
 };
 
@@ -558,7 +318,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     const int gq = lane >> 2, t4 = lane & 3;
 
     // Q: this warpgroup's 64 rows, swizzled as TMA would (16-byte group
-    // x of row r at x ^ (r % 8)), zeros past the last row
+    // x of row r at x ^ (r % 8)), zeros past the last row; the columns of
+    // the last chunk past D stay unwritten (no product reads them)
     {
       const __nv_bfloat16* qb = p.q + b * p.q_b + static_cast<long long>(kvh) * p.G * p.q_h;
       for (int idx = ct; idx < 64 * (DQK / 8); idx += 128) {
@@ -574,7 +335,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       }
       asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+      wg_sync(wg);
     }
 
     // this thread's rows: g and g + 8 of its warp's 16
@@ -584,11 +345,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     const int w_first = r0 + 64 * wg;
     const int w_lo = w_first / p.G + p.q_offset;
     const int w_hi = (min(w_first + 64, rows) - 1) / p.G + p.q_offset;
-    const bool w_rows = w_first < rows;
     const float sl = p.scale * kLog2e;
+    // a warpgroup past the last row, or a scale <= 0 (the unmasked
+    // softmax takes the row max before scaling), takes the general path
+    const bool always = w_first >= rows || !(sl > 0.0f);
+    const Mask mask(p);
     const uint32_t q_wg = q_base + 64 * wg * 128;
     auto need_mask = [&](int k0) {
-      return !w_rows || k0 + BK > p.T || (p.causal && k0 + BK - 1 > w_lo)
+      return always || k0 + BK > p.T || (p.causal && k0 + BK - 1 > w_lo)
              || (p.window > 0 && w_hi - k0 >= p.window);
     };
     const uint64_t q_desc = gmma_desc(q_wg, 16, 1024);
@@ -608,10 +372,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, pa[kk], desc_at(v_desc, kk * 2048), 1);
       wgmma_commit();
     };
-    auto release = [&](uint32_t bar) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar);
-    };
+    auto k_ready = [&](int i) { mbar_wait(full_k + 8 * (i % W::kRingK), (i / W::kRingK) & 1); };
+    auto v_ready = [&](int i) { mbar_wait(full_v + 8 * (i % W::kRingV), (i / W::kRingV) & 1); };
     float o[DV / 2];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
@@ -619,31 +381,100 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
     float sc[BK / 2];
     uint32_t pa[BK / 16][4];
     float alpha[2];
-
-    // Per tile: Q . K^T, the softmax, P . V; K is freed for the next load
-    // once Q . K^T has read it, V once P . V has.
-    for (int i = 0; i < n; ++i) {
-      const int sk = i % W::kRingK, sv = i % W::kRingV;
-      const int k0 = (j_lo + i) * BK;
-      mbar_wait(full_k + 8 * sk, (i / W::kRingK) & 1);
-      wgmma_fence();
-      start_qk(sc, sk);
-      wgmma_wait_all();
-      fence_regs(sc);
-      release(free_k + 8 * sk);
-      sm.tile(sc, pa, alpha, p, k0, need_mask(k0), qp, t4, sl);
+    auto softmax = [&](int i, auto masked) {
+      sm.template tile<decltype(masked)::value>(sc, alpha, p, mask, (j_lo + i) * BK, qp, t4, sl);
+    };
+    auto scale_o = [&]() {
 #pragma unroll
       for (int c = 0; c < DV / 8; ++c) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[4 * c + e] *= alpha[e >> 1];
       }
-      mbar_wait(full_v + 8 * sv, (i / W::kRingV) & 1);
+    };
+
+    if constexpr (!W::kPipe) {
+      // Per tile: Q . K^T, the softmax, P . V; K is freed for the next
+      // load once Q . K^T has read it, V once P . V has.
+      for (int i = 0; i < n; ++i) {
+        k_ready(i);
+        wgmma_fence();
+        start_qk(sc, i % W::kRingK);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        release(free_k + 8 * (i % W::kRingK), lane);
+        if (need_mask((j_lo + i) * BK)) {
+          softmax(i, Flag<true>());
+        } else {
+          softmax(i, Flag<false>());
+        }
+        to_a<BK>(pa, sc);
+        scale_o();
+        v_ready(i);
+        wgmma_fence();
+        start_pv(o, pa, i % W::kRingV);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        release(free_v + 8 * (i % W::kRingV), lane);
+      }
+    } else if (n > 0) {                        // n is the CTA's: both warpgroups take turns
+      if (wg == 1) turn_pass(1);               // warpgroup 0 issues first
+      // tile 0: Q . K^T and its softmax (o is still zero; its alpha
+      // scales zeros)
+      k_ready(0);
+      turn_wait(wg);
       wgmma_fence();
-      start_pv(o, pa, sv);
-      wgmma_wait_all();
+      start_qk(sc, 0);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(free_k, lane);
+      if (need_mask(j_lo * BK)) {
+        softmax(0, Flag<true>());
+      } else {
+        softmax(0, Flag<false>());
+      }
+      to_a<BK>(pa, sc);
+      // tile i's Q . K^T, the output rescaled to tile i - 1's max under
+      // it, then tile i - 1's P . V; tile i's softmax while P . V runs;
+      // then P packed
+      for (int i = 1; i < n; ++i) {
+        auto step = [&](auto masked) {
+          k_ready(i);
+          v_ready(i - 1);
+          turn_wait(wg);
+          wgmma_fence();
+          start_qk(sc, i % W::kRingK);
+          scale_o();
+          wgmma_fence();
+          start_pv(o, pa, (i - 1) % W::kRingV);
+          turn_pass(wg);
+          wgmma_wait<1>();
+          fence_regs(sc);
+          release(free_k + 8 * (i % W::kRingK), lane);
+          softmax(i, masked);
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(pa);
+          release(free_v + 8 * ((i - 1) % W::kRingV), lane);
+          to_a<BK>(pa, sc);
+        };
+        if (need_mask((j_lo + i) * BK)) {
+          step(Flag<true>());
+        } else {
+          step(Flag<false>());
+        }
+      }
+      v_ready(n - 1);
+      turn_wait(wg);
+      scale_o();
+      wgmma_fence();
+      start_pv(o, pa, (n - 1) % W::kRingV);
+      turn_pass(wg);
+      wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);
-      release(free_v + 8 * sv);
+      release(free_v + 8 * ((n - 1) % W::kRingV), lane);
     }
 
     // out = o / max(l, 1e-30): columns 8 c + 2 t4, + 1 of rows fr0, fr1
@@ -699,22 +530,11 @@ cudaError_t launch_wgmma(Params p, int B, int Hkv, cudaStream_t stream) {
 }
 
 // The design that serves q and k of width D and v of width Dv, by the two
-// widths alone: 2 = v2 (TMA + wgmma), 1 = v1 (mma.sync), 0 = no instance.
-// Only v2 takes Dv != D, and only MLA's (192, 128).
+// widths alone: 2 = v2 (TMA + wgmma), 0 = no instance. Dv != D only for
+// MLA's (192, 128).
 constexpr int design_of(int D, int Dv) {
-  return ((D == Dv && (D == 64 || D == 128 || D == 256)) || (D == 192 && Dv == 128)) ? 2
-         : (D == Dv && (D == 16 || D == 80)) ? 1 : 0;
-}
-
-template <int D, int Dv>
-cudaError_t launch(const Params& p, int B, int Hkv, cudaStream_t stream) {
-  static_assert(design_of(D, Dv) != 0, "an instance with no design");
-  if constexpr (design_of(D, Dv) == 2) {
-    return launch_wgmma<D, Dv>(p, B, Hkv, stream);
-  } else {
-    static_assert(D == Dv, "v1 takes one width");
-    return launch_mma<D, 64>(p, B, Hkv, stream);
-  }
+  return ((D == Dv && (D == 16 || D == 64 || D == 80 || D == 128 || D == 256))
+          || (D == 192 && Dv == 128)) ? 2 : 0;
 }
 
 }  // namespace
@@ -726,8 +546,7 @@ extern "C" int flash_design(int D, int Dv) { return design_of(D, Dv); }
 
 // The keys per tile of the design that serves (D, Dv); 0 where none does.
 extern "C" int flash_key_tile(int D, int Dv) {
-  const int d = design_of(D, Dv);
-  return d == 2 ? (D == 256 ? Wg<256, 256>::BK : Wg<128, 128>::BK) : d == 1 ? 64 : 0;
+  return design_of(D, Dv) != 0 ? key_tile_of(D) : 0;
 }
 
 // q, k, v, out bf16 with the element stride along D equal to 1;
@@ -742,7 +561,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int T, int G, int D, int Dv, int causal, int window,
                                     int q_offset, float scale, void* tiles, void* stream) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || S <= 0 || T <= 0 || G <= 0
-      || static_cast<long long>(S) * G > 2147483647LL - kM) {
+      || static_cast<long long>(S) * G > 2147483647LL - kWgRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -757,18 +576,17 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   p.S = S; p.T = T; p.G = G;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.scale = scale;
-  p.n_tiles = (S * G + kM - 1) / kM;
   p.tiles = static_cast<unsigned long long*>(tiles);
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 192 && Dv == 128) return static_cast<int>(launch<192, 128>(p, B, Hkv, s));
+  if (D == 192 && Dv == 128) return static_cast<int>(launch_wgmma<192, 128>(p, B, Hkv, s));
   if (D != Dv) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {                               // the instances
-    case 16: return static_cast<int>(launch<16, 16>(p, B, Hkv, s));
-    case 64: return static_cast<int>(launch<64, 64>(p, B, Hkv, s));
-    case 80: return static_cast<int>(launch<80, 80>(p, B, Hkv, s));
-    case 128: return static_cast<int>(launch<128, 128>(p, B, Hkv, s));
-    case 256: return static_cast<int>(launch<256, 256>(p, B, Hkv, s));
+  switch (D) {                                 // the instances (design_of)
+    case 16: return static_cast<int>(launch_wgmma<16, 16>(p, B, Hkv, s));
+    case 64: return static_cast<int>(launch_wgmma<64, 64>(p, B, Hkv, s));
+    case 80: return static_cast<int>(launch_wgmma<80, 80>(p, B, Hkv, s));
+    case 128: return static_cast<int>(launch_wgmma<128, 128>(p, B, Hkv, s));
+    case 256: return static_cast<int>(launch_wgmma<256, 256>(p, B, Hkv, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -149,70 +149,6 @@ struct Cfg {
   static_assert(kDkdv <= 232448 && kDq <= 232448, "over the shared memory a block can use");
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The mask as one unsigned compare of d = query position - key position:
-// visible iff lo <= d < hi, lo 0 under the causal mask (else INT_MIN), hi
-// the window (else INT_MAX). Branch-free, so a masked tile's elements
-// interleave as freely as an unmasked one's.
-struct Mask {
-  unsigned lo, span;
-  __device__ Mask(const Params& p)
-      : lo(p.causal ? 0u : 0x80000000u),
-        span((p.window > 0 ? static_cast<unsigned>(p.window) : 0x7fffffffu)
-             - (p.causal ? 0u : 0x80000000u)) {}
-  __device__ __forceinline__ bool visible(int d) const {
-    return static_cast<unsigned>(d) - lo < span;
-  }
-};
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
-// lane 0's arrival for its warp, predicated inside the asm so that no
-// branch of the compiler's sits between a product and its wait
-__device__ __forceinline__ void release(uint32_t bar, int lane) {
-  __syncwarp();
-  asm volatile("{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
-               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-               :: "r"(bar), "r"(lane) : "memory");
-}
-
-// The two consumer warpgroups take turns issuing their batches of products
-// (named barriers 3 and 4): warpgroup wg issues only after the other has
-// issued its last, so the tensor cores run one batch while the other
-// warpgroup works on the scores its previous batch produced.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
-}
-
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");
-}
-
-__device__ __forceinline__ void wg_sync(int wg) {   // the 128 threads of consumer wg
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-}
-
-// the score tiles 2kk, 2kk + 1 of a 64 x N accumulator as the bf16 A
-// fragment of the kk-th k16 step of a product over N
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = f2_to_bf2(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = f2_to_bf2(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = f2_to_bf2(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = f2_to_bf2(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
 // d (64 x N) = A (64 x D, K-major, chunks `a_stride` bytes apart) . B^T
 // (B: N rows x D, K-major, chunks `b_stride` apart), both from shared memory
 template <int D, int N>

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// the forward's v2 (flash_attention.cu) and the backward
+// the forward (flash_attention.cu) and the backward
 // (flash_attention_bwd.cu). bf16 packing, mbarriers with a timeout that
 // traps, 4-D TMA loads, wgmma shared-memory descriptors (128-byte swizzle)
 // and the m64nNk16 products (both operands from shared memory, or A from
-// registers and B MN-major), and the tensor maps over strided (B, H, T, D)
-// views. Each source is its own library, so the helpers live in an
-// unnamed namespace.
+// registers and B MN-major), ex2.approx, the mask as one unsigned compare,
+// a warp's predicated barrier arrival, the consumer warpgroups' turns
+// (named barriers), and the tensor maps over strided (B, H, T, D) views.
+// Each source is its own library, so the helpers live in an unnamed
+// namespace.
 #pragma once
 
 #include <cuda.h>
@@ -177,6 +179,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 16, f32) += A (64 x 16, bf16 registers) . B (16 x 16, smem desc,
+// MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem desc,
 // MN-major: transposed)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -191,6 +206,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 80, f32) += A (64 x 16, bf16 registers) . B (16 x 80, smem desc,
+// MN-major: transposed; columns 64-79 are the second 128-byte chunk's
+// first 32 bytes, one leading byte offset on)
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
@@ -250,6 +285,71 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The mask as one unsigned compare of d = query position - key position:
+// visible iff lo <= d < hi, lo 0 under the causal mask (else INT_MIN), hi
+// the window (else INT_MAX). Branch-free, so a masked tile's elements
+// interleave as freely as an unmasked one's.
+struct Mask {
+  unsigned lo, span;
+  template <class P>
+  __device__ Mask(const P& p)
+      : lo(p.causal ? 0u : 0x80000000u),
+        span((p.window > 0 ? static_cast<unsigned>(p.window) : 0x7fffffffu)
+             - (p.causal ? 0u : 0x80000000u)) {}
+  __device__ __forceinline__ bool visible(int d) const {
+    return static_cast<unsigned>(d) - lo < span;
+  }
+};
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// lane 0's arrival for its warp, predicated inside the asm so that no
+// branch of the compiler's sits between a product and its wait
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  asm volatile("{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               :: "r"(bar), "r"(lane) : "memory");
+}
+
+// The two consumer warpgroups take turns issuing their batches of products
+// (named barriers 3 and 4): warpgroup wg issues only after the other has
+// issued its last, so the tensor cores run one batch while the other
+// warpgroup works on the scores its previous batch produced.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {   // the 128 threads of consumer wg
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// the score tiles 2kk, 2kk + 1 of a 64 x N accumulator as the bf16 A
+// fragment of the kk-th k16 step of a product over N
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = f2_to_bf2(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = f2_to_bf2(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = f2_to_bf2(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = f2_to_bf2(x[8 * kk + 6], x[8 * kk + 7]);
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime

@@ -25,7 +25,7 @@ BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"
 LAUNCHES = loader.LaunchCounter()
 BWD_LAUNCHES = loader.LaunchCounter()
 # the C interface's design codes (flash_design)
-DESIGN_NAMES = {1: "mma v1", 2: "tma-wgmma v2"}
+DESIGN_NAMES = {2: "tma-wgmma v2"}
 # the head widths (q, k and v of one width) the backward has instances for,
 # and its design (both widths)
 BWD_HEAD_DIMS = (64, 128)
@@ -137,9 +137,8 @@ def tile_counts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool = True, window: Optional[int] = None,
                 q_offset: int = 0, scale: Optional[float] = None) -> dict:
     """One launch of the kernel that counts, on the device, the kv tiles it
-    visits and those that take the per-element mask (per CTA for v1, which
-    masks every tile, per warpgroup of 64 rows for v2). Returns
-    ``dict(design, visited, masked)``."""
+    visits and those that take the per-element mask, per warpgroup of 64
+    rows. Returns ``dict(design, visited, masked)``."""
     tiles = torch.zeros(2, dtype=torch.int64, device=q.device)
     with torch.no_grad():
         _launch(q, k, v, causal, window, q_offset, scale, tiles)

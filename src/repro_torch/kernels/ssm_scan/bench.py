@@ -19,14 +19,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.timing import (bound_ms, card_name, floor_ms, l2_flush_buffer,
-                                        timed_ms)
+                                        sfu_ms, timed_ms)
 
 # mamba-130m in the serving engine of chip_smoke.py: 32 slots, chunk 32,
 # inner 1536 (expand 2 x d_model 768), state 16
 SLOTS, CHUNK, INNER, STATE = 32, 32, 1536, 16
-# H100 SXM: 132 SMs, 16 exponentials per SM per clock on the SFUs, 1.98 GHz
-# boost clock (data sheet); a floor the bound's table does not carry
-SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def check_n_valid() -> np.ndarray:
@@ -98,7 +95,7 @@ def main() -> int:
         bound, by = bound_ms(work)
         rows.append(dict(
             fill=name, valid_columns=work["cols"], bytes=work["bytes"], bound_ms=bound,
-            bound_by=by, sfu_exp_ms=work["exps"] / SFU_EXP_PER_S * 1e3,
+            bound_by=by, sfu_exp_ms=sfu_ms(work),
             design=f"{DESIGN}, route {scan_route(*args[:4])}",
             ms=timed_ms(lambda: ssm_scan_cuda(*args), 200, flush),
             direct_ms=timed_ms(lambda: ssm_scan_cuda(*shifted), 200, flush),

@@ -14,6 +14,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 peak outside the tensor cores
+# 132 SMs, 16 exponentials per SM per clock on the SFUs, 1.98 GHz boost
+# clock (data sheet); a floor beside the bound, which does not count it
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def card_name() -> str:
@@ -35,6 +38,12 @@ def bound_ms(work: dict):
     t_ops = (work.get("flops", 0) / BF16_FLOPS_PER_S
              + work.get("f32_flops", 0) / F32_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sfu_ms(work: dict) -> float:
+    """The least time the SFUs take for ``work``'s exponentials (``exps``):
+    a floor beside ``bound_ms``, which counts bytes and flops alone."""
+    return work["exps"] / SFU_EXP_PER_S * 1e3
 
 
 def flush_l2(flush: torch.Tensor) -> None:

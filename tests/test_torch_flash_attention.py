@@ -7,7 +7,9 @@ flash attention) against ``repro.kernels.flash_attention.flash_attention_ref``
 runs it), on the same numpy inputs: the shapes of ``tests/test_kernels.py``
 (GQA causal, MHA bidirectional, MQA sliding window, a ``q_offset``
 continuation, window == block) plus head dims 16 and 80, a length that is
-no multiple of 32, and 8 query heads per kv head.
+no multiple of 32, and 8 query heads per kv head; hubert-xlarge's D 80
+without the causal mask at G 2 over 131 keys (no multiple of any key
+tile), and D 16 causal from ``q_offset`` 5 with a window of 9.
 
 Tolerances: float32 within ``atol = rtol = 5e-5`` of both (the same
 products summed in other orders; the Pallas kernel's online softmax
@@ -50,6 +52,8 @@ CASES = [
     (1, 4, 2, 45, 45, 16, True, 8, 0),          # gemma smoke heads, S % 32 != 0
     (1, 2, 2, 40, 53, 80, False, 11, 3),        # stablelm's head dim
     (1, 16, 2, 96, 96, 32, True, None, 0),      # G = 8
+    (1, 4, 2, 131, 131, 80, False, None, 0),    # hubert's D 80, no causal mask, G 2
+    (1, 4, 2, 40, 45, 16, True, 9, 5),          # D 16, causal from q_offset 5, window 9
 ]
 
 
@@ -124,7 +128,8 @@ def test_tile_counts_takes_cuda_tensors_only():
 @pytest.mark.parametrize("name", sorted(bench.SHAPES))
 def test_bench_work_counts(name):
     """The bound's work counts: visible pairs against the mask itself (at a
-    tenth of the length), and the gemma global layer's 67.1 M pairs."""
+    tenth of the length), one exponential a pair, the gemma global layer's
+    67.1 M pairs and hubert's 2 x 16 x 4,096^2."""
     B, Hq, Hkv, S, T, D, causal, window, q_offset, Dv = bench.SHAPES[name]
     s, t = S // 10, T // 10
     w = None if window is None else window // 10
@@ -132,10 +137,13 @@ def test_bench_work_counts(name):
         visible_mask(s, t, causal=causal, window=w, q_offset=q_offset).sum())
     work = bench.needed_work(bench.SHAPES[name])
     assert work["flops"] == 2 * (D + Dv) * work["pairs"]
+    assert work["exps"] == work["pairs"]
     assert work["bytes"] == 2 * (B * Hq * S * (D + Dv) + B * Hkv * T * (D + Dv))
     if name == "gemma3-4b global":
         assert work["pairs"] == 8 * 4096 * 4097 // 2
         assert work["flops"] == 4 * 256 * work["pairs"]
+    if name == "hubert-xlarge":
+        assert work["pairs"] == 2 * 16 * 4096 * 4096
     if name == "deepseek-v2-lite mla":
         assert (D, Dv, work["pairs"]) == (192, 128, 16 * 4096 * 4097 // 2)
         assert work["flops"] == 640 * work["pairs"]

@@ -67,8 +67,8 @@ port's dependencies:
   2,113 positions, each causal, with a window of 17, at q_offset 7 and
   bidirectional, strided (the model's layout) and contiguous; at D 256
   G 2, 127, 129 and 4,096 positions with a window of 1,024 at q_offset 7
-  and without, strided and contiguous; each design at each head dim it
-  serves (v1 at D 16 and 80, v2 at 64, 128 and 256); hymba-1.5b's heads
+  and without, strided and contiguous; the design at each head dim it
+  serves (v2, TMA + wgmma, at 16, 64, 80, 128 and 256); hymba-1.5b's heads
   (25 over 5 of 64, G 5) at 2,113 and 4,096 positions, causal, with its
   window of 1,024 and without; each
   element within 2e-2 * (rms of its (batch, head, position) row + |plain|)
@@ -87,9 +87,10 @@ port's dependencies:
   the MLA engine also moe_jam per MoE layer per prefill and decode tick;
   for the mamba and hymba smokes on slots the scan per state layer per
   prefill and decode tick);
-* flash at qwen2-vl-72b's heads (64/8 of 128, G 8, causal; v2) and
-  hubert-xlarge's encoder (16 heads of 80, no causal mask; v1, every
-  tile visited) over 4,096 keys; qwen's smoke on ``Engine(cache="auto")``
+* flash at qwen2-vl-72b's heads (64/8 of 128, G 8, causal) and
+  hubert-xlarge's encoder (16 heads of 80, no causal mask, every tile
+  visited, none masked) over 4,096 keys, and at hubert's heads over 129
+  and 4,096 frames, strided and dense; qwen's smoke on ``Engine(cache="auto")``
   and a vision prefill (patches spliced, 3-D positions), and hubert's
   smoke through the prefill step, each through the kernel (threshold
   lowered) and through the plain version;
@@ -104,7 +105,7 @@ port's dependencies:
   positions, causal, windowed, from q_offset 7 and bidirectional (rms
   error within 1.5x the plain bf16 path's, max within 2e-2 of max |grad|);
   two launches bit for bit equal; the forward's log-sum-exp against
-  ``logsumexp`` of the plain scores (both designs) with the output
+  ``logsumexp`` of the plain scores (every instance) with the output
   unchanged; widths with no backward instance refused; the wrappers of
   paged attention, moe_jam and the scan (and ``flash_attention_cuda``
   itself) refusing grad, ``make_train_step`` refusing olmoe, mamba and
@@ -1097,12 +1098,12 @@ def test_flash_v2_ragged_and_long_at_gemma_heads(cuda, S, strided):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
 def test_flash_each_design_at_its_head_dims(cuda, D):
-    """v1 (mma.sync) still serves D 16 and 80, v2 (TMA + wgmma) D 64, 128
-    and 256; each matches the plain version at llama3.2-1b's grouping (G 4),
-    500 positions from q_offset 3, with and without a window of 100."""
+    """v2 (TMA + wgmma) serves every head dim, 16 and 80 included; each
+    matches the plain version at llama3.2-1b's grouping (G 4), 500
+    positions from q_offset 3, with and without a window of 100."""
     from repro_torch.kernels import flash_attention as fa
 
-    assert fa.design(D) == ("mma v1" if D in (16, 80) else "tma-wgmma v2")
+    assert fa.design(D) == "tma-wgmma v2"
     rng = np.random.default_rng(D)
     for window in (None, 100):
         q, k, v = _flash_case(cuda, rng, B=2, Hkv=2, G=4, S=500, T=503, D=D, strided=True)
@@ -1140,7 +1141,11 @@ def test_flash_tile_counts(cuda):
     causal over 1,024 positions at G 2 and D 128: 16 CTAs of 64 positions
     visit 1, 1, 2, 2, ..., 8, 8 tiles of 128 keys (72), each walked by both
     warpgroups of 32 positions (144), and each warpgroup masks only the
-    tile on its diagonal (32). v1 masks every tile it visits."""
+    tile on its diagonal (32). At D 80, causal over 300 positions at G 2:
+    5 CTAs of 64 positions visit 1, 1, 2, 2, 3 tiles of 128 keys (9), each
+    walked by both warpgroups (18), and each warpgroup masks one tile (10):
+    the one on its diagonal, which in the last CTA is also the tail (keys
+    256-383 against T 300)."""
     from repro_torch.kernels import flash_attention as fa
 
     rng = np.random.default_rng(5)
@@ -1149,7 +1154,7 @@ def test_flash_tile_counts(cuda):
     assert got == dict(design="tma-wgmma v2", visited=144, masked=32)
     q, k, v = _flash_case(cuda, rng, B=1, Hkv=1, G=2, S=300, T=300, D=80, strided=True)
     got = fa.tile_counts(q, k, v, causal=True)
-    assert got["design"] == "mma v1" and got["visited"] == got["masked"] > 0
+    assert got == dict(design="tma-wgmma v2", visited=18, masked=10)
     assert fa.design(32) is None
 
 
@@ -1240,12 +1245,12 @@ def test_state_stack_smoke_on_slots_through_kernels(cuda, monkeypatch, arch):
 @pytest.mark.parametrize("B,Hkv,G,D,causal", [(1, 8, 8, 128, True), (2, 16, 1, 80, False)])
 def test_flash_qwen2_vl_and_hubert_heads(cuda, B, Hkv, G, D, causal):
     """qwen2-vl-72b's prefill (64 query heads over 8 kv heads of 128, G 8,
-    causal; v2) and hubert-xlarge's encoder (16 heads of 80, MHA, no causal
-    mask, batch 2; v1, every tile of every row visited) across 4,096 keys,
-    in the model's strided layout."""
+    causal) and hubert-xlarge's encoder (16 heads of 80, MHA, no causal
+    mask, batch 2; every tile of every row visited, none masked) across
+    4,096 keys, in the model's strided layout."""
     from repro_torch.kernels import flash_attention as fa
 
-    assert fa.design(D) == ("tma-wgmma v2" if D == 128 else "mma v1")
+    assert fa.design(D) == "tma-wgmma v2"
     rng = np.random.default_rng(D + G)
     q, k, v = _flash_case(cuda, rng, B=B, Hkv=Hkv, G=G, S=4096, T=4096, D=D, strided=True)
     before = fa.LAUNCHES.count
@@ -1256,8 +1261,58 @@ def test_flash_qwen2_vl_and_hubert_heads(cuda, B, Hkv, G, D, causal):
     err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
     assert bad == 0, (err, worst)
     walk = fa.tile_counts(q, k, v, causal=causal)
-    if not causal:                 # 64-row CTAs, each over all 64 tiles of 64 keys
-        assert walk["visited"] == B * Hkv * (4096 * G // 64) * 64
+    if not causal:                 # 64-row warpgroups, each over all 32 tiles of 128 keys
+        assert walk["visited"] == B * Hkv * (4096 * G // 64) * 32 and walk["masked"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,strided", [(129, True), (129, False), (4096, False)])
+def test_flash_hubert_heads(cuda, S, strided):
+    """hubert-xlarge's encoder heads: 2 clips x 16 heads of 80 (MHA), no
+    causal mask, S = T frames: 129 (a last tile of one key) and 4,096
+    (whole tiles of 128 keys, so no tile takes the mask), strided (the
+    model's layout) and dense; 4,096 strided is
+    ``test_flash_qwen2_vl_and_hubert_heads``'s hubert case."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(S + strided)
+    q, k, v = _flash_case(cuda, rng, B=2, Hkv=16, G=1, S=S, T=S, D=80, strided=strided)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.mha_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+    assert bad == 0, (err, worst)
+    walk = fa.tile_counts(q, k, v, causal=False)
+    assert walk["design"] == "tma-wgmma v2"
+    if S == 4096:
+        assert walk == dict(design="tma-wgmma v2", visited=2 * 16 * 64 * 32, masked=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+@pytest.mark.parametrize("D", [80, 128])
+def test_flash_nonpositive_scale(cuda, D, scale):
+    """A scale <= 0 (the max over raw scores is then not the max over
+    scaled ones) sends every tile through the general softmax, which
+    scales before its max: 2 x 8/4 heads, 256 frames, no causal mask
+    (whole tiles, none of which a positive scale would mask)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(D)
+    q, k, v = _flash_case(cuda, rng, B=2, Hkv=4, G=2, S=256, T=256, D=D, strided=True)
+    before = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, causal=False, scale=scale)
+    want = fa.mha_ref(q, k, v, causal=False, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    err, worst, bad = fa.compare(got, want, tol=BF16_TOL)
+    assert bad == 0, (err, worst)
+    walk = fa.tile_counts(q, k, v, causal=False, scale=scale)
+    assert walk["visited"] > 0 and walk["masked"] == walk["visited"]
+    assert fa.tile_counts(q, k, v, causal=False)["masked"] == 0
 
 
 @pytest.mark.gpu
@@ -1377,7 +1432,7 @@ def test_flash_refuses_width_pairs_without_an_instance(cuda):
     from repro_torch.kernels import flash_attention as fa
 
     assert fa.design(192, 128) == "tma-wgmma v2" and fa.key_tile(192, 128) == 128
-    assert fa.key_tile(256) == 64 and fa.key_tile(80) == 64
+    assert fa.key_tile(256) == 64 and fa.key_tile(80) == 128 and fa.key_tile(16) == 128
     rng = np.random.default_rng(1)
     for d, dv in ((192, 192), (128, 192), (192, 64), (256, 128), (128, 64)):
         assert fa.design(d, dv) is None and fa.key_tile(d, dv) == 0
@@ -1549,7 +1604,7 @@ def test_flash_bwd_is_deterministic(cuda):
 @pytest.mark.parametrize("D,Dv", [(16, 16), (64, 64), (80, 80), (128, 128), (256, 256),
                                   (192, 128)])
 def test_flash_lse_matches_logsumexp(cuda, D, Dv):
-    """The forward's log-sum-exp (both designs) against ``logsumexp`` of
+    """The forward's log-sum-exp (every instance) against ``logsumexp`` of
     the plain version's float32 scaled, masked scores; the output with
     ``lse`` on is the serving output, bit for bit."""
     from repro_torch.kernels import flash_attention as fa
