@@ -13,11 +13,20 @@ phase prints the seconds it took):
    shared-memory / spill report;
 3a. flash attention's backward (training): the kernel's dq, dk, dv at
    llama3.2-1b's training micro-batch (2 x 32/8 heads of 64, 4,096
-   tokens, causal) and at a windowed D 128 case (32/8 heads, window
-   1,024) against autograd through the plain version in float32 (no worse
-   than 1.5x the plain bf16 path's error, within 2e-2 of max |grad|), two
+   tokens, causal), at a windowed D 128 case (32/8 heads, window 1,024)
+   and at olmoe-1b-7b's micro-batch (2 x 16/16 heads of 128, causal)
+   against autograd through the plain version in float32 (no worse than
+   1.5x the plain bf16 path's error, within 2e-2 of max |grad|), two
    launches bit for bit equal; timed against its bound (2.5x the causal
-   forward's flops), the plain backward and SDPA's backward;
+   forward's flops), the plain backward and SDPA's backward; then the
+   moe_jam backward (B3b: dx and the three weight gradients) at olmoe's
+   training buckets (64 experts x 1,280 rows x 2048, F 1024, routed
+   uniformly top-8 from 8,192 tokens), deepseek-v2-lite-16b's (capacity
+   480, F 1,408, top-6 from 4,096) and the engine's ragged check input
+   (empty experts) against its plain version on the same bf16 inputs and
+   against float32, dx past counts and empty experts' weight gradients
+   exact zeros, two launches bit for bit equal; timed with the forward at
+   C 1,280, the plain backward and three ``bmm``'s autograd backward;
 3b. train: llama3.2-1b at full width and depth through the ``Trainer``
    (float32 masters from seed 0, train_4k at 4,096 tokens, a global batch
    of 8 in 4 micro-batches, remat full, lr 3e-4, 6 steps, a checkpoint
@@ -30,6 +39,18 @@ phase prints the seconds it took):
    save/restore seconds; then a float32 control on the stack cut to 2
    layers (each leaf's gradient through the kernels within 1.5x the plain
    bf16 path's error);
+3c. train MoE: olmoe-1b-7b at full width, its stack cut to the layers
+   one card holds (7 of 16 by the memory estimate), through the
+   ``Trainer`` (train_4k's 4,096 tokens, a global batch of 8 in 4
+   micro-batches, remat full, 4 steps, no checkpoint): finite, falling
+   loss; moe_jam's forward 2 x layers x 4 and backward layers x 4 a step
+   run, flash likewise, nothing else; one micro-batch's gradients taken
+   twice bit for bit equal; step p50/p90, tokens/s, the model-FLOPs share
+   from the active params, one step profiled (moe_jam's, flash's and the
+   dispatch's shares), peak memory; the dispatch (a stable sort) timed
+   against the one-hot cumsum it replaced at the micro-batch and at
+   deepseek's 3,800-token prefill; a float32 control at 2 layers with the
+   routing fixed to the float32 path's;
 3. kernel vs plain: call each kernel's wrapper at its path's shapes on the
    card and hold it against its plain PyTorch version (stated tolerance):
    paged attention (split-K v5) at llama3.2-1b's heads (32/8 of 64) and
@@ -104,7 +125,7 @@ phase prints the seconds it took):
    one long prefill's last-position logits through the kernel and through
    the plain version are each held against a float32 plain forward; one
    decode step and one long prefill are profiled (device busy and idle;
-   device ms of flash, moe_jam and the MoE dispatch's cumulative-sum scan);
+   device ms of flash, moe_jam and any kernel named ``scan``);
 8. end to end, ``deepseek-v2-lite-16b`` on the slots backend, the same
    geometry and traffic: ``Engine(cache="auto")`` must resolve to slots
    and ``kernel`` to cuda (27 layers: MLA with a 512-wide compressed
@@ -390,6 +411,45 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_STEP = 6, 3, 4
 # error (||g - g_f32|| / ||g_f32||) through the kernels in bf16 within
 # TRAIN_VS_PLAIN x the plain bf16 path's (only attention's rounding differs)
 TRAIN_CONTROL_LAYERS, TRAIN_VS_PLAIN = 2, 1.5
+# the moe_jam backward (B3b) against its plain version on the same bf16
+# inputs, per element within tol * (rms of the element's row + |plain|)
+# (``moe_jam.compare``): both sum the same products in float32 in other
+# orders and round h, dG and dU to bf16 before their products, so such a
+# rounding may land on the neighbouring bf16 value (2^-7 of it), and each
+# output is bf16 (the neighbouring value at most). dx sums F terms, where
+# one term's step is a small share: 1e-2, as the forward (MOE_TOL). A
+# weight gradient sums an expert's kept rows alone (1 to C): where a few
+# large terms cancel, one term's step is a larger share of the sum and of
+# its row's rms (1.6e-2 of it seen at olmoe's engine buckets, C 40, with
+# the kernel's L2 error against float32 equal to the plain path's to 4
+# digits): 3e-2. Against float32 (the plain version on the same inputs
+# cast to float32): each gradient's relative L2 error within BWD_VS_PLAIN x
+# the plain bf16 path's
+MOE_BWD_TOL, MOE_DW_TOL = 1e-2, 3e-2
+# the backward's check inputs: the bench's training shapes
+# (``moe_jam.bench.TRAIN``) and the engine's check input (a quarter of the
+# experts empty, a quarter full, the rest ragged); the first is the one its
+# JSON entry is timed on
+MOE_BWD_CASES = ("olmoe-1b-7b train", "deepseek-v2-lite-16b train", "engine check")
+# the MoE train phase: olmoe-1b-7b at full width through the Trainer, at
+# train_4k's 4,096 tokens, a global batch of TRAIN_BATCH in TRAIN_ACCUM
+# micro-batches (capacity 1,280 an expert), remat full, lr TRAIN_LR, warmup
+# 1 step, MOE_TRAIN_STEPS steps, no checkpoint (the llama drill covers
+# them). Its 16 layers are 6.92 B params: at MOE_BYTES_PER_PARAM (float32
+# masters, AdamW's m and v, the float32 gradient sums, the bf16 casts) that
+# is ~131 GB, so the stack is cut to the most layers whose estimate, with
+# MOE_ACT_RESERVE for a layer's recomputed activations and the logits,
+# stays within MOE_PEAK_BUDGET of the card's 80 GB. The rate is measured:
+# 6 layers (2.72 B params) peaked at 56.20 GB on an H100 80GB HBM3, under
+# 19 bytes a param beside 5 GB of activations (22 bytes a param, the
+# estimate that chose 6 layers, left 7 unrun)
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS = "olmoe-1b-7b", 4
+MOE_BYTES_PER_PARAM, MOE_ACT_RESERVE, MOE_PEAK_BUDGET = 19, 8e9, 70e9
+# the dispatch timed as the train phase and deepseek-v2-lite-16b's
+# 3,800-token prefill run it: (tokens, top_k) over 64 experts, uniform
+# picks from numpy seed 0
+DISPATCH_CASES = {"olmoe-1b-7b train micro-batch": (8192, 8),
+                  "deepseek-v2-lite-16b 3,800-token prefill": (3800, 6)}
 # paged attention vs plain, per element: |kernel - plain| <= 2e-2 * (min(1,
 # rms of the element's (request, column, head) row) + |plain|). bf16
 # output, and p rounded to bf16 before P.V at different points
@@ -843,8 +903,8 @@ def check_flash(torch, dev, cfgs):
 
 def check_flash_bwd(torch, dev):
     """Phase 3 for flash attention's backward kernel at each of
-    ``fbench.BWD_SHAPES`` (llama3.2-1b's training micro-batch, a windowed D
-    128 case): dq, dk, dv from bf16 inputs (numpy seed 0; the output's
+    ``fbench.BWD_SHAPES`` (llama3.2-1b's and olmoe-1b-7b's training
+    micro-batches, a windowed D 128 case): dq, dk, dv from bf16 inputs (numpy seed 0; the output's
     gradient from seed ``SEED + 1``, bf16) against autograd through the
     plain version in float32 (``BWD_VS_PLAIN``, ``BWD_TOL``); a second
     launch must give the same bits. The forward the train path launches
@@ -1051,6 +1111,153 @@ def check_flash_lse_widths(torch, dev):
         _hold_lse(torch, fa, visible_mask, name, shape, q, k, v, out, lse, kw)
         del q, k, v, out, lse, serving
         torch.cuda.empty_cache()
+
+
+def _moe_bwd_case(dev, name):
+    """(shape (E, C, D, F), counts, the bench's backward inputs) of one of
+    ``MOE_BWD_CASES``."""
+    from repro_torch.kernels.moe_jam import bench as mbench
+
+    if name in mbench.TRAIN:
+        e, d, f, k, tokens, c = mbench.TRAIN[name]
+        counts = mbench.train_counts(tokens, e, k, c)
+        shape = (e, c, d, f)
+    else:
+        counts = mbench.check_counts()
+        shape = (mbench.EXPERTS, mbench.CAPACITY, mbench.D_MODEL, mbench.D_FF)
+    return shape, counts, mbench.bwd_inputs(dev, counts, shape)
+
+
+def check_moe_jam_bwd(torch, dev):
+    """Phase 3 for the moe_jam backward kernel (B3b) at each of
+    ``MOE_BWD_CASES``: dx and the three weight gradients from bf16 inputs
+    (``moe_jam.bench.bwd_inputs``) against the plain version on the same
+    bf16 inputs (``MOE_BWD_TOL``, ``MOE_DW_TOL``) and against it on the
+    inputs cast to float32 (``BWD_VS_PLAIN``); dx rows past counts and an
+    empty expert's weight gradients exact zeros; a second launch the same
+    bits. Timed with the L2 flushed: the forward kernel, the backward
+    kernel (and its passes by ``torch.profiler``), the plain backward
+    (autograd through ``moe_jam_ffn_ref`` in bf16) and three ``bmm``'s
+    forward + backward by autograd less the forward. Returns ``{"bwd":
+    entry, "fwd": entry}`` (without ``launches``), timed on the first case,
+    every case's numbers under ``shapes``; the forward's is the training
+    micro-batch's (C 1,280)."""
+    from repro_torch.kernels import moe_jam as mj
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.moe_jam import bench as mbench
+    from repro_torch.kernels.moe_jam.kernel import BWD_DESIGN, DESIGN
+
+    flush = timing.l2_flush_buffer(dev)
+    shapes, fwd_shapes, empties = {}, {}, 0
+    for name in MOE_BWD_CASES:
+        shape, counts_np, (x, wg, wu, wd, dy, cnt) = _moe_bwd_case(dev, name)
+        E, C, D, F = shape
+        got = mj.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt)
+        again = mj.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt)
+        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(got, again))
+        del again
+        plain = mj.moe_jam_ffn_bwd_ref(x, wg, wu, wd, dy, counts=cnt)
+        f32 = mj.moe_jam_ffn_bwd_ref(*(t.float() for t in (x, wg, wu, wd, dy)), counts=cnt)
+        errs, bad = {}, []
+        for g, k_, p_, f_ in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, plain, f32):
+            err, worst, n_bad = mj.compare(k_, p_, tol=MOE_BWD_TOL if g == "dx" else MOE_DW_TOL)
+            ref_norm = f_.norm().item()
+            e_k = (k_.float() - f_).norm().item() / ref_norm
+            e_p = (p_.float() - f_).norm().item() / ref_norm
+            errs[g] = dict(max_abs_err=err, share=worst, over=n_bad, l2_kernel=e_k,
+                           l2_plain=e_p, finite=bool(torch.isfinite(k_).all()))
+            if n_bad or not e_k <= BWD_VS_PLAIN * e_p or not errs[g]["finite"]:
+                bad.append(g)
+        del plain, f32
+        empty_rows = ~(torch.arange(C, device=dev)[None, :] < cnt[:, None].long())
+        idle = cnt == 0
+        empties += int(idle.sum())
+        zeros = (int((got[0][empty_rows] != 0).sum()),
+                 sum(int((w[idle] != 0).sum()) for w in got[1:]))
+        del got
+        torch.cuda.empty_cache()
+        log(f"[kernel] moe_jam_bwd ({BWD_DESIGN}) {name} {shape}: {int(counts_np.sum())} kept "
+            f"rows, {int(idle.sum())} empty experts; "
+            + "; ".join(f"{g} max |kernel - plain| {e['max_abs_err']:.3e} (share "
+                        f"{e['share']:.3f}, {e['over']} over), L2 vs f32 {e['l2_kernel']:.4e} "
+                        f"(plain bf16 {e['l2_plain']:.4e})" for g, e in errs.items())
+            + f"; non-zero: {zeros[0]} in dx past counts, {zeros[1]} in empty experts' "
+            f"weight gradients; second launch bit for bit equal: {same}")
+        if bad or any(zeros) or not same:
+            raise AssertionError(f"moe_jam backward disagrees with its plain version ({name}: "
+                                 f"{bad}, zeros {zeros}, deterministic {same})")
+        work = mbench.needed_bwd_work(counts_np, capacity=C, d_model=D, d_ff=F)
+        bound, bound_by = timing.bound_ms(work)
+        lib_fwd, lib_both = mbench.bwd_yardstick(x, wg, wu, wd, dy)
+        r = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
+                 deterministic=same, bound_ms=bound, bound_by=bound_by, design=BWD_DESIGN,
+                 kept_rows=work["rows"],
+                 ms=timing.timed_ms(lambda: mj.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy,
+                                                                    counts=cnt), 10, flush),
+                 plain_ms=timing.timed_ms(mbench.plain_bwd(x, wg, wu, wd, dy, cnt), 3, flush),
+                 library_ms=(timing.timed_ms(lib_both, 10, flush)
+                             - timing.timed_ms(lib_fwd, 10, flush)),
+                 passes_ms=timing.kernel_ms(
+                     lambda: mj.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt), flush,
+                     mbench.BWD_PASSES, iters=3))
+        shapes[name] = r
+        log(f"[kernel] moe_jam_bwd {name} timing (L2 flushed per launch): kernel "
+            f"{r['ms']:.4f} ms (passes, profiled: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["passes_ms"].items())
+            + f"), plain (autograd through moe_jam_ffn_ref, bf16) {r['plain_ms']:.4f} ms, 3 x "
+            f"bmm forward + backward by autograd less forward {r['library_ms']:.4f} ms; "
+            f"{work['flops']} flops (eight products over {work['rows']} kept rows) -> "
+            f"{work['flops'] / timing.BF16_FLOPS_PER_S * 1e3:.5f} ms at 989 TFLOP/s; "
+            f"{work['bytes']} bytes -> {work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"at 3.35 TB/s; bound {bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.3f} "
+            f"of it")
+        if name in mbench.TRAIN:
+            fwork = mbench.needed_work(counts_np, d_model=D, d_ff=F)
+            fbound, fby = timing.bound_ms(fwork)
+            out = mj.moe_jam_ffn_cuda(x, wg, wu, wd, counts=cnt)
+            ferr, fworst, fbad = mj.compare(out, mj.moe_jam_ffn_ref(x, wg, wu, wd, counts=cnt),
+                                            tol=MOE_TOL)
+            del out
+            fr = fwd_shapes[name] = dict(
+                max_abs_err=ferr, bound_ms=fbound, bound_by=fby,
+                ms=timing.timed_ms(lambda: mj.moe_jam_ffn_cuda(x, wg, wu, wd, counts=cnt), 10,
+                                   flush),
+                plain_ms=timing.timed_ms(lambda: mj.moe_jam_ffn_ref(x, wg, wu, wd,
+                                                                    counts=cnt), 3, flush),
+                library_ms=timing.timed_ms(lambda: mbench.yardstick(x, wg, wu, wd), 10, flush))
+            log(f"[kernel] moe_jam ({DESIGN}) {name} forward (C {C}): max |kernel - plain| = "
+                f"{ferr:.3e}, largest share of the allowed error {fworst:.3f} ({fbad} over "
+                f"{MOE_TOL}); kernel {fr['ms']:.4f} ms, plain {fr['plain_ms']:.4f} ms, 3 x bmm "
+                f"+ act {fr['library_ms']:.4f} ms, bound {fbound:.5f} ms ({fby}), kernel at "
+                f"{fbound / fr['ms']:.3f} of it")
+            if fbad:
+                raise AssertionError(f"moe_jam disagrees with the plain version ({name})")
+        del x, wg, wu, wd, dy, cnt, lib_fwd, lib_both
+        torch.cuda.empty_cache()
+    del flush
+    if not empties:
+        raise AssertionError("no backward case held an empty expert")
+    first, fwd = next(iter(shapes.values())), next(iter(fwd_shapes.values()))
+    return {
+        "bwd": {"name": "moe_jam_bwd", "route": "cuda", "path": f"{MOE_TRAIN_ARCH} train",
+                "design": BWD_DESIGN,
+                "source": "src/repro_torch/kernels/moe_jam/csrc/moe_jam_bwd.cu",
+                "replaces": "src/repro/models/moe.py:66 (no TPU kernel: the JAX package "
+                            "differentiates expert_ffn)",
+                "launches": None,
+                "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+                "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+                "shapes": shapes},
+        "fwd": {"name": "moe_jam", "route": "cuda", "path": f"{MOE_TRAIN_ARCH} train",
+                "design": DESIGN, "source": "src/repro_torch/kernels/moe_jam/csrc/moe_jam.cu",
+                "replaces": "src/repro/kernels/moe_jam/kernel.py:62", "launches": None,
+                "max_abs_err": max(r["max_abs_err"] for r in fwd_shapes.values()),
+                "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+                "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
+                "shapes": fwd_shapes},
+    }
 
 
 def _n_params(cfg) -> int:
@@ -1289,12 +1496,220 @@ def train_path(torch, dev, card):
     return {k: launches[k] for k in want}
 
 
+def _moe_train_cfg(full):
+    """``full`` cut to the most layers whose estimated peak
+    (``MOE_BYTES_PER_PARAM`` x params + ``MOE_ACT_RESERVE``) fits
+    ``MOE_PEAK_BUDGET``, and the estimate."""
+    import dataclasses
+
+    for layers in range(full.num_layers, 0, -1):
+        cfg = dataclasses.replace(full, num_layers=layers)
+        est = MOE_BYTES_PER_PARAM * _n_params(cfg) + MOE_ACT_RESERVE
+        if est <= MOE_PEAK_BUDGET:
+            return cfg, est
+    raise AssertionError(f"{full.name}: not one layer fits {MOE_PEAK_BUDGET / 1e9:.0f} GB")
+
+
+def _dispatch_times(torch, dev, card):
+    """The MoE dispatch (``models.moe.build_dispatch``, a stable sort) at
+    each of ``DISPATCH_CASES``, warm, against the one-hot exclusive
+    ``cumsum`` it replaced (the JAX package's form), on the same ids: both
+    must give the same slot, keep and rank. Returns ``{case: (ms, cumsum
+    ms)}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import timing
+    from repro_torch.models.moe import build_dispatch
+
+    def cumsum_dispatch(ids, e, c):
+        flat = ids.reshape(-1).long()
+        one_hot = F.one_hot(flat, e + 1)[:, :e]
+        rank = ((torch.cumsum(one_hot, dim=0) - one_hot) * one_hot).sum(-1).reshape(ids.shape)
+        keep = rank < c
+        slot = torch.where(keep, ids.long() * c + rank, torch.full_like(rank, e * c))
+        return slot.to(torch.int32), keep, rank.to(torch.int32)
+
+    out = {}
+    for name, (tokens, k) in DISPATCH_CASES.items():
+        e = 64
+        c = max(8, -(-int(np.ceil(tokens * k * 1.25 / e)) // 8) * 8)
+        rng = np.random.default_rng(0)
+        ids = torch.from_numpy(np.argsort(rng.random((tokens, e)), axis=1)[:, :k].astype(
+            np.int32)).to(dev)
+        new, old = build_dispatch(ids, e, c), cumsum_dispatch(ids, e, c)
+        if not all(torch.equal(a, b) for a, b in zip(new, old)):
+            raise AssertionError(f"the sorted dispatch differs from the cumsum's ({name})")
+        out[name] = (timing.timed_ms(lambda: build_dispatch(ids, e, c), 20, None),
+                     timing.timed_ms(lambda: cumsum_dispatch(ids, e, c), 5, None))
+        log(f"[train] MoE dispatch {name} ({tokens} x top-{k} over {e} experts, capacity {c}): "
+            f"stable sort {out[name][0]:.4f} ms, one-hot cumsum {out[name][1]:.4f} ms (warm; "
+            f"slot, keep and rank equal), on {card}")
+    return out
+
+
+def moe_train_path(torch, dev, card):
+    """The MoE train phase: ``Trainer`` on ``MOE_TRAIN_ARCH`` at full width,
+    its stack cut by ``_moe_train_cfg`` (float32 masters from seed 0,
+    ``train_4k`` at 4,096 tokens, a global batch of ``TRAIN_BATCH`` in
+    ``TRAIN_ACCUM`` micro-batches, remat="full", AdamW at ``TRAIN_LR``),
+    ``MOE_TRAIN_STEPS`` steps, no checkpoint. Every launch count is set to
+    0 just before ``train()`` and read just after. Checks: every loss
+    finite and the last below the first; launches per step run: moe_jam's
+    forward 2 x layers x accum (remat) and its backward layers x accum,
+    flash's forward and backward likewise, nothing else; one micro-batch's
+    gradients taken twice from the same params bit for bit equal; the
+    float32 control (``_train_control``, routing fixed). Prints step
+    p50/p90, tokens/s, the model-FLOPs share of the dense bf16 peak from
+    the active params, one step's device busy and idle share, its top
+    device ops and the shares of moe_jam's forward and backward, flash's
+    forward and backward and the dispatch's sort and search, the peak
+    allocated memory, and the dispatch's times (``_dispatch_times``).
+    Returns the launches of the run."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs.base import TRAIN_4K, OptimizerConfig, RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import timing
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    dispatch = _dispatch_times(torch, dev, card)
+    full = dataclasses.replace(get_config(MOE_TRAIN_ARCH), remat="full")
+    cfg, est = _moe_train_cfg(full)
+    n_params = _n_params(cfg)
+    log(f"[train] {MOE_TRAIN_ARCH} at full width, its stack cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers: {full.num_layers} layers are {_n_params(full) / 1e9:.2f} B "
+        f"params, ~{MOE_BYTES_PER_PARAM * _n_params(full) / 1e9:.0f} GB at "
+        f"{MOE_BYTES_PER_PARAM} bytes a param (float32 masters, AdamW's m and v, the float32 "
+        f"gradient sums, the bf16 casts); {cfg.num_layers} layers are "
+        f"{n_params / 1e9:.2f} B params, estimated peak {est / 1e9:.1f} GB with "
+        f"{MOE_ACT_RESERVE / 1e9:.0f} GB of activations, within {MOE_PEAK_BUDGET / 1e9:.0f} GB "
+        f"of the card's 80")
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "moe_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shape = dataclasses.replace(TRAIN_4K, global_batch=TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, checkpoint_dir=str(ckpt_dir),
+                    optimizer=OptimizerConfig(lr=TRAIN_LR, total_steps=MOE_TRAIN_STEPS,
+                                              warmup_steps=1, accum_steps=TRAIN_ACCUM))
+    trainer = Trainer(cfg, run, tcfg=TrainerConfig(steps=MOE_TRAIN_STEPS, log_every=1,
+                                                   checkpoint_every=MOE_TRAIN_STEPS + 1),
+                      log_fn=log, device=dev)
+    if not {"moe_jam", "moe_jam_bwd"} <= set(trainer.bundle.meta["kernels"]):
+        raise AssertionError(f"the train bundle names {trainer.bundle.meta['kernels']}")
+    step_fn = trainer.bundle.fn
+    runs = []
+
+    def timed_step(params, opt, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, opt, batch)
+        runs.append((time.perf_counter() - t, float(out[2]["loss"])))
+        return out
+
+    trainer.bundle.fn = timed_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    stats = trainer.train()
+    launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trainer.bundle.fn = step_fn
+    losses = [r[1] for r in runs]
+    n = TRAIN_ACCUM * len(runs) * cfg.num_layers
+    want = {"moe_jam": 2 * n, "moe_jam_bwd": n, "flash_attention": 2 * n,
+            "flash_attention_bwd": n}
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}: not all finite, or the last not below the first")
+    if stats.steps != MOE_TRAIN_STEPS or len(runs) != MOE_TRAIN_STEPS:
+        problems.append(f"{stats.steps} steps, {len(runs)} step runs")
+    if any(c != want.get(k, 0) for k, c in launches.items()):
+        problems.append(f"launches {launches}, want {want}")
+    if problems:
+        raise AssertionError("MoE train phase: " + "; ".join(problems))
+    tokens = TRAIN_BATCH * shape.seq_len
+    times = sorted(r[0] for r in runs[1:])
+    p50, p90 = float(np.percentile(times, 50)), float(np.percentile(times, 90))
+    a = cfg.attention
+    active = cfg.active_param_count()
+    attn = 3 * 4 * a.num_heads * a.head_dim * (shape.seq_len / 2) * cfg.num_layers * tokens
+    flops = 6 * active * tokens + attn
+    log(f"[train] {MOE_TRAIN_ARCH}, {cfg.num_layers} layers at full width: losses by step "
+        f"{[round(x, 4) for x in losses]}; launches {launches} over {len(runs)} step runs "
+        f"(moe_jam 2 x {cfg.num_layers} layers x {TRAIN_ACCUM} micro-batches a step, remat "
+        f"full; its backward once)")
+    log(f"[train] {MOE_TRAIN_ARCH} step p50 {p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms "
+        f"({len(times)} runs after the first), {tokens / p50:.0f} tokens/s; model FLOPs 6 x "
+        f"{active} active params x {tokens} tokens + 3 x 4 x {a.num_heads} x {a.head_dim} x "
+        f"{shape.seq_len // 2} x {cfg.num_layers} x {tokens} (causal attention) = "
+        f"{flops:.4e} a step -> {flops / p50 / timing.BF16_FLOPS_PER_S:.3f} of 989 TFLOP/s "
+        f"dense bf16; peak allocated {peak:.2f} GB (estimated {est / 1e9:.1f}), on {card}")
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(cfg, shape, MOE_TRAIN_STEPS, run.seed).items()}
+    params, opt = trainer.params, trainer.opt
+    flash_bwd = ("bwd_delta", "bwd_dkdv", "bwd_dq")
+    matches = ("moe_stream_kernel", "moe_bwd_", "flash_wgmma", "Sort", "searchsorted") + flash_bwd
+    prof = _busy(torch, lambda: step_fn(params, opt, batch), repeats=1, matches=matches)
+    busy = prof["busy_ms"] or 0.0
+    ms = dict(prof["match_ms"], flash_bwd=sum(prof["match_ms"][m] for m in flash_bwd))
+    parts = {"moe_jam forward": "moe_stream_kernel", "moe_jam backward": "moe_bwd_",
+             "flash forward": "flash_wgmma", "flash backward": "flash_bwd",
+             "the dispatch's sort": "Sort", "its search": "searchsorted"}
+    log(f"[train] {MOE_TRAIN_ARCH} one step profiled: wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {busy:.1f} ms (idle share {1 - busy / prof['wall_ms']:.3f}); of busy: "
+        + ", ".join(f"{label} {ms[m]:.1f} ms ({ms[m] / max(busy, 1e-9):.3f})"
+                    for label, m in parts.items())
+        + f"; top device ops {prof['top']}")
+
+    # determinism: one micro-batch's gradients twice from the same params
+    del opt, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    leaves = tree.leaves(params)
+
+    def micro_grads():
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, _ = model_lib.loss_fn(cfg, params, mb, kernel="cuda")
+        out = torch.autograd.grad(loss, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        return out
+
+    one = micro_grads()
+    two = micro_grads()
+    differ = [i for i, (g1, g2) in enumerate(zip(one, two))
+              if not torch.equal(g1.view(torch.int32), g2.view(torch.int32))]
+    log(f"[train] {MOE_TRAIN_ARCH} one micro-batch's gradients taken twice: "
+        f"{len(leaves) - len(differ)} of {len(leaves)} leaves bit for bit equal")
+    if differ:
+        raise AssertionError(f"MoE gradients differ between two runs in leaves {differ}")
+    del one, two, params, leaves, batch, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_control(torch, dev, cfg, shape, card)
+    log(f"[train] MoE phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches, dispatch=dispatch)
+
+
 def _train_control(torch, dev, full, shape, card):
-    """The float32 control of the train phase: ``full`` cut to its first
+    """The float32 control of a train phase: ``full`` cut to its first
     ``TRAIN_CONTROL_LAYERS`` at full width, one 1 x 4,096 micro-batch
     (``synthetic_batch`` step 0): every leaf's gradient of ``loss_fn``
     through the kernels in bf16, through the plain version in bf16 and in
-    float32, on the same float32 params from seed 0."""
+    float32, on the same float32 params from seed 0. A MoE stack runs
+    without remat and with its routing fixed (``_fixed_routing``): the
+    float32 path's expert choices are replayed on both bf16 paths."""
+    import contextlib
     import dataclasses
 
     from repro_torch import tree
@@ -1302,6 +1717,9 @@ def _train_control(torch, dev, full, shape, card):
     from repro_torch.models import model as model_lib
 
     cfg = dataclasses.replace(full, num_layers=TRAIN_CONTROL_LAYERS)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, remat="none")
+    routing = _fixed_routing() if cfg.moe is not None else contextlib.nullcontext(None)
     one = dataclasses.replace(shape, global_batch=1)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(cfg, one, 0).items()}
     params = model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -1316,9 +1734,14 @@ def _train_control(torch, dev, full, shape, card):
             leaf.requires_grad_(False)
         return float(loss.detach()), out
 
-    l_k, g_k = grads("cuda", torch.bfloat16)
-    l_p, g_p = grads("ref", torch.bfloat16)
-    l_f, g_f = grads("ref", torch.float32)
+    with routing as replay:
+        l_f, g_f = grads("ref", torch.float32)           # first: it sets the routing
+        if replay:
+            replay()
+        l_k, g_k = grads("cuda", torch.bfloat16)
+        if replay:
+            replay()
+        l_p, g_p = grads("ref", torch.bfloat16)
     rows, bad = [], []
     for (path, _), a, b, c in zip(tree.flatten_with_paths(params), g_k, g_p, g_f):
         ref = c.norm().item()
@@ -1327,7 +1750,8 @@ def _train_control(torch, dev, full, shape, card):
         if not (np.isfinite(e_k) and e_k <= TRAIN_VS_PLAIN * e_p):
             bad.append((path, e_k, e_p))
     worst = max(rows, key=lambda r: r[1] / max(r[2], 1e-30))
-    log(f"[train] float32 control ({TRAIN_CONTROL_LAYERS} layers, 1 x {shape.seq_len}): loss "
+    log(f"[train] {cfg.name} float32 control ({TRAIN_CONTROL_LAYERS} layers, 1 x "
+        f"{shape.seq_len}{', routing fixed to the float32 path' if cfg.moe else ''}): loss "
         f"kernel bf16 {l_k:.5f}, plain bf16 {l_p:.5f}, plain float32 {l_f:.5f}; "
         f"{len(rows)} leaves, relative L2 gradient error kernel / plain: median "
         f"{np.median([r[1] for r in rows]):.3e} / {np.median([r[2] for r in rows]):.3e}, "
@@ -1336,6 +1760,49 @@ def _train_control(torch, dev, full, shape, card):
     if bad:
         raise AssertionError(f"kernel-path gradients past {TRAIN_VS_PLAIN}x the plain bf16 "
                              f"path's error against float32: {bad}")
+
+
+class _fixed_routing:
+    """Fix a MoE stack's routing across the float32 control's three
+    gradients: the first path's expert choices (``models.moe.route_topk``'s
+    ids, recorded call by call) are replayed on the later paths, each path
+    computing its own gates (its router probabilities at those ids,
+    normalized over k) and its own load-balance and z losses at them. With
+    bf16 noise flipping ~28% of random-weight router choices, the flips
+    and not the kernels would decide the comparison; fixed, every
+    path dispatches the same tokens to the same expert rows. The context
+    yields ``replay``, which starts the next path's replay."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.real = moe_mod, moe_mod.route_topk
+        self.ids, self.at = [], None
+        moe_mod.route_topk = self.route
+        return self.replay
+
+    def __exit__(self, *exc):
+        self.mod.route_topk = self.real
+
+    def replay(self):
+        self.at = 0
+
+    def route(self, x, router_w, m):
+        import torch
+
+        r = self.real(x, router_w, m)
+        if self.at is None:
+            self.ids.append(r.expert_ids)
+            return r
+        ids = self.ids[self.at]
+        self.at += 1
+        logits = x.float() @ router_w.float()
+        probs = torch.softmax(logits, dim=-1)
+        gates = probs.gather(1, ids.long())
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        f = torch.nn.functional.one_hot(ids[:, 0].long(), m.num_experts).float().mean(0)
+        aux = m.num_experts * torch.sum(f * probs.mean(0)) * m.router_aux_coef
+        return r._replace(expert_ids=ids, gates=gates, aux_loss=aux)
 
 
 def serve(torch, dev, arch, *, forced_preemption=True, placement="local"):
@@ -3319,7 +3786,7 @@ def main() -> int:
     with Phase("build"):
         libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE,
                                  mb_kernel.SOURCE, mb_kernel.RING_SOURCE, fa_kernel.SOURCE,
-                                 fa_kernel.BWD_SOURCE])
+                                 fa_kernel.BWD_SOURCE, mj_kernel.BWD_SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -3341,10 +3808,25 @@ def main() -> int:
         entries[("flash_attention_bwd", "train")] = train_entries["bwd"]
         entries[("flash_attention", "train")] = train_entries["fwd"]
         torch.cuda.empty_cache()
+        moe_entries = check_moe_jam_bwd(torch, dev)
+        entries[("moe_jam_bwd", "train")] = moe_entries["bwd"]
+        entries[("moe_jam", "train")] = moe_entries["fwd"]
+        torch.cuda.empty_cache()
     with Phase("train"):
         launches = train_path(torch, dev, card)
         entries[("flash_attention_bwd", "train")]["launches"] = launches["flash_attention_bwd"]
         entries[("flash_attention", "train")]["launches"] = launches["flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase(f"train {MOE_TRAIN_ARCH}"):
+        launches = moe_train_path(torch, dev, card)
+        for kname in ("moe_jam_bwd", "moe_jam"):
+            entries[(kname, "train")]["launches"] = launches[kname]
+        entries[("moe_jam_bwd", "train")]["dispatch_ms"] = launches["dispatch"]
+        for kname, key in (("flash_attention", "fwd"), ("flash_attention_bwd", "bwd")):
+            entries[(kname, f"{MOE_TRAIN_ARCH} train")] = dict(
+                train_entries[key], **train_entries[key]["shapes"][f"{MOE_TRAIN_ARCH} train"],
+                path=f"{MOE_TRAIN_ARCH} train", launches=launches[kname], shapes=None)
         gc.collect()
         torch.cuda.empty_cache()
     with Phase("kernel vs plain (serving)"):

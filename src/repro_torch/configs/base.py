@@ -1,5 +1,9 @@
 """Configuration dataclasses (a copy of ``repro/configs/base.py``'s model part).
 
+``ModelConfig.param_count`` and ``active_param_count`` are the JAX
+package's analytic counts (its approximations included, such as the
+mLSTM's block-diagonal qkv), not a sum over the port's parameter tree.
+
 Every architecture is expressed as a ``ModelConfig``. Configs are plain
 frozen dataclasses so they hash, compare, and round-trip to JSON. The
 shapes, the optimizer and the run configuration are copied too; the JAX
@@ -121,8 +125,83 @@ class ModelConfig:
     final_logit_softcap: float = 0.0
     remat: str = "full"
 
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        return _param_count(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: shared + top_k experts only)."""
+        return _param_count(self, active_only=True)
+
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str)
+
+
+def _ffn_params(d_model: int, d_ff: int, gated: bool = True) -> int:
+    # SwiGLU: gate + up + down; classic MLP: up + down
+    return (3 if gated else 2) * d_model * d_ff
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    a = cfg.attention
+    if a is None:
+        return 0
+    d = cfg.d_model
+    if a.kind == "mla":
+        qk_head = a.qk_nope_head_dim + a.qk_rope_head_dim
+        p = d * a.num_heads * qk_head                      # q proj (no lora in Lite)
+        p += d * (a.kv_lora_rank + a.qk_rope_head_dim)     # kv down + shared k_rope
+        p += a.kv_lora_rank * a.num_heads * (a.qk_nope_head_dim + a.v_head_dim)
+        p += a.num_heads * a.v_head_dim * d                # o proj
+        return p
+    hd = a.head_dim
+    p = d * a.num_heads * hd                               # q
+    p += 2 * d * a.num_kv_heads * hd                       # k, v
+    p += a.num_heads * hd * d                              # o
+    return p
+
+
+def _layer_params(cfg: ModelConfig, layer_idx: int, active_only: bool) -> int:
+    p = 0
+    d = cfg.d_model
+    if cfg.xlstm is not None:
+        # mLSTM block: qkv + i/f gates + out, with up-projection
+        inner = int(d * cfg.xlstm.proj_factor_mlstm)
+        p += 2 * d * inner          # up/gate proj
+        p += 3 * inner * inner // max(1, cfg.xlstm.num_heads)  # qkv (per-head block diag approx)
+        p += inner * d              # down proj
+        return p + 2 * d            # norms
+    p += _attn_params(cfg)
+    if cfg.ssm is not None:
+        inner = cfg.ssm.expand * d
+        p += d * 2 * inner          # in_proj (x, z)
+        p += inner * cfg.ssm.conv_width
+        dt_rank = cfg.ssm.dt_rank or -(-d // 16)
+        p += inner * (dt_rank + 2 * cfg.ssm.state_dim) + dt_rank * inner
+        p += inner * d              # out proj
+    moe = cfg.moe
+    use_moe = moe is not None and layer_idx >= (moe.first_dense_layers if moe else 0)
+    if use_moe:
+        shared = moe.num_shared * _ffn_params(d, moe.shared_ff or moe.expert_ff)
+        routed_each = _ffn_params(d, moe.expert_ff)
+        n_routed = moe.top_k if active_only else moe.num_experts
+        p += shared + n_routed * routed_each + d * moe.num_experts  # + router
+    elif cfg.d_ff > 0:
+        p += _ffn_params(d, cfg.d_ff, cfg.mlp_gated)
+    p += 2 * d                      # norms
+    return p
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    p = cfg.vocab_size * cfg.d_model  # embed
+    if not cfg.tie_embeddings:
+        p += cfg.vocab_size * cfg.d_model
+    if cfg.frontend.kind != "none":
+        p += cfg.frontend.feature_dim * cfg.d_model
+    for i in range(cfg.num_layers):
+        p += _layer_params(cfg, i, active_only)
+    p += cfg.d_model                 # final norm
+    return p
 
 
 

@@ -53,10 +53,12 @@ SHAPES = {
 
 # the backward's check shapes (the same fields): llama3.2-1b's training
 # micro-batch (2 x 4,096 tokens, 32 query heads over 8 kv heads of 64,
-# causal) and a windowed D 128 case
+# causal), a windowed D 128 case and olmoe-1b-7b's training micro-batch
+# (2 x 4,096 tokens, 16 heads of 128, MHA: G 1, causal)
 BWD_SHAPES = {
     "llama3.2-1b train": (2, 32, 8, 4096, 4096, 64, True, None, 0, 64),
     "windowed D 128": (1, 32, 8, 4096, 4096, 128, True, 1024, 0, 128),
+    "olmoe-1b-7b train": (2, 16, 16, 4096, 4096, 128, True, None, 0, 128),
 }
 
 

@@ -1,3 +1,5 @@
-"""The moe_jam expert FFN: the CUDA kernel, its plain version, and the wrapper."""
+"""The moe_jam expert FFN: the CUDA kernels (forward and backward), their plain
+versions, and the wrapper."""
 from repro_torch.kernels.moe_jam.ops import (  # noqa: F401
-    LAUNCHES, compare, moe_jam_ffn, moe_jam_ffn_cuda, moe_jam_ffn_ref)
+    BWD_LAUNCHES, LAUNCHES, MoeJamFn, compare, moe_jam_ffn, moe_jam_ffn_bwd_cuda,
+    moe_jam_ffn_bwd_ref, moe_jam_ffn_cuda, moe_jam_ffn_ref)

@@ -8,7 +8,13 @@ full prefill step), the check input (empty, partial and full experts),
 and a decode step's (8 tokens, top-8); then at deepseek-v2-lite-16b's
 buckets on the slots engine (``DEEPSEEK``: 64 experts of 2048 x 1408,
 top-6), a decode tick of 8 slots (capacity 8) and a 4,096-token prefill
-(capacity 480), routed uniformly (``deepseek_counts``):
+(capacity 480), routed uniformly (``deepseek_counts``); then the training
+shapes (``TRAIN``): the forward, the backward kernel, the plain backward
+(autograd through ``moe_jam_ffn_ref`` in bf16) and the library's
+(autograd through three ``bmm``, forward + backward less the forward),
+each beside its bound, at olmoe-1b-7b's micro-batch of 2 x 4,096 tokens
+(capacity 1,280) and deepseek-v2-lite-16b's 4,096-token one (capacity
+480):
 
     PYTHONPATH=src python -m repro_torch.kernels.moe_jam.bench
 """
@@ -31,8 +37,17 @@ EXPERTS, CAPACITY, D_MODEL, D_FF = 64, 40, 2048, 1024
 # prefill (top-6, factor 1.25): tokens -> capacity
 DEEPSEEK = dict(experts=64, d_model=2048, d_ff=1408, top_k=6)
 DEEPSEEK_FILLS = {"decode": (8, 8), "prefill": (4096, 480)}
+# the training shapes: a micro-batch's tokens routed uniformly top-k over
+# the experts (``train_counts``), at the capacity ``expert_capacity`` gives
+# them (factor 1.25): olmoe-1b-7b's 2 x 4,096 tokens top-8 and
+# deepseek-v2-lite-16b's 4,096 top-6; name -> (experts, d_model, d_ff,
+# top_k, tokens, capacity)
+TRAIN = {"olmoe-1b-7b train": (64, 2048, 1024, 8, 8192, 1280),
+         "deepseek-v2-lite-16b train": (64, 2048, 1408, 6, 4096, 480)}
 # the kernel's two passes, by the name of the kernel each launches
 PASSES = {"gate_up": "moe_stream_kernel<true>", "down": "moe_stream_kernel<false>"}
+# the backward's passes (one launch of act and dx, three of dw)
+BWD_PASSES = {"act": "moe_bwd_act", "dx": "moe_bwd_dx", "dw": "moe_bwd_dw"}
 
 
 def check_counts() -> np.ndarray:
@@ -59,10 +74,18 @@ def fills() -> dict:
 def deepseek_counts(tokens: int, capacity: int, seed: int = 4) -> np.ndarray:
     """Kept rows per expert when ``tokens`` tokens each pick ``top_k``
     distinct experts uniformly (numpy ``seed``), at most ``capacity``."""
+    return train_counts(tokens, DEEPSEEK["experts"], DEEPSEEK["top_k"], capacity, seed)
+
+
+def train_counts(tokens: int, experts: int, top_k: int, capacity: int,
+                 seed: int = 4) -> np.ndarray:
+    """Kept rows per expert when ``tokens`` tokens each pick ``top_k``
+    distinct of ``experts`` uniformly (numpy ``seed``), at most
+    ``capacity``."""
     rng = np.random.default_rng(seed)
-    e, k = DEEPSEEK["experts"], DEEPSEEK["top_k"]
-    picks = np.argsort(rng.random((tokens, e)), axis=1)[:, :k]
-    return np.minimum(np.bincount(picks.ravel(), minlength=e), capacity).astype(np.int32)
+    picks = np.argsort(rng.random((tokens, experts)), axis=1)[:, :top_k]
+    return np.minimum(np.bincount(picks.ravel(), minlength=experts),
+                      capacity).astype(np.int32)
 
 
 def check_inputs(device, counts: np.ndarray, shape=(EXPERTS, CAPACITY, D_MODEL, D_FF)):
@@ -102,6 +125,59 @@ def needed_work(counts: np.ndarray, *, d_model: int, d_ff: int) -> dict:
                 flops=rows * 3 * 2 * d_model * d_ff)
 
 
+def needed_bwd_work(counts: np.ndarray, *, capacity: int, d_model: int, d_ff: int) -> dict:
+    """The bytes and operations the backward needs on this input, for its
+    bound: the weights of every expert that holds a kept row read once,
+    every expert's three weight gradients and the whole dx (E, C, D)
+    written once (zeros included), the kept rows of x and dy read once and
+    the counts; flops: eight products (G and U recomputed, dH, dx's two,
+    the three weight gradients), 2 * d_model * d_ff each, per kept row."""
+    counts = np.asarray(counts, np.int64)
+    busy = int((counts > 0).sum())
+    rows = int(counts.sum())
+    weight_bytes = busy * 3 * d_model * d_ff * 2
+    grad_bytes = len(counts) * 3 * d_model * d_ff * 2 + len(counts) * capacity * d_model * 2
+    nbytes = weight_bytes + grad_bytes + 2 * rows * d_model * 2 + 4 * len(counts)
+    return dict(bytes=nbytes, weight_bytes=weight_bytes, rows=rows, experts=busy,
+                flops=rows * 8 * 2 * d_model * d_ff)
+
+
+def bwd_inputs(device, counts: np.ndarray, shape):
+    """``check_inputs`` at ``shape`` and a dy (E, C, D) bf16 from numpy
+    seed 2 over every row, rows past counts included (the backward never
+    reads them into a sum)."""
+    x, wg, wu, wd, cnt = check_inputs(device, counts, shape)
+    dy = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        tuple(x.shape), dtype=np.float32)).to(device=device, dtype=torch.bfloat16)
+    return x, wg, wu, wd, dy, cnt
+
+
+def bwd_yardstick(x, w_gate, w_up, w_down, dy):
+    """``(forward, both)``: callables computing ``yardstick`` (three bf16
+    ``bmm``) forward, and forward + backward by autograd against ``dy``:
+    their difference is the library's backward time (the port never calls
+    it)."""
+    ins = [t.detach().requires_grad_(True) for t in (x, w_gate, w_up, w_down)]
+
+    def forward():
+        with torch.no_grad():
+            return yardstick(*ins)
+
+    def both():
+        return torch.autograd.grad(yardstick(*ins), ins, dy)
+
+    return forward, both
+
+
+def plain_bwd(x, w_gate, w_up, w_down, dy, counts):
+    """A callable: autograd through ``moe_jam_ffn_ref`` on these inputs
+    (forward + backward), the plain version's time."""
+    from repro_torch.kernels.moe_jam.ref import moe_jam_ffn_ref
+
+    ins = [t.detach().requires_grad_(True) for t in (x, w_gate, w_up, w_down)]
+    return lambda: torch.autograd.grad(moe_jam_ffn_ref(*ins, counts=counts), ins, dy)
+
+
 def yardstick(x, w_gate, w_up, w_down):
     """The same function (silu) by three bf16 ``torch.bmm`` calls: a library
     time to stand beside the kernel's (the port never calls it)."""
@@ -109,8 +185,33 @@ def yardstick(x, w_gate, w_up, w_down):
     return torch.bmm(g * torch.bmm(x, w_up), w_down)
 
 
+def time_train_shape(dev, flush, name: str) -> dict:
+    """The forward, the backward kernel, the plain backward and the
+    library's at one ``TRAIN`` shape, each beside its bound (L2 flushed
+    before every launch)."""
+    from repro_torch.kernels.moe_jam.ops import moe_jam_ffn_bwd_cuda, moe_jam_ffn_cuda
+
+    e, d, f, k, tokens, c = TRAIN[name]
+    counts = train_counts(tokens, e, k, c)
+    x, wg, wu, wd, dy, cnt = bwd_inputs(dev, counts, (e, c, d, f))
+    fwd_work = needed_work(counts, d_model=d, d_ff=f)
+    bwd_work = needed_bwd_work(counts, capacity=c, d_model=d, d_ff=f)
+    lib_fwd, lib_both = bwd_yardstick(x, wg, wu, wd, dy)
+    r = dict(shape=(e, c, d, f), kept_rows=bwd_work["rows"], experts=bwd_work["experts"],
+             fwd_ms=timed_ms(lambda: moe_jam_ffn_cuda(x, wg, wu, wd, counts=cnt), 10, flush),
+             fwd_bound=bound_ms(fwd_work),
+             ms=timed_ms(lambda: moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt), 10,
+                         flush),
+             bound=bound_ms(bwd_work),
+             plain_ms=timed_ms(plain_bwd(x, wg, wu, wd, dy, cnt), 3, flush),
+             library_ms=timed_ms(lib_both, 10, flush) - timed_ms(lib_fwd, 10, flush),
+             passes_ms=kernel_ms(lambda: moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt),
+                                 flush, BWD_PASSES, iters=3))
+    return r
+
+
 def main() -> int:
-    from repro_torch.kernels.moe_jam.kernel import DESIGN
+    from repro_torch.kernels.moe_jam.kernel import BWD_DESIGN, DESIGN
     from repro_torch.kernels.moe_jam.ops import moe_jam_ffn_cuda, moe_jam_ffn_ref
 
     if not torch.cuda.is_available():
@@ -146,7 +247,17 @@ def main() -> int:
               + f"), plain {r['plain_ms']:.4f} ms, 3 x bmm {r['library_ms']:.4f} ms, bound "
               f"{bound:.4f} ms ({by}), weights at "
               f"{work['weight_bytes'] / r['ms'] / 1e9:.3f} TB/s", flush=True)
-    print(json.dumps({"card": card, "design": DESIGN, "moe_jam": rows}), flush=True)
+    train = {}
+    for name in TRAIN:
+        r = train[name] = time_train_shape(dev, flush, name)
+        print(f"[bench] moe_jam {name} {r['shape']}: {r['kept_rows']} kept rows; forward "
+              f"{r['fwd_ms']:.4f} ms (bound {r['fwd_bound'][0]:.4f}, {r['fwd_bound'][1]}); "
+              f"backward ({BWD_DESIGN}) {r['ms']:.4f} ms (passes, profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["passes_ms"].items())
+              + f"), bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain {r['plain_ms']:.4f} "
+              f"ms, 3 x bmm by autograd less forward {r['library_ms']:.4f} ms", flush=True)
+    print(json.dumps({"card": card, "design": DESIGN, "bwd_design": BWD_DESIGN,
+                      "moe_jam": rows, "train": train}), flush=True)
     return 0
 
 

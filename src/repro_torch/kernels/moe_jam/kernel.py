@@ -1,11 +1,14 @@
-"""Load and launch the CUDA moe_jam expert-FFN kernel.
+"""Load and launch the CUDA moe_jam expert-FFN kernels: the forward and its
+gradient.
 
-``csrc/moe_jam.cu`` has a plain C interface; ``kernels.loader`` builds it
-with ``nvcc`` at first use and loads it with ``ctypes``. One call of
-``moe_jam_ffn_cuda`` launches its two passes (gate/up into a bf16 ``h``
-scratch, then down), each a persistent weight stream (TMA into a 5-stage
-ring, wgmma), and counts once. Nothing is built or loaded when this module
-is imported.
+``csrc/moe_jam.cu`` and ``csrc/moe_jam_bwd.cu`` have plain C interfaces;
+``kernels.loader`` builds each with ``nvcc`` at first use and loads it with
+``ctypes``. One call of ``moe_jam_ffn_cuda`` launches its two passes
+(gate/up into a bf16 ``h`` scratch, then down), each a persistent weight
+stream (TMA into a 5-stage ring, wgmma), and counts once; one call of
+``moe_jam_ffn_bwd_cuda`` launches the backward's passes (h, dG, dU; dx;
+the three weight gradients) and counts once in ``BWD_LAUNCHES``. Nothing
+is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -18,11 +21,15 @@ import torch
 from repro_torch.kernels import loader
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_jam.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_jam_bwd.cu"
 LAUNCHES = loader.LaunchCounter()
+BWD_LAUNCHES = loader.LaunchCounter()
 ACTS = {"silu": 0, "gelu": 1}
 TILE = 32                 # D and F must be multiples of it
 DESIGN = "v2: persistent TMA weight stream, wgmma m64n128"
+BWD_DESIGN = "v1: three passes of mma.sync m16n8k16 on a 3-stage cp.async ring"
 _fn = None
+_bwd_fn = None
 
 
 def _load():
@@ -34,6 +41,18 @@ def _load():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _load_bwd():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = loader.load(BWD_SOURCE).moe_jam_bwd_bf16
+        # x, w_gate, w_up, w_down, dy, counts, h, dg, du, dx, dw_gate, dw_up,
+        # dw_down; E, C, D, F, act; stream
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def _check(x, w_gate, w_up, w_down, counts, act):
@@ -73,10 +92,12 @@ def moe_jam_ffn_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel on the current stream. Returns (E, C, D) bf16, with
     zeros in the rows at or past ``counts``. Raises on inputs the kernel
-    does not take and on a refused launch, and under grad (its backward is
-    A13's MoE half)."""
-    loader.refuse_grad("moe_jam", "MoE training on the card is A13's MoE half",
-                       x, w_gate, w_up, w_down)
+    does not take and on a refused launch, and under grad:
+    ``ops.moe_jam_ffn`` differentiates it through ``MoeJamFn``."""
+    if loader.needs_grad(x, w_gate, w_up, w_down):
+        raise NotImplementedError(
+            "moe_jam_ffn_cuda returns an output autograd does not see; under grad "
+            "call kernels.moe_jam.moe_jam_ffn, which runs MoeJamFn")
     _check(x, w_gate, w_up, w_down, counts, act)
     E, C, D = x.shape
     F = w_gate.shape[-1]
@@ -92,3 +113,37 @@ def moe_jam_ffn_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         raise RuntimeError(f"moe_jam kernel launch failed: cudaError {rc}")
     LAUNCHES.count += 1
     return out
+
+
+def moe_jam_ffn_bwd_cuda(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                         w_down: torch.Tensor, dy: torch.Tensor, act: str = "silu", *,
+                         counts: Optional[torch.Tensor] = None):
+    """The gradient of the forward given ``dy`` (E, C, D), the gradient of
+    its output, on the current stream: ``(dx, dw_gate, dw_up, dw_down)``
+    bf16, shaped as ``x`` and the weights, each element summed in float32
+    by one thread (deterministic); rows of dx at or past ``counts`` are
+    zeros and an expert with no kept row gets zero weight gradients
+    (``ref.moe_jam_ffn_bwd_ref`` states the formula). Raises on inputs the
+    kernel does not take and on a refused launch."""
+    _check(x, w_gate, w_up, w_down, counts, act)
+    if dy.device != x.device or dy.dtype != torch.bfloat16 or dy.shape != x.shape:
+        raise ValueError(f"dy must be bf16 {tuple(x.shape)} on {x.device}, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError("dy must be contiguous and 16-byte aligned")
+    E, C, D = x.shape
+    F = w_gate.shape[-1]
+    h, dg, du = (torch.empty((E, C, F), dtype=x.dtype, device=x.device) for _ in range(3))
+    dx = torch.empty_like(x)
+    dw_gate, dw_up, dw_down = (torch.empty_like(w) for w in (w_gate, w_up, w_down))
+    fn = _load_bwd()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                dy.data_ptr(), counts.data_ptr() if counts is not None else None,
+                h.data_ptr(), dg.data_ptr(), du.data_ptr(), dx.data_ptr(), dw_gate.data_ptr(),
+                dw_up.data_ptr(), dw_down.data_ptr(), E, C, D, F, ACTS[act], stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_jam backward kernel launch failed: cudaError {rc}")
+    BWD_LAUNCHES.count += 1
+    return dx, dw_gate, dw_up, dw_down

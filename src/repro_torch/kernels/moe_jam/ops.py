@@ -5,6 +5,13 @@
 version on CPU tensors; ``cuda`` on the CPU raises (``loader.resolve_kernel``,
 the rule every kernel of the port follows). There is no fallback from one
 to the other.
+
+Under grad (grad mode on and an input that requires it) the kernel route
+runs ``MoeJamFn``: the forward kernel, then the backward kernel
+(``moe_jam_bwd.cu``) for dx and the three weight gradients. The plain
+route is differentiated by autograd through ``moe_jam_ffn_ref``, which the
+CPU tests hold ``moe_jam_ffn_bwd_ref``, the backward kernel's yardstick,
+against.
 """
 from __future__ import annotations
 
@@ -12,18 +19,43 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.loader import resolve_kernel
-from repro_torch.kernels.moe_jam.kernel import LAUNCHES, moe_jam_ffn_cuda
-from repro_torch.kernels.moe_jam.ref import moe_jam_ffn_ref
+from repro_torch.kernels.loader import needs_grad, resolve_kernel
+from repro_torch.kernels.moe_jam.kernel import (BWD_LAUNCHES, LAUNCHES, moe_jam_ffn_bwd_cuda,
+                                                moe_jam_ffn_cuda)
+from repro_torch.kernels.moe_jam.ref import moe_jam_ffn_bwd_ref, moe_jam_ffn_ref
+
+
+class MoeJamFn(torch.autograd.Function):
+    """The expert FFN with a gradient: the forward kernel, keeping its
+    inputs and ``counts``, and the backward kernel for dx and the weight
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, act, counts):
+        out = moe_jam_ffn_cuda(x, w_gate, w_up, w_down, act, counts=counts)
+        ctx.save_for_backward(x, w_gate, w_up, w_down, counts)
+        ctx.act = act
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down, counts = ctx.saved_tensors
+        grads = moe_jam_ffn_bwd_cuda(x, w_gate, w_up, w_down, dy.contiguous(), ctx.act,
+                                     counts=counts)
+        return (*grads, None, None)
 
 
 def moe_jam_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                 w_down: torch.Tensor, act: str = "silu", *,
                 counts: Optional[torch.Tensor] = None,
                 kernel: str = "auto") -> torch.Tensor:
-    """(E, C, D) buckets through each expert's gated FFN -> (E, C, D)."""
-    fn = moe_jam_ffn_cuda if resolve_kernel(kernel, x.device) == "cuda" else moe_jam_ffn_ref
-    return fn(x, w_gate, w_up, w_down, act, counts=counts)
+    """(E, C, D) buckets through each expert's gated FFN -> (E, C, D): the
+    CUDA kernel (through ``MoeJamFn`` under grad) or its plain version."""
+    if resolve_kernel(kernel, x.device) != "cuda":
+        return moe_jam_ffn_ref(x, w_gate, w_up, w_down, act, counts=counts)
+    if needs_grad(x, w_gate, w_up, w_down):
+        return MoeJamFn.apply(x, w_gate, w_up, w_down, act, counts)
+    return moe_jam_ffn_cuda(x, w_gate, w_up, w_down, act, counts=counts)
 
 
 def compare(out: torch.Tensor, ref: torch.Tensor, *, tol: float = 1e-2):
@@ -43,4 +75,5 @@ def compare(out: torch.Tensor, ref: torch.Tensor, *, tol: float = 1e-2):
     return float(err.max()), worst, bad
 
 
-__all__ = ["LAUNCHES", "compare", "moe_jam_ffn", "moe_jam_ffn_cuda", "moe_jam_ffn_ref"]
+__all__ = ["BWD_LAUNCHES", "LAUNCHES", "MoeJamFn", "compare", "moe_jam_ffn",
+           "moe_jam_ffn_bwd_cuda", "moe_jam_ffn_bwd_ref", "moe_jam_ffn_cuda", "moe_jam_ffn_ref"]

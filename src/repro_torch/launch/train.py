@@ -4,11 +4,18 @@
       --steps 3 --batch 4 --seq 64 --device cpu
 
 ``--smoke`` takes the reduced config. The step runs on ``--device``
-(default ``cuda``; without a card pass ``--device cpu``). The JAX
-launcher's ``--multi-pod`` (a mesh over pods) and ``--transport`` (the MoE
-jam transport) wait for the port's mesh (ROADMAP A14) and for MoE training
-on the card (A13's MoE half). Prints the JAX launcher's ``[train] done:``
-line.
+(default ``cuda``; without a card pass ``--device cpu``). On one H100,
+olmoe-1b-7b trains at full width with its stack cut to what the card
+holds (``--layers``; 7 of 16 in ``chip_smoke.py``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+      --layers 7 --batch 2 --steps 4
+
+``--transport`` is the JAX launcher's MoE jam transport override:
+``local`` (and the default) run the single-device path, the only one the
+port has; ``injected`` and ``auto`` move tokens or weights between devices
+and wait for the port's mesh (ROADMAP A14), as does the JAX launcher's
+``--multi-pod``. Prints the JAX launcher's ``[train] done:`` line.
 """
 from __future__ import annotations
 
@@ -37,9 +44,19 @@ def main(argv=None) -> None:
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--transport", default=None, choices=("local", "injected", "auto"),
+                   help="MoE jam transport override")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the stack to this many layers (full width)")
     args = p.parse_args(argv)
 
+    if args.transport not in (None, "local"):
+        raise NotImplementedError(
+            f"--transport {args.transport} moves MoE tokens or weights between devices: "
+            "the port has one device until ROADMAP item A14 ports the jam transports")
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     shape = SHAPES[args.shape]
     if args.seq:
         shape = dataclasses.replace(shape, seq_len=args.seq)

@@ -10,8 +10,10 @@ version on the CPU), not an einsum.
 
 Semantics kept exactly, because they decide which assignments are dropped:
 capacity comes from all ``B * S`` columns, padding included; the rank of an
-assignment is an exclusive cumsum over the token-major, k-minor order;
-masked tokens route to expert id ``E``, which consumes no capacity.
+assignment is its place among the assignments to its expert in the
+token-major, k-minor order (the JAX package's exclusive cumsum; a stable
+sort here); masked tokens route to expert id ``E``, which consumes no
+capacity.
 """
 from __future__ import annotations
 
@@ -76,21 +78,28 @@ def build_dispatch(ids: torch.Tensor, n_experts: int, capacity: int
     """Capacity-bucketed dispatch plan.
 
     Returns (slot (N,k) int32 in [0, E*C] — E*C is the drop slot,
-             keep (N,k) bool, position-in-expert rank (N,k)).
+             keep (N,k) bool, position-in-expert rank (N,k) int32).
 
-    An id equal to ``n_experts`` (a masked token) has an all-zero one-hot
-    row, as ``jax.nn.one_hot`` gives for an out-of-range index: rank 0,
-    kept, and slot ``E*C``, the drop slot. ``F.one_hot`` refuses that
-    index, so the one-hot is taken over ``E + 1`` classes and cut."""
+    The rank of an assignment is the number of earlier assignments (in the
+    token-major, k-minor order) to the same expert, as the JAX package's
+    exclusive cumsum over a one-hot gives it. Here it comes from a stable
+    sort of the flat ids instead: an assignment's position in the sorted
+    order less the first position of its expert, in O(N k log(N k)) and
+    never an (N k, E) tensor. An id equal to ``n_experts`` (a masked token)
+    has an all-zero one-hot row in the JAX form: rank 0, kept, and slot
+    ``E*C``, the drop slot."""
     n, k = ids.shape
-    flat = ids.reshape(-1).long()                              # (N*k,)
-    one_hot = F.one_hot(flat, n_experts + 1)[:, :n_experts]
-    rank = (torch.cumsum(one_hot, dim=0) - one_hot) * one_hot  # pos within expert
-    rank = rank.sum(-1).reshape(n, k)
+    flat = ids.reshape(-1).to(torch.int32)                     # (N*k,)
+    sorted_ids, order = torch.sort(flat, stable=True)
+    first = torch.searchsorted(sorted_ids, sorted_ids)         # of each one's expert
+    pos = torch.arange(flat.numel(), dtype=torch.int64, device=ids.device)
+    rank = torch.empty_like(flat)
+    rank[order] = (pos - first).to(torch.int32)
+    rank = torch.where(flat == n_experts, 0, rank).reshape(n, k)
     keep = rank < capacity
-    slot = torch.where(keep, ids.long() * capacity + rank,
+    slot = torch.where(keep, ids.to(torch.int32) * capacity + rank,
                        torch.full_like(rank, n_experts * capacity))
-    return slot.to(torch.int32), keep, rank.to(torch.int32)
+    return slot, keep, rank
 
 
 def moe_ffn_oracle(params, x: torch.Tensor, m: MoEConfig, act: str = "silu",

@@ -43,7 +43,10 @@ LAUNCH_COUNTERS = {"paged_attention": paged_attention.LAUNCHES,
                    "moe_jam": moe_jam.LAUNCHES,
                    "ssm_scan": ssm_scan.LAUNCHES,
                    "flash_attention": flash_attention.LAUNCHES,
-                   "flash_attention_bwd": flash_attention.BWD_LAUNCHES}
+                   "flash_attention_bwd": flash_attention.BWD_LAUNCHES,
+                   "moe_jam_bwd": moe_jam.BWD_LAUNCHES}
+# the kernels a train step can launch, each with its backward kernel
+TRAIN_KERNELS = {"flash_attention": "flash_attention_bwd", "moe_jam": "moe_jam_bwd"}
 
 
 @dataclasses.dataclass
@@ -58,9 +61,6 @@ def train_refusal(cfg: ModelConfig, seq_len: int) -> Optional[str]:
     see; its wrapper raises at the first step, and this names the reason
     before it."""
     for bt in sorted(set(model_lib.flat_block_types(cfg))):
-        if bt.endswith("_moe"):
-            return (f"block {bt!r} runs moe_jam, which has no backward kernel yet: MoE "
-                    "training on the card is A13's MoE half")
         if bt == "ssm" or bt.startswith("hybrid"):
             return (f"block {bt!r} runs ssm_scan, which has no backward kernel yet: SSM "
                     "and hybrid training on the card is A13's third half")
@@ -94,8 +94,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, kernel: str = "auto", d
     ``grad_norm`` (before the clip) and ``lr``.
 
     ``kernel`` selects flash attention's kernels (forward and backward) or
-    the plain version past ``models.attention.CHUNK_THRESHOLD``; on a card
-    a stack that would reach a kernel with no backward is refused here
+    the plain version past ``models.attention.CHUNK_THRESHOLD``, and the
+    MoE expert FFN's (``moe_jam`` and its backward); on a card a stack that
+    would reach a kernel with no backward is refused here
     (``train_refusal``). ``meta["kernels"]`` names the kernels a step can
     launch."""
     dev = resolve_device(device)
@@ -106,9 +107,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, kernel: str = "auto", d
             raise NotImplementedError(f"cannot train {cfg.name} on the card: {why}")
     ocfg = run.optimizer
     accum = max(1, ocfg.accum_steps)
-    kernels = tuple(k for k in _stack_kernels(cfg) if k == "flash_attention")
-    if kernels:
-        kernels += ("flash_attention_bwd",)
+    kernels = tuple(name for k in _stack_kernels(cfg) if k in TRAIN_KERNELS
+                    for name in (k, TRAIN_KERNELS[k]))
 
     def split(batch):
         rows = batch["tokens"].shape[0]

@@ -108,9 +108,22 @@ port's dependencies:
   ``logsumexp`` of the plain scores (every instance) with the output
   unchanged; widths with no backward instance refused; the wrappers of
   paged attention, moe_jam and the scan (and ``flash_attention_cuda``
-  itself) refusing grad, ``make_train_step`` refusing olmoe, mamba and
-  xlstm on the card; two train steps of a 2-layer D 64 config on the card
-  (bf16, flash kernels) against the same steps on the CPU in float32.
+  itself) refusing grad, ``make_train_step`` refusing mamba and xlstm on
+  the card; two train steps of a 2-layer D 64 config on the card (bf16,
+  flash kernels) against the same steps on the CPU in float32;
+* the moe_jam backward kernel (dx and the three weight gradients) against
+  its plain version on the same bf16 inputs (``moe_jam.compare``'s form,
+  ``MOE_BWD_TOL`` for dx, ``MOE_DW_TOL`` for the weights) and against
+  float32 (relative L2 error within ``BWD_VS_PLAIN`` x the plain bf16
+  path's), silu and gelu, at the
+  forward's uneven shapes, deepseek-v2-lite-16b's F 1,408 and olmoe's
+  engine buckets, with empty, partial and full experts: dx rows past
+  counts exactly zero, an empty expert's weight gradients exactly zero,
+  NaN in x and dy past counts never reaching a sum; two launches bit for
+  bit equal; ``moe_jam_ffn`` under grad through ``MoeJamFn`` (one launch
+  of each kernel, the backward's gradients those of the autograd graph);
+  two train steps of the olmoe smoke on the card (both MoE kernels)
+  against the same steps on the CPU in float32.
 """
 import numpy as np
 import pytest
@@ -1663,8 +1676,9 @@ def test_kernel_wrappers_refuse_grad(cuda):
     x = torch.randn(4, 8, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     w = [torch.randn(4, 64, 64, device=cuda, dtype=torch.bfloat16) for _ in range(2)]
     wd = torch.randn(4, 64, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="MoE half"):
+    with pytest.raises(NotImplementedError, match="MoeJamFn"):
         moe_jam.moe_jam_ffn_cuda(x, w[0], w[1], wd)
+    assert moe_jam.moe_jam_ffn(x, w[0], w[1], wd).grad_fn is not None
 
     dt, b_, c_, xs, a = _scan_case(rng, cuda, 2, 8, 64, 16)[:5]
     with pytest.raises(NotImplementedError, match="third half"):
@@ -1672,7 +1686,7 @@ def test_kernel_wrappers_refuse_grad(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba-130m", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["mamba-130m", "xlstm-1.3b"])
 def test_make_train_step_refuses_on_the_card(cuda, arch):
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.runtime.steps import make_train_step
@@ -1733,3 +1747,153 @@ def test_two_train_steps_on_the_card_match_the_cpu(cuda, monkeypatch):
     du = torch.cat([(a - p).flatten() for a, p in zip(tree.leaves(pc), tree.leaves(p0))])
     dw = torch.cat([(a - p).flatten() for a, p in zip(tree.leaves(pf), tree.leaves(p0))])
     assert (du - dw).norm() <= 0.25 * dw.norm()
+
+
+# ---------------------------------------------------------------------------
+# the moe_jam backward kernel (MoE training)
+# ---------------------------------------------------------------------------
+
+# the backward kernel against its plain version on the same bf16 inputs,
+# per element within tol * (rms of the element's row + |plain|)
+# (``moe_jam.compare``): both sum the same products in float32 in other
+# orders and round h, dG and dU to bf16 before their products, so such a
+# rounding may land on the neighbouring bf16 value (2^-7 of it), and each
+# output is bf16 (the neighbouring value at most, 2^-7 of |plain|). dx
+# sums F terms, where one term's step is a small share: 1e-2, as the
+# forward. A weight gradient sums an expert's kept rows alone (1 to C):
+# where a few large terms cancel, one term's step is a larger share of
+# the sum and of its row's rms (1.6e-2 of it seen at olmoe's buckets, C 40,
+# with the kernel's L2 error against float32 equal to the plain path's to
+# 4 digits): 3e-2
+MOE_BWD_TOL, MOE_DW_TOL = 1e-2, 3e-2
+MOE_BWD_SHAPES = [(8, 8, 64, 32), (3, 65, 64, 96), (4, 130, 96, 160), (2, 300, 128, 1408),
+                  (64, 40, 2048, 1024), (1, 24, 64, 96)]
+
+
+def _moe_bwd_case(cuda, e, c, d, f, seed):
+    rng = np.random.default_rng(seed)
+    x, ws, counts = _moe_case(rng, e, c, d, f, "mixed")
+    bf = lambda a: torch.from_numpy(a).to(cuda, torch.bfloat16)      # noqa: E731
+    dy = rng.normal(size=(e, c, d)).astype(np.float32)
+    return (bf(x), *map(bf, ws), bf(dy),
+            torch.from_numpy(counts.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("e,c,d,f", MOE_BWD_SHAPES)
+def test_moe_jam_bwd_matches_plain_version(cuda, e, c, d, f, act):
+    x, wg, wu, wd, dy, cnt = _moe_bwd_case(cuda, e, c, d, f, e * c + f)
+    before = moe_jam.BWD_LAUNCHES.count
+    got = moe_jam.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, act, counts=cnt)
+    plain = moe_jam.moe_jam_ffn_bwd_ref(x, wg, wu, wd, dy, act, counts=cnt)
+    f32 = moe_jam.moe_jam_ffn_bwd_ref(*(t.float() for t in (x, wg, wu, wd, dy)), act,
+                                      counts=cnt)
+    torch.cuda.synchronize()
+    assert moe_jam.BWD_LAUNCHES.count == before + 1
+    bad = []
+    for name, a, b, ref in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, plain, f32):
+        assert a.dtype == torch.bfloat16 and a.shape == ref.shape, name
+        err, worst, n_bad = moe_jam.compare(a, b, tol=MOE_DW_TOL if name[1] == "w"
+                                            else MOE_BWD_TOL)
+        e_k = (a.float() - ref).norm() / ref.norm()
+        e_p = (b.float() - ref).norm() / ref.norm()
+        if n_bad or not e_k <= BWD_VS_PLAIN * e_p:
+            bad.append((name, err, worst, n_bad, float(e_k), float(e_p)))
+    assert not bad, bad
+    empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
+    assert (got[0][empty] == 0).all()
+    idle = cnt == 0
+    assert all((w[idle] == 0).all() for w in got[1:])
+
+
+@pytest.mark.gpu
+def test_moe_jam_bwd_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits (no atomics), at
+    olmoe's widths over 130 rows an expert."""
+    args = _moe_bwd_case(cuda, 8, 130, 2048, 1024, 3)
+    one = moe_jam.moe_jam_ffn_bwd_cuda(*args[:5], counts=args[5])
+    two = moe_jam.moe_jam_ffn_bwd_cuda(*args[:5], counts=args[5])
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,c,d,f", [(5, 130, 96, 160), (4, 70, 2048, 1408)])
+def test_moe_jam_bwd_ignores_rows_past_counts(cuda, e, c, d, f):
+    """x and dy rows past counts hold NaN: the gradients equal those of the
+    bucket with those rows zeroed, every one finite; dx past counts and an
+    empty expert's weight gradients are exact zeros."""
+    x, wg, wu, wd, dy, cnt = _moe_bwd_case(cuda, e, c, d, f, e + c)
+    empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
+    nan = lambda t: t.masked_fill(empty[:, :, None], float("nan"))   # noqa: E731
+    got = moe_jam.moe_jam_ffn_bwd_cuda(nan(x), wg, wu, wd, nan(dy), counts=cnt)
+    want = moe_jam.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy.masked_fill(empty[:, :, None], 0),
+                                        counts=cnt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and torch.equal(a.view(torch.int16),
+                                                       b.view(torch.int16))
+    assert (got[0][empty] == 0).all()
+    assert all((w[cnt == 0] == 0).all() for w in got[1:])
+
+
+@pytest.mark.gpu
+def test_moe_jam_ffn_under_grad_runs_moe_jam_fn(cuda):
+    """Under grad the wrapper runs MoeJamFn: one forward and one backward
+    launch, the output the serving kernel's bit for bit and the inputs'
+    gradients the backward kernel's."""
+    x, wg, wu, wd, dy, cnt = _moe_bwd_case(cuda, 6, 70, 128, 96, 11)
+    ins = [t.detach().requires_grad_(True) for t in (x, wg, wu, wd)]
+    before = (moe_jam.LAUNCHES.count, moe_jam.BWD_LAUNCHES.count)
+    out = moe_jam.moe_jam_ffn(*ins, "gelu", counts=cnt)
+    grads = torch.autograd.grad(out, ins, dy)
+    assert (moe_jam.LAUNCHES.count, moe_jam.BWD_LAUNCHES.count) == (before[0] + 1,
+                                                                    before[1] + 1)
+    with torch.no_grad():
+        serving = moe_jam.moe_jam_ffn_cuda(x, wg, wu, wd, "gelu", counts=cnt)
+    want = moe_jam.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, "gelu", counts=cnt)
+    assert torch.equal(out.detach().view(torch.int16), serving.view(torch.int16))
+    for a, b in zip(grads, want):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_two_moe_train_steps_on_the_card_match_the_cpu(cuda):
+    """The olmoe smoke (2 MoE layers, 8 experts top-2, D 64, F 32), 4 x 64
+    tokens, two steps on the card in bf16 (both moe_jam kernels; plain
+    ``_sdpa`` below the chunking threshold) against the same steps on the
+    CPU in float32: each step's loss within 2e-2 (relative; bf16 moves a
+    few router choices) and finite grad norms; moe_jam's forward and
+    backward each launch once a layer a step, and the bundle names them."""
+    from repro_torch import tree
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_smoke("olmoe-1b-7b")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
+                    optimizer=OptimizerConfig(total_steps=10, warmup_steps=1, lr=1e-3))
+    p0 = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev, dtype in ((cuda, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        params = tree.map_(lambda t: t.clone().to(dev), p0)
+        opt = adamw_init(params)
+        bundle = make_train_step(cfg, run, device=dev, compute_dtype=dtype)
+        assert {"moe_jam", "moe_jam_bwd"} <= set(bundle.meta["kernels"])
+        before = (moe_jam.LAUNCHES.count, moe_jam.BWD_LAUNCHES.count)
+        metrics = []
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in synthetic_batch(cfg, run.shape, s).items()}
+            params, opt, m = bundle.fn(params, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[dev.type] = (metrics, (moe_jam.LAUNCHES.count - before[0],
+                                   moe_jam.BWD_LAUNCHES.count - before[1]))
+    (mc, lc), (mf, lf) = out["cuda"], out["cpu"]
+    assert lc == (2 * cfg.num_layers, 2 * cfg.num_layers) and lf == (0, 0)
+    for a, b in zip(mc, mf):
+        assert np.isfinite(a["grad_norm"]) and a["grad_norm"] > 0, a
+        assert abs(a["loss"] - b["loss"]) <= 2e-2 * b["loss"], (a, b)

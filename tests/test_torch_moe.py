@@ -10,7 +10,10 @@ Same numpy inputs through both packages, float32:
   where the logits are exact in float32).
 * ``expert_capacity`` over a table of token counts and configs.
 * ``build_dispatch``: ``slot``, ``keep`` and ``rank`` exactly, with forced
-  drops (a small capacity) and masked tokens (expert id ``E``).
+  drops (a small capacity) and masked tokens (expert id ``E``), also at a
+  training micro-batch's size (8,192 tokens, top-8 of 64 experts; a
+  capacity of 720 that ~70% unmasked assignments overflow) and under a skewed routing (most assignments to one
+  expert, far past its capacity; masked ids in single k columns).
 * ``moe_ffn_oracle``: output and router losses, with and without
   ``token_mask``, silu and gelu, a forced-drop capacity, and one shared
   expert (``dataclasses.replace`` on both configs). The port's expert FFN
@@ -106,7 +109,8 @@ def test_expert_capacity_matches_jax(arch, smoke, kw):
 
 
 @pytest.mark.parametrize("n,k,e,capacity,seed", [(50, 2, 8, 8, 0), (128, 8, 64, 8, 1),
-                                                 (40, 4, 4, 16, 2)])
+                                                 (40, 4, 4, 16, 2), (8192, 8, 64, 720, 3),
+                                                 (3800, 6, 64, 240, 4)])
 def test_build_dispatch_matches_jax(n, k, e, capacity, seed):
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, e, size=(n, k)).astype(np.int32)
@@ -120,6 +124,25 @@ def test_build_dispatch_matches_jax(n, k, e, capacity, seed):
     assert ts.dtype == torch.int32
     assert (~tk.numpy()).any(), "the capacity forced no drop"
     assert (ts.numpy()[ids == e] == e * capacity).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_build_dispatch_skewed_matches_jax(seed):
+    """Half the assignments to one expert (far past its capacity), the rest
+    uniform, and masked ids in single k columns as well as whole tokens."""
+    n, k, e, capacity = 600, 4, 16, 24
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, e, size=(n, k)).astype(np.int32)
+    ids[rng.random((n, k)) < 0.5] = 3
+    ids[rng.random((n, k)) < 0.1] = e
+    ids[rng.random(n) < 0.1] = e
+    gates = rng.random((n, k)).astype(np.float32)
+    js, jk, jr = jmoe.build_dispatch(jnp.asarray(ids), jnp.asarray(gates), e, capacity)
+    ts, tk, tr = tmoe.build_dispatch(_t(ids), e, capacity)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert tr.dtype == torch.int32 and int(tr.max()) >= 5 * capacity
 
 
 def _moe_params(rng, d, m):

@@ -20,9 +20,21 @@ or the output may round to the neighbouring bf16 value: atol = rtol =
 1e-2, one bf16 ulp of an output up to 2 in magnitude (2^-7 = 7.8e-3); one
 ulp (3.9e-3) is seen.
 
-The CUDA kernel itself is held against the plain version on the card by
-``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
+The backward's plain version, ``moe_jam_ffn_bwd_ref`` (the formula of the
+backward kernel and its yardstick on the card), against autograd through
+``moe_jam_ffn_ref`` in float32 (within ``BWD_REL`` of each gradient's max
+|g|: the same float32 products, summed in other orders) and against
+``jax.grad`` of JAX's ``expert_ffn_ref`` on the same numpy inputs (within
+``GRAD_TOL``), silu and gelu, with counts that leave empty rows and one
+empty expert; the wrapper under grad on the CPU takes the plain version,
+which autograd differentiates.
+
+The CUDA kernels themselves are held against the plain versions on the card
+by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,14 +42,22 @@ import torch
 
 from repro.kernels.moe_jam import moe_jam_ffn as j_moe_jam_ffn
 from repro.kernels.moe_jam.ref import expert_ffn_ref as j_ref
-from repro_torch.kernels.moe_jam import (LAUNCHES, moe_jam_ffn, moe_jam_ffn_cuda,
-                                         moe_jam_ffn_ref)
+from repro_torch.kernels.moe_jam import (BWD_LAUNCHES, LAUNCHES, MoeJamFn, moe_jam_ffn,
+                                         moe_jam_ffn_bwd_cuda, moe_jam_ffn_bwd_ref,
+                                         moe_jam_ffn_cuda, moe_jam_ffn_ref)
 from test_torch_engine import share_cores_among_workers  # noqa: F401  (autouse)
 
 TOL = {"float32": dict(atol=1e-5, rtol=0), "bfloat16": dict(atol=1e-2, rtol=1e-2)}
 SHAPES = [(3, 24, 64, 96), (4, 40, 64, 32)]
 EDGE_SHAPES = [(2, 65, 64, 32), (2, 130, 32, 64), (3, 8, 96, 160), (2, 16, 160, 96),
                (1, 24, 64, 96)]
+# the backward: float32 products in other orders (BWD_REL, against autograd
+# through the port's plain version; GRAD_TOL, against jax.grad), relative to
+# each gradient's max |g| (~0.1-10 here)
+BWD_REL, GRAD_TOL = 1e-5, 1e-4
+# 4 experts of 40 rows, D 64, F 96: one empty expert, rows ending inside,
+# at and short of the capacity
+BWD_SHAPE, BWD_COUNTS = (4, 40, 64, 96), np.array([0, 17, 40, 33], np.int32)
 
 
 def _inputs(e, c, d, f, seed=0):
@@ -144,3 +164,89 @@ def test_loader_names_each_build_by_its_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         loader.build_all([src])
+
+
+def _bwd_case(act_seed=0):
+    """(x with rows past BWD_COUNTS zeroed, as the dispatch leaves them,
+    weights, dy over every row, the kept-row mask) in float32."""
+    x, wg, wu, wd = _inputs(*BWD_SHAPE, seed=5 + act_seed)
+    c = BWD_SHAPE[1]
+    kept = (np.arange(c)[None, :] < BWD_COUNTS[:, None])[:, :, None]
+    dy = np.random.default_rng(6 + act_seed).normal(size=BWD_SHAPE[:3]).astype(np.float32)
+    return x * kept, wg, wu, wd, dy, kept
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_bwd_ref_matches_autograd_through_the_plain_version(act):
+    """Float32: the four gradients equal autograd's through
+    ``moe_jam_ffn_ref`` (counts given, dy over every row); dx past counts
+    and the empty expert's weight gradients are exact zeros; NaN in x and
+    dy past counts changes no bit."""
+    x, wg, wu, wd, dy, kept = _bwd_case()
+    counts = torch.from_numpy(BWD_COUNTS)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in (x, wg, wu, wd)]
+    want = torch.autograd.grad(moe_jam_ffn_ref(*ins, act, counts=counts), ins,
+                               torch.from_numpy(dy))
+    got = moe_jam_ffn_bwd_ref(*(torch.from_numpy(a) for a in (x, wg, wu, wd, dy)), act,
+                              counts=counts)
+    for name, g, w in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= BWD_REL, (name, err)
+    assert not got[0].numpy()[~kept[..., 0]].any()
+    assert all(not w[0].any() for w in got[1:])                  # expert 0 is empty
+    nan = np.where(kept, 0.0, np.nan).astype(np.float32)
+    again = moe_jam_ffn_bwd_ref(*(torch.from_numpy(a) for a in (x + nan, wg, wu, wd, dy + nan)),
+                                act, counts=counts)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_expert_grad(act):
+    """jax.grad of <expert_ffn_ref(x, w...), dy> over x and the weights,
+    jitted once per act."""
+    def loss(x, wg, wu, wd, dy):
+        return jnp.sum(j_ref(x, wg, wu, wd, act) * dy)
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_bwd_ref_matches_jax_grad(act):
+    """Float32, the same numpy inputs: ``moe_jam_ffn_bwd_ref`` with counts
+    (dy over every row) against ``jax.grad`` of JAX's ``expert_ffn_ref`` on
+    the bucket whose empty rows are zero, with dy zero there too (the rows
+    the kernel's output holds as constant zeros)."""
+    x, wg, wu, wd, dy, kept = _bwd_case(1)
+    want = _jax_expert_grad(act)(*(jnp.asarray(a) for a in (x, wg, wu, wd, dy * kept)))
+    got = moe_jam_ffn_bwd_ref(*(torch.from_numpy(a) for a in (x, wg, wu, wd, dy)), act,
+                              counts=torch.from_numpy(BWD_COUNTS))
+    for name, g, w in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= GRAD_TOL, (name, err)
+
+
+def test_wrapper_under_grad_takes_the_plain_version_on_cpu(monkeypatch):
+    """On CPU tensors under grad, ``moe_jam_ffn`` runs the plain version and
+    autograd differentiates it (``MoeJamFn`` is the card's route); the
+    gradients equal ``moe_jam_ffn_bwd_ref``'s, and no kernel counts. The
+    backward kernel's wrapper refuses CPU tensors."""
+    def card_only(*args):
+        raise AssertionError("MoeJamFn ran on CPU tensors")
+
+    monkeypatch.setattr(MoeJamFn, "apply", card_only)
+    x, wg, wu, wd, dy, _ = _bwd_case(2)
+    counts = torch.from_numpy(BWD_COUNTS)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in (x, wg, wu, wd)]
+    before = (LAUNCHES.count, BWD_LAUNCHES.count)
+    out = moe_jam_ffn(*ins, "silu", counts=counts)
+    got = torch.autograd.grad(out, ins, torch.from_numpy(dy))
+    want = moe_jam_ffn_bwd_ref(*(t.detach() for t in ins), torch.from_numpy(dy), "silu",
+                               counts=counts)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= BWD_REL
+    assert (LAUNCHES.count, BWD_LAUNCHES.count) == before
+    bf = [t.detach().to(torch.bfloat16) for t in ins]
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        moe_jam_ffn_bwd_cuda(*bf, torch.from_numpy(dy).to(torch.bfloat16))

@@ -27,6 +27,7 @@ from repro.configs.base import OptimizerConfig as JOptimizerConfig
 from repro.configs.base import RunConfig as JRunConfig
 from repro.configs.base import ShapeConfig as JShapeConfig
 from repro.configs.base import ShardingConfig
+from repro.configs.registry import get_config as j_get_config
 from repro.configs.registry import get_smoke as j_get_smoke
 from repro.data.synthetic import synthetic_batch as j_synthetic_batch
 from repro.kernels.flash_attention.ref import mha_ref as j_mha_ref
@@ -255,7 +256,8 @@ def _port_grads(cfg, tp, nb):
 
 # the recurrent and hybrid stacks (mamba's SSM scan, xLSTM's mLSTM scan and
 # sLSTM) through their plain paths' out-of-place form under grad; "sdpa"
-# names the default path, which for mamba and xlstm has no attention
+# names the default path, which for mamba and xlstm has no attention (the
+# MoE stacks' cases are in test_torch_moe_train.py)
 GRAD_CASES = [("llama3.2-1b", "sdpa"), ("llama3.2-1b", "flash"), ("gemma3-4b", "sdpa"),
               ("gemma3-4b", "flash"), ("mamba-130m", "sdpa"), ("hymba-1.5b", "sdpa"),
               ("hymba-1.5b", "flash"), ("xlstm-1.3b", "sdpa")]
@@ -263,6 +265,12 @@ GRAD_CASES = [("llama3.2-1b", "sdpa"), ("llama3.2-1b", "flash"), ("gemma3-4b", "
 
 @pytest.mark.parametrize("arch,path", GRAD_CASES, ids=[f"{a}-{p}" for a, p in GRAD_CASES])
 def test_gradients_match_jax(arch, path, monkeypatch):
+    check_gradients(arch, path, monkeypatch)
+
+
+def check_gradients(arch, path, monkeypatch):
+    """Every leaf's gradient of ``loss_fn`` against ``jax.grad`` of the JAX
+    one, on ``path`` ("sdpa" or "flash"), within GRAD_TOL."""
     if path == "flash":
         _flash(monkeypatch)
     nb = _batch(arch)
@@ -478,11 +486,13 @@ def test_train_step_matches_jax(accum, jax_steps):
         _close_rel(a.numpy(), b.numpy(), GRAD_TOL, "m")
 
 
-@pytest.mark.parametrize("arch", ["mamba-130m", "hymba-1.5b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["mamba-130m", "hymba-1.5b", "xlstm-1.3b", "olmoe-1b-7b",
+                                  "deepseek-v2-lite-16b"])
 def test_train_step_runs_recurrent_smokes(arch):
-    """Two ``make_train_step`` steps of each recurrent or hybrid smoke on
-    the CPU (the first at the warmup's lr of 0): finite losses and
-    gradients, and every leaf moved by the second."""
+    """Two ``make_train_step`` steps of each recurrent, hybrid or MoE smoke
+    on the CPU (the first at the warmup's lr of 0): finite losses and
+    gradients, and every leaf moved by the second. The MoE bundles name the
+    expert FFN's kernels beside flash attention's."""
     cfg = get_smoke(arch)
     run = RunConfig(model=cfg, shape=ShapeConfig("t", SEQ, BATCH, "train"),
                     optimizer=OptimizerConfig(total_steps=10, warmup_steps=1))
@@ -490,6 +500,7 @@ def test_train_step_runs_recurrent_smokes(arch):
     params = tree.map_(torch.clone, tp0)
     opt = adamw_init(params)
     bundle = make_train_step(cfg, run, device="cpu", compute_dtype=torch.float32)
+    assert (("moe_jam", "moe_jam_bwd") == bundle.meta["kernels"][-2:]) == (cfg.moe is not None)
     for s in range(2):
         params, opt, m = bundle.fn(params, opt, _tbatch(synthetic_batch(cfg, run.shape, s)))
         assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), s
@@ -510,7 +521,9 @@ def test_make_step_dispatches():
 def test_train_refusal_names_the_later_halves():
     assert train_refusal(get_config("llama3.2-1b"), 4096) is None
     assert train_refusal(get_config("stablelm-3b"), 64) is None        # plain _sdpa
-    assert "MoE half" in train_refusal(get_config("olmoe-1b-7b"), 4096)
+    assert train_refusal(get_config("olmoe-1b-7b"), 4096) is None      # moe_jam's backward
+    assert "q/k 192, v 128" in train_refusal(get_config("deepseek-v2-lite-16b"), 4096)
+    assert "later halves" in train_refusal(get_config("deepseek-v2-lite-16b"), 4096)
     assert "third half" in train_refusal(get_config("mamba-130m"), 4096)
     assert "third half" in train_refusal(get_config("hymba-1.5b"), 4096)
     assert "xLSTM" in train_refusal(get_config("xlstm-1.3b"), 4096)
@@ -723,6 +736,14 @@ def test_trainer_does_not_retry_bugs(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="a bug"):
         t.train()
     assert calls == [1] and t.policy.restarts == 0
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_param_counts_match_jax(arch):
+    """The analytic counts, config only: total and active per token."""
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    assert (cfg.param_count(), cfg.active_param_count()) == (jcfg.param_count(),
+                                                             jcfg.active_param_count())
 
 
 def test_launcher_prints_done(tmp_path, capsys):
