@@ -1202,9 +1202,11 @@ def check_moe_jam_bwd(torch, dev):
                      lambda: mj.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt), flush,
                      mbench.BWD_PASSES, iters=3))
         shapes[name] = r
+        pass_bounds = {k: timing.bound_ms(w) for k, w in work["passes"].items()}
         log(f"[kernel] moe_jam_bwd {name} timing (L2 flushed per launch): kernel "
-            f"{r['ms']:.4f} ms (passes, profiled: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in r["passes_ms"].items())
+            f"{r['ms']:.4f} ms (passes, profiled, each beside its own bound: "
+            + ", ".join(f"{k} {v:.4f} (bound {pass_bounds[k][0]:.4f} ms, {pass_bounds[k][1]})"
+                        for k, v in r["passes_ms"].items())
             + f"), plain (autograd through moe_jam_ffn_ref, bf16) {r['plain_ms']:.4f} ms, 3 x "
             f"bmm forward + backward by autograd less forward {r['library_ms']:.4f} ms; "
             f"{work['flops']} flops (eight products over {work['rows']} kept rows) -> "

@@ -46,7 +46,8 @@ TRAIN = {"olmoe-1b-7b train": (64, 2048, 1024, 8, 8192, 1280),
          "deepseek-v2-lite-16b train": (64, 2048, 1408, 6, 4096, 480)}
 # the kernel's two passes, by the name of the kernel each launches
 PASSES = {"gate_up": "moe_stream_kernel<true>", "down": "moe_stream_kernel<false>"}
-# the backward's passes (one launch of act and dx, three of dw)
+# the backward's passes, one launch each (dw: all three weight gradients),
+# by the name of the kernel each launches
 BWD_PASSES = {"act": "moe_bwd_act", "dx": "moe_bwd_dx", "dw": "moe_bwd_dw"}
 
 
@@ -131,15 +132,35 @@ def needed_bwd_work(counts: np.ndarray, *, capacity: int, d_model: int, d_ff: in
     every expert's three weight gradients and the whole dx (E, C, D)
     written once (zeros included), the kept rows of x and dy read once and
     the counts; flops: eight products (G and U recomputed, dH, dx's two,
-    the three weight gradients), 2 * d_model * d_ff each, per kept row."""
+    the three weight gradients), 2 * d_model * d_ff each, per kept row.
+
+    ``passes`` holds each pass's own work, named as ``BWD_PASSES``, with
+    what passes between them counted where it is written and read: ``act``
+    (three products) reads the busy experts' weights and the kept rows of
+    x and dy and writes h, dG and dU for them; ``dx`` (two) reads dG, dU
+    and w_gate, w_up and writes the whole dx; ``dw`` (three) reads x, dy,
+    h, dG and dU over the kept rows and writes every expert's three weight
+    gradients; each reads the counts."""
     counts = np.asarray(counts, np.int64)
+    experts = len(counts)
     busy = int((counts > 0).sum())
     rows = int(counts.sum())
-    weight_bytes = busy * 3 * d_model * d_ff * 2
-    grad_bytes = len(counts) * 3 * d_model * d_ff * 2 + len(counts) * capacity * d_model * 2
-    nbytes = weight_bytes + grad_bytes + 2 * rows * d_model * 2 + 4 * len(counts)
+    matrix = d_model * d_ff * 2                      # one expert's weight, bf16
+    rows_d, rows_f = rows * d_model * 2, rows * d_ff * 2   # kept rows of an (E, C, D) / (E, C, F)
+    dx_bytes = experts * capacity * d_model * 2
+    product = 2 * rows * d_model * d_ff
+    weight_bytes = busy * 3 * matrix
+    nbytes = weight_bytes + experts * 3 * matrix + dx_bytes + 2 * rows_d + 4 * experts
+    passes = {
+        "act": dict(flops=3 * product,
+                    bytes=weight_bytes + 2 * rows_d + 3 * rows_f + 4 * experts),
+        "dx": dict(flops=2 * product,
+                   bytes=busy * 2 * matrix + 2 * rows_f + dx_bytes + 4 * experts),
+        "dw": dict(flops=3 * product,
+                   bytes=2 * rows_d + 3 * rows_f + experts * 3 * matrix + 4 * experts),
+    }
     return dict(bytes=nbytes, weight_bytes=weight_bytes, rows=rows, experts=busy,
-                flops=rows * 8 * 2 * d_model * d_ff)
+                flops=8 * product, passes=passes)
 
 
 def bwd_inputs(device, counts: np.ndarray, shape):
@@ -206,7 +227,8 @@ def time_train_shape(dev, flush, name: str) -> dict:
              plain_ms=timed_ms(plain_bwd(x, wg, wu, wd, dy, cnt), 3, flush),
              library_ms=timed_ms(lib_both, 10, flush) - timed_ms(lib_fwd, 10, flush),
              passes_ms=kernel_ms(lambda: moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt),
-                                 flush, BWD_PASSES, iters=3))
+                                 flush, BWD_PASSES, iters=3),
+             passes_bound={k: bound_ms(w) for k, w in bwd_work["passes"].items()})
     return r
 
 
@@ -252,8 +274,10 @@ def main() -> int:
         r = train[name] = time_train_shape(dev, flush, name)
         print(f"[bench] moe_jam {name} {r['shape']}: {r['kept_rows']} kept rows; forward "
               f"{r['fwd_ms']:.4f} ms (bound {r['fwd_bound'][0]:.4f}, {r['fwd_bound'][1]}); "
-              f"backward ({BWD_DESIGN}) {r['ms']:.4f} ms (passes, profiler: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in r["passes_ms"].items())
+              f"backward ({BWD_DESIGN}) {r['ms']:.4f} ms (passes, profiler, each beside "
+              "its own bound: "
+              + ", ".join(f"{k} {v:.4f} (bound {r['passes_bound'][k][0]:.4f}, "
+                          f"{r['passes_bound'][k][1]})" for k, v in r["passes_ms"].items())
               + f"), bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), plain {r['plain_ms']:.4f} "
               f"ms, 3 x bmm by autograd less forward {r['library_ms']:.4f} ms", flush=True)
     print(json.dumps({"card": card, "design": DESIGN, "bwd_design": BWD_DESIGN,

@@ -67,12 +67,13 @@
 // What a later design changes: two consumer warpgroups on 128 rows, so
 // C in (64, 128] reads the weights once; fusing pass 2 behind pass 1 per
 // expert; and an fp8 weight stream, which halves the bytes that bound it.
+//
+// The item walk, TMA, mbarrier and wgmma helpers are in moe_jam.cuh,
+// shared with the backward (moe_jam_bwd.cu).
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <math.h>
+
+#include "moe_jam.cuh"
 
 namespace {
 
@@ -88,7 +89,6 @@ constexpr int kBTile = 2 * kBox;           // 16 KB
 constexpr int kStage = kATile + 2 * kBTile;      // 40 KB
 constexpr int kBarOff = kStages * kStage;
 constexpr int kSmem = 1024 + kBarOff + 16 * kStages;   // + 1 KB to align the ring
-constexpr unsigned long long kTimeoutNs = 2000000000ull;   // a lost barrier traps
 
 struct Params {
   const int* counts;        // (E,) kept rows per expert, or null: all C
@@ -98,163 +98,10 @@ struct Params {
   int tiles;                // column tiles per M tile
 };
 
-__device__ __forceinline__ int kept_rows(const Params& p, int e) {
-  return p.counts ? max(0, min(__ldg(p.counts + e), p.C)) : p.C;
-}
-
-// The items' M tiles in expert order, walked by one warp (all lanes alike):
-// expert e has ceil(kept / 64) of them. Calls come with r non-decreasing.
-struct Walker {
-  int base = -32;           // first expert of the chunk of 32 in hand
-  long long before = 0;     // M tiles of the experts before it
-  int incl = 0;             // this lane's inclusive count in the chunk
-  int mine = 0;             // M tiles of expert base + lane
-  int total = 0;            // the chunk's M tiles
-
-  // expert e and its M tile m that hold global M tile r; false past the last
-  __device__ __forceinline__ bool seek(const Params& p, long long r, int lane, int& e, int& m) {
-    while (r >= before + total) {
-      before += total;
-      base += 32;
-      if (base >= p.E) return false;
-      const int x = base + lane;
-      mine = x < p.E ? (kept_rows(p, x) + kBM - 1) / kBM : 0;
-      incl = mine;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      total = __shfl_sync(0xffffffffu, incl, 31);
-    }
-    const int hit = __ffs(__ballot_sync(0xffffffffu, before + incl > r)) - 1;
-    e = base + hit;
-    m = static_cast<int>(r - before) - (__shfl_sync(0xffffffffu, incl, hit)
-                                        - __shfl_sync(0xffffffffu, mine, hit));
-    return true;
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n\t.reg .pred p;\n\t"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-               "selp.u32 %0, 1, 0, p;\n\t}"
-               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of parity `parity` to complete; trap after 2 s so a
-// lost arrival fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = now_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (now_ns() - t0 > kTimeoutNs) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%2, %3, %4}], [%5];"
-               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-                  "r"(bar)
-               : "memory");
-}
-
-// A shared-memory matrix descriptor for wgmma, 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units). The swizzle
-// atoms (8 rows x 128 bytes) start 1024-byte aligned, so base offset 0.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
-         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
-         | (1ull << 62);
-}
-
-// `base` advanced by `bytes`, in an instruction the compiler may neither
-// hoist nor share between uses
-__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t bytes) {
-  uint64_t d;
-  asm volatile("add.s64 %0, %1, %2;" : "=l"(d) : "l"(base), "l"(static_cast<uint64_t>(bytes >> 4)));
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that wgmma writes asynchronously: no read is moved above
-// the wait that precedes this, no write below the fence that follows.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// d (64 x 128, f32) += A (64 x 16, smem desc, K-major) . B (16 x 128, smem
-// desc, MN-major: transposed)
-__device__ __forceinline__ void wgmma_ss_t(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 __device__ __forceinline__ float act_fn(float g, int act) {
   if (act == 0) return g / (1.0f + expf(-g));                 // silu
   const float k0 = 0.7978845608028654f;                        // sqrt(2 / pi)
   return 0.5f * g * (1.0f + tanhf(k0 * (g + 0.044715f * g * g * g)));
-}
-
-__device__ __forceinline__ uint32_t f2_to_bf2(float x, float y) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // Pass 1 (kGated): out = h = act(A . B0) * (A . B1), B0/B1 the same 128
@@ -290,7 +137,7 @@ moe_stream_kernel(const __grid_constant__ CUtensorMap tm_a,
     // the producer warp: lane 0 keeps the ring full, item after item
     int it = 0;
     for (long long j = blockIdx.x;; j += gridDim.x) {
-      if (!walk.seek(p, j / p.tiles, lane, e, m)) break;
+      if (!walk.seek(p.counts, p.E, p.C, kBM, j / p.tiles, lane, e, m)) break;
       const int n0 = static_cast<int>(j % p.tiles) * kTileN;
       const int b1 = kGated ? n0 : n0 + kBN;       // B1's first column
       if (lane == 0) {
@@ -327,7 +174,7 @@ moe_stream_kernel(const __grid_constant__ CUtensorMap tm_a,
     // tile to C, all of them for an empty expert; written while the ring
     // fills
     for (int x = blockIdx.x; x < p.E; x += gridDim.x) {
-      const int z0 = min(p.C, (kept_rows(p, x) + kBM - 1) / kBM * kBM);
+      const int z0 = min(p.C, (kept_rows(p.counts, x, p.C) + kBM - 1) / kBM * kBM);
       uint4* dst = reinterpret_cast<uint4*>(p.out + (static_cast<size_t>(x) * p.C + z0) * p.N);
       const long long chunks = static_cast<long long>(p.C - z0) * p.N / 8;
       for (long long i = threadIdx.x; i < chunks; i += kConsumers) dst[i] = make_uint4(0, 0, 0, 0);
@@ -337,7 +184,7 @@ moe_stream_kernel(const __grid_constant__ CUtensorMap tm_a,
   int it = 0;
   float acc0[64], acc1[64];
   for (long long j = blockIdx.x;; j += gridDim.x) {
-    if (!walk.seek(p, j / p.tiles, lane, e, m)) break;
+    if (!walk.seek(p.counts, p.E, p.C, kBM, j / p.tiles, lane, e, m)) break;
     const int n0 = static_cast<int>(j % p.tiles) * kTileN;
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
@@ -357,8 +204,8 @@ moe_stream_kernel(const __grid_constant__ CUtensorMap tm_a,
       for (int kk = 0; kk < kBK / 16; ++kk) {
         // a box past N was not loaded: its columns hold stale bits, and
         // the epilogue stores no column past N
-        wgmma_ss_t(acc0, desc_at(da, kk * 32), desc_at(d0, kk * 2048));
-        wgmma_ss_t(acc1, desc_at(da, kk * 32), desc_at(d1, kk * 2048));
+        wgmma<0, 1>(acc0, desc_at(da, kk * 32), desc_at(d0, kk * 2048));
+        wgmma<0, 1>(acc1, desc_at(da, kk * 32), desc_at(d1, kk * 2048));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -370,7 +217,7 @@ moe_stream_kernel(const __grid_constant__ CUtensorMap tm_a,
 
     // this thread: rows g and g + 8 of its warp's 16, columns 8 c + 2 t4
     // and + 1 of each accumulator
-    const int kept = kept_rows(p, e);
+    const int kept = kept_rows(p.counts, e, p.C);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = m * kBM + warp * 16 + g + 8 * h;
@@ -403,61 +250,20 @@ moe_stream_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (no -lcuda at build time).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                  cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A 3-D map over a contiguous bf16 (outer, mid, inner) tensor: boxes of 64
-// inner x 64 mid elements of one outer index, 128-byte swizzle; elements
-// past the ends read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int outer, int mid, int inner) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(mid),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
-                                 static_cast<cuuint64_t>(inner) * mid * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
-         == CUDA_SUCCESS;
-}
-
 // One pass over A (E, C, K) and weights (E, K, N) into out (E, C, N).
 template <bool kGated>
 cudaError_t launch(const void* a, const void* b0, const void* b1, Params p, cudaStream_t stream) {
-  CUtensorMap tm_a, tm_b0, tm_b1;
-  if (!make_map(&tm_a, a, p.E, p.C, p.K) || !make_map(&tm_b0, b0, p.E, p.K, p.N)
-      || !make_map(&tm_b1, b1, p.E, p.K, p.N)) {
-    return cudaErrorInvalidValue;
-  }
+  // a runtime call first: it makes the device's context current on this
+  // thread (an autograd worker may have none yet), which encoding a
+  // tensor map needs
   cudaError_t err = cudaFuncSetAttribute(moe_stream_kernel<kGated>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
+  CUtensorMap tm_a, tm_b0, tm_b1;
+  if (!make_map(&tm_a, a, p.E, p.C, p.K, kBM) || !make_map(&tm_b0, b0, p.E, p.K, p.N, kBK)
+      || !make_map(&tm_b1, b1, p.E, p.K, p.N, kBK)) {
+    return cudaErrorInvalidValue;
+  }
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -26,183 +26,164 @@
 // F flops each over the kept rows (at olmoe-1b-7b's training micro-batch,
 // ~65,000 kept rows, 2.2e12 flops: ~2.2 ms at 989 TFLOP/s) against the
 // weights read and their gradients written once (~4.8 ms of bytes only
-// when fewer than ~700 rows an expert are kept).
+// when fewer than ~700 rows an expert are kept). Pass A holds three of the
+// products, B two, C three (bench.needed_bwd_work gives each pass's bound).
 //
-// v1 (this design) is simple and right first; speed is later work. Each
-// pass is a tiled product on mma.sync m16n8k16 (bf16 in, f32 sums): a CTA
-// of 8 warps owns one output tile, streams the reduction through a 3-stage
-// ring of cp.async copies (16 bytes a thread, zero-filled past an edge)
-// and keeps each operand's tile in shared memory as it lies in device
-// memory (padded rows); a fragment is read as one 32-bit word where the
-// reduction is contiguous and as two 16-bit halves where it is not. Every
-// output element is summed by one thread in a fixed order: no atomics, and
-// a repeated launch gives the same bits.
-//   * pass A (moe_bwd_act), per (expert, 64-row tile, 128 columns of F):
-//     G, U and dH together (x and dy read K-major, w_gate / w_up MN-major,
-//     w_down K-major as the transpose it is), then h, dG and dU in bf16
-//     for kept rows. G and U are recomputed rather than kept from the
-//     forward, so the forward keeps nothing but its inputs.
-//   * pass B (moe_bwd_dx), per (expert, 128-row tile, 128 columns of D):
-//     dx = dG . w_gate^T + dU . w_up^T, one reduction over 2F; rows at or
-//     past counts[e] are written as zeros by select (dG there is
-//     uninitialised scratch); whole 128-row tiles past it only write zeros.
-//   * pass C (moe_bwd_dw, three launches), per (expert, 128 x 128 tile of
-//     the weight gradient): the deterministic cross-row reduction, each CTA
-//     looping over its expert's kept rows alone (rows at or past counts[e]
-//     are zero-filled by the copy, both operands, so scratch never reaches a
-//     sum), all of it in one CTA; an empty expert's CTAs write zeros.
-// F 1,408 (deepseek-v2-lite-16b) is 11 tiles of 128; a width that is a
-// multiple of 32 but not of 128 leaves a last tile whose columns past the
-// edge are zero-filled and never stored.
+// v1 (11.7351 ms at olmoe's training buckets on an NVIDIA H100 80GB HBM3,
+// 700.00 W, 0.19 of its bound) ran the legacy m16n8k16 product on a
+// 3-stage cp.async ring, read MN-major operands as 16-bit halves, launched
+// a CTA for every (expert, tile) of the capacity and pass C three times.
 //
-// What a later design changes: wgmma from TMA-fed rings (the forward's
-// machinery) for every pass, pass A's epilogue feeding pass B and C from
-// shared memory, and a persistent item list that skips the tiles past
-// counts[e] without launching them.
+// v2 (this design): three launches, each of persistent CTAs (one per SM)
+// fed by TMA and running wgmma, every stage 48 KB of 128-byte-swizzled
+// boxes 64 deep in the reduction:
+//   * An item list per pass, walked on the device from counts by every warp
+//     alike (moe_jam.cuh's Walker, as the forward's): passes A and B take
+//     (expert, 128-row M tile, column tile) for the M tiles that hold a
+//     kept row, pass C (expert, gradient tile) for the experts that hold
+//     one. Items of one expert are neighbours, so the CTAs that share an
+//     operand tile read it from L2 at about the same time.
+//   * A CTA is one producer warp, whose lane 0 keeps the ring full across
+//     items, and two consumer warpgroups, each on 64 of the item's 128 rows
+//     against the shared tile of the other operand (128-row items read each
+//     weight tile half as often as the forward's 64-row ones), with two
+//     m64n128 f32 accumulators a thread. A consumer waits for its products
+//     at the end of each stage, then frees it (no product is left pending
+//     across a branch: ptxas would serialize them, C7518), and the producer
+//     fills the next item's stages during a tile's epilogue.
+//   * Pass A (moe_bwd_act), 128 rows x 128 columns of F, two reductions
+//     over D: dH (dy by 128 rows of w_down, K-major) first, parked as 64
+//     f32 a thread in 64 KB of shared memory (each thread's own: it holds
+//     the same elements of G and U), then G and U (x by w_gate, w_up,
+//     MN-major), then h, dG and dU in bf16 for kept rows. Three
+//     accumulators at once would take 192 registers; at 64 columns they
+//     fit, but each stage then moves 56 KB for half the products (v2's
+//     first form, slower on the card). 3 stages.
+//   * Pass B (moe_bwd_dx), 128 rows x 256 columns of D: one reduction over
+//     2F (dG by w_gate, then dU by w_up, both K-major). Rows at or past
+//     counts[e] are written as zeros by select (dG there is uninitialised
+//     scratch); rows in no item (whole 128-row tiles past counts[e]) are
+//     zeroed by the consumers, spread over the grid, while the ring fills.
+//     4 stages.
+//   * Pass C (moe_bwd_dw), one launch for all three gradients: an item is
+//     a 128 x 128 tile of dw_gate and the same tile of dw_up (x^T read once
+//     for both), or a 128 x 256 tile of dw_down (h^T . dy). A is MN-major
+//     and transposed by its descriptor, as B is. The reduction runs over
+//     the expert's kept rows in 64-row stages, in row order, in one CTA.
+//     TMA cannot stop at counts[e] inside an expert, so in a last partial
+//     stage the consumers write zeros over every box's rows at or past it
+//     (x and dy may hold NaN there, and h, dG, dU are scratch; NaN x 0 is
+//     NaN, so both operands), then fence.proxy.async and a barrier of both
+//     warpgroups before the products. A tile goes out through 32 KB of
+//     shared memory a warpgroup, swizzled as the maps are, by TMA stores
+//     that drain during the next item (a thread's 4-byte stores straight to
+//     memory took 0.73 ms of the engine check's 1.11, where each item is
+//     one stage deep; now 0.34). An empty expert's three gradients are
+//     zeroed, spread over the grid, while the ring fills. 3 stages.
+//   * Edges: 3-D tensor maps over (E, rows, cols) zero-fill past C, D and
+//     F, never reading the next expert, and TMA stores clip at them; a box
+//     wholly past the edge is not loaded, and what its slot holds reaches
+//     only columns or rows that are never stored. D and F need only be
+//     multiples of 32.
+// Every output element is summed by one thread in a fixed order: no
+// atomics, and a repeated launch gives the same bits.
+//
+// Tried on the card at olmoe's shape and not kept: CTA pairs in 2-CTA
+// clusters sharing the weight (or dG / dU) boxes by TMA multicast (slower:
+// every stage then waits for the slower CTA of the pair); warpgroups
+// taking turns to issue, and pass C on 4 stages with half the staging (no
+// gain); one product group left pending across stages (slower: ptxas
+// serialized every product, C7518).
+//
+// What a later design changes: h, dG and dU go through device memory
+// between the passes (about 1.2 GB of traffic at olmoe's shape); keeping
+// them on chip (pass A's epilogue feeding B and C), staging pass A's and
+// B's outputs through shared memory as pass C does, and fp8.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <math.h>
+
+#include "moe_jam.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBK = 32;          // reduction depth of one ring stage
-constexpr int kStages = 3;
-constexpr int kThreads = 256;    // 8 warps: 2 along the tile's rows x 4 along its columns
-constexpr int kPad = 8;          // bf16 elements after each shared-memory row
+constexpr int kRows = 128;                  // rows of an item of pass A or B: two warpgroups of 64
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+constexpr int kBox = 64 * 64 * 2;           // 8 KB: 64 rows of 128 bytes
+constexpr int kRowTile = 2 * kBox;          // 16 KB: 128 rows x 64 deep
+constexpr int kStage = 3 * kRowTile;        // 48 KB, every pass
+constexpr int kActN = 128;                  // pass A: columns of F an item
+constexpr int kActStages = 3;               // pass A: + 64 KB of dH
+constexpr int kDH = kConsumers * 64 * 4;    // 64 KB: 64 f32 a consumer thread
+constexpr int kStages = 4;                  // pass B
+constexpr int kDxN = 256;                   // pass B: columns of D an item
+constexpr int kDwStages = 3;                // pass C: + 64 KB to stage the gradient tiles
+constexpr int kOut = 4 * kBox;              // 32 KB a warpgroup: 64 x 256 bf16
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = ok ? 16 : 0;     // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n) : "memory");
+constexpr int smem_bytes(int stages, int extra) {
+  return 1024 + stages * kStage + extra + 16 * stages;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// d (16 x 8, f32) += a (16 x 16, row-major) . b (16 x 8, column-major)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One operand's tile of a ring stage: R rows (of the product's M or N) by
-// kBK of the reduction, kept in shared memory as it lies in device memory:
-// K-major (the reduction contiguous) as [R][kBK + kPad], MN-major (the
-// rows contiguous) as [kBK][R + kPad]. Rows start on 16-byte boundaries
-// and a warp's fragment reads fall in distinct banks.
-template <int R, bool KMajor>
-struct Tile {
-  static constexpr int kLd = KMajor ? kBK + kPad : R + kPad;
-  static constexpr int kElems = KMajor ? R * kLd : kBK * kLd;
-
-  // Copy rows [r0, r0 + R) x reduction [k0, k0 + kBK) of the matrix at src
-  // (ld elements between consecutive rows of its contiguous axis) into
-  // dst; rows >= rlim and reduction indices >= klim are zeros. The
-  // contiguous axis's limit and ld are multiples of 8.
-  __device__ static void load(bf16* dst, const bf16* src, int ld, int r0, int rlim,
-                              int k0, int klim) {
-    constexpr int kVecs = R * kBK / 8;            // 16-byte copies
-    static_assert(kVecs % kThreads == 0, "every thread copies as many");
-#pragma unroll
-    for (int v = 0; v < kVecs / kThreads; ++v) {
-      const int i = threadIdx.x + v * kThreads;
-      int r, k;
-      if (KMajor) {
-        r = i / (kBK / 8);
-        k = (i % (kBK / 8)) * 8;
-      } else {
-        k = i / (R / 8);
-        r = (i % (R / 8)) * 8;
-      }
-      const int gr = r0 + r, gk = k0 + k;
-      const bool ok = gr < rlim && gk < klim;
-      const size_t off = KMajor ? static_cast<size_t>(gr) * ld + gk
-                                : static_cast<size_t>(gk) * ld + gr;
-      cp_async16(dst + (KMajor ? r * kLd + k : k * kLd + r), ok ? src + off : src, ok);
-    }
-  }
-
-  // the bf16 pair at (r, k) and (r, k + 1), packed low to high
-  __device__ static uint32_t pair(const bf16* t, int r, int k) {
-    if (KMajor) return *reinterpret_cast<const uint32_t*>(t + r * kLd + k);
-    const unsigned short* u = reinterpret_cast<const unsigned short*>(t);
-    return static_cast<uint32_t>(u[k * kLd + r])
-           | (static_cast<uint32_t>(u[(k + 1) * kLd + r]) << 16);
-  }
+struct Params {
+  const int* counts;        // (E,) kept rows per expert, or null: all C
+  bf16 *h, *dg, *du;        // (E, C, F) scratch: pass A writes the kept rows
+  bf16* dx;                 // (E, C, D)
+  bf16 *dw_gate, *dw_up, *dw_down;
+  int E, C, D, F, act;
 };
 
-// acc (this warp's MI x 16 rows from wm, NI x 8 columns from wn) += the
-// stage's A tile . B tile^T over its kBK reduction. Fragments of
-// m16n8k16: lane = 4 g + t holds A rows g and g + 8 at reduction 2t, 2t+1
-// and 2t+8, 2t+9; B column g at the same; C rows g, g + 8 at columns 2t,
-// 2t + 1.
-template <int MI, int NI, class TA, class TB>
-__device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4], const bf16* sa,
-                                         const bf16* sb, int wm, int wn) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < kBK; ks += 16) {
-    uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = wm + i * 16 + g;
-      a[i][0] = TA::pair(sa, r, ks + 2 * t);
-      a[i][1] = TA::pair(sa, r + 8, ks + 2 * t);
-      a[i][2] = TA::pair(sa, r, ks + 2 * t + 8);
-      a[i][3] = TA::pair(sa, r + 8, ks + 2 * t + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int n = wn + j * 8 + g;
-      b[j][0] = TB::pair(sb, n, ks + 2 * t);
-      b[j][1] = TB::pair(sb, n, ks + 2 * t + 8);
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-#pragma unroll
-      for (int j = 0; j < NI; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-  }
-}
+// The ring: kDepth stages of kStage bytes at the 1 KB-aligned start of
+// dynamic shared memory, then kExtra bytes the kernel keeps for itself
+// (`after`, 1 KB-aligned), then a `full` barrier a stage (the producer's
+// expect_tx, completed by TMA's bytes) and an `empty` one (one arrival a
+// consumer warp). Step `it` uses stage it % kDepth.
+template <int kDepth, int kExtra>
+struct Ring {
+  unsigned char* smem;
+  uint32_t base, full, empty;
+  unsigned char* after;
 
-// The ring: nk stages of the reduction, load(slot, kt) issuing stage kt's
-// copies into ring slot `slot`, compute(slot) its products. Stage kt + 2
-// is in flight while stage kt is multiplied.
-template <class Load, class Compute>
-__device__ __forceinline__ void run_ring(int nk, Load load, Compute compute) {
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
+  __device__ __forceinline__ explicit Ring(unsigned char* raw) {
+    smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+    base = smem_u32(smem);
+    after = smem + kDepth * kStage;
+    full = base + kDepth * kStage + kExtra;
+    empty = full + 8 * kDepth;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kDepth; ++s) {
+        mbar_init(full + 8 * s, 1);
+        mbar_init(empty + 8 * s, kConsumers / 32);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();               // stage kt landed; slot (kt - 1) % kStages is free
-    const int next = kt + kStages - 1;
-    if (next < nk) load(next % kStages, next);
-    cp_async_commit();
-    compute(kt % kStages);
-  }
-}
 
-__device__ __forceinline__ int kept_rows(const int* counts, int e, int C) {
-  return counts ? max(0, min(__ldg(counts + e), C)) : C;
-}
+  __device__ __forceinline__ uint32_t stage(int it) const {
+    return base + (it % kDepth) * kStage;
+  }
+  __device__ __forceinline__ uint32_t full_bar(int it) const { return full + 8 * (it % kDepth); }
+
+  // producer: wait until step it's stage is free, then arm it for `bytes`
+  __device__ __forceinline__ void acquire(int it, uint32_t bytes) const {
+    const int s = it % kDepth;
+    if (it >= kDepth) mbar_wait(empty + 8 * s, ((it / kDepth) - 1) & 1);
+    mbar_expect(full + 8 * s, bytes);
+  }
+
+  __device__ __forceinline__ void wait_full(int it) const {
+    mbar_wait(full_bar(it), (it / kDepth) & 1);
+  }
+
+  // a consumer warp is done reading step it's stage
+  __device__ __forceinline__ void release(int it, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (it % kDepth));
+  }
+};
 
 __device__ __forceinline__ void act_grad(float g, int act, float& a, float& da) {
   if (act == 0) {                                             // silu
@@ -217,213 +198,437 @@ __device__ __forceinline__ void act_grad(float g, int act, float& a, float& da) 
   }
 }
 
-__device__ __forceinline__ uint32_t bf2(float x, float y) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&h);
+// a 64 x 64 box of shared memory (128-byte swizzle) to global memory
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
 }
 
-struct Params {
-  const bf16 *x, *w_gate, *w_up, *w_down, *dy;
-  const int* counts;               // (E,) or null: every row kept
-  bf16 *h, *dg, *du, *dx;          // h, dg, du: (E, C, F) scratch
-  int E, C, D, F, act;
-};
-
-// ---- pass A: h, dG, dU for a 64-row x 128-column tile of (C, F) ----------
-constexpr int kActRows = 64, kActCols = 128;
-using ActX = Tile<kActRows, true>;     // x, dy: rows c, reduction d
-using ActWd = Tile<kActCols, true>;    // w_down[e] (F, D): rows f, reduction d
-using ActW = Tile<kActCols, false>;    // w_gate[e], w_up[e] (D, F): reduction d, rows f
-constexpr int kActStage = 2 * ActX::kElems + ActWd::kElems + 2 * ActW::kElems;
-constexpr int kActSmem = kStages * kActStage * 2;
-
-__global__ void __launch_bounds__(kThreads, 1) moe_bwd_act(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int e = blockIdx.z, m0 = blockIdx.y * kActRows, n0 = blockIdx.x * kActCols;
-  const int kept = kept_rows(p.counts, e, p.C);
-  if (m0 >= kept) return;          // no kept row: pass B and C never read this tile
-  const size_t xo = static_cast<size_t>(e) * p.C * p.D, wo = static_cast<size_t>(e) * p.D * p.F;
-  const bf16 *x = p.x + xo, *dy = p.dy + xo;
-  const bf16 *wg = p.w_gate + wo, *wu = p.w_up + wo, *wd = p.w_down + wo;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-  float ag[2][4][4] = {}, au[2][4][4] = {}, ad[2][4][4] = {};
-
-  run_ring(
-      p.D / kBK,
-      [&](int s, int kt) {
-        bf16* st = smem + s * kActStage;
-        const int k0 = kt * kBK;
-        ActX::load(st, x, p.D, m0, kept, k0, p.D);
-        ActX::load(st + ActX::kElems, dy, p.D, m0, kept, k0, p.D);
-        ActWd::load(st + 2 * ActX::kElems, wd, p.D, n0, p.F, k0, p.D);
-        ActW::load(st + 2 * ActX::kElems + ActWd::kElems, wg, p.F, n0, p.F, k0, p.D);
-        ActW::load(st + 2 * ActX::kElems + ActWd::kElems + ActW::kElems, wu, p.F, n0, p.F,
-                   k0, p.D);
-      },
-      [&](int s) {
-        const bf16* st = smem + s * kActStage;
-        const bf16* swg = st + 2 * ActX::kElems + ActWd::kElems;
-        warp_mma<2, 4, ActX, ActW>(ag, st, swg, wm, wn);
-        warp_mma<2, 4, ActX, ActW>(au, st, swg + ActW::kElems, wm, wn);
-        warp_mma<2, 4, ActX, ActWd>(ad, st + ActX::kElems, st + 2 * ActX::kElems, wm, wn);
-      });
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = m0 + wm + i * 16 + g + 8 * hh;
-      if (r >= kept) continue;
-      const size_t row = (static_cast<size_t>(e) * p.C + r) * p.F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + j * 8 + 2 * t;
-        if (col >= p.F) continue;
-        float hv[2], dgv[2], duv[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float a, da;
-          act_grad(ag[i][j][2 * hh + c], p.act, a, da);
-          const float u = au[i][j][2 * hh + c], dh = ad[i][j][2 * hh + c];
-          hv[c] = a * u;
-          dgv[c] = dh * u * da;
-          duv[c] = dh * a;
-        }
-        *reinterpret_cast<uint32_t*>(p.h + row + col) = bf2(hv[0], hv[1]);
-        *reinterpret_cast<uint32_t*>(p.dg + row + col) = bf2(dgv[0], dgv[1]);
-        *reinterpret_cast<uint32_t*>(p.du + row + col) = bf2(duv[0], duv[1]);
-      }
-    }
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
+
+// n 16-byte chunks at dst, written as zeros by the consumers of every CTA
+__device__ __forceinline__ void zero_spread(uint4* dst, long long n) {
+  for (long long i = static_cast<long long>(blockIdx.x) * kConsumers + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * kConsumers) {
+    dst[i] = make_uint4(0, 0, 0, 0);
   }
 }
 
-// ---- pass B: dx for a 128-row x 128-column tile of (C, D) ----------------
-constexpr int kTile = 128;
-using DxA = Tile<kTile, true>;     // dG, dU (C, F): rows c, reduction f
-using DxB = Tile<kTile, true>;     // w_gate[e], w_up[e] (D, F) as their transposes: rows d, reduction f
-constexpr int kDxStage = DxA::kElems + DxB::kElems;
-constexpr int kDxSmem = kStages * kDxStage * 2;
+// ---- pass A: h, dG, dU for 128 rows x 128 columns of (C, F) ---------------
+// Two reductions over D an item: first dH (dy by w_down, K-major), kept as
+// 64 f32 a thread in shared memory, each thread's own (it holds the same
+// elements of G and U); then G and U (x by w_gate, w_up, MN-major). Stages:
+// dy and 128 rows of w_down (32 KB), then x and 128 columns of w_gate and
+// of w_up (48 KB).
+__global__ void __launch_bounds__(kThreads, 1)
+moe_bwd_act(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dy,
+            const __grid_constant__ CUtensorMap tm_wg, const __grid_constant__ CUtensorMap tm_wu,
+            const __grid_constant__ CUtensorMap tm_wd, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<kActStages, kDH> ring(smem_raw);
+  const int lane = threadIdx.x % 32;
+  const int nk = (p.D + 63) / 64;
+  const int tiles = (p.F + kActN - 1) / kActN;
+  Walker walk;
+  int e, m;
 
-__global__ void __launch_bounds__(kThreads, 2) moe_bwd_dx(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int e = blockIdx.z, m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int kept = kept_rows(p.counts, e, p.C);
-  bf16* dx = p.dx + static_cast<size_t>(e) * p.C * p.D;
-  if (m0 >= kept) {                // no kept row: the tile is zeros
-    const int rows = min(kTile, p.C - m0), vecs = min(kTile, p.D - n0) / 8;
-    for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-      *reinterpret_cast<uint4*>(dx + static_cast<size_t>(m0 + i / vecs) * p.D + n0
-                                + (i % vecs) * 8) = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x >= kConsumers) {
+    int it = 0;
+    for (long long j = blockIdx.x;; j += gridDim.x) {
+      if (!walk.seek(p.counts, p.E, p.C, kRows, j / tiles, lane, e, m)) break;
+      const int n0 = static_cast<int>(j % tiles) * kActN;
+      if (lane == 0) {
+        const int boxes = n0 + 64 < p.F ? 2 : 1;    // w_gate's, w_up's: the second past F?
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          ring.acquire(it, 2 * kRowTile);
+          const uint32_t st = ring.stage(it), bar = ring.full_bar(it);
+          tma_load_3d(st, &tm_dy, bar, kt * 64, m * kRows, e);
+          tma_load_3d(st + kRowTile, &tm_wd, bar, kt * 64, n0, e);
+        }
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          ring.acquire(it, kRowTile + 2 * boxes * kBox);
+          const uint32_t st = ring.stage(it), bar = ring.full_bar(it);
+          tma_load_3d(st, &tm_x, bar, kt * 64, m * kRows, e);
+          for (int i = 0; i < boxes; ++i) {
+            tma_load_3d(st + kRowTile + i * kBox, &tm_wg, bar, n0 + 64 * i, kt * 64, e);
+            tma_load_3d(st + 2 * kRowTile + i * kBox, &tm_wu, bar, n0 + 64 * i, kt * 64, e);
+          }
+        }
+      }
+      __syncwarp();
     }
     return;
   }
-  const size_t go = static_cast<size_t>(e) * p.C * p.F, wo = static_cast<size_t>(e) * p.D * p.F;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int nf = p.F / kBK;
-  float acc[4][4][4] = {};
 
-  run_ring(
-      2 * nf,
-      [&](int s, int kt) {
-        bf16* st = smem + s * kDxStage;
-        const bool up = kt >= nf;
-        const int k0 = (up ? kt - nf : kt) * kBK;
-        DxA::load(st, (up ? p.du : p.dg) + go, p.F, m0, kept, k0, p.F);
-        DxB::load(st + DxA::kElems, (up ? p.w_up : p.w_gate) + wo, p.F, n0, p.D, k0, p.F);
-      },
-      [&](int s) {
-        const bf16* st = smem + s * kDxStage;
-        warp_mma<4, 4, DxA, DxB>(acc, st, st + DxA::kElems, wm, wn);
-      });
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* dh = reinterpret_cast<float*>(ring.after) + threadIdx.x;   // stride kConsumers
+  int it = 0;
+  float acc0[64], acc1[64];
+  for (long long j = blockIdx.x;; j += gridDim.x) {
+    if (!walk.seek(p.counts, p.E, p.C, kRows, j / tiles, lane, e, m)) break;
+    const int n0 = static_cast<int>(j % tiles) * kActN;
+    const int kept = kept_rows(p.counts, e, p.C);
+    const int row0 = m * kRows + wg * 64;          // this warpgroup's first row
+    const bool live = row0 < kept;
+    zero(acc0);
+    for (int kt = 0; kt < nk; ++kt, ++it) {       // dH
+      ring.wait_full(it);
+      if (live) {
+        const uint32_t st = ring.stage(it);
+        const uint64_t da = gmma_desc(st + wg * kBox, 16, 1024);
+        const uint64_t db = gmma_desc(st + kRowTile, 16, 1024);
+        wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma<0, 0>(acc0, desc_at(da, kk * 32), desc_at(db, kk * 32));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc0);
+      }
+      ring.release(it, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dh[i * kConsumers] = acc0[i];
+    zero(acc0);
+    zero(acc1);
+    for (int kt = 0; kt < nk; ++kt, ++it) {       // G, U
+      ring.wait_full(it);
+      if (live) {
+        const uint32_t st = ring.stage(it);
+        const uint64_t da = gmma_desc(st + wg * kBox, 16, 1024);
+        const uint64_t dg = gmma_desc(st + kRowTile, kBox, 1024);
+        const uint64_t du = gmma_desc(st + 2 * kRowTile, kBox, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma<0, 1>(acc0, desc_at(da, kk * 32), desc_at(dg, kk * 2048));
+          wgmma<0, 1>(acc1, desc_at(da, kk * 32), desc_at(du, kk * 2048));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc0);
+        fence_regs(acc1);
+      }
+      ring.release(it, lane);
+    }
+    if (!live) continue;
+
+    // this thread: rows g and g + 8 of its warp's 16, columns 8 c + 2 t4
+    // and + 1 of each accumulator
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = m0 + wm + i * 16 + g + 8 * hh;
-      if (r >= p.C) continue;
-      const bool live = r < kept;
+      const int r = row0 + warp * 16 + g + 8 * hh;
+      if (r >= kept) continue;
+      const size_t row = (static_cast<size_t>(e) * p.C + r) * p.F;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + j * 8 + 2 * t;
-        if (col >= p.D) continue;
-        *reinterpret_cast<uint32_t*>(dx + static_cast<size_t>(r) * p.D + col) =
-            bf2(live ? acc[i][j][2 * hh] : 0.0f, live ? acc[i][j][2 * hh + 1] : 0.0f);
+      for (int c = 0; c < kActN / 8; ++c) {
+        const int col = n0 + 8 * c + 2 * t4;
+        if (col >= p.F) continue;
+        float hv[2], dgv[2], duv[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 4 * c + 2 * hh + q;
+          const float d = dh[i * kConsumers];
+          float a, da;
+          act_grad(acc0[i], p.act, a, da);
+          hv[q] = a * acc1[i];
+          dgv[q] = d * acc1[i] * da;
+          duv[q] = d * a;
+        }
+        *reinterpret_cast<uint32_t*>(p.h + row + col) = f2_to_bf2(hv[0], hv[1]);
+        *reinterpret_cast<uint32_t*>(p.dg + row + col) = f2_to_bf2(dgv[0], dgv[1]);
+        *reinterpret_cast<uint32_t*>(p.du + row + col) = f2_to_bf2(duv[0], duv[1]);
       }
     }
   }
 }
 
-// ---- pass C: out[e] (M, N) = a[e]^T . b[e] over the kept rows -------------
-struct DwParams {
-  const bf16* a;                   // (E, C, M)
-  const bf16* b;                   // (E, C, N)
-  const int* counts;
-  bf16* out;                       // (E, M, N)
-  int C, M, N;
+// ---- pass B: dx for 128 rows x 256 columns of (C, D) -----------------------
+__global__ void __launch_bounds__(kThreads, 1)
+moe_bwd_dx(const __grid_constant__ CUtensorMap tm_dg, const __grid_constant__ CUtensorMap tm_du,
+           const __grid_constant__ CUtensorMap tm_wg, const __grid_constant__ CUtensorMap tm_wu,
+           const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<kStages, 0> ring(smem_raw);
+  const int lane = threadIdx.x % 32;
+  const int nf = (p.F + 63) / 64, nk = 2 * nf;
+  const int tiles = (p.D + kDxN - 1) / kDxN;
+  Walker walk;
+  int e, m;
+
+  if (threadIdx.x >= kConsumers) {
+    int it = 0;
+    for (long long j = blockIdx.x;; j += gridDim.x) {
+      if (!walk.seek(p.counts, p.E, p.C, kRows, j / tiles, lane, e, m)) break;
+      const int n0 = static_cast<int>(j % tiles) * kDxN;
+      if (lane == 0) {
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const bool up = kt >= nf;                // dU . w_up^T after dG . w_gate^T
+          const int k0 = (up ? kt - nf : kt) * 64;
+          ring.acquire(it, kStage);
+          const uint32_t st = ring.stage(it), bar = ring.full_bar(it);
+          tma_load_3d(st, up ? &tm_du : &tm_dg, bar, k0, m * kRows, e);
+          tma_load_3d(st + kRowTile, up ? &tm_wu : &tm_wg, bar, k0, n0, e);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // rows of dx in no item: from the end of an expert's last kept M tile to
+  // C, all of them for an empty expert
+  for (int x = 0; x < p.E; ++x) {
+    const int z0 = min(p.C, (kept_rows(p.counts, x, p.C) + kRows - 1) / kRows * kRows);
+    zero_spread(reinterpret_cast<uint4*>(p.dx + (static_cast<size_t>(x) * p.C + z0) * p.D),
+                static_cast<long long>(p.C - z0) * p.D / 8);
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  int it = 0;
+  float acc0[64], acc1[64];
+  for (long long j = blockIdx.x;; j += gridDim.x) {
+    if (!walk.seek(p.counts, p.E, p.C, kRows, j / tiles, lane, e, m)) break;
+    const int n0 = static_cast<int>(j % tiles) * kDxN;
+    const int kept = kept_rows(p.counts, e, p.C);
+    const int row0 = m * kRows + wg * 64;
+    const bool live = row0 < kept;
+    zero(acc0);
+    zero(acc1);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      ring.wait_full(it);
+      if (live) {
+        const uint32_t st = ring.stage(it);
+        const uint64_t da = gmma_desc(st + wg * kBox, 16, 1024);
+        const uint64_t d0 = gmma_desc(st + kRowTile, 16, 1024);       // columns 0-127
+        const uint64_t d1 = gmma_desc(st + 2 * kRowTile, 16, 1024);   // columns 128-255
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma<0, 0>(acc0, desc_at(da, kk * 32), desc_at(d0, kk * 32));
+          wgmma<0, 0>(acc1, desc_at(da, kk * 32), desc_at(d1, kk * 32));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc0);
+        fence_regs(acc1);
+      }
+      ring.release(it, lane);
+    }
+
+    // every row below C of the tile is written: kept rows from the sums,
+    // the rest (and a warpgroup with no kept row: its sums stayed 0) zeros
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + warp * 16 + g + 8 * hh;
+      if (r >= p.C) continue;
+      const bool ok = r < kept;
+      bf16* row = p.dx + (static_cast<size_t>(e) * p.C + r) * p.D;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int col = n0 + 8 * c + 2 * t4;
+        const int i = 4 * c + 2 * hh;
+        if (col < p.D) {
+          *reinterpret_cast<uint32_t*>(row + col) =
+              f2_to_bf2(ok ? acc0[i] : 0.0f, ok ? acc0[i + 1] : 0.0f);
+        }
+        if (col + 128 < p.D) {
+          *reinterpret_cast<uint32_t*>(row + col + 128) =
+              f2_to_bf2(ok ? acc1[i] : 0.0f, ok ? acc1[i + 1] : 0.0f);
+        }
+      }
+    }
+  }
+}
+
+// ---- pass C: dw_gate and dw_up, or dw_down, over an expert's kept rows -----
+struct DwItem {
+  int e, kept;
+  bool down;     // a dw_down tile (h^T . dy), else one of dw_gate and dw_up (x^T . dG, dU)
+  int m0, n0;    // first row (of D, or of F for dw_down) and first column of the tile
 };
 
-using DwT = Tile<kTile, false>;    // rows m (or n) contiguous, reduction c
-constexpr int kDwStage = 2 * DwT::kElems;
-constexpr int kDwSmem = kStages * kDwStage * 2;
-
-__global__ void __launch_bounds__(kThreads, 2) moe_bwd_dw(const DwParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int e = blockIdx.z, m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int kept = kept_rows(p.counts, e, p.C);
-  const bf16* a = p.a + static_cast<size_t>(e) * p.C * p.M;
-  const bf16* b = p.b + static_cast<size_t>(e) * p.C * p.N;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  float acc[4][4][4] = {};
-
-  run_ring(
-      (kept + kBK - 1) / kBK,
-      [&](int s, int kt) {
-        bf16* st = smem + s * kDwStage;
-        DwT::load(st, a, p.M, m0, p.M, kt * kBK, kept);
-        DwT::load(st + DwT::kElems, b, p.N, n0, p.N, kt * kBK, kept);
-      },
-      [&](int s) {
-        const bf16* st = smem + s * kDwStage;
-        warp_mma<4, 4, DwT, DwT>(acc, st, st + DwT::kElems, wm, wn);
-      });
-
-  bf16* out = p.out + static_cast<size_t>(e) * p.M * p.N;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = m0 + wm + i * 16 + g + 8 * hh;
-      if (r >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + j * 8 + 2 * t;
-        if (col >= p.N) continue;
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r) * p.N + col) =
-            bf2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-      }
-    }
+// Item j of pass C: per expert with a kept row, ceil(D / 128) x ceil(F /
+// 128) tiles of dw_gate / dw_up, then ceil(F / 128) x ceil(D / 256) of
+// dw_down; false past the last
+__device__ __forceinline__ bool dw_item(Walker& walk, const Params& p, long long j, int lane,
+                                        DwItem& q) {
+  const int gn = (p.F + 127) / 128, dn = (p.D + 255) / 256;
+  const int gate = (p.D + 127) / 128 * gn, per = gate + (p.F + 127) / 128 * dn;
+  int m;
+  if (!walk.seek(p.counts, p.E, p.C, p.C, j / per, lane, q.e, m)) return false;
+  int sub = static_cast<int>(j % per);
+  q.down = sub >= gate;
+  if (q.down) {
+    sub -= gate;
+    q.m0 = sub / dn * 128;
+    q.n0 = sub % dn * 256;
+  } else {
+    q.m0 = sub / gn * 128;
+    q.n0 = sub % gn * 128;
   }
+  q.kept = kept_rows(p.counts, q.e, p.C);
+  return true;
 }
 
-inline unsigned tiles(int n, int t) { return static_cast<unsigned>((n + t - 1) / t); }
+__global__ void __launch_bounds__(kThreads, 1)
+moe_bwd_dw(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_h,
+           const __grid_constant__ CUtensorMap tm_dg, const __grid_constant__ CUtensorMap tm_du,
+           const __grid_constant__ CUtensorMap tm_dy, const __grid_constant__ CUtensorMap tm_ogate,
+           const __grid_constant__ CUtensorMap tm_oup, const __grid_constant__ CUtensorMap tm_odown,
+           const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<kDwStages, 2 * kOut> ring(smem_raw);
+  const int lane = threadIdx.x % 32;
+  Walker walk;
+  DwItem q;
 
-cudaError_t launch_dw(const bf16* a, const bf16* b, bf16* out, const Params& p, int M, int N,
-                      cudaStream_t stream) {
-  DwParams q;
-  q.a = a; q.b = b; q.counts = p.counts; q.out = out;
-  q.C = p.C; q.M = M; q.N = N;
-  moe_bwd_dw<<<dim3(tiles(N, kTile), tiles(M, kTile), p.E), kThreads, kDwSmem, stream>>>(q);
-  return cudaGetLastError();
+  if (threadIdx.x >= kConsumers) {
+    int it = 0;
+    for (long long j = blockIdx.x; dw_item(walk, p, j, lane, q); j += gridDim.x) {
+      if (lane == 0) {
+        // stage: A^T's two 64-row boxes, then B0's and B1's two 64-column
+        // boxes, every box 64 kept rows deep
+        const int mlim = q.down ? p.F : p.D, nlim = q.down ? p.D : p.F;
+        const CUtensorMap* a = q.down ? &tm_h : &tm_x;
+        const CUtensorMap* b0m = q.down ? &tm_dy : &tm_dg;
+        const CUtensorMap* b1m = q.down ? &tm_dy : &tm_du;
+        const int c1 = q.down ? q.n0 + 128 : q.n0;    // B1's first column
+        uint32_t bytes = 0;
+        for (int i = 0; i < 2; ++i) {
+          bytes += (q.m0 + 64 * i < mlim ? kBox : 0) + (q.n0 + 64 * i < nlim ? kBox : 0)
+                   + (c1 + 64 * i < nlim ? kBox : 0);
+        }
+        const int nk = (q.kept + 63) / 64;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          ring.acquire(it, bytes);
+          const uint32_t st = ring.stage(it), bar = ring.full_bar(it);
+          for (int i = 0; i < 2; ++i) {
+            if (q.m0 + 64 * i < mlim) {
+              tma_load_3d(st + i * kBox, a, bar, q.m0 + 64 * i, kt * 64, q.e);
+            }
+            if (q.n0 + 64 * i < nlim) {
+              tma_load_3d(st + (2 + i) * kBox, b0m, bar, q.n0 + 64 * i, kt * 64, q.e);
+            }
+            if (c1 + 64 * i < nlim) {
+              tma_load_3d(st + (4 + i) * kBox, b1m, bar, c1 + 64 * i, kt * 64, q.e);
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // an empty expert's three gradients
+  const long long n = static_cast<long long>(p.D) * p.F / 8;   // 16-byte chunks of one
+  for (int x = 0; x < p.E; ++x) {
+    if (kept_rows(p.counts, x, p.C) > 0) continue;
+    const size_t off = static_cast<size_t>(x) * p.D * p.F;
+    zero_spread(reinterpret_cast<uint4*>(p.dw_gate + off), n);
+    zero_spread(reinterpret_cast<uint4*>(p.dw_up + off), n);
+    zero_spread(reinterpret_cast<uint4*>(p.dw_down + off), n);
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  int it = 0;
+  float acc0[64], acc1[64];
+  for (long long j = blockIdx.x; dw_item(walk, p, j, lane, q); j += gridDim.x) {
+    const int mlim = q.down ? p.F : p.D, nlim = q.down ? p.D : p.F;
+    const int row0 = q.m0 + wg * 64;               // this warpgroup's first gradient row
+    const bool live = row0 < mlim;
+    const int nk = (q.kept + 63) / 64;
+    zero(acc0);
+    zero(acc1);
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      ring.wait_full(it);
+      const int rem = q.kept - kt * 64;            // kept rows in this stage
+      if (rem < 64) {
+        // rows at or past counts[e] of every box: zeros, made visible to
+        // the tensor cores' reads before either warpgroup's products
+        uint4* st = reinterpret_cast<uint4*>(ring.smem + (it % kDwStages) * kStage);
+        const int per_box = (64 - rem) * 8;
+        for (int i = threadIdx.x; i < 6 * per_box; i += kConsumers) {
+          st[(i / per_box) * (kBox / 16) + rem * 8 + i % per_box] = make_uint4(0, 0, 0, 0);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+      }
+      if (live) {
+        const uint32_t st = ring.stage(it);
+        const uint64_t da = gmma_desc(st + wg * kBox, kBox, 1024);
+        const uint64_t d0 = gmma_desc(st + 2 * kBox, kBox, 1024);
+        const uint64_t d1 = gmma_desc(st + 4 * kBox, kBox, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma<1, 1>(acc0, desc_at(da, kk * 2048), desc_at(d0, kk * 2048));
+          wgmma<1, 1>(acc1, desc_at(da, kk * 2048), desc_at(d1, kk * 2048));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc0);
+        fence_regs(acc1);
+      }
+      ring.release(it, lane);
+    }
+    if (!live) continue;
+
+    // The tile goes out through shared memory: acc0 as boxes 0-1 (dw_gate,
+    // or dw_down's first 128 columns), acc1 as boxes 2-3 (dw_up, or
+    // dw_down's next 128), written in the 128-byte swizzle the maps use (a
+    // warp's stores hit distinct banks), then TMA stores (rows and columns
+    // past the gradient's edge are not written) that drain while the next
+    // item runs. The buffer is written again once its last stores have
+    // read it.
+    const uint32_t tid = threadIdx.x % 128;
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" :: "r"(2 + wg) : "memory");
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = warp * 16 + g + 8 * hh;
+      unsigned char* line = ring.after + wg * kOut + r * 128 + 4 * t4;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int i = 4 * c + 2 * hh, at = (c / 8) * kBox + (((c % 8) ^ (r % 8)) << 4);
+        *reinterpret_cast<uint32_t*>(line + at) = f2_to_bf2(acc0[i], acc0[i + 1]);
+        *reinterpret_cast<uint32_t*>(line + 2 * kBox + at) = f2_to_bf2(acc1[i], acc1[i + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" :: "r"(2 + wg) : "memory");
+    if (tid == 0) {
+      const uint32_t out = smem_u32(ring.after + wg * kOut);
+      const CUtensorMap* o0 = q.down ? &tm_odown : &tm_ogate;
+      const CUtensorMap* o1 = q.down ? &tm_odown : &tm_oup;
+      const int c1 = q.down ? q.n0 + 128 : q.n0;
+      for (int i = 0; i < 2; ++i) {
+        if (q.n0 + 64 * i < nlim) tma_store_3d(o0, out + i * kBox, q.n0 + 64 * i, row0, q.e);
+        if (c1 + 64 * i < nlim) tma_store_3d(o1, out + (2 + i) * kBox, c1 + 64 * i, row0, q.e);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  // the last stores complete before the CTA's shared memory goes
+  if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -431,7 +636,7 @@ cudaError_t launch_dw(const bf16* a, const bf16* b, bf16* out, const Params& p, 
 // C interface, loaded with ctypes. All tensors contiguous bf16 on 16-byte
 // boundaries except counts (int32, may be null). h, dg and du are
 // caller-allocated (E, C, F) scratch, any contents. Returns a cudaError_t
-// (0 = all five launches issued).
+// (0 = all three launches issued).
 extern "C" int moe_jam_bwd_bf16(const void* x, const void* w_gate, const void* w_up,
                                 const void* w_down, const void* dy, const void* counts,
                                 void* h, void* dg, void* du, void* dx, void* dw_gate,
@@ -441,37 +646,56 @@ extern "C" int moe_jam_bwd_bf16(const void* x, const void* w_gate, const void* w
       || (act != 0 && act != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(moe_bwd_act, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kActSmem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(moe_bwd_dx, cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(moe_bwd_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
-  }
+  // runtime calls first: they make the device's context current on this
+  // thread (an autograd worker may have none yet), which encoding a tensor
+  // map needs
+  cudaError_t err = allow_smem(moe_bwd_act, smem_bytes(kActStages, kDH));
+  if (err == cudaSuccess) err = allow_smem(moe_bwd_dx, smem_bytes(kStages, 0));
+  if (err == cudaSuccess) err = allow_smem(moe_bwd_dw, smem_bytes(kDwStages, 2 * kOut));
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // pass A: x, dy 128 rows a box, w_down 128 rows of F, w_gate, w_up 64 x
+  // 64. Pass B: dG, dU 128 rows; w_gate, w_up 256 rows of D. Pass C: 64
+  // rows of each, and the three gradients as 64 x 64 boxes.
+  CUtensorMap a_x, a_dy, a_wg, a_wu, a_wd, b_dg, b_du, b_wg, b_wu, c_x, c_h, c_dg, c_du, c_dy,
+      o_gate, o_up, o_down;
+  if (!make_map(&a_x, x, E, C, D, kRows) || !make_map(&a_dy, dy, E, C, D, kRows)
+      || !make_map(&a_wg, w_gate, E, D, F, 64) || !make_map(&a_wu, w_up, E, D, F, 64)
+      || !make_map(&a_wd, w_down, E, F, D, kActN) || !make_map(&b_dg, dg, E, C, F, kRows)
+      || !make_map(&b_du, du, E, C, F, kRows) || !make_map(&b_wg, w_gate, E, D, F, kDxN)
+      || !make_map(&b_wu, w_up, E, D, F, kDxN) || !make_map(&c_x, x, E, C, D, 64)
+      || !make_map(&c_h, h, E, C, F, 64) || !make_map(&c_dg, dg, E, C, F, 64)
+      || !make_map(&c_du, du, E, C, F, 64) || !make_map(&c_dy, dy, E, C, D, 64)
+      || !make_map(&o_gate, dw_gate, E, D, F, 64) || !make_map(&o_up, dw_up, E, D, F, 64)
+      || !make_map(&o_down, dw_down, E, F, D, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.w_gate = static_cast<const bf16*>(w_gate);
-  p.w_up = static_cast<const bf16*>(w_up);
-  p.w_down = static_cast<const bf16*>(w_down);
-  p.dy = static_cast<const bf16*>(dy);
   p.counts = static_cast<const int*>(counts);
   p.h = static_cast<bf16*>(h);
   p.dg = static_cast<bf16*>(dg);
   p.du = static_cast<bf16*>(du);
   p.dx = static_cast<bf16*>(dx);
+  p.dw_gate = static_cast<bf16*>(dw_gate);
+  p.dw_up = static_cast<bf16*>(dw_up);
+  p.dw_down = static_cast<bf16*>(dw_down);
   p.E = E; p.C = C; p.D = D; p.F = F; p.act = act;
-  moe_bwd_act<<<dim3(tiles(F, kActCols), tiles(C, kActRows), E), kThreads, kActSmem, s>>>(p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // one CTA an SM, at most one an item (counted as if every row were kept)
+  const auto grid = [sms](long long most) {
+    return static_cast<unsigned>(most < sms ? most : sms);
+  };
+  const long long mtiles = E * ceil_div(C, kRows);
+  moe_bwd_act<<<grid(mtiles * ceil_div(F, kActN)), kThreads, smem_bytes(kActStages, kDH), s>>>(
+      a_x, a_dy, a_wg, a_wu, a_wd, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  moe_bwd_dx<<<dim3(tiles(D, kTile), tiles(C, kTile), E), kThreads, kDxSmem, s>>>(p);
+  moe_bwd_dx<<<grid(mtiles * ceil_div(D, kDxN)), kThreads, smem_bytes(kStages, 0), s>>>(
+      b_dg, b_du, b_wg, b_wu, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if ((err = launch_dw(p.x, p.dg, static_cast<bf16*>(dw_gate), p, D, F, s)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  if ((err = launch_dw(p.x, p.du, static_cast<bf16*>(dw_up), p, D, F, s)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  return static_cast<int>(launch_dw(p.h, p.dy, static_cast<bf16*>(dw_down), p, F, D, s));
+  const long long per = ceil_div(D, 128) * ceil_div(F, 128) + ceil_div(F, 128) * ceil_div(D, 256);
+  moe_bwd_dw<<<grid(E * per), kThreads, smem_bytes(kDwStages, 2 * kOut), s>>>(
+      c_x, c_h, c_dg, c_du, c_dy, o_gate, o_up, o_down, p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,11 @@ gradient.
 ``ctypes``. One call of ``moe_jam_ffn_cuda`` launches its two passes
 (gate/up into a bf16 ``h`` scratch, then down), each a persistent weight
 stream (TMA into a 5-stage ring, wgmma), and counts once; one call of
-``moe_jam_ffn_bwd_cuda`` launches the backward's passes (h, dG, dU; dx;
-the three weight gradients) and counts once in ``BWD_LAUNCHES``. Nothing
-is built or loaded when this module is imported.
+``moe_jam_ffn_bwd_cuda`` launches the backward's three passes (h, dG, dU;
+dx; the three weight gradients), each of persistent CTAs fed by TMA and
+running wgmma, and counts once in ``BWD_LAUNCHES``. Both sources include
+``csrc/moe_jam.cuh``. Nothing is built or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ BWD_LAUNCHES = loader.LaunchCounter()
 ACTS = {"silu": 0, "gelu": 1}
 TILE = 32                 # D and F must be multiples of it
 DESIGN = "v2: persistent TMA weight stream, wgmma m64n128"
-BWD_DESIGN = "v1: three passes of mma.sync m16n8k16 on a 3-stage cp.async ring"
+BWD_DESIGN = ("v2: three persistent TMA + wgmma passes, two consumer warpgroups on 128 rows "
+              "(act: dH parked in shared memory, then G and U; dx; dw: all three gradients, "
+              "stored by TMA)")
 _fn = None
 _bwd_fn = None
 

@@ -1779,6 +1779,25 @@ def _moe_bwd_case(cuda, e, c, d, f, seed):
             torch.from_numpy(counts.astype(np.int32)).to(cuda))
 
 
+def _bwd_disagreements(got, x, wg, wu, wd, dy, cnt, act="silu"):
+    """The gradients that miss the plain version on the same bf16 inputs
+    (``MOE_BWD_TOL``, ``MOE_DW_TOL``), or float32 by more than
+    ``BWD_VS_PLAIN`` x the plain path's L2 error, or hold a non-finite
+    value."""
+    plain = moe_jam.moe_jam_ffn_bwd_ref(x, wg, wu, wd, dy, act, counts=cnt)
+    f32 = moe_jam.moe_jam_ffn_bwd_ref(*(t.float() for t in (x, wg, wu, wd, dy)), act,
+                                      counts=cnt)
+    bad = []
+    for name, a, b, ref in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, plain, f32):
+        err, worst, n_bad = moe_jam.compare(a, b, tol=MOE_DW_TOL if name[1] == "w"
+                                            else MOE_BWD_TOL)
+        e_k = (a.float() - ref).norm() / ref.norm()
+        e_p = (b.float() - ref).norm() / ref.norm()
+        if n_bad or not e_k <= BWD_VS_PLAIN * e_p or not torch.isfinite(a).all():
+            bad.append((name, err, worst, n_bad, float(e_k), float(e_p)))
+    return bad
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 @pytest.mark.parametrize("e,c,d,f", MOE_BWD_SHAPES)
@@ -1786,20 +1805,11 @@ def test_moe_jam_bwd_matches_plain_version(cuda, e, c, d, f, act):
     x, wg, wu, wd, dy, cnt = _moe_bwd_case(cuda, e, c, d, f, e * c + f)
     before = moe_jam.BWD_LAUNCHES.count
     got = moe_jam.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, act, counts=cnt)
-    plain = moe_jam.moe_jam_ffn_bwd_ref(x, wg, wu, wd, dy, act, counts=cnt)
-    f32 = moe_jam.moe_jam_ffn_bwd_ref(*(t.float() for t in (x, wg, wu, wd, dy)), act,
-                                      counts=cnt)
     torch.cuda.synchronize()
     assert moe_jam.BWD_LAUNCHES.count == before + 1
-    bad = []
-    for name, a, b, ref in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, plain, f32):
-        assert a.dtype == torch.bfloat16 and a.shape == ref.shape, name
-        err, worst, n_bad = moe_jam.compare(a, b, tol=MOE_DW_TOL if name[1] == "w"
-                                            else MOE_BWD_TOL)
-        e_k = (a.float() - ref).norm() / ref.norm()
-        e_p = (b.float() - ref).norm() / ref.norm()
-        if n_bad or not e_k <= BWD_VS_PLAIN * e_p:
-            bad.append((name, err, worst, n_bad, float(e_k), float(e_p)))
+    for a, like in zip(got, (x, wg, wu, wd)):
+        assert a.dtype == torch.bfloat16 and a.shape == like.shape
+    bad = _bwd_disagreements(got, x, wg, wu, wd, dy, cnt, act)
     assert not bad, bad
     empty = ~(torch.arange(c, device=cuda)[None, :] < cnt[:, None].long())
     assert (got[0][empty] == 0).all()
@@ -1836,6 +1846,61 @@ def test_moe_jam_bwd_ignores_rows_past_counts(cuda, e, c, d, f):
                                                        b.view(torch.int16))
     assert (got[0][empty] == 0).all()
     assert all((w[cnt == 0] == 0).all() for w in got[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,f", [(128, 96), (96, 160)])
+def test_moe_jam_bwd_at_row_tile_edges(cuda, d, f):
+    """Kept rows at each edge of the 128-row items and the 64-row stages of
+    the weight gradients' reduction (0, 1, 63, 64, 65, 127, 128, 129 and C
+    of C 300), with NaN in x and dy past counts: the gradients hold the
+    plain version, dx past counts and the empty expert's weight gradients
+    are exact zeros."""
+    counts = np.array([0, 1, 63, 64, 65, 127, 128, 129, 300])
+    e, c = len(counts), 300
+    rng = np.random.default_rng(d + f)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda, torch.bfloat16)  # noqa: E731
+    empty = ~(np.arange(c)[None, :] < counts[:, None])[:, :, None]
+    x, dy = (np.where(empty, np.nan, rng.normal(size=(e, c, d))) for _ in range(2))
+    wg, wu = (rng.normal(size=(e, d, f)) / np.sqrt(d) for _ in range(2))
+    wd = rng.normal(size=(e, f, d)) / np.sqrt(f)
+    ins = (bf(x), bf(wg), bf(wu), bf(wd), bf(dy))
+    cnt = torch.from_numpy(counts.astype(np.int32)).to(cuda)
+    got = moe_jam.moe_jam_ffn_bwd_cuda(*ins, counts=cnt)
+    torch.cuda.synchronize()
+    assert not _bwd_disagreements(got, *ins, cnt)
+    assert (got[0][torch.from_numpy(empty[..., 0]).to(cuda)] == 0).all()
+    assert all((w[0] == 0).all() for w in got[1:])
+
+
+@pytest.mark.gpu
+def test_moe_jam_bwd_with_every_expert_empty(cuda):
+    """Counts all 0 and NaN in every row of x and dy: every gradient is
+    exact zeros (dx, and the weight gradients the kernel writes over the
+    wrapper's uninitialised outputs)."""
+    x, wg, wu, wd, dy, _ = _moe_bwd_case(cuda, 5, 130, 96, 160, 21)
+    nan = torch.full_like(x, float("nan"))
+    got = moe_jam.moe_jam_ffn_bwd_cuda(nan, wg, wu, wd, nan, "gelu",
+                                       counts=torch.zeros(5, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    for a in got:
+        assert torch.equal(a, torch.zeros_like(a))
+
+
+@pytest.mark.gpu
+def test_moe_jam_bwd_is_deterministic_at_olmoe_train_buckets(cuda):
+    """Two launches give the same bits at olmoe-1b-7b's training buckets
+    (``bench.TRAIN``: 64 x 1,280 x 2,048, F 1,024, a micro-batch routed
+    uniformly top-8)."""
+    from repro_torch.kernels.moe_jam import bench as mbench
+
+    e, d, f, k, tokens, c = mbench.TRAIN["olmoe-1b-7b train"]
+    counts = mbench.train_counts(tokens, e, k, c)
+    x, wg, wu, wd, dy, cnt = mbench.bwd_inputs(cuda, counts, (e, c, d, f))
+    one = moe_jam.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt)
+    two = moe_jam.moe_jam_ffn_bwd_cuda(x, wg, wu, wd, dy, counts=cnt)
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.gpu

@@ -29,8 +29,11 @@ backward kernel and its yardstick on the card), against autograd through
 empty expert; the wrapper under grad on the CPU takes the plain version,
 which autograd differentiates.
 
-The CUDA kernels themselves are held against the plain versions on the card
-by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
+Around the CUDA kernels, on the CPU: both moe_jam sources include
+``csrc/moe_jam.cuh``, so an edit of it renames both builds; the backward's
+per-pass work (``bench.needed_bwd_work``) adds up to the whole. The CUDA
+kernels themselves are held against the plain versions on the card by
+``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
 """
 import functools
 
@@ -164,6 +167,57 @@ def test_loader_names_each_build_by_its_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         loader.build_all([src])
+
+
+def test_a_shared_header_renames_both_moe_jam_builds(tmp_path):
+    """The forward and the backward include ``csrc/moe_jam.cuh``: the loader
+    hashes the headers beside a source into its library's name, so a change
+    to the header renames both builds (and to one source only that one)."""
+    import shutil
+
+    from repro_torch.kernels import loader
+    from repro_torch.kernels.moe_jam import kernel as mj_kernel
+
+    csrc = mj_kernel.SOURCE.parent
+    assert mj_kernel.BWD_SOURCE.parent == csrc
+    for src in (mj_kernel.SOURCE, mj_kernel.BWD_SOURCE):
+        assert '#include "moe_jam.cuh"' in src.read_text()
+    for f in csrc.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    fwd, bwd = tmp_path / mj_kernel.SOURCE.name, tmp_path / mj_kernel.BWD_SOURCE.name
+    names = lambda: (loader.library_path(fwd).name, loader.library_path(bwd).name)  # noqa: E731
+    first = names()
+    assert first == (loader.library_path(mj_kernel.SOURCE).name,
+                     loader.library_path(mj_kernel.BWD_SOURCE).name)
+    header = tmp_path / "moe_jam.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = names()
+    assert second[0] != first[0] and second[1] != first[1]
+    bwd.write_text(bwd.read_text() + "\n// edited\n")
+    third = names()
+    assert third[0] == second[0] and third[1] != second[1]
+
+
+def test_bwd_passes_add_up_to_the_whole_at_olmoe_train_buckets():
+    """``bench.needed_bwd_work``'s passes (act three products, dx two, dw
+    three) sum to the whole backward's flops, and their bytes to the
+    whole's plus what passes between them (h, dG, dU written once and read
+    by dx and dw, w_gate / w_up read again by dx, x / dy again by dw, the
+    counts by each), on olmoe-1b-7b's training buckets."""
+    from repro_torch.kernels.moe_jam import bench as mbench
+
+    e, d, f, k, tokens, c = mbench.TRAIN["olmoe-1b-7b train"]
+    counts = mbench.train_counts(tokens, e, k, c)
+    work = mbench.needed_bwd_work(counts, capacity=c, d_model=d, d_ff=f)
+    passes = work["passes"]
+    assert set(passes) == set(mbench.BWD_PASSES)
+    rows, busy = int(counts.sum()), int((counts > 0).sum())
+    product = 2 * rows * d * f
+    assert [passes[p]["flops"] for p in ("act", "dx", "dw")] == [3 * product, 2 * product,
+                                                                 3 * product]
+    assert sum(w["flops"] for w in passes.values()) == work["flops"] == 8 * product
+    between = (3 + 2 + 3) * rows * f * 2 + busy * 2 * d * f * 2 + 2 * rows * d * 2 + 2 * 4 * e
+    assert sum(w["bytes"] for w in passes.values()) == work["bytes"] + between
 
 
 def _bwd_case(act_seed=0):
