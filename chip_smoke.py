@@ -26,7 +26,18 @@ phase prints the seconds it took):
    (empty experts) against its plain version on the same bf16 inputs and
    against float32, dx past counts and empty experts' weight gradients
    exact zeros, two launches bit for bit equal; timed with the forward at
-   C 1,280, the plain backward and three ``bmm``'s autograd backward;
+   C 1,280, the plain backward and three ``bmm``'s autograd backward; then
+   the selective scan's backward (B4b: ddt, db, dc, dx, da, dh0 from the
+   training forward's chunk states) at mamba-130m's training micro-batch
+   (2 x 4,096 x 1,536, N 16), hymba-1.5b's (2 x 4,096 x 3,200) and an
+   engine-like ragged batch (32 rows of 96 columns, 0, 1, chunk edges and
+   full valid; N 16, N 8 with x off 16 bytes, N 4) against its plain
+   version on the same bf16 inputs and against float32
+   (``ssm_scan.compare_bwd``), gated columns exact zeros, two launches bit
+   for bit equal, the training forward's y and h_last bit for bit the
+   serving forward's and its chunk states against the plain version's;
+   timed beside its bound, its SFU floor, its chain's floor, the plain
+   backward and both forwards (no PyTorch call computes a selective scan);
 3b. train: llama3.2-1b at full width and depth through the ``Trainer``
    (float32 masters from seed 0, train_4k at 4,096 tokens, a global batch
    of 8 in 4 micro-batches, remat full, lr 3e-4, 6 steps, a checkpoint
@@ -51,6 +62,16 @@ phase prints the seconds it took):
    against the one-hot cumsum it replaced at the micro-batch and at
    deepseek's 3,800-token prefill; a float32 control at 2 layers with the
    routing fixed to the float32 path's;
+3d. train SSM: mamba-130m (24 layers) and then hymba-1.5b (32) at full
+   width and depth through the ``Trainer`` (train_4k's 4,096 tokens, a
+   global batch of 8 in 4 micro-batches, remat full, 4 steps, no
+   checkpoint): finite, falling loss; ssm_scan's forward (the training
+   instance) 2 x layers x 4 and its backward layers x 4 a step run, for
+   hymba flash's forward and backward likewise, nothing else; one
+   micro-batch's gradients taken twice bit for bit equal; step p50/p90,
+   tokens/s, the model-FLOPs share of the dense bf16 peak, one step
+   profiled (B4's and B4b's shares, flash's for hymba), peak memory; a
+   float32 control at 2 layers;
 3. kernel vs plain: call each kernel's wrapper at its path's shapes on the
    card and hold it against its plain PyTorch version (stated tolerance):
    paged attention (split-K v5) at llama3.2-1b's heads (32/8 of 64) and
@@ -450,6 +471,15 @@ MOE_BYTES_PER_PARAM, MOE_ACT_RESERVE, MOE_PEAK_BUDGET = 19, 8e9, 70e9
 # picks from numpy seed 0
 DISPATCH_CASES = {"olmoe-1b-7b train micro-batch": (8192, 8),
                   "deepseek-v2-lite-16b 3,800-token prefill": (3800, 6)}
+# the selective scan's backward (B4b) is held to ``ssm_scan.compare_bwd``'s
+# rule, whose tolerances (``ssm_scan.ops.BWD_TOL``, ``BWD_VS_PLAIN``,
+# ``BWD_F32_REL``) the card tests share
+# the SSM train phase: mamba-130m and hymba-1.5b at full width and depth
+# through the Trainer, as the MoE phase (TRAIN_BATCH in TRAIN_ACCUM
+# micro-batches, remat full, TRAIN_LR, no checkpoint). hymba's 1.66 B
+# params are ~32 GB at MOE_BYTES_PER_PARAM, within MOE_PEAK_BUDGET with
+# MOE_ACT_RESERVE
+SSM_TRAIN_ARCHS, SSM_TRAIN_STEPS = (MAMBA_ARCH, HYMBA_ARCH), 4
 # paged attention vs plain, per element: |kernel - plain| <= 2e-2 * (min(1,
 # rms of the element's (request, column, head) row) + |plain|). bf16
 # output, and p rounded to bf16 before P.V at different points
@@ -1262,6 +1292,139 @@ def check_moe_jam_bwd(torch, dev):
     }
 
 
+def _bits(torch, t):
+    """``t``'s bits as integers, for a bit-for-bit comparison."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_ssm_scan_bwd(torch, dev):
+    """Phase 3 for the selective scan's backward (B4b) at each of
+    ``ssm_scan.bench.BWD_CASES``: the training forward (chunk states) must
+    give the serving forward's y and h_last bit for bit and states within
+    ``SCAN_H_TOL`` of the plain version's (``ssm_scan_chunk_states``);
+    then the backward from those states against the plain version on the
+    same bf16 inputs and on them cast to float32 (``compare_bwd``),
+    gated columns exact zeros, a second launch the same bits. Timed with
+    the L2 flushed: the backward (and its two launches by
+    ``torch.profiler``), the plain backward, the serving forward and the
+    training forward, beside the bound; the SFUs' floor, the chain's floor
+    and the forward's bound are printed on the timing line. Returns
+    ``{"bwd": {path: entry}, "fwd": {path: entry}}`` (without
+    ``launches``) for the training cases; each bwd entry's ``shapes``
+    holds its own case's measured numbers by name, and the first's also
+    the engine cases'."""
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import timing
+    from repro_torch.kernels.ssm_scan import bench as sbench
+    from repro_torch.kernels.ssm_scan.kernel import BWD_DESIGN, DESIGN, scan_route
+
+    flush = timing.l2_flush_buffer(dev)
+    bwd, fwd, engine = {}, {}, {}
+    for name, (rows, cols, inner, state, ragged, _) in sbench.BWD_CASES.items():
+        dt, b, c, x, a, h0, n_valid, dy, dh_last = sbench.bwd_inputs(dev, name)
+        nv_np = sbench.bwd_n_valid(rows, cols, ragged)
+        args = (dt, b, c, x, a, h0, n_valid)
+        route = scan_route(dt, b, c, x)
+        y, h, states = ss.ssm_scan_train_cuda(*args)
+        y_s, h_s = ss.ssm_scan_cuda(*args)
+        y_ref, h_ref = ss.ssm_scan_ref(*args)
+        st_ref = ss.ssm_scan_chunk_states(*args)
+        torch.cuda.synchronize()
+        same_fwd = (torch.equal(_bits(torch, y), _bits(torch, y_s))
+                    and torch.equal(_bits(torch, h), _bits(torch, h_s)))
+        nv_all = n_valid if n_valid is not None else torch.full((rows,), cols, device=dev)
+        max_y, max_h, _, fwd_bad = ss.compare(y, h, y_ref, h_ref, nv_all, y_tol=SCAN_Y_TOL,
+                                              h_tol=SCAN_H_TOL)
+        st_err = float((states - st_ref).abs().max())
+        st_bad = int((~((states - st_ref).abs() <= SCAN_H_TOL * (1 + st_ref.abs()))).sum())
+        del y, h, y_s, h_s, y_ref, h_ref, st_ref
+
+        def call():
+            return ss.ssm_scan_bwd_cuda(dt, b, c, x, a, states, dy, n_valid, dh_last)
+
+        def plain_call():
+            return ss.ssm_scan_bwd_ref(dt, b, c, x, a, dy, h0, n_valid, dh_last)
+
+        got, again = call(), call()
+        same = all(torch.equal(_bits(torch, p), _bits(torch, q)) for p, q in zip(got, again))
+        del again
+        plain = plain_call()
+        f32 = ss.ssm_scan_bwd_ref(dt.float(), b.float(), c.float(), x.float(), a, dy.float(),
+                                  h0, n_valid, dh_last)
+        stats, bad = ss.compare_bwd(got, plain, f32, n_valid)
+        del got, plain, f32
+        torch.cuda.empty_cache()
+        log(f"[kernel] ssm_scan_bwd ({BWD_DESIGN}) {name} ({rows} x {cols} x {inner}, N {state}, "
+            f"valid columns {int(nv_np.sum())}, forward route {route}): "
+            + "; ".join(f"{g} max |kernel - plain| {e['max_abs_err']:.3e} of max "
+                        f"{e['max_abs']:.3e}, L2 vs f32 {e['l2_kernel']:.4e} (plain bf16 "
+                        f"{e['l2_plain']:.4e}), non-zero past n_valid {e['gated_nonzero']}"
+                        for g, e in stats.items())
+            + f"; second launch bit for bit equal: {same}; the training forward's y and h_last "
+            f"bit for bit the serving forward's: {same_fwd} (against plain: max |diff| of y "
+            f"{max_y:.3e}, of h_last {max_h:.3e}, {fwd_bad} over), its chunk states "
+            f"{tuple(states.shape)} against plain max |diff| {st_err:.3e} ({st_bad} over "
+            f"{SCAN_H_TOL} x (1 + |plain|))")
+        if bad or not same or not same_fwd or fwd_bad or st_bad:
+            raise AssertionError(f"ssm_scan backward disagrees ({name}: {bad}, deterministic "
+                                 f"{same}, forward {same_fwd}, {fwd_bad} over, states over "
+                                 f"{st_bad})")
+        work = sbench.needed_bwd_work(nv_np, inner=inner, state=state,
+                                      dh_last=dh_last is not None)
+        bound, bound_by = timing.bound_ms(work)
+        fwork = sbench.needed_work(nv_np, inner=inner, state=state)
+        fbound, fby = timing.bound_ms(fwork)
+        sfu, chain = timing.sfu_ms(work), sbench.chain_ms(work)
+        r = dict(max_abs_err=max(e["max_abs_err"] for e in stats.values()), errors=stats,
+                 deterministic=same, bound_ms=bound, bound_by=bound_by,
+                 ms=timing.timed_ms(call, 10, flush),
+                 passes_ms=timing.kernel_ms(call, flush, {"bwd": "ssm_scan_bwd_kernel",
+                                                          "fold": "ssm_scan_bwd_fold"}, iters=3),
+                 plain_ms=timing.timed_ms(plain_call, 1, flush),
+                 fwd_ms=timing.timed_ms(lambda: ss.ssm_scan_cuda(*args), 10, flush),
+                 fwd_train_ms=timing.timed_ms(lambda: ss.ssm_scan_train_cuda(*args), 10, flush))
+        log(f"[kernel] ssm_scan_bwd {name} timing (L2 flushed per launch): kernel {r['ms']:.4f} "
+            f"ms (profiled: backward {r['passes_ms']['bwd']:.4f}, fold "
+            f"{r['passes_ms']['fold']:.4f}), plain (ssm_scan_bwd_ref) {r['plain_ms']:.4f} ms, no "
+            f"single PyTorch call computes a selective scan; {work['bytes']} bytes -> "
+            f"{work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; "
+            f"{work['f32_flops']} float32 operations -> "
+            f"{work['f32_flops'] / timing.F32_FLOPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; bound "
+            f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.4f} of it; "
+            f"{work['exps']} exponentials -> SFU floor {sfu:.5f} ms; "
+            f"{work['chain_steps']} dependent steps a CTA x {sbench.CHAIN_CYCLES} cycles at "
+            f"{sbench.CLOCK_HZ / 1e9:.2f} GHz -> chain floor {chain:.5f} ms; forward at this "
+            f"shape: serving {r['fwd_ms']:.4f} ms, training (chunk states) "
+            f"{r['fwd_train_ms']:.4f} ms (route {route}; bound {fbound:.5f} ms, {fby})")
+        if not ragged:
+            path = f"{name.split()[0]} train"
+            bwd[path] = {
+                "name": "ssm_scan_bwd", "route": "cuda", "path": path, "design": BWD_DESIGN,
+                "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
+                "replaces": "src/repro/models/ssm.py:94 (no TPU kernel: the JAX package "
+                            "differentiates the lax.scan of ssm_forward)",
+                "launches": None, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None, "passes_ms": r["passes_ms"], "fwd_ms": r["fwd_ms"],
+                "shapes": {name: r}}
+            fwd[path] = {
+                "name": "ssm_scan", "route": "cuda", "path": path,
+                "design": f"{DESIGN}, route {route}, training instance (chunk states)",
+                "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                "replaces": "src/repro/kernels/ssm_scan/kernel.py:60", "launches": None,
+                "max_abs_err": max(max_y, max_h), "ms": r["fwd_train_ms"],
+                "plain_ms": timing.timed_ms(lambda: ss.ssm_scan_ref(*args), 2, flush),
+                "bound_ms": fbound, "bound_by": fby, "library_ms": None,
+                "serving_ms": r["fwd_ms"]}
+        else:
+            engine[name] = r
+        del dt, b, c, x, a, h0, n_valid, dy, dh_last, states, args, call, plain_call
+        torch.cuda.empty_cache()
+    del flush
+    next(iter(bwd.values()))["shapes"].update(engine)
+    return {"bwd": bwd, "fwd": fwd}
+
+
 def _n_params(cfg) -> int:
     from repro_torch import tree
     from repro_torch.models import model as model_lib
@@ -1701,6 +1864,180 @@ def moe_train_path(torch, dev, card):
     _train_control(torch, dev, cfg, shape, card)
     log(f"[train] MoE phase {time.perf_counter() - t_phase:.1f} s")
     return dict(launches, dispatch=dispatch)
+
+
+def ssm_train_path(torch, dev, card):
+    """Phase 3d: ``_ssm_train`` on each of ``SSM_TRAIN_ARCHS``. Returns
+    ``{arch: launches of its run}``."""
+    out = {}
+    for arch in SSM_TRAIN_ARCHS:
+        out[arch] = _ssm_train(torch, dev, card, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _attn_span(seq_len: int, window) -> float:
+    """The mean number of keys a causal query sees over ``seq_len``
+    positions, with ``window`` (None: all before it)."""
+    w = seq_len if window is None else min(window, seq_len)
+    return (w * (w + 1) / 2 + (seq_len - w) * w) / seq_len
+
+
+def _ssm_train(torch, dev, card, arch):
+    """``Trainer`` on ``arch`` at full width and depth (float32 masters from
+    seed 0, ``train_4k`` at 4,096 tokens, a global batch of ``TRAIN_BATCH``
+    in ``TRAIN_ACCUM`` micro-batches, remat="full", AdamW at ``TRAIN_LR``),
+    ``SSM_TRAIN_STEPS`` steps, no checkpoint. Every launch count is set to
+    0 just before ``train()`` and read just after. Checks: every loss
+    finite and the last below the first; launches per step run: ssm_scan's
+    forward 2 x layers x accum (remat) and its backward layers x accum,
+    flash's forward and backward likewise where the stack attends, nothing
+    else; one micro-batch's gradients taken twice from the same params bit
+    for bit equal; the float32 control (``_train_control``). Prints step
+    p50/p90, tokens/s, the model-FLOPs share of the dense bf16 peak, one
+    step's device busy and idle share, its top device ops and the shares
+    of B4, B4b and flash's forward and backward, and the peak allocated
+    memory. Returns the launches of the run."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.configs.base import TRAIN_4K, OptimizerConfig, RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import timing
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.steps import LAUNCH_COUNTERS
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), remat="full")
+    n_params = _n_params(cfg)
+    est = MOE_BYTES_PER_PARAM * n_params + MOE_ACT_RESERVE
+    if est > MOE_PEAK_BUDGET:
+        raise AssertionError(f"{arch}: estimated peak {est / 1e9:.1f} GB")
+    log(f"[train] {arch} at full width and depth: {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, estimated peak {est / 1e9:.1f} GB")
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "ssm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shape = dataclasses.replace(TRAIN_4K, global_batch=TRAIN_BATCH)
+    run = RunConfig(model=cfg, shape=shape, checkpoint_dir=str(ckpt_dir),
+                    optimizer=OptimizerConfig(lr=TRAIN_LR, total_steps=SSM_TRAIN_STEPS,
+                                              warmup_steps=1, accum_steps=TRAIN_ACCUM))
+    trainer = Trainer(cfg, run, tcfg=TrainerConfig(steps=SSM_TRAIN_STEPS, log_every=1,
+                                                   checkpoint_every=SSM_TRAIN_STEPS + 1),
+                      log_fn=log, device=dev)
+    attends = cfg.attention is not None
+    want_kernels = {"ssm_scan", "ssm_scan_bwd"} | (
+        {"flash_attention", "flash_attention_bwd"} if attends else set())
+    if set(trainer.bundle.meta["kernels"]) != want_kernels:
+        raise AssertionError(f"the train bundle names {trainer.bundle.meta['kernels']}")
+    step_fn = trainer.bundle.fn
+    runs = []
+
+    def timed_step(params, opt, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(params, opt, batch)
+        runs.append((time.perf_counter() - t, float(out[2]["loss"])))
+        return out
+
+    trainer.bundle.fn = timed_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in LAUNCH_COUNTERS.values():
+        counter.reset()
+    stats = trainer.train()
+    launches = {name: c.count for name, c in LAUNCH_COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    trainer.bundle.fn = step_fn
+    losses = [r[1] for r in runs]
+    n = TRAIN_ACCUM * len(runs) * cfg.num_layers
+    want = {"ssm_scan": 2 * n, "ssm_scan_bwd": n}
+    if attends:
+        want.update(flash_attention=2 * n, flash_attention_bwd=n)
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}: not all finite, or the last not below the first")
+    if stats.steps != SSM_TRAIN_STEPS or len(runs) != SSM_TRAIN_STEPS:
+        problems.append(f"{stats.steps} steps, {len(runs)} step runs")
+    if any(c != want.get(k, 0) for k, c in launches.items()):
+        problems.append(f"launches {launches}, want {want}")
+    if problems:
+        raise AssertionError(f"{arch} train phase: " + "; ".join(problems))
+    tokens = TRAIN_BATCH * shape.seq_len
+    times = sorted(r[0] for r in runs[1:])
+    p50, p90 = float(np.percentile(times, 50)), float(np.percentile(times, 90))
+    attn, attn_text = 0.0, ""
+    if attends:
+        a = cfg.attention
+        windows = [a.sliding_window if bt.endswith("_local") else None
+                   for bt in model_lib.flat_block_types(cfg)]
+        span = sum(_attn_span(shape.seq_len, w) for w in windows)
+        attn = 3 * 4 * a.num_heads * a.head_dim * span * tokens
+        attn_text = (f" + 3 x 4 x {a.num_heads} x {a.head_dim} x {span:.1f} (keys a query "
+                     f"sees, summed over the layers: causal, {a.sliding_window}-token windows "
+                     f"on {sum(w is not None for w in windows)}) x {tokens}")
+    flops = 6 * n_params * tokens + attn
+    log(f"[train] {arch}, {cfg.num_layers} layers at full width: losses by step "
+        f"{[round(x, 4) for x in losses]}; launches {launches} over {len(runs)} step runs "
+        f"(ssm_scan 2 x {cfg.num_layers} layers x {TRAIN_ACCUM} micro-batches a step, remat "
+        f"full; its backward once)")
+    log(f"[train] {arch} step p50 {p50 * 1e3:.1f} ms, p90 {p90 * 1e3:.1f} ms ({len(times)} runs "
+        f"after the first), {tokens / p50:.0f} tokens/s; model FLOPs 6 x {n_params} params x "
+        f"{tokens} tokens{attn_text} = {flops:.4e} a step -> "
+        f"{flops / p50 / timing.BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s dense bf16; peak allocated "
+        f"{peak:.2f} GB (estimated {est / 1e9:.1f}), on {card}")
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(cfg, shape, SSM_TRAIN_STEPS, run.seed).items()}
+    params, opt = trainer.params, trainer.opt
+    flash_bwd = ("bwd_delta", "bwd_dkdv", "bwd_dq")
+    matches = ("ssm_scan_kernel", "ssm_scan_bwd", "flash_wgmma") + flash_bwd
+    prof = _busy(torch, lambda: step_fn(params, opt, batch), repeats=1, matches=matches)
+    busy = prof["busy_ms"] or 0.0
+    ms = dict(prof["match_ms"], flash_bwd=sum(prof["match_ms"][m] or 0.0 for m in flash_bwd))
+    parts = {"ssm_scan forward (B4)": "ssm_scan_kernel", "its backward (B4b)": "ssm_scan_bwd"}
+    if attends:
+        parts.update({"flash forward": "flash_wgmma", "flash backward": "flash_bwd"})
+    log(f"[train] {arch} one step profiled: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{busy:.1f} ms (idle share {1 - busy / prof['wall_ms']:.3f}); of busy: "
+        + ", ".join(f"{label} {(ms[m] or 0.0):.1f} ms ({(ms[m] or 0.0) / max(busy, 1e-9):.3f})"
+                    for label, m in parts.items())
+        + f"; top device ops {prof['top']}")
+
+    # determinism: one micro-batch's gradients twice from the same params
+    del opt, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    leaves = tree.leaves(params)
+
+    def micro_grads():
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, _ = model_lib.loss_fn(cfg, params, mb, kernel="cuda")
+        out = torch.autograd.grad(loss, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        return out
+
+    one = micro_grads()
+    two = micro_grads()
+    differ = [i for i, (g1, g2) in enumerate(zip(one, two))
+              if not torch.equal(g1.view(torch.int32), g2.view(torch.int32))]
+    log(f"[train] {arch} one micro-batch's gradients taken twice: "
+        f"{len(leaves) - len(differ)} of {len(leaves)} leaves bit for bit equal")
+    if differ:
+        raise AssertionError(f"{arch} gradients differ between two runs in leaves {differ}")
+    del one, two, params, leaves, batch, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_control(torch, dev, cfg, shape, card)
+    log(f"[train] {arch} phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _train_control(torch, dev, full, shape, card):
@@ -3788,7 +4125,8 @@ def main() -> int:
     with Phase("build"):
         libs = loader.build_all([pa_kernel.SOURCE, mj_kernel.SOURCE, ss_kernel.SOURCE,
                                  mb_kernel.SOURCE, mb_kernel.RING_SOURCE, fa_kernel.SOURCE,
-                                 fa_kernel.BWD_SOURCE, mj_kernel.BWD_SOURCE])
+                                 fa_kernel.BWD_SOURCE, mj_kernel.BWD_SOURCE,
+                                 ss_kernel.BWD_SOURCE])
         for lib in libs.values():
             log(f"[build] {lib.name}")
             report = lib.with_suffix(".log")
@@ -3814,6 +4152,11 @@ def main() -> int:
         entries[("moe_jam_bwd", "train")] = moe_entries["bwd"]
         entries[("moe_jam", "train")] = moe_entries["fwd"]
         torch.cuda.empty_cache()
+        scan_entries = check_ssm_scan_bwd(torch, dev)
+        for key in ("bwd", "fwd"):
+            for path, entry in scan_entries[key].items():
+                entries[(entry["name"], path)] = entry
+        torch.cuda.empty_cache()
     with Phase("train"):
         launches = train_path(torch, dev, card)
         entries[("flash_attention_bwd", "train")]["launches"] = launches["flash_attention_bwd"]
@@ -3829,6 +4172,17 @@ def main() -> int:
             entries[(kname, f"{MOE_TRAIN_ARCH} train")] = dict(
                 train_entries[key], **train_entries[key]["shapes"][f"{MOE_TRAIN_ARCH} train"],
                 path=f"{MOE_TRAIN_ARCH} train", launches=launches[kname], shapes=None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with Phase(f"train SSM ({', '.join(SSM_TRAIN_ARCHS)})"):
+        for arch, launches in ssm_train_path(torch, dev, card).items():
+            for kname in ("ssm_scan", "ssm_scan_bwd"):
+                entries[(kname, f"{arch} train")]["launches"] = launches[kname]
+            if launches["flash_attention"]:
+                entries[("flash_attention_bwd", "train")][f"{arch} train launches"] = launches[
+                    "flash_attention_bwd"]
+                entries[("flash_attention", "train")][f"{arch} train launches"] = launches[
+                    "flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
     with Phase("kernel vs plain (serving)"):

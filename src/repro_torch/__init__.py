@@ -43,20 +43,21 @@ library. It ports:
   ``Engine.submit_graph``, ``Router.place_node``/``ship_edge``/
   ``submit_graph`` and ``launch.serve_graph``.
 
-* training of plain-GQA decoders (A13's dense half): ``loss_fn`` with
-  ``remat="full"``, AdamW with the warmup-cosine schedule and the
-  global-norm clip (``optim``), ``make_train_step`` with gradient
-  accumulation, the synthetic data pipeline (``data``), checkpoints
-  (``checkpoint``), the fault-tolerant ``runtime.trainer.Trainer`` and
-  ``launch.train``; flash attention differentiates through its backward
-  kernel (``FlashAttentionFn``). On the card, stacks whose kernels have no
-  backward yet (MoE, SSM, hybrid, xLSTM) are refused.
+* training (A13): ``loss_fn`` with ``remat="full"``, AdamW with the
+  warmup-cosine schedule and the global-norm clip (``optim``),
+  ``make_train_step`` with gradient accumulation, the synthetic data
+  pipeline (``data``), checkpoints (``checkpoint``), the fault-tolerant
+  ``runtime.trainer.Trainer`` and ``launch.train``; flash attention, the
+  MoE expert FFN and the selective scan differentiate through their
+  backward kernels (``FlashAttentionFn``, ``MoeJamFn``, ``SsmScanFn``), so
+  dense, MoE, SSM and hybrid stacks train on the card. xLSTM stacks, and
+  flash widths with no backward instance, are refused there.
 
 Every kernel is hand-written CUDA beside its plain version;
 ``kernels.loader`` builds them at first use. Entry points (``Engine``,
 ``models.model.init_params``, the serve CLI) run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card they raise instead of quietly
-falling back. Not ported yet (ROADMAP queue A): training of MoE, SSM,
-hybrid and xLSTM stacks on the card (A13's later halves), the transports
-between devices (A14) and the tooling (A15).
+falling back. Not ported yet (ROADMAP queue A): training of xLSTM stacks
+on the card and flash's backward at its other widths (A13's later
+halves), the transports between devices (A14) and the tooling (A15).
 """

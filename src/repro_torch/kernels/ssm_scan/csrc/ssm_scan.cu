@@ -73,21 +73,30 @@
 //     stage boundary falls, and a scan split in two equals the whole one
 //     bit for bit.
 //
+// The training forward is a second instance of the same kernel
+// (kSave): it also writes h where each chunk of kChunk = 32 steps starts,
+// (B, ceil(S / 32), I, N) float32 (h0 for the first; h_last for chunks
+// past the row's last stage), which the backward (ssm_scan_bwd.cu)
+// recomputes each chunk's states from. A state is written at the end of
+// the stage before its chunk, after that stage's y: written at the top of
+// the chunk's first stage, just before the wait for its inputs, the same
+// stores made the instance 20% slower than the serving one at a training
+// micro-batch (2 x 4,096 x 1,536); here it is 3.5% slower (NVIDIA H100
+// 80GB HBM3, 700 W; the instruction mix is the same). The serving
+// instances compile to the code they had: the writes are under
+// `if constexpr`. The step itself lives in ssm_scan.cuh, which both
+// kernels include.
+//
 // What a later design changes: the state's load (h0 is most of the bytes,
 // and no step starts before it lands) overlapped with the previous layer's
 // work, a chunked parallel scan over time for long prefill chunks, and
 // fusing the causal conv, dt's softplus and the d_skip / silu(z) gate
 // around the scan so dt, x and y never round-trip through device memory.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "ssm_scan.cuh"
 
 namespace {
 
-constexpr int kChannels = 64;     // channels of one row per CTA
-constexpr int kSteps = 8;         // time steps per stage
 constexpr int kStages = 4;        // slots of the ring
 constexpr int kRowBytes = kChannels * 2;                 // one step of dt, x or y
 constexpr int kTileBytes = kSteps * kRowBytes;           // 1 KB
@@ -99,7 +108,6 @@ constexpr int kDtOff = 0, kXOff = kTileBytes, kBOff = 2 * kTileBytes,
               kCOff = kBOff + kBcBytes, kBfOff = kCOff + kBcBytes,
               kCfOff = kBfOff + kBcFloatBytes, kYOff = kCfOff + kBcFloatBytes,
               kSlotBytes = kYOff + kTileBytes;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned long long kTimeoutNs = 2000000000ull;   // a lost barrier traps
 
 struct Maps {                     // TMA maps (route "tma"; unused on "direct")
@@ -116,7 +124,8 @@ struct Args {
   const int* n_valid;
   __nv_bfloat16* y;
   float* h_last;
-  int S, I;
+  float* states;                  // (B, n_chunks, I, N) f32, kSave only
+  int S, I, n_chunks;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -165,12 +174,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
                : "memory");
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Stage s (steps [8 s, 8 s + len)) of a row into its slot by TMA: dt and x
 // as one 8-step box each (one 1-step box a step when len < 8), b and c as
 // one 8-step box each.
@@ -215,9 +218,6 @@ __device__ __forceinline__ float lane_sums(const float (&acc)[L], int q) {
   }
 }
 
-__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
 // One step t of a lane: advance the four states it holds of each of its
 // two channels (2 pair, 2 pair + 1), return their partial dots with c_t.
 template <int N>
@@ -233,11 +233,7 @@ __device__ __forceinline__ float2 scan_step(float4 (&h)[2], const float4 (&a2)[2
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const float d = j ? bf_hi(dw) : bf_lo(dw);
-    const float dx = __fmul_rn(d, j ? bf_hi(xw) : bf_lo(xw));
-    h[j].x = __fmaf_rn(ex2(__fmul_rn(d, a2[j].x)), h[j].x, __fmul_rn(dx, bv.x));
-    h[j].y = __fmaf_rn(ex2(__fmul_rn(d, a2[j].y)), h[j].y, __fmul_rn(dx, bv.y));
-    h[j].z = __fmaf_rn(ex2(__fmul_rn(d, a2[j].z)), h[j].z, __fmul_rn(dx, bv.z));
-    h[j].w = __fmaf_rn(ex2(__fmul_rn(d, a2[j].w)), h[j].w, __fmul_rn(dx, bv.w));
+    advance(h[j], a2[j], d, __fmul_rn(d, j ? bf_hi(xw) : bf_lo(xw)), bv);
     acc[j] = __fmul_rn(h[j].x, cv.x);
     acc[j] = __fmaf_rn(h[j].y, cv.y, acc[j]);
     acc[j] = __fmaf_rn(h[j].z, cv.z, acc[j]);
@@ -246,10 +242,26 @@ __device__ __forceinline__ float2 scan_step(float4 (&h)[2], const float4 (&a2)[2
   return make_float2(acc[0], acc[1]);
 }
 
+// The state entering chunk k of a row: the thread's four states of each
+// of its two channels.
+template <int N>
+__device__ __forceinline__ void save_state(const Args& p, const float4 (&h)[2], int row, int k,
+                                           int i0, int q) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (i0 + j < p.I) {
+      *reinterpret_cast<float4*>(
+          p.states + ((static_cast<size_t>(row) * p.n_chunks + k) * p.I + i0 + j) * N + 4 * q)
+          = h[j];
+    }
+  }
+}
+
 // One CTA: one row, channels [64 blockIdx.x, + 64). Thread t holds state
 // elements [4 q, 4 q + 4) of channels 2 pair and 2 pair + 1, pair = t / (N
 // / 4), q = t % (N / 4): the two channels share each step's b and c loads.
-template <int N, bool kTma>
+// kSave: also write h where each chunk starts (Args::states).
+template <int N, bool kTma, bool kSave>
 __global__ void __launch_bounds__(kChannels / 2 * N / 4, 768 / (kChannels / 2 * N / 4))
 ssm_scan_kernel(const __grid_constant__ Maps maps, const Args p) {
   constexpr int kLanes = N / 4;                 // lanes a channel pair, steps a y exchange
@@ -314,10 +326,8 @@ ssm_scan_kernel(const __grid_constant__ Maps maps, const Args p) {
     a2[j] = h[j];
     if (i0 + j < I) {
       h[j] = *reinterpret_cast<const float4*>(p.h0 + state0 + j * N);
-      const float4 a = *reinterpret_cast<const float4*>(p.a + static_cast<size_t>(i0 + j) * N
-                                                        + 4 * q);
-      a2[j] = make_float4(__fmul_rn(a.x, kLog2e), __fmul_rn(a.y, kLog2e),
-                          __fmul_rn(a.z, kLog2e), __fmul_rn(a.w, kLog2e));
+      a2[j] = log2e_scaled(*reinterpret_cast<const float4*>(
+          p.a + static_cast<size_t>(i0 + j) * N + 4 * q));
     }
   }
   // y past n_valid is zero; written while the loads are in flight (16-byte
@@ -337,6 +347,7 @@ ssm_scan_kernel(const __grid_constant__ Maps maps, const Args p) {
     }
   }
 
+  if constexpr (kSave) save_state<N>(p, h, row, 0, i0, q);
   for (int s = 0; s < stages; ++s) {
     const int t0 = s * kSteps;
     const int len = min(kSteps, nv - t0);
@@ -420,6 +431,16 @@ ssm_scan_kernel(const __grid_constant__ Maps maps, const Args p) {
         if (col < I) p.y[(y_row0 + t0 + t) * I + col] = ys[k];
       }
     }
+    if constexpr (kSave) {
+      if ((t0 + kSteps) % kChunk == 0 && (t0 + kSteps) / kChunk < p.n_chunks) {
+        save_state<N>(p, h, row, (t0 + kSteps) / kChunk, i0, q);
+      }
+    }
+  }
+  if constexpr (kSave) {             // chunks that start past the last stage
+    for (int k = kSteps * stages / kChunk + 1; k < p.n_chunks; ++k) {
+      save_state<N>(p, h, row, k, i0, q);
+    }
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -474,10 +495,18 @@ bool make_map(CUtensorMap* map, const void* base, long long rows, int cols, int 
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-template <int N>
+template <int N, bool kSave>
 cudaError_t launch(const Args& args, int B, bool tma, cudaStream_t stream) {
   const dim3 grid((args.I + kChannels - 1) / kChannels, B);
   constexpr int kThreads = kChannels / 2 * N / 4;
+  if constexpr (kSave) {
+    // autograd may run this (a recompute under remat) on a thread with no
+    // current context, where no tensor map can be encoded: a runtime call
+    // first makes the device's primary context current
+    cudaFuncAttributes attr;
+    const cudaError_t e = cudaFuncGetAttributes(&attr, ssm_scan_kernel<N, true, kSave>);
+    if (e != cudaSuccess) return e;
+  }
   Maps maps = {};
   if (tma) {
     const long long rows = static_cast<long long>(B) * args.S;
@@ -489,9 +518,9 @@ cudaError_t launch(const Args& args, int B, bool tma, cudaStream_t stream) {
         || !make_map(&maps.c8, args.c, rows, N, N, kSteps)) {
       return cudaErrorInvalidValue;
     }
-    ssm_scan_kernel<N, true><<<grid, kThreads, 0, stream>>>(maps, args);
+    ssm_scan_kernel<N, true, kSave><<<grid, kThreads, 0, stream>>>(maps, args);
   } else {
-    ssm_scan_kernel<N, false><<<grid, kThreads, 0, stream>>>(maps, args);
+    ssm_scan_kernel<N, false, kSave><<<grid, kThreads, 0, stream>>>(maps, args);
   }
   return cudaGetLastError();
 }
@@ -502,11 +531,13 @@ cudaError_t launch(const Args& args, int B, bool tma, cudaStream_t stream) {
 // bf16, a, h0, h_last f32 and 16-byte aligned, n_valid int32. N must be 4,
 // 8 or 16. route 1 ("tma") needs N in {8, 16}, I % 8 == 0 and dt, x, b, c
 // and y on 16-byte boundaries; route 0 ("direct") takes any input.
+// states: null (serving), or (B, ceil(S / kChunk), I, N) f32, 16-byte
+// aligned, for the state entering each chunk of kChunk steps.
 // Returns a cudaError_t (0 = launched).
 extern "C" int ssm_scan_bf16(const void* dt, const void* x, const void* b, const void* c,
                              const void* a, const void* h0, const void* n_valid, void* y,
-                             void* h_last, int B, int S, int I, int N, int route,
-                             void* stream) {
+                             void* h_last, void* states, int B, int S, int I, int N,
+                             int route, void* stream) {
   const bool tma = route == 1;
   if (B <= 0 || B > 65535 || S <= 0 || I <= 0 || (route != 0 && route != 1)
       || (tma && (N == 4 || I % 8 != 0 || !aligned16(dt) || !aligned16(x) || !aligned16(b)
@@ -523,13 +554,19 @@ extern "C" int ssm_scan_bf16(const void* dt, const void* x, const void* b, const
   args.n_valid = static_cast<const int*>(n_valid);
   args.y = static_cast<__nv_bfloat16*>(y);
   args.h_last = static_cast<float*>(h_last);
+  args.states = static_cast<float*>(states);
   args.S = S;
   args.I = I;
+  args.n_chunks = (S + kChunk - 1) / kChunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool save = states != nullptr;
   switch (N) {
-    case 4: return static_cast<int>(launch<4>(args, B, tma, s));
-    case 8: return static_cast<int>(launch<8>(args, B, tma, s));
-    case 16: return static_cast<int>(launch<16>(args, B, tma, s));
+    case 4: return static_cast<int>(save ? launch<4, true>(args, B, tma, s)
+                                         : launch<4, false>(args, B, tma, s));
+    case 8: return static_cast<int>(save ? launch<8, true>(args, B, tma, s)
+                                         : launch<8, false>(args, B, tma, s));
+    case 16: return static_cast<int>(save ? launch<16, true>(args, B, tma, s)
+                                          : launch<16, false>(args, B, tma, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

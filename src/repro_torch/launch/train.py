@@ -11,6 +11,12 @@ holds (``--layers``; 7 of 16 in ``chip_smoke.py``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
       --layers 7 --batch 2 --steps 4
 
+and the state and hybrid stacks train at full width and depth, through
+the selective scan's forward and backward kernels:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+      --batch 2 --steps 4
+
 ``--transport`` is the JAX launcher's MoE jam transport override:
 ``local`` (and the default) run the single-device path, the only one the
 port has; ``injected`` and ``auto`` move tokens or weights between devices

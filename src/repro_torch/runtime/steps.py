@@ -44,9 +44,11 @@ LAUNCH_COUNTERS = {"paged_attention": paged_attention.LAUNCHES,
                    "ssm_scan": ssm_scan.LAUNCHES,
                    "flash_attention": flash_attention.LAUNCHES,
                    "flash_attention_bwd": flash_attention.BWD_LAUNCHES,
-                   "moe_jam_bwd": moe_jam.BWD_LAUNCHES}
+                   "moe_jam_bwd": moe_jam.BWD_LAUNCHES,
+                   "ssm_scan_bwd": ssm_scan.BWD_LAUNCHES}
 # the kernels a train step can launch, each with its backward kernel
-TRAIN_KERNELS = {"flash_attention": "flash_attention_bwd", "moe_jam": "moe_jam_bwd"}
+TRAIN_KERNELS = {"flash_attention": "flash_attention_bwd", "moe_jam": "moe_jam_bwd",
+                 "ssm_scan": "ssm_scan_bwd"}
 
 
 @dataclasses.dataclass
@@ -61,9 +63,6 @@ def train_refusal(cfg: ModelConfig, seq_len: int) -> Optional[str]:
     see; its wrapper raises at the first step, and this names the reason
     before it."""
     for bt in sorted(set(model_lib.flat_block_types(cfg))):
-        if bt == "ssm" or bt.startswith("hybrid"):
-            return (f"block {bt!r} runs ssm_scan, which has no backward kernel yet: SSM "
-                    "and hybrid training on the card is A13's third half")
         if bt in ("mlstm", "slstm"):
             return f"block {bt!r}: xLSTM training on the card is one of A13's later halves"
     a = cfg.attention
@@ -94,8 +93,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, *, kernel: str = "auto", d
     ``grad_norm`` (before the clip) and ``lr``.
 
     ``kernel`` selects flash attention's kernels (forward and backward) or
-    the plain version past ``models.attention.CHUNK_THRESHOLD``, and the
-    MoE expert FFN's (``moe_jam`` and its backward); on a card a stack that
+    the plain version past ``models.attention.CHUNK_THRESHOLD``, the MoE
+    expert FFN's (``moe_jam`` and its backward) and the selective scan's
+    (``ssm_scan`` and its backward); on a card a stack that
     would reach a kernel with no backward is refused here
     (``train_refusal``). ``meta["kernels"]`` names the kernels a step can
     launch."""

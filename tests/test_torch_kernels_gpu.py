@@ -108,8 +108,9 @@ port's dependencies:
   ``logsumexp`` of the plain scores (every instance) with the output
   unchanged; widths with no backward instance refused; the wrappers of
   paged attention, moe_jam and the scan (and ``flash_attention_cuda``
-  itself) refusing grad, ``make_train_step`` refusing mamba and xlstm on
-  the card; two train steps of a 2-layer D 64 config on the card (bf16,
+  itself) refusing grad, ``make_train_step`` refusing on the card xlstm and
+  gemma3's smoke at 4,096 tokens (flash at D 16 has no backward instance);
+  two train steps of a 2-layer D 64 config on the card (bf16,
   flash kernels) against the same steps on the CPU in float32;
 * the moe_jam backward kernel (dx and the three weight gradients) against
   its plain version on the same bf16 inputs (``moe_jam.compare``'s form,
@@ -123,7 +124,20 @@ port's dependencies:
   bit equal; ``moe_jam_ffn`` under grad through ``MoeJamFn`` (one launch
   of each kernel, the backward's gradients those of the autograd graph);
   two train steps of the olmoe smoke on the card (both MoE kernels)
-  against the same steps on the CPU in float32.
+  against the same steps on the CPU in float32;
+* the selective scan's backward kernel (ddt, db, dc, dx, da, dh0 from the
+  training forward's chunk states) against its plain version on the same
+  bf16 inputs and on them cast to float32 (``ssm_scan.compare_bwd``: each
+  gradient within 2e-2 of its max |grad| of the plain version, its L2
+  error against float32 within 1.5x the plain bf16 path's for the bf16
+  outputs and 1e-4 for da and dh0) at S 1, 7, 8, 9, 33 and 4,096, I not a
+  multiple of 64, N 4, 8 and 16, ragged n_valid with 0 and 1, on both of
+  the forward's routes; gated columns exact zeros; the training forward's
+  y and h_last bit for bit the serving forward's; two launches bit for
+  bit equal; ``ssm_scan`` under grad through ``SsmScanFn`` (one launch of
+  each kernel, the backward's gradients those of the autograd graph); two
+  train steps of the mamba and hymba smokes (N widened to 16, remat
+  full) on the card against the same steps on the CPU in float32.
 """
 import numpy as np
 import pytest
@@ -1681,19 +1695,24 @@ def test_kernel_wrappers_refuse_grad(cuda):
     assert moe_jam.moe_jam_ffn(x, w[0], w[1], wd).grad_fn is not None
 
     dt, b_, c_, xs, a = _scan_case(rng, cuda, 2, 8, 64, 16)[:5]
-    with pytest.raises(NotImplementedError, match="third half"):
+    with pytest.raises(NotImplementedError, match="SsmScanFn"):
         ssm_scan.ssm_scan_cuda(dt, b_, c_, xs.requires_grad_(True), a)
+    assert ssm_scan.ssm_scan(dt, b_, c_, xs, a)[0].grad_fn is not None
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mamba-130m", "xlstm-1.3b"])
-def test_make_train_step_refuses_on_the_card(cuda, arch):
+@pytest.mark.parametrize("arch,seq_len", [pytest.param("xlstm-1.3b", 64, id="xlstm-1.3b"),
+                                          pytest.param("gemma3-4b", 4096, id="gemma3-4b")])
+def test_make_train_step_refuses_on_the_card(cuda, arch, seq_len):
+    """xLSTM blocks, and flash attention past the chunking threshold at a
+    width with no backward instance (the gemma3 smoke's D 16 at 4,096
+    tokens), are refused before a step is built."""
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.runtime.steps import make_train_step
 
     cfg = get_smoke(arch)
     with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(cfg, RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train")),
+        make_train_step(cfg, RunConfig(model=cfg, shape=ShapeConfig("t", seq_len, 2, "train")),
                         device=cuda)
 
 
@@ -1962,3 +1981,147 @@ def test_two_moe_train_steps_on_the_card_match_the_cpu(cuda):
     for a, b in zip(mc, mf):
         assert np.isfinite(a["grad_norm"]) and a["grad_norm"] > 0, a
         assert abs(a["loss"] - b["loss"]) <= 2e-2 * b["loss"], (a, b)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan's backward kernel (SSM and hybrid training)
+# ---------------------------------------------------------------------------
+
+def _scan_bwd_case(cuda, b, s, i, n, seed, *, off=False):
+    """``_scan_case``'s inputs with n_valid 0, 1, s - 3 (at least 1), s
+    and the rest full, x copied 2 bytes off a 16-byte boundary where
+    ``off``, and the cotangents dy (bf16) and dh_last (f32)."""
+    rng = np.random.default_rng(seed)
+    dt, bb, cc, x, a, h0 = _scan_case(rng, cuda, b, s, i, n)
+    if off:
+        x = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape).copy_(x)
+    nv = ([0, 1, max(s - 3, 1), s] + [s] * b)[:b]
+    n_valid = torch.tensor(nv, dtype=torch.int32, device=cuda)
+    dy = torch.from_numpy(rng.standard_normal((b, s, i)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    dh = torch.from_numpy(rng.standard_normal((b, i, n)).astype(np.float32)).to(cuda)
+    return dt, bb, cc, x, a, h0, n_valid, dy, dh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 33, 4096])
+@pytest.mark.parametrize("i,n,off", [(130, 16, False), (200, 8, False), (1536, 16, False),
+                                     (1536, 8, True), (96, 4, False)])
+def test_ssm_scan_bwd_matches_plain_version(cuda, i, n, off, s):
+    """Stage and chunk edges (S 1, 7, 8, 9, 33, 4,096), channels past the
+    last 64-channel tile, N 4, 8 and 16, rows with 0, 1, partial and full
+    valid prefixes, the training forward on the route the shape takes
+    (TMA at N 8 and 16 with I a multiple of 8; direct at N 4, I 130 and x
+    off 16 bytes): its y and h_last bit for bit the serving forward's; the
+    backward within ``compare_bwd``'s rule of the plain version and
+    float32, gated columns exact zeros, one launch counted."""
+    from repro_torch.kernels.ssm_scan.kernel import n_chunks, scan_route
+
+    dt, bb, cc, x, a, h0, n_valid, dy, dh = _scan_bwd_case(cuda, 4, s, i, n, i + n + s, off=off)
+    assert scan_route(dt, bb, cc, x) == ("tma" if n > 4 and i % 8 == 0 and not off
+                                         else "direct")
+    y, h, states = ssm_scan.ssm_scan_train_cuda(dt, bb, cc, x, a, h0, n_valid)
+    ys, hs = ssm_scan.ssm_scan_cuda(dt, bb, cc, x, a, h0, n_valid)
+    assert states.shape == (4, n_chunks(s), i, n)
+    assert torch.equal(y.view(torch.int16), ys.view(torch.int16)) and torch.equal(h, hs)
+    before = ssm_scan.BWD_LAUNCHES.count
+    got = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy, n_valid, dh)
+    torch.cuda.synchronize()
+    assert ssm_scan.BWD_LAUNCHES.count == before + 1
+    for g, like in zip(got, (dt, bb, cc, x)):
+        assert g.dtype == torch.bfloat16 and g.shape == like.shape
+    assert got[4].shape == (i, n) and got[5].shape == (4, i, n)
+    plain = ssm_scan.ssm_scan_bwd_ref(dt, bb, cc, x, a, dy, h0, n_valid, dh)
+    f32 = ssm_scan.ssm_scan_bwd_ref(dt.float(), bb.float(), cc.float(), x.float(), a,
+                                    dy.float(), h0, n_valid, dh)
+    stats, bad = ssm_scan.compare_bwd(got, plain, f32, n_valid)
+    assert not bad, {k: stats[k] for k in bad}
+    assert torch.equal(got[5][0], dh[0])             # an empty row passes dh_last through
+
+
+@pytest.mark.gpu
+def test_ssm_scan_bwd_is_deterministic(cuda):
+    """Two launches give the same bits (no atomics) at mamba-130m's
+    training micro-batch (2 x 4,096 x 1,536, N 16, no gate, no dh_last)."""
+    dt, bb, cc, x, a, _, _, dy, _ = _scan_bwd_case(cuda, 2, 4096, 1536, 16, 5)
+    states = ssm_scan.ssm_scan_train_cuda(dt, bb, cc, x, a)[2]
+    one = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy)
+    two = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy)
+    for p, q in zip(one, two):
+        bits = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(p.view(bits), q.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gated", [True, False])
+def test_ssm_scan_under_grad_runs_ssm_scan_fn(cuda, gated):
+    """Under grad the wrapper runs SsmScanFn: one forward and one backward
+    launch, y and h_last the serving kernel's bit for bit and the inputs'
+    gradients the backward kernel's; with n_valid and h0 None (as training
+    runs it) h0 gets none."""
+    dt, bb, cc, x, a, h0, n_valid, dy, dh = _scan_bwd_case(cuda, 4, 70, 200, 16, 9)
+    if not gated:
+        h0, n_valid, dh = None, None, None
+    ins = [t.detach().requires_grad_(True) for t in (dt, bb, cc, x, a)]
+    ins += [] if h0 is None else [h0.detach().requires_grad_(True)]
+    before = (ssm_scan.LAUNCHES.count, ssm_scan.BWD_LAUNCHES.count)
+    y, h = ssm_scan.ssm_scan(*ins[:5], ins[5] if h0 is not None else None, n_valid)
+    grads = torch.autograd.grad((y, h), ins, (dy, torch.zeros_like(h) if dh is None else dh))
+    assert (ssm_scan.LAUNCHES.count, ssm_scan.BWD_LAUNCHES.count) == (before[0] + 1,
+                                                                      before[1] + 1)
+    with torch.no_grad():
+        ys, hs, states = ssm_scan.ssm_scan_train_cuda(dt, bb, cc, x, a, h0, n_valid)
+    want = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy, n_valid,
+                                      torch.zeros_like(hs) if dh is None else dh)
+    assert torch.equal(y.detach().view(torch.int16), ys.view(torch.int16))
+    assert torch.equal(h.detach(), hs)
+    for g, w in zip(grads, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba-130m", "hymba-1.5b"])
+def test_two_ssm_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """The mamba and hymba smokes with N widened to 16 (inner 128: the
+    forward's TMA route) and remat full (the forward recomputed on
+    autograd's thread), 4 x 64 tokens, two steps on the card in bf16 (both
+    scan kernels; hymba's attention on plain ``_sdpa`` below the chunking
+    threshold) against the same steps on the CPU in float32: each step's
+    loss within 1e-2 and its grad norm within 5e-2 (relative); the scan's
+    forward launches twice a layer a step (remat) and its backward once,
+    and the bundle names both."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import model as tmodel
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import make_train_step
+
+    base = get_smoke(arch)
+    cfg = dataclasses.replace(base, remat="full",
+                              ssm=dataclasses.replace(base.ssm, state_dim=16))
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
+                    optimizer=OptimizerConfig(total_steps=10, warmup_steps=1, lr=1e-3))
+    p0 = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev, dtype in ((cuda, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        params = tree.map_(lambda t: t.clone().to(dev), p0)
+        opt = adamw_init(params)
+        bundle = make_train_step(cfg, run, device=dev, compute_dtype=dtype)
+        assert {"ssm_scan", "ssm_scan_bwd"} <= set(bundle.meta["kernels"])
+        before = (ssm_scan.LAUNCHES.count, ssm_scan.BWD_LAUNCHES.count)
+        metrics = []
+        for step in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in synthetic_batch(cfg, run.shape, step).items()}
+            params, opt, m = bundle.fn(params, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[dev.type] = (metrics, (ssm_scan.LAUNCHES.count - before[0],
+                                   ssm_scan.BWD_LAUNCHES.count - before[1]))
+    (mc, lc), (mf, lf) = out["cuda"], out["cpu"]
+    assert lc == (2 * 2 * cfg.num_layers, 2 * cfg.num_layers) and lf == (0, 0)
+    for a, b in zip(mc, mf):
+        assert abs(a["loss"] - b["loss"]) <= 1e-2 * b["loss"], (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"], (a, b)
