@@ -1305,10 +1305,11 @@ def check_ssm_scan_bwd(torch, dev):
     then the backward from those states against the plain version on the
     same bf16 inputs and on them cast to float32 (``compare_bwd``),
     gated columns exact zeros, a second launch the same bits. Timed with
-    the L2 flushed: the backward (and its two launches by
+    the L2 flushed: the backward (and each of its four launches by
     ``torch.profiler``), the plain backward, the serving forward and the
-    training forward, beside the bound; the SFUs' floor, the chain's floor
-    and the forward's bound are printed on the timing line. Returns
+    training forward, beside the bound; the SFUs' floor, the chain's floor,
+    the gradient pass's resident CTAs an SM (the CUDA runtime's occupancy
+    query) and the forward's bound are printed on the timing line. Returns
     ``{"bwd": {path: entry}, "fwd": {path: entry}}`` (without
     ``launches``) for the training cases; each bwd entry's ``shapes``
     holds its own case's measured numbers by name, and the first's also
@@ -1316,7 +1317,8 @@ def check_ssm_scan_bwd(torch, dev):
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import timing
     from repro_torch.kernels.ssm_scan import bench as sbench
-    from repro_torch.kernels.ssm_scan.kernel import BWD_DESIGN, DESIGN, scan_route
+    from repro_torch.kernels.ssm_scan.kernel import (BWD_DESIGN, DESIGN, bwd_resident_ctas,
+                                                     scan_route)
 
     flush = timing.l2_flush_buffer(dev)
     bwd, fwd, engine = {}, {}, {}
@@ -1378,21 +1380,24 @@ def check_ssm_scan_bwd(torch, dev):
         r = dict(max_abs_err=max(e["max_abs_err"] for e in stats.values()), errors=stats,
                  deterministic=same, bound_ms=bound, bound_by=bound_by,
                  ms=timing.timed_ms(call, 10, flush),
-                 passes_ms=timing.kernel_ms(call, flush, {"bwd": "ssm_scan_bwd_kernel",
-                                                          "fold": "ssm_scan_bwd_fold"}, iters=3),
+                 passes_ms=timing.kernel_ms(call, flush, sbench.BWD_PASSES, iters=3),
                  plain_ms=timing.timed_ms(plain_call, 1, flush),
                  fwd_ms=timing.timed_ms(lambda: ss.ssm_scan_cuda(*args), 10, flush),
                  fwd_train_ms=timing.timed_ms(lambda: ss.ssm_scan_train_cuda(*args), 10, flush))
         log(f"[kernel] ssm_scan_bwd {name} timing (L2 flushed per launch): kernel {r['ms']:.4f} "
-            f"ms (profiled: backward {r['passes_ms']['bwd']:.4f}, fold "
-            f"{r['passes_ms']['fold']:.4f}), plain (ssm_scan_bwd_ref) {r['plain_ms']:.4f} ms, no "
+            f"ms (profiled: " + ", ".join(f"{label} ({sbench.BWD_PASSES[label]}) {ms:.4f}"
+                                          for label, ms in r["passes_ms"].items())
+            + f"; gradient pass {bwd_resident_ctas(state)} CTAs resident an SM by the CUDA "
+            f"runtime's occupancy query), plain (ssm_scan_bwd_ref) {r['plain_ms']:.4f} ms, no "
             f"single PyTorch call computes a selective scan; {work['bytes']} bytes -> "
             f"{work['bytes'] / timing.HBM_BYTES_PER_S * 1e3:.5f} ms at 3.35 TB/s; "
             f"{work['f32_flops']} float32 operations -> "
             f"{work['f32_flops'] / timing.F32_FLOPS_PER_S * 1e3:.5f} ms at 67 TFLOP/s; bound "
             f"{bound:.5f} ms ({bound_by}), kernel at {bound / r['ms']:.4f} of it; "
             f"{work['exps']} exponentials -> SFU floor {sfu:.5f} ms; "
-            f"{work['chain_steps']} dependent steps a CTA x {sbench.CHAIN_CYCLES} cycles at "
+            f"{work['chain_steps']} dependent steps in sequence (the longest chunk's local "
+            f"carry, sweep, recompute and reverse, and the carry over its row's chunks) x "
+            f"{sbench.CHAIN_CYCLES} cycles at "
             f"{sbench.CLOCK_HZ / 1e9:.2f} GHz -> chain floor {chain:.5f} ms; forward at this "
             f"shape: serving {r['fwd_ms']:.4f} ms, training (chunk states) "
             f"{r['fwd_train_ms']:.4f} ms (route {route}; bound {fbound:.5f} ms, {fby})")

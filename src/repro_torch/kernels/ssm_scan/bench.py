@@ -11,12 +11,21 @@ bytes off a 16-byte boundary, which sends it down the direct route
 
     PYTHONPATH=src python -m repro_torch.kernels.ssm_scan.bench
 
-It also holds the backward's (B4b) check inputs and work count
-(``BWD_CASES``, ``bwd_inputs``, ``needed_bwd_work``), which
-``chip_smoke.py`` times the backward on.
+It also holds the backward's (B4b) check inputs, work count and launches
+(``BWD_CASES``, ``bwd_inputs``, ``needed_bwd_work``, ``BWD_PASSES``), which
+``chip_smoke.py`` times the backward on. With ``--bwd`` it times the
+backward alone at ``BWD_CASES`` (mean of 20 calls, the L2 flushed before
+each, and each launch by ``torch.profiler``), holds it against the plain
+version under ``compare_bwd`` and a second launch's bits, and prints one
+JSON line; it needs only ``ssm_scan_train_cuda``, ``ssm_scan_bwd_cuda``,
+``ssm_scan_bwd_ref`` and ``compare_bwd``, so it also times an older
+checkout's backward (``scripts/bench_in_turns.py``):
+
+    PYTHONPATH=src python -m repro_torch.kernels.ssm_scan.bench --bwd
 """
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
@@ -40,10 +49,16 @@ BWD_CASES = {"mamba-130m train": (2, 4096, 1536, 16, False, False),
              "engine ragged N 16": (32, 96, 1536, 16, True, False),
              "engine ragged N 8 direct": (32, 96, 1536, 8, True, True),
              "engine ragged N 4": (32, 96, 1536, 4, True, False)}
-# the reverse recurrence's dependent chain a step: the recompute's FMA (4
+# a dependent step of the backward's chains: the recompute's FMA (4
 # cycles), then g's FMA and its decay's FMUL (4 each), at the 1.98 GHz
 # boost clock: a floor beside the bound
 CHAIN_CYCLES, CLOCK_HZ = 12, 1.98e9
+# the backward's stage: the steps pass 3 recomputes into registers at once
+# (kSteps in ssm_scan.cuh)
+BWD_STAGE = 8
+# the backward's launches, by the kernel names torch.profiler reports
+BWD_PASSES = {"local": "ssm_scan_bwd_local", "carry": "ssm_scan_bwd_carry",
+              "grads": "ssm_scan_bwd_kernel", "fold": "ssm_scan_bwd_fold"}
 
 
 def check_n_valid() -> np.ndarray:
@@ -128,8 +143,8 @@ def bwd_inputs(device, name: str):
 
 def needed_bwd_work(n_valid: np.ndarray, *, inner: int, state: int,
                     dh_last: bool = True) -> dict:
-    """The bytes, operations, exponentials and dependent steps the scan's
-    gradient needs on this input.
+    """The bytes and operations the scan's gradient needs on this input, and
+    the exponentials and dependent steps of the backward's design (v2).
 
     Bytes, each once: dt, x and dy read and ddt and dx written (bf16) at the
     valid columns; b and c read and db and dc written (bf16) at the valid
@@ -141,19 +156,36 @@ def needed_bwd_work(n_valid: np.ndarray, *, inner: int, state: int,
     dy c, dc's h dy, s's g b and db's g (dt x), q = g h da (two products,
     shared by the ddt term and da), the ddt term's q a and da's q dt (a
     product and a sum each), and g's decay: 20; per valid (column,
-    channel) dt x, dx = dt s, and ddt's product and sum: 4. Exponentials:
-    two an element (the recompute and the reverse step each take one; the
-    SFU floor counts both, the operations one). ``chain_steps``: the
-    longest row's valid columns, the steps one CTA takes in sequence
-    (twice: the recompute and the reverse)."""
+    channel) dt x, dx = dt s, and ddt's product and sum: 4.
+
+    ``exps``: the exponentials v2 takes, per valid (column, channel, state
+    element) of a chunk of ``len`` valid columns: one in the local carry
+    (pass 1), one in the recompute of each stage and one in its reverse
+    step (pass 3), and one for each column before the chunk's last
+    ``BWD_STAGE``-step stage in pass 3's sweep; ``sfu_ms`` turns them into
+    the SFUs' floor.
+    ``chain_steps``: v2's longest dependent chain, the longest row's
+    longest chunk walked by pass 1 (``len`` steps), by pass 3's sweep to
+    its last stage, its recompute and its reverse, plus the carry's walk
+    over the row's valid chunks (one step each)."""
     nv = np.asarray(n_valid, np.int64)
     cols, rows = int(nv.sum()), len(nv)
     state_bytes = (2 + int(dh_last)) * rows * inner * state * 4
     nbytes = (5 * cols * inner * 2 + 4 * cols * state * 2 + 2 * inner * state * 4
               + state_bytes + 4 * rows)
+    # each row's chunks: full ones and a partial last one
+    full, tail = nv // CHUNK, nv % CHUNK
+
+    def before_last_stage(n):               # columns before a chunk's last stage
+        return np.where(n > 0, (n - 1) // BWD_STAGE * BWD_STAGE, 0)
+
+    per_row = 3 * nv + full * before_last_stage(CHUNK) + before_last_stage(tail)
+    longest = np.minimum(nv, CHUNK)
+    chain = 3 * longest + before_last_stage(longest) + -(-nv // CHUNK)
     return dict(bytes=nbytes, state_bytes=state_bytes, cols=cols,
-                f32_flops=cols * inner * (20 * state + 4), exps=2 * cols * inner * state,
-                chain_steps=int(nv.max()) if rows else 0)
+                f32_flops=cols * inner * (20 * state + 4),
+                exps=int(per_row.sum()) * inner * state,
+                chain_steps=int(chain.max()) if rows else 0)
 
 
 def chain_ms(work: dict) -> float:
@@ -162,7 +194,51 @@ def chain_ms(work: dict) -> float:
     return work["chain_steps"] * CHAIN_CYCLES / CLOCK_HZ * 1e3
 
 
-def main() -> int:
+def bwd_main() -> int:
+    """``--bwd``: the backward at every ``BWD_CASES`` case, one JSON line."""
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels.ssm_scan.kernel import BWD_DESIGN
+    from repro_torch.kernels.timing import kernel_ms
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card: this times the CUDA kernel")
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    rows = []
+    for name in BWD_CASES:
+        dt, b, c, x, a, h0, n_valid, dy, dh_last = bwd_inputs(dev, name)
+        states = ss.ssm_scan_train_cuda(dt, b, c, x, a, h0, n_valid)[2]
+
+        def call():
+            return ss.ssm_scan_bwd_cuda(dt, b, c, x, a, states, dy, n_valid, dh_last)
+
+        one, two = call(), call()
+        same = all(torch.equal(p.view(torch.int16 if p.dtype == torch.bfloat16 else torch.int32),
+                               q.view(torch.int16 if q.dtype == torch.bfloat16 else torch.int32))
+                   for p, q in zip(one, two))
+        del two
+        plain = ss.ssm_scan_bwd_ref(dt, b, c, x, a, dy, h0, n_valid, dh_last)
+        f32 = ss.ssm_scan_bwd_ref(dt.float(), b.float(), c.float(), x.float(), a, dy.float(),
+                                  h0, n_valid, dh_last)
+        _, bad = ss.compare_bwd(one, plain, f32, n_valid)
+        del one, plain, f32
+        rows.append(dict(case=name, ms=timed_ms(call, 20, flush),
+                         passes_ms=kernel_ms(call, flush, BWD_PASSES, iters=5), bad=bad,
+                         deterministic=same))
+        print(f"[bench] ssm_scan_bwd {name}: {rows[-1]}", flush=True)
+        del dt, b, c, x, a, h0, n_valid, dy, dh_last, states
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card_name(), "design": BWD_DESIGN, "ssm_scan_bwd": rows}),
+          flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--bwd", action="store_true",
+                        help="time the backward (B4b) at BWD_CASES instead")
+    if parser.parse_args(argv).bwd:
+        return bwd_main()
     from repro_torch.kernels.ssm_scan.kernel import DESIGN, scan_route
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_cuda, ssm_scan_ref
 

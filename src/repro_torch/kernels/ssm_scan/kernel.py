@@ -6,9 +6,12 @@ and share ``csrc/ssm_scan.cuh`` (the recurrence's step); ``kernels.loader``
 builds each with ``nvcc`` at first use and loads it with ``ctypes``.
 ``ssm_scan_train_cuda`` runs the forward's training instance, which also
 returns the state entering every chunk of ``CHUNK`` steps (``CHUNK`` is
-``kChunk`` in ``ssm_scan.cuh``); ``ssm_scan_bwd_cuda`` launches the backward from those states and
-then its fold of the partial sums, and counts once in ``BWD_LAUNCHES``.
-Nothing is built or loaded when this module is imported.
+``kChunk`` in ``ssm_scan.cuh``); ``ssm_scan_bwd_cuda`` launches the backward's
+three passes from those states (each chunk's local carry, the carry
+between chunks, each chunk's gradients) and then its fold of the partial
+sums, and counts once in ``BWD_LAUNCHES``. ``bwd_resident_ctas`` reads the
+gradient pass's resident CTAs an SM from the CUDA runtime. Nothing is built
+or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ BWD_LAUNCHES = loader.LaunchCounter()
 STATE_DIMS = (4, 8, 16)          # the N the kernel is instantiated for
 DESIGN = ("v2: N/4 lanes a channel pair, longest rows first, 8-step stages in a 4-slot "
           "ring, ex2.approx")
-BWD_DESIGN = ("v1: the forward's layout, chunks of 32 steps last to first, each recomputed "
-              "from its saved state into shared memory, then the reverse recurrence; db, dc "
-              "and da folded by a second launch, no atomics")
+BWD_DESIGN = ("v2: every (row, chunk of 32 steps) at once; a local carry pass, the carry "
+              "between chunks (g_start = P g_end + L), then each chunk's gradients from its "
+              "saved state, 8-step stages recomputed into registers; db, dc and da folded by "
+              "a fourth launch, no atomics")
 ROUTES = ("direct", "tma")       # the C interface's route codes, in order
 _fn = None
 _bwd_fn = None
@@ -53,11 +57,24 @@ def _load_bwd():
     if _bwd_fn is None:
         fn = loader.load(BWD_SOURCE).ssm_scan_bwd_bf16
         # dt, x, b, c, dy, a, states, dh_last, n_valid, ddt, dx, dh0, part_db,
-        # part_dc, part_da, db, dc, da; B, S, I, N; stream
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # part_dc, carry, dtsum, db, dc, da; B, S, I, N; stream
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
+
+
+def bwd_resident_ctas(state_dim: int) -> int:
+    """The backward's gradient pass (``ssm_scan_bwd_kernel``): its CTAs
+    resident an SM at this N, by ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    (the card has no ``ncu``). Raises on a runtime error."""
+    fn = loader.load(BWD_SOURCE).ssm_scan_bwd_occupancy
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(state_dim)
+    if n < 0:
+        raise RuntimeError(f"ssm_scan backward occupancy query failed: cudaError {-n}")
+    return n
 
 
 def n_chunks(seq_len: int) -> int:
@@ -183,6 +200,8 @@ def ssm_scan_bwd_cuda(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if n_valid is None:
         n_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
     _check(dt, b, c, x, a, None, n_valid)
+    if n_chunks(S) > 65535:
+        raise ValueError(f"at most 65535 chunks of {CHUNK} columns (the grid's y), got S={S}")
     want = {"dy": (dy, torch.bfloat16, (B, S, I)),
             "states": (states, torch.float32, (B, n_chunks(S), I, N)),
             "dh_last": (dh_last, torch.float32, (B, I, N))}
@@ -196,9 +215,12 @@ def ssm_scan_bwd_cuda(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     db, dc = torch.empty_like(b), torch.empty_like(c)
     da = torch.empty((I, N), dtype=torch.float32, device=x.device)
     dh0 = torch.empty((B, I, N), dtype=torch.float32, device=x.device)
+    # scratch: db's and dc's partials a channel block; each chunk's L, then
+    # G_end, then da's partial; each chunk's sum of dt a channel
     part_db, part_dc = (torch.empty((-(-I // 64), B, S, N), dtype=torch.float32,
                                     device=x.device) for _ in range(2))
-    part_da = torch.empty_like(dh0)
+    carry = torch.empty((B, n_chunks(S), I, N), dtype=torch.float32, device=x.device)
+    dtsum = torch.empty((B, n_chunks(S), I), dtype=torch.float32, device=x.device)
     fn = _load_bwd()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -206,8 +228,8 @@ def ssm_scan_bwd_cuda(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                 a.data_ptr(), states.data_ptr(),
                 dh_last.data_ptr() if dh_last is not None else None, n_valid.data_ptr(),
                 ddt.data_ptr(), dx.data_ptr(), dh0.data_ptr(), part_db.data_ptr(),
-                part_dc.data_ptr(), part_da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-                da.data_ptr(), B, S, I, N, stream)
+                part_dc.data_ptr(), carry.data_ptr(), dtsum.data_ptr(), db.data_ptr(),
+                dc.data_ptr(), da.data_ptr(), B, S, I, N, stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan backward kernel launch failed: cudaError {rc}")
     BWD_LAUNCHES.count += 1

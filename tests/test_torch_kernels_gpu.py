@@ -132,9 +132,11 @@ port's dependencies:
   error against float32 within 1.5x the plain bf16 path's for the bf16
   outputs and 1e-4 for da and dh0) at S 1, 7, 8, 9, 33 and 4,096, I not a
   multiple of 64, N 4, 8 and 16, ragged n_valid with 0 and 1, on both of
-  the forward's routes; gated columns exact zeros; the training forward's
-  y and h_last bit for bit the serving forward's; two launches bit for
-  bit equal; ``ssm_scan`` under grad through ``SsmScanFn`` (one launch of
+  the forward's routes; 4,096 columns with valid prefixes of 0, 1, 1,000,
+  2,048 and 2,049 (g carried through many identity chunks and a partial
+  one); gated columns exact zeros; the training forward's y and h_last
+  bit for bit the serving forward's; two launches bit for bit equal, at
+  mamba's and at hymba's width (3,200 channels); ``ssm_scan`` under grad through ``SsmScanFn`` (one launch of
   each kernel, the backward's gradients those of the autograd graph); two
   train steps of the mamba and hymba smokes (N widened to 16, remat
   full) on the card against the same steps on the CPU in float32.
@@ -2040,16 +2042,44 @@ def test_ssm_scan_bwd_matches_plain_version(cuda, i, n, off, s):
 
 
 @pytest.mark.gpu
-def test_ssm_scan_bwd_is_deterministic(cuda):
-    """Two launches give the same bits (no atomics) at mamba-130m's
-    training micro-batch (2 x 4,096 x 1,536, N 16, no gate, no dh_last)."""
-    dt, bb, cc, x, a, _, _, dy, _ = _scan_bwd_case(cuda, 2, 4096, 1536, 16, 5)
+def test_ssm_scan_bwd_carries_through_identity_chunks(cuda):
+    """4,096 columns whose valid prefixes end far from the last chunk (0, 1,
+    1,000, 2,048 and 2,049 columns, so most chunks are the identity and
+    some end mid-chunk), a non-zero dh_last and channels past the last
+    64-channel tile: within ``compare_bwd``'s rule, gated columns exact
+    zeros, the empty row's dh0 its dh_last bit for bit."""
+    dt, bb, cc, x, a, h0, _, dy, dh = _scan_bwd_case(cuda, 5, 4096, 200, 16, 11)
+    n_valid = torch.tensor([0, 1, 1000, 2048, 2049], dtype=torch.int32, device=cuda)
+    states = ssm_scan.ssm_scan_train_cuda(dt, bb, cc, x, a, h0, n_valid)[2]
+    got = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy, n_valid, dh)
+    plain = ssm_scan.ssm_scan_bwd_ref(dt, bb, cc, x, a, dy, h0, n_valid, dh)
+    f32 = ssm_scan.ssm_scan_bwd_ref(dt.float(), bb.float(), cc.float(), x.float(), a,
+                                    dy.float(), h0, n_valid, dh)
+    stats, bad = ssm_scan.compare_bwd(got, plain, f32, n_valid)
+    assert not bad, {k: stats[k] for k in bad}
+    assert torch.equal(got[5][0], dh[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner,seed", [(1536, 5), (3200, 12)])
+def test_ssm_scan_bwd_is_deterministic(cuda, inner, seed):
+    """Two launches give the same bits (no atomics) at the training
+    micro-batches of mamba-130m (2 x 4,096 x 1,536, N 16) and hymba-1.5b
+    (3,200 channels: 50 channel blocks, 12,800 CTAs a pass), no gate, no
+    dh_last; the first is within ``compare_bwd``'s rule."""
+    dt, bb, cc, x, a, _, _, dy, _ = _scan_bwd_case(cuda, 2, 4096, inner, 16, seed)
     states = ssm_scan.ssm_scan_train_cuda(dt, bb, cc, x, a)[2]
     one = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy)
     two = ssm_scan.ssm_scan_bwd_cuda(dt, bb, cc, x, a, states, dy)
     for p, q in zip(one, two):
         bits = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
         assert torch.equal(p.view(bits), q.view(bits))
+    del two
+    plain = ssm_scan.ssm_scan_bwd_ref(dt, bb, cc, x, a, dy)
+    f32 = ssm_scan.ssm_scan_bwd_ref(dt.float(), bb.float(), cc.float(), x.float(), a,
+                                    dy.float())
+    stats, bad = ssm_scan.compare_bwd(one, plain, f32)
+    assert not bad, {k: stats[k] for k in bad}
 
 
 @pytest.mark.gpu

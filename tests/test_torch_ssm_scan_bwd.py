@@ -12,7 +12,12 @@ element: float32 throughout, the same products summed in
 other orders, through up to 70 steps of a decaying recurrence.
 
 Then, in the port alone: the gated rows (valid prefixes 0, 1, partial and
-full) against autograd through ``ssm_scan_loop``; the chunk states
+full) against autograd through ``ssm_scan_loop``; the identities the CUDA
+backward's three passes rest on (a row's gradient split at a chunk
+boundary, the tail from its saved start state and the head from the
+tail's ``dh0``; a chunk's ``dh0`` affine in ``dh_last`` with slope
+``exp(a sum_t dt_t)`` over its valid columns, and the identity past
+``n_valid``); the chunk states
 (``ssm_scan_chunk_states``, the training forward's extra output) against
 the column loop's states; and ``SsmScanFn``'s plumbing on the CPU with
 its two CUDA entries standing in as their plain versions; and the
@@ -97,6 +102,59 @@ def test_gated_rows_match_autograd_through_the_loop(n_valid):
     assert torch.equal(got[5][empty], torch.from_numpy(dh)[empty])
 
 
+@pytest.mark.parametrize("n_valid", [None, (70, 40, 0, 64)])
+@pytest.mark.parametrize("split", [32, 64])
+def test_bwd_ref_splits_at_a_chunk_boundary(split, n_valid):
+    """The carry between chunks: the gradient of a whole row equals two
+    calls split at a chunk boundary, the tail from its saved start state
+    (``ssm_scan_chunk_states``) with ``dh_last`` and the head with the
+    tail's ``dh0`` as its ``dh_last``. ddt, dx, db and dc are the two
+    joined along time, da their sum and dh0 the head's, within ``REL``."""
+    arrays, dy, dh = _inputs(4, 70, 12, 16, seed=4)
+    t = [torch.from_numpy(x) for x in arrays]
+    dy_t, dh_t = torch.from_numpy(dy), torch.from_numpy(dh)
+    nv = None if n_valid is None else torch.tensor(n_valid, dtype=torch.int32)
+    whole = ssm_scan_bwd_ref(*t[:5], dy_t, t[5], nv, dh_t)
+    start = ssm_scan_chunk_states(*t, nv)[:, split // CHUNK]
+    cut = lambda x, cols: x[:, cols].contiguous()
+    tail_nv = None if nv is None else (nv - split).clamp(0, 70 - split).to(torch.int32)
+    tail = ssm_scan_bwd_ref(*(cut(x, slice(split, None)) for x in t[:4]), t[4],
+                            cut(dy_t, slice(split, None)), start, tail_nv, dh_t)
+    head_nv = None if nv is None else nv.clamp(0, split).to(torch.int32)
+    head = ssm_scan_bwd_ref(*(cut(x, slice(None, split)) for x in t[:4]), t[4],
+                            cut(dy_t, slice(None, split)), t[5], head_nv, tail[5])
+    for k in (0, 1, 2, 3):                          # ddt, db, dc, dx along time
+        _close(whole[k].numpy(), torch.cat([head[k], tail[k]], dim=1).numpy(),
+               f"d{NAMES[k]} joined at {split}")
+    _close(whole[4].numpy(), (head[4] + tail[4]).numpy(), "da summed")
+    _close(whole[5].numpy(), head[5].numpy(), "dh0 the head's")
+
+
+@pytest.mark.parametrize("n_valid", [(32, 10, 1, 0)])
+def test_chunk_dh0_is_affine_in_dh_last(n_valid):
+    """One chunk's map from the gradient at its end to the one at its
+    start: ``dh0(D) = P D + L``, ``L = dh0(0)`` and ``P = exp(a sum_t
+    dt_t)`` over the chunk's valid columns (the product of its decays),
+    within ``REL``; a chunk with no valid column passes ``dh_last``
+    through bit for bit."""
+    arrays, dy, dh = _inputs(4, 70, 12, 16, seed=5)
+    cols = slice(CHUNK, 2 * CHUNK)
+    t = [torch.from_numpy(x) for x in arrays]
+    ins = [x[:, cols].contiguous() for x in t[:4]]
+    dy_t = torch.from_numpy(dy)[:, cols].contiguous()
+    start = ssm_scan_chunk_states(*t)[:, 1]
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    d = torch.from_numpy(dh)
+    lift = ssm_scan_bwd_ref(*ins, t[4], dy_t, start, nv, torch.zeros_like(d))[5]
+    got = ssm_scan_bwd_ref(*ins, t[4], dy_t, start, nv, d)[5]
+    valid = (torch.arange(CHUNK)[None, :] < nv.long()[:, None]).float()
+    dt_sum = (ins[0] * valid[:, :, None]).sum(1)                   # (B, I)
+    slope = torch.exp(t[4][None] * dt_sum[:, :, None])             # (B, I, N)
+    _close(got.numpy(), (slope * d + lift).numpy(), "dh0 = P dh_last + L")
+    empty = nv == 0
+    assert torch.equal(got[empty], d[empty]) and not lift[empty].any()
+
+
 @pytest.mark.parametrize("s,n_valid", [(70, None), (64, (64, 0, 31, 33))])
 def test_chunk_states_match_the_loop(s, n_valid):
     """The state entering each chunk of 32 columns against the column
@@ -176,15 +234,19 @@ class _Ctx:
 
 def test_chunk_is_the_kernels():
     """``CHUNK``, by which the wrappers size the chunk states, is the
-    ``kChunk`` that both kernels are built with (``ssm_scan.cuh``): the C
-    interfaces take no chunk, so nothing else ties the two."""
+    ``kChunk`` that both kernels are built with (``ssm_scan.cuh``), and
+    ``bench.BWD_STAGE``, by which the backward's exponentials and chain are
+    counted, its ``kSteps``: the C interfaces take neither, so nothing else
+    ties them."""
     import re
     from pathlib import Path
 
+    from repro_torch.kernels.ssm_scan.bench import BWD_STAGE
     from repro_torch.kernels.ssm_scan.kernel import BWD_SOURCE, SOURCE
 
     header = (Path(SOURCE).parent / "ssm_scan.cuh").read_text()
     assert re.findall(r"constexpr int kChunk = (\d+);", header) == [str(CHUNK)]
+    assert re.findall(r"constexpr int kSteps = (\d+);", header) == [str(BWD_STAGE)]
     for src in (SOURCE, BWD_SOURCE):
         text = Path(src).read_text()
         assert '#include "ssm_scan.cuh"' in text and "kChunk" in text, src
